@@ -1,0 +1,41 @@
+"""Carry weights across from the JAX package's parameter tree.
+
+The JAX llama tree (``embed``, ``blocks[i]``, ``final_norm``, ``lm_head``)
+maps one to one onto the port's dicts, in the same ``[in, out]`` dense
+orientation, so a test can run both towers on the same weights. Arrays
+arrive as numpy (the caller converts JAX arrays with ``np.asarray``); only
+the text tower is carried.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+
+def _to_torch(tree: Any, device, dtype: Optional[torch.dtype]):
+    if isinstance(tree, dict):
+        return {k: _to_torch(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_torch(v, device, dtype) for v in tree]
+    t = torch.from_numpy(np.array(tree, copy=True))
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def from_jax_params(tree: Dict, device="cuda",
+                    dtype: Optional[torch.dtype] = None) -> Dict:
+    """Port params from a JAX tree of numpy arrays.
+
+    ``tree`` is either the JAX MLLM tree (``{"vision", "projector",
+    "text"}``; only ``text`` is carried) or a bare llama tree. Returns
+    ``{"text": llama params}`` for ``mllm.encode``.
+    """
+    text = tree["text"] if "text" in tree else tree
+    missing = {"embed", "blocks", "final_norm"} - set(text)
+    if missing:
+        raise KeyError(f"not a llama parameter tree: missing {sorted(missing)}")
+    return {"text": _to_torch(text, torch.device(device), dtype)}

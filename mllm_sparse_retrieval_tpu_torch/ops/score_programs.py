@@ -1,0 +1,109 @@
+"""Device scoring programs of the impact index, single device.
+
+- ``_scatter_block``: CSR triples into the dense ``[T+1, N_pad]`` matrix;
+- ``_query_table`` + ``_scores_from_matrix``: the matmul backend, one f32
+  matmul of a ``[B, T+1]`` query-weight table by the matrix;
+- ``_taat_scores``: the term-at-a-time backend (``ops/impact_kernel.py``);
+- ``_masked_topk``, ``_impact_topk``, ``_taat_topk``: top-k over the valid
+  doc columns, packed into one int32 result (``ops/packing.py``).
+
+Both backends give exactly equal scores for integer weights: every product
+and partial sum is an integer below 2^24, exact in f32 in any order. That
+needs the matmul in full f32, the counterpart of the JAX package's
+``precision=HIGHEST``: ``_scores_from_matrix`` multiplies inside
+``full_f32_matmul``, which turns PyTorch's TF32 matmul switch off for that
+one matmul and restores the caller's setting after it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+
+import torch
+
+from mllm_sparse_retrieval_tpu_torch.ops.impact_kernel import (
+    impact_scores_taat)
+from mllm_sparse_retrieval_tpu_torch.ops.packing import pack_topk
+
+
+_TF32_LOCK = threading.RLock()
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Run the enclosed CUDA f32 matmuls without TF32, then restore the
+    process's setting. The lock keeps concurrent searches from restoring
+    each other's switch."""
+    with _TF32_LOCK:
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _scatter_block(mat: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
+                   vals: torch.Tensor) -> torch.Tensor:
+    """Write (row, col, value) triples into ``mat`` in place and return it.
+    Padding triples target (row 0, col 0) with value 0, which row 0's zero
+    invariant absorbs."""
+    mat.index_put_((rows.long(), cols.long()), vals.to(mat.dtype))
+    return mat
+
+
+def _safe_query(q_idx: torch.Tensor, q_w: torch.Tensor):
+    """Term t -> matrix row t+1; non-positive weights -> dead row 0."""
+    live = q_w > 0
+    safe_idx = torch.where(live, q_idx.long() + 1, 0)
+    safe_w = torch.where(live, q_w.float(), 0.0)
+    return safe_idx, safe_w
+
+
+def _query_table(q_idx: torch.Tensor, q_w: torch.Tensor,
+                 num_rows: int) -> torch.Tensor:
+    """Accumulate query weights into a dense ``[B, num_rows]`` f32 table;
+    duplicate term ids add."""
+    safe_idx, safe_w = _safe_query(q_idx, q_w)
+    table = torch.zeros((q_idx.shape[0], num_rows), dtype=torch.float32,
+                        device=q_idx.device)
+    return table.scatter_add_(1, safe_idx, safe_w)
+
+
+def _scores_from_matrix(matrix: torch.Tensor, q_idx: torch.Tensor,
+                        q_w: torch.Tensor) -> torch.Tensor:
+    """``[B, N_pad]`` impact scores = query table @ impact matrix, in full
+    f32 (TF32 off, so integer weights stay exact)."""
+    table = _query_table(q_idx, q_w, matrix.shape[0])
+    with full_f32_matmul():
+        return table @ matrix.float()
+
+
+def _taat_scores(matrix: torch.Tensor, q_idx: torch.Tensor,
+                 q_w: torch.Tensor) -> torch.Tensor:
+    """Term-at-a-time scores from raw term ids (shifted and padded here)."""
+    safe_idx, safe_w = _safe_query(q_idx, q_w)
+    return impact_scores_taat(matrix, safe_idx.to(torch.int32).contiguous(),
+                              safe_w.contiguous())
+
+
+def _masked_topk(scores: torch.Tensor, n_valid: int, k: int):
+    """Top-k over the first ``n_valid`` doc columns (padding columns score
+    -inf). Ties may come out in any order; callers compare (score, id)
+    sets."""
+    col = torch.arange(scores.shape[1], device=scores.device)
+    scores = scores.masked_fill(col[None, :] >= n_valid, float("-inf"))
+    return torch.topk(scores, k, dim=1)
+
+
+def _impact_topk(matrix, q_idx, q_w, n_valid: int, k: int) -> torch.Tensor:
+    """Matmul backend -> packed ``[B, 2k]`` int32 (scores bits, doc ids)."""
+    return pack_topk(*_masked_topk(
+        _scores_from_matrix(matrix, q_idx, q_w), n_valid, k))
+
+
+def _taat_topk(matrix, q_idx, q_w, n_valid: int, k: int) -> torch.Tensor:
+    """TAAT backend -> packed ``[B, 2k]`` int32 (scores bits, doc ids)."""
+    return pack_topk(*_masked_topk(
+        _taat_scores(matrix, q_idx, q_w), n_valid, k))

@@ -1,0 +1,8 @@
+"""Sparse term selection (ids, weights, canonical collision map)."""
+
+from mllm_sparse_retrieval_tpu_torch.sparse.term_selection import (
+    SelectedTerms, canonical_id_map, filter_token, get_filtered_ids,
+    quantize_weights, text_candidate_ids)
+
+__all__ = ["SelectedTerms", "canonical_id_map", "filter_token",
+           "get_filtered_ids", "quantize_weights", "text_candidate_ids"]

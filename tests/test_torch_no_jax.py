@@ -1,0 +1,71 @@
+"""The PyTorch port and ``chip_smoke.py`` import nothing of JAX and nothing
+of the JAX package, and the smoke check refuses to report a result without
+a card."""
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "mllm_sparse_retrieval_tpu_torch"
+
+_BLOCK_AND_IMPORT = """
+import importlib, pkgutil, sys
+for name in list(sys.modules):
+    if name.split('.')[0] in ('jax', 'jaxlib', 'mllm_sparse_retrieval_tpu'):
+        del sys.modules[name]
+for name in ('jax', 'jaxlib', 'mllm_sparse_retrieval_tpu'):
+    sys.modules[name] = None          # any import of these now fails
+import mllm_sparse_retrieval_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                               pkg.__name__ + '.')]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+print('imported', len(names))
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def test_port_and_chip_smoke_import_without_jax():
+    proc = subprocess.run([sys.executable, "-c", _BLOCK_AND_IMPORT],
+                          cwd=REPO, env=_env(), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 20
+
+
+def test_no_import_statement_names_jax_or_the_jax_package():
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|mllm_sparse_retrieval_tpu)\b",
+        re.MULTILINE)
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    hits = [f"{f}: {m.group(0).strip()}" for f in files
+            for m in pattern.finditer(f.read_text())]
+    assert hits == []
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path, where):
+    script = REPO / "chip_smoke.py"
+    cwd = REPO
+    if where == "alone":
+        shutil.copy(script, tmp_path / "chip_smoke.py")
+        script, cwd = tmp_path / "chip_smoke.py", tmp_path
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
