@@ -5,14 +5,20 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from ``csrc/`` with one plain ``nvcc`` call,
-holds it against its plain PyTorch version at the benchmark shape and at the
-shape the served path gives it, and serves text queries end to end through
-the port's ``RetrievalService``: the full-width, full-depth
-LLaVA-NeXT-Llama3-8B text tower (bf16 weights drawn on the card from a
-seed), device term selection, and an impact index of 25,010 synthetic docs
-scored by the TAAT kernel. Every served result must equal the matmul
-backend's on the same terms.
+It builds the port's two CUDA kernels from ``csrc/`` (one plain ``nvcc``
+call each, started together), holds each against its plain PyTorch version
+at the shapes the served paths give it (the TAAT kernel also at the
+benchmark shape), and serves text and image queries end to end through the
+port's ``RetrievalService`` on the full-width, full-depth
+LLaVA-NeXT-Llama3-8B (bf16 weights drawn on the card from a seed): text
+queries through the 32-layer text tower; image queries through anyres
+preprocessing, the 24-layer ViT-L/14-336 on five 336 px tiles, the
+projector and the 3,072-token decoder, whose attention is the flash kernel.
+Both paths select terms on the device and score an impact index of 25,010
+synthetic docs with the TAAT kernel; every served result must equal the
+matmul backend's on the same terms. The whole tower is also run with the
+flash kernel and with plain attention on a 2-image batch, and the two
+representations compared.
 
 Each phase prints one progress line with the seconds since start. The last
 lines are a JSON object describing the kernels, the card's name and power
@@ -35,6 +41,7 @@ SEED = 0
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12           # H100 SXM f32 rate outside the tensor cores
+BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor-core rate
 
 # benchmark shape (bench.py): Zipf terms, docs, queries of Q terms
 BENCH_TERMS, N_DOCS, DOC_K, BENCH_B, BENCH_Q = 20_000, 25_010, 128, 256, 64
@@ -43,7 +50,29 @@ VOCAB_WORDS = 20_000            # tokenizer vocabulary size
 N_QUERIES, N_THREADS, MAX_BATCH, DEPTH = 32, 8, 8, 10
 # a served batch takes tens of ms: these limits only make a hang fail fast
 WARMUP_TIMEOUT_S, REQUEST_TIMEOUT_S, SERVE_DEADLINE_S = 60, 30, 60
-STAGES = ("tower", "lm_head", "term_select")   # profiler ranges of encode
+STAGES = ("vision", "tower", "attention", "lm_head",
+          "term_select")        # profiler ranges of encode
+# flash kernel at the served image shape: 8 prompts of 3,072 tokens, 32 q-
+# and 8 kv-heads of 128, compared at the non-pad positions. Both sides take
+# bf16 and give bf16: each rounds its probabilities (the kernel unnormalised,
+# the plain version normalised) and its output to bf16, unit roundoff 2^-8.
+# So each element lies within FLASH_RTOL * (|ref| + sum_s p_s |v_s|) of the
+# plain one (the sum is the plain version run on |v|). Independent roundings
+# mostly cancel in a long sum, so the mean error stays far below that worst
+# case (1.1e-4 against a mean |ref| of about 0.045 on an H100, 2^-8.6 of
+# it): it must stay under FLASH_RTOL * mean |ref|.
+FLASH_B, FLASH_HQ, FLASH_HKV, FLASH_DH = 8, 32, 8, 128
+FLASH_RTOL = 2.0 ** -7
+# served image queries: sizes that reach every LLaVA-NeXT pinpoint
+IMAGE_SIZES = ((375, 500), (500, 375), (640, 640), (300, 1000), (1000, 300),
+               (720, 1280), (300, 600), (600, 300))
+N_IMAGES, IMAGE_THREADS = 16, 4
+IMAGE_REQUEST_TIMEOUT_S, IMAGE_DEADLINE_S = 120, 240
+# whole tower, flash against plain attention, on 2 images (the plain route's
+# [2, 32, 3072, 3072] f32 logits fit beside the weights); bf16 through 32
+# layers of random weights: the dense reps must stay this close (the H100
+# gave a min cosine of 0.99989 in every run, so 1 - cos has 9x headroom)
+TOWER_CHECK_B, DENSE_COS_FLOOR = 2, 0.999
 
 
 def progress(phase: str, msg: str) -> None:
@@ -196,6 +225,115 @@ def phase_kernel_bench(rng):
     return out
 
 
+def build_kernels():
+    """Every kernel of the port, one ``nvcc`` each, all started together;
+    prints each build's time and ``-Xptxas -v`` register report."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mllm_sparse_retrieval_tpu_torch.ops import cuda_build
+    from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
+    from mllm_sparse_retrieval_tpu_torch.ops import impact_kernel as K
+
+    sources = (K.SOURCE, FA.SOURCE)
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(len(sources)) as pool:
+        results = list(pool.map(
+            lambda src: cuda_build.build(src, verbose=True), sources))
+    for src, (so, build_s, msgs) in zip(sources, results):
+        regs = [ln.strip() for ln in msgs.splitlines() if "registers" in ln]
+        progress("build", f"{src}: nvcc {build_s:.2f}s -> {so.name}; "
+                 + ("; ".join(regs) if regs else "already built"))
+    progress("build", f"both kernels in {time.monotonic() - t0:.2f}s")
+
+
+def flash_bound(mask, hq, hkv, dh):
+    """Least time the card could take for one flash call on these inputs:
+    q, k, v, out and the mask moved once, against the multiply-adds of the
+    two products over the admissible (causal, same-segment) pairs — the
+    pad rows of each prompt attend among themselves."""
+    b, t = mask.shape
+    real = mask.sum(dim=1).tolist()
+    pairs = sum(n * (n + 1) // 2 + (t - n) * (t - n + 1) // 2 for n in real)
+    ops = 4 * hq * dh * pairs
+    nbytes = b * t * dh * 2 * (2 * hq + 2 * hkv) + b * t * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops) * 1e3, by
+
+
+def flash_errors(got, ref, ref_abs, mask):
+    """Max and mean abs error of the kernel's output ``got`` against the
+    plain version's ``ref`` at the non-pad positions, and the share of each
+    limit they use (see ``FLASH_RTOL``; ``ref_abs`` is the plain version on
+    ``|v|``); raises past a limit or on a non-finite output."""
+    import torch
+
+    torch.cuda.synchronize()
+    real = mask.bool()
+    finite = bool(torch.isfinite(got.float()).all())
+    diff = (got.float() - ref.float()).abs()[real]
+    ref, ref_abs = ref.float().abs()[real], ref_abs.float()[real]
+    used = float((diff / (FLASH_RTOL * (ref + ref_abs))).max())
+    mean_used = float(diff.mean() / (FLASH_RTOL * ref.mean()))
+    err, mean_err = float(diff.max()), float(diff.mean())
+    if not finite or used > 1 or mean_used > 1:
+        raise AssertionError(
+            f"flash kernel differs from the plain version: max abs err {err} "
+            f"({used:.3g} of its element tolerance), mean abs err {mean_err} "
+            f"({mean_used:.3g} of its limit), finite {finite}")
+    return err, mean_err, used, mean_used
+
+
+def phase_flash(lengths, seq):
+    """The flash kernel at the served image shape against its plain version
+    (compared at the non-pad positions), its time, the plain version's and
+    that of ``scaled_dot_product_attention`` with the same boolean mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
+
+    b, hq, hkv, dh = FLASH_B, FLASH_HQ, FLASH_HKV, FLASH_DH
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    q, k, v = (torch.randn((b, seq, h, dh), generator=gen, device=DEVICE,
+                           dtype=torch.bfloat16) for h in (hq, hkv, hkv))
+    mask = torch.zeros((b, seq), dtype=torch.int32, device=DEVICE)
+    for i, n in enumerate(lengths):
+        mask[i, :n] = 1                              # right padding
+    got = FA.flash_causal_attention(q, k, v, mask)
+    ref = FA.flash_causal_attention_plain(q, k, v, mask)
+    err, mean_err, used, mean_used = flash_errors(
+        got, ref, FA.flash_causal_attention_plain(q, k, v.abs(), mask), mask)
+    ms = device_ms(lambda: FA.flash_causal_attention(q, k, v, mask), 20)
+    plain_ms = device_ms(
+        lambda: FA.flash_causal_attention_plain(q, k, v, mask), 3)
+    pos = torch.arange(seq, device=DEVICE)
+    allowed = ((pos[:, None] >= pos[None, :])[None]
+               & (mask[:, :, None] == mask[:, None, :]))[:, None]
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=allowed,
+                                              enable_gqa=True)
+
+    lib_err = float((library().transpose(1, 2).float()
+                     - ref.float()).abs()[mask.bool()].max())
+    library_ms = device_ms(library, 5)
+    bound_ms, bound_by = flash_bound(mask, hq, hkv, dh)
+    progress("flash", f"B={b} T={seq} Hq={hq} Hkv={hkv} Dh={dh} bf16, real "
+             f"lengths {list(lengths)}: max abs err {err:.3g}, mean abs "
+             f"err {mean_err:.3g} at the non-pad positions, all finite; "
+             f"largest share of the element tolerance {used:.3f}, mean err "
+             f"share of its limit {mean_used:.3f}; kernel {ms:.4f} ms, plain "
+             f"{plain_ms:.4f} ms, SDPA (boolean mask, GQA) "
+             f"{library_ms:.4f} ms (max abs err vs plain {lib_err:.3g}), "
+             f"bound {bound_ms:.4f} ms ({bound_by})")
+    del q, k, v, got, ref, allowed, qh, kh, vh
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
 def synthetic_lexicon(rng, n):
     """``n`` distinct lowercase pseudo-words."""
     syll = [c + v for c in "bcdfghklmnprstvwz" for v in "aeiou"]
@@ -222,10 +360,19 @@ def captions(rng, lexicon, n, lo, hi):
             for k, e in zip(lens, ends)]
 
 
+def image_key(image) -> str:
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha1(np.ascontiguousarray(image, np.float32)
+                        .tobytes()).hexdigest()
+
+
 class RecordingEncoder:
-    """Wraps an encoder and keeps the terms it selected for each text, so
-    the served results can be checked against the matmul backend on
-    exactly the terms that were served."""
+    """Wraps an encoder and keeps the terms it selected for each text or
+    image, so the served results can be checked against the matmul backend
+    on exactly the terms that were served."""
 
     def __init__(self, encoder):
         self._enc = encoder
@@ -242,6 +389,13 @@ class RecordingEncoder:
         self.terms.update(zip(texts, terms))
         return dense, terms
 
+    def encode_images(self, images, pad_to=None):
+        t0 = time.monotonic()
+        dense, terms = self._enc.encode_images(images, pad_to)
+        self.tower_s.append(time.monotonic() - t0)
+        self.terms.update(zip(map(image_key, images), terms))
+        return dense, terms
+
 
 def host_ms(fn, iters: int) -> float:
     """Mean host-clock time of ``fn`` (which ends in a device sync)."""
@@ -254,8 +408,11 @@ def host_ms(fn, iters: int) -> float:
 
 def profiled(fn):
     """One call of ``fn`` under ``torch.profiler``: (device ms of every
-    kernel and copy it ran, kernel count, device ms under each of
-    ``STAGES``)."""
+    kernel and copy it ran, their count, device ms under each of
+    ``STAGES``). A stage's time is that of the kernels that start inside
+    the device-side spans of its ``record_function`` ranges: the flash
+    kernel, launched through ctypes outside any aten op, is linked to no
+    CPU-side range but runs inside the ``attention`` spans."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -264,19 +421,25 @@ def profiled(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    busy, n, stage = 0.0, 0, dict.fromkeys(STAGES, 0.0)
+    spans, kernels = [], []
     for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA and \
-                not getattr(evt, "is_user_annotation", False):
-            busy += evt.self_device_time_total / 1e3
-            n += 1
-        elif evt.device_type == DeviceType.CPU and evt.name in stage:
-            stage[evt.name] += evt.device_time_total / 1e3
-    return busy, n, stage
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        if getattr(evt, "is_user_annotation", False):
+            if evt.name in STAGES:
+                spans.append((evt.time_range.start, evt.time_range.end,
+                              evt.name))
+        else:
+            kernels.append((evt.time_range.start,
+                            evt.self_device_time_total / 1e3))
+    stage = dict.fromkeys(STAGES, 0.0)
+    for start, end, name in spans:
+        stage[name] += sum(ms for t, ms in kernels if start <= t < end)
+    return sum(ms for _, ms in kernels), len(kernels), stage
 
 
 def breakdown(encoder, index, q_idx, q_w, batch):
-    """Where one served micro-batch's time goes: the host clock of the
+    """Where one served text micro-batch's time goes: the host clock of the
     encoder's real ``encode_texts`` call and of the TAAT search of its
     terms, and, from one profiled call of each, the device time of their
     kernels, split by stage for the encoder, and the device's busy share."""
@@ -294,12 +457,139 @@ def breakdown(encoder, index, q_idx, q_w, batch):
     s_busy, s_n, _ = profiled(search)
     if e_busy <= 0.0 or s_busy <= 0.0:
         raise AssertionError("the profiler saw no device time")
-    stages = ", ".join(f"{k} {v:.3f} ms" for k, v in stage.items())
+    stages = ", ".join(f"{k} {stage[k]:.3f} ms"
+                       for k in ("tower", "lm_head", "term_select"))
     progress("breakdown", f"one {b}-query batch: encode_texts {encode_ms:.2f}"
              f" ms host clock, device {e_busy:.3f} ms in {e_n} kernels and "
              f"copies (busy share {e_busy / encode_ms:.3f}; {stages}); "
              f"search_encoded taat {search_ms:.3f} ms host clock, device "
              f"{s_busy:.4f} ms in {s_n} kernels and copies")
+
+
+def image_breakdown(encoder, images):
+    """Where one served image micro-batch's time goes: the host clock of a
+    real ``encode_images`` call and, from one profiled call, the device time
+    of its ``vision``, ``tower`` (``attention`` inside it), ``lm_head`` and
+    ``term_select`` ranges and the device's busy share."""
+    import torch
+
+    enc = encoder._enc
+    b = len(images)
+
+    def encode():
+        enc.encode_images(images, pad_to=b)
+
+    def inputs():
+        enc.image_inputs(images, b)
+        torch.cuda.synchronize()
+
+    encode_ms, inputs_ms = host_ms(encode, 2), host_ms(inputs, 2)
+    busy, n, stage = profiled(encode)
+    if busy <= 0.0 or stage["attention"] <= 0.0:
+        raise AssertionError("the profiler saw no device time in the flash "
+                             "attention ranges")
+    stages = ", ".join(f"{k} {v:.3f} ms" for k, v in stage.items())
+    progress("breakdown", f"one {b}-image batch: encode_images "
+             f"{encode_ms:.2f} ms host clock, of which host preprocessing "
+             f"and upload {inputs_ms:.2f} ms; device {busy:.3f} ms in {n} "
+             f"kernels and copies (busy share {busy / encode_ms:.3f}; "
+             f"{stages}; attention share of tower "
+             f"{stage['attention'] / stage['tower']:.3f})")
+
+
+def serve(svc, kind, queries, n_threads, request_timeout, deadline_s):
+    """``queries`` through ``svc.search(**{kind: q})`` from ``n_threads``
+    client threads under one deadline: (results, latency seconds, wall
+    seconds). Raises on a hang or on any client's error."""
+    results, latency = [None] * len(queries), [None] * len(queries)
+    errors = []
+
+    def client(rows):
+        try:
+            for i in rows:
+                t_req = time.monotonic()
+                results[i] = svc.search(**{kind: queries[i]},
+                                        timeout=request_timeout)
+                latency[i] = time.monotonic() - t_req
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, daemon=True,
+                                args=(range(k, len(queries), n_threads),))
+               for k in range(n_threads)]
+    t_run = time.monotonic()
+    deadline = t_run + deadline_s
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(max(0.0, deadline - time.monotonic()))
+    wall = time.monotonic() - t_run
+    alive = sum(th.is_alive() for th in threads)
+    if alive:
+        answered = sum(r is not None for r in results)
+        progress("slice", f"{alive} client threads still waiting after "
+                 f"{deadline_s} s; {answered} of {len(queries)} {kind} "
+                 f"queries answered")
+        raise TimeoutError(f"the served {kind} path did not answer in time")
+    if errors:
+        raise errors[0]
+    return results, latency, wall
+
+
+def check_results(index, cmap, labels, served_terms, results):
+    """Every query: >= 1 positive finite term, >= 1 hit, and the same
+    (doc, score) set as the matmul backend on the same terms."""
+    import numpy as np
+
+    for q, st, row in zip(labels, served_terms, results):
+        w = np.asarray(st.weights, np.float64)
+        if not (w.size and np.isfinite(w).all() and (w > 0).any()):
+            raise AssertionError(f"query {q} selected no usable term: {st}")
+        if not row or not all(np.isfinite(s) and s > 0 for _, s in row):
+            raise AssertionError(f"query {q} got no hit: {row}")
+    ref_s, ref_i = index.search_terms(served_terms, DEPTH,
+                                      canonical_map=cmap, backend="matmul")
+    for q, row, s_row, i_row in zip(labels, results, ref_s, ref_i):
+        if not same_up_to_ties(row, list(zip(i_row, s_row))):
+            raise AssertionError(f"query {q}: taat {row} != matmul "
+                                 f"{list(zip(i_row, s_row))}")
+
+
+def tower_flash_check(encoder, params, arch, images):
+    """The whole image tower on ``TOWER_CHECK_B`` images with the flash
+    kernel and with plain attention: dense cosine, sparse max abs
+    difference and top-128 term overlap."""
+    import torch
+    import torch.nn.functional as F
+
+    from mllm_sparse_retrieval_tpu_torch.models import mllm
+    from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
+
+    ids, mask, px = encoder._enc.image_inputs(images, len(images))
+    out = {}
+    for flash in (True, False):
+        before = FA.launch_count()
+        out[flash] = mllm.encode(params, arch, ids, mask, pixel_values=px,
+                                 allow_flash=flash)
+        torch.cuda.synchronize()
+        launched = FA.launch_count() - before
+        if launched != (arch.text.num_layers if flash else 0):
+            raise AssertionError(f"allow_flash={flash}: {launched} flash "
+                                 f"launches")
+        torch.cuda.empty_cache()
+    (sf, df), (sp, dp) = out[True], out[False]
+    cos = float(F.cosine_similarity(df.float(), dp.float(), dim=-1).min())
+    sparse_err = float((sf - sp).abs().max())
+    k = 128
+    top_f, top_p = sf.topk(k).indices.tolist(), sp.topk(k).indices.tolist()
+    overlap = min(len(set(a) & set(b)) / k for a, b in zip(top_f, top_p))
+    progress("tower", f"{len(images)} images of {ids.shape[1]} tokens, flash "
+             f"vs plain attention through {arch.text.num_layers} layers: "
+             f"min dense cosine {cos:.5f} (floor {DENSE_COS_FLOOR}), sparse "
+             f"max abs diff {sparse_err:.4g}, min top-{k} term overlap "
+             f"{overlap:.3f}")
+    if not cos >= DENSE_COS_FLOOR:
+        raise AssertionError(f"dense cosine {cos} below {DENSE_COS_FLOOR}")
 
 
 def same_up_to_ties(got, want):
@@ -314,6 +604,8 @@ def same_up_to_ties(got, want):
 
 
 def main() -> int:
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -324,13 +616,14 @@ def main() -> int:
     from mllm_sparse_retrieval_tpu_torch.configs import (
         ModelFamily, SparseConfig)
     from mllm_sparse_retrieval_tpu_torch.index import ImpactIndex
-    from mllm_sparse_retrieval_tpu_torch.models import mllm, templates
+    from mllm_sparse_retrieval_tpu_torch.models import anyres, mllm, templates
+    from mllm_sparse_retrieval_tpu_torch.models.layers import FLASH_MIN_SEQ
     from mllm_sparse_retrieval_tpu_torch.models.llama import param_count
     from mllm_sparse_retrieval_tpu_torch.models.registry import (
         get_family_spec)
     from mllm_sparse_retrieval_tpu_torch.models.tokenizer import (
         WordPieceLiteTokenizer)
-    from mllm_sparse_retrieval_tpu_torch.ops import cuda_build
+    from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
     from mllm_sparse_retrieval_tpu_torch.ops import impact_kernel as K
     from mllm_sparse_retrieval_tpu_torch.ops.impact_kernel import (
         prepare_query_arrays)
@@ -347,16 +640,13 @@ def main() -> int:
              f"{torch.__version__} cuda {torch.version.cuda}")
 
     # ---- 1. build --------------------------------------------------------
-    so, build_s, msgs = cuda_build.build(K.SOURCE, verbose=True)
-    regs = [ln.strip() for ln in msgs.splitlines() if "registers" in ln]
-    progress("build", f"nvcc {build_s:.2f}s -> {so.name}; "
-             + ("; ".join(regs) if regs else "already built"))
+    build_kernels()
 
-    # ---- 2. kernel at the benchmark shape ---------------------------------
+    # ---- 2. TAAT kernel at the benchmark shape ------------------------------
     rng = np.random.default_rng(SEED)
     bench = phase_kernel_bench(rng)
 
-    # ---- 3. the served slice -------------------------------------------------
+    # ---- 3. tokenizer, and the flash kernel at the served image shape -------
     lexicon = synthetic_lexicon(rng, VOCAB_WORDS)
     tok = WordPieceLiteTokenizer.from_corpus_captions(
         captions(rng, lexicon, 20_000, 8, 14), vocab_size=VOCAB_WORDS)
@@ -365,17 +655,36 @@ def main() -> int:
                                if p.startswith("▁") and len(p) > 2))
     progress("slice", f"tokenizer: {tok.vocab_size} pieces, "
              f"{word_ids.size} word pieces")
-
     spec = get_family_spec(ModelFamily.LLAVA_NEXT_LLAMA3)
+    # the synthetic tokenizer has no Llama-3 chat specials: prompts use the
+    # plain-text wrapper of the tiny family, and image slots the tokenizer's
+    # own <image> id; every width of the model is unchanged
+    tmpl = templates.TINY
+    arch_img = dataclasses.replace(spec.arch,
+                                   image_token_id=tok.image_token_id)
+    image_prompt_len = [len(tok.encode(tmpl.expand_image(
+        tmpl.image_prompt(), anyres.num_image_tokens(
+            size, arch_img.grid_pinpoints, arch_img.vision.image_size,
+            arch_img.patches_per_side)))) for size in IMAGE_SIZES]
+    fixed_len = len(tok.encode(tmpl.expand_image(
+        tmpl.image_prompt(), arch_img.max_image_tokens)))
+    seq = -(-fixed_len // 512) * 512 if fixed_len >= FLASH_MIN_SEQ \
+        else fixed_len
+    flash = phase_flash(image_prompt_len[:FLASH_B - 1] + [0], seq)
+
+    # ---- 4. the model and the index -------------------------------------------
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     params = mllm.init_params(spec.arch, gen, DEVICE, torch.bfloat16)
     torch.cuda.synchronize()
-    n_params = param_count(params)
-    t = spec.arch.text
-    progress("slice", f"LLaVA-NeXT-Llama3-8B text tower: {n_params:,} bf16 "
-             f"weights drawn on the card ({t.num_layers} layers, hidden "
+    t, v = spec.arch.text, spec.arch.vision
+    vis = param_count(params) - param_count(params["text"])
+    progress("slice", f"LLaVA-NeXT-Llama3-8B: {param_count(params['text']):,}"
+             f" bf16 text-tower weights ({t.num_layers} layers, hidden "
              f"{t.hidden_size}, {t.num_heads}/{t.num_kv_heads} heads, FFN "
-             f"{t.intermediate_size}, vocab {t.vocab_size}); "
+             f"{t.intermediate_size}, vocab {t.vocab_size}) and {vis:,} of "
+             f"ViT ({v.num_layers} layers, hidden {v.hidden_size}, "
+             f"{v.num_heads} heads, {v.image_size} px / {v.patch_size}), "
+             f"projector and image_newline, drawn on the card; "
              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
 
     p = zipf_p(word_ids.size)
@@ -391,11 +700,10 @@ def main() -> int:
              f"terms, {index.num_terms} distinct terms, int16 exact: "
              f"{index._int16_exact()}")
 
+    # ---- 5. text queries through the service ----------------------------------
     sparse_cfg = SparseConfig()
-    # the synthetic tokenizer has no Llama-3 chat specials, so the prompt
-    # uses the plain-text wrapper the tiny family uses
     encoder = RecordingEncoder(OnlineQueryEncoder(
-        params, spec.arch, tok, templates.TINY, sparse_cfg, max_text_len=64,
+        params, spec.arch, tok, tmpl, sparse_cfg, max_text_len=64,
         device=DEVICE))
     svc = RetrievalService(impact_index=index, query_encoder=encoder,
                            backend="taat", max_batch=MAX_BATCH,
@@ -407,42 +715,12 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         encoder.tower_s.clear()
-
         batches0 = svc.stats()["batches"]
         K.reset_launch_count()
-        results, latency = [None] * N_QUERIES, [None] * N_QUERIES
-        errors = []
-
-        def client(rows):
-            try:
-                for i in rows:
-                    t_req = time.monotonic()
-                    results[i] = svc.search(text=texts[i],
-                                            timeout=REQUEST_TIMEOUT_S)
-                    latency[i] = time.monotonic() - t_req
-            except BaseException as e:  # noqa: BLE001 — reported below
-                errors.append(e)
-
-        threads = [threading.Thread(target=client, daemon=True,
-                                    args=(range(k, N_QUERIES, N_THREADS),))
-                   for k in range(N_THREADS)]
-        t_run = time.monotonic()
-        deadline = t_run + SERVE_DEADLINE_S
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(max(0.0, deadline - time.monotonic()))
-        wall = time.monotonic() - t_run
-        launches = K.launch_count()
-        alive = sum(th.is_alive() for th in threads)
-        if alive:
-            answered = sum(r is not None for r in results)
-            progress("slice", f"{alive} client threads still waiting after "
-                     f"{SERVE_DEADLINE_S} s; {answered} of {N_QUERIES} "
-                     f"queries answered")
-            raise TimeoutError("the served path did not answer in time")
-        if errors:
-            raise errors[0]
+        FA.reset_launch_count()
+        results, latency, wall = serve(svc, "text", texts, N_THREADS,
+                                       REQUEST_TIMEOUT_S, SERVE_DEADLINE_S)
+        text_taat, text_flash = K.launch_count(), FA.launch_count()
         stats = svc.stats()
     finally:
         svc.close()
@@ -451,33 +729,20 @@ def main() -> int:
     lat_ms = np.array(latency) * 1e3
     progress("slice", f"served {N_QUERIES} text queries from {N_THREADS} "
              f"threads in {stats['batches'] - batches0} micro-batches; "
-             f"TAAT launches {launches}; "
+             f"TAAT launches {text_taat}, flash launches {text_flash}; "
              f"p50 {np.percentile(lat_ms, 50):.2f} ms, p99 "
              f"{np.percentile(lat_ms, 99):.2f} ms, "
              f"{N_QUERIES / wall:.2f} QPS; tower+select "
              f"{np.mean(encoder.tower_s) * 1e3:.2f} ms per batch; peak "
              f"{peak_gb:.2f} GB; card {card}")
-    if launches < 1:
+    if text_taat < 1:
         raise AssertionError("the served path never launched the TAAT kernel")
-
-    # every query: >= 1 positive finite term, >= 1 hit, and the same
-    # (doc, score) set as the matmul backend on the same terms
     served_terms = [encoder.terms[q] for q in texts]
-    for q, st, row in zip(texts, served_terms, results):
-        w = np.asarray(st.weights, np.float64)
-        if not (w.size and np.isfinite(w).all() and (w > 0).any()):
-            raise AssertionError(f"query {q!r} selected no usable term: {st}")
-        if not row or not all(np.isfinite(s) and s > 0 for _, s in row):
-            raise AssertionError(f"query {q!r} got no hit: {row}")
-    ref_s, ref_i = index.search_terms(served_terms, DEPTH,
-                                      canonical_map=cmap, backend="matmul")
-    for q, row, s_row, i_row in zip(texts, results, ref_s, ref_i):
-        if not same_up_to_ties(row, list(zip(i_row, s_row))):
-            raise AssertionError(f"query {q!r}: taat {row} != matmul "
-                                 f"{list(zip(i_row, s_row))}")
+    check_results(index, cmap, [repr(q) for q in texts], served_terms,
+                  results)
     progress("slice", f"all {N_QUERIES} results equal the matmul backend's")
 
-    # ---- 4. the kernel at the served shape ----------------------------------
+    # ---- 6. the TAAT kernel at the served text shape, text breakdown --------
     q_idx, q_w = index.encode_query_terms(served_terms[:MAX_BATCH], cmap)
     safe_idx, safe_w = (torch.from_numpy(a).to(DEVICE)
                         for a in prepare_query_arrays(q_idx, q_w))
@@ -487,16 +752,80 @@ def main() -> int:
         f"Q={q_idx.shape[1]}", matrix, safe_idx, safe_w, iters=200)
     breakdown(encoder, index, q_idx, q_w, texts[:MAX_BATCH])
 
+    # ---- 7. image queries through the service ---------------------------------
+    img_rng = np.random.default_rng(SEED + 2)
+    sizes = [IMAGE_SIZES[i % len(IMAGE_SIZES)] for i in range(N_IMAGES)]
+    images = [img_rng.integers(0, 256, size=hw + (3,), dtype=np.uint8)
+              .astype(np.float32) / 255.0 for hw in sizes]
+    img_encoder = RecordingEncoder(OnlineQueryEncoder(
+        params, arch_img, tok, tmpl, sparse_cfg, device=DEVICE))
+    progress("image", f"{N_IMAGES} seeded uint8 images of sizes "
+             f"{sorted(set(sizes))}; prompts padded to {seq} tokens "
+             f"(longest {fixed_len}); image token id {arch_img.image_token_id}"
+             f" (the synthetic tokenizer's <image>; the checkpoint's is "
+             f"{spec.arch.image_token_id}), {arch_img.max_tiles} tiles of "
+             f"{arch_img.vision.image_size} px per image")
+    svc = RetrievalService(impact_index=index, query_encoder=img_encoder,
+                           backend="taat", max_batch=MAX_BATCH,
+                           depth_levels=(DEPTH,), max_wait_ms=10.0)
+    try:
+        svc.search(image=images[0], timeout=IMAGE_REQUEST_TIMEOUT_S)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        img_encoder.tower_s.clear()
+        batches0 = svc.stats()["batches"]
+        K.reset_launch_count()
+        FA.reset_launch_count()
+        img_results, img_latency, img_wall = serve(
+            svc, "image", images, IMAGE_THREADS, IMAGE_REQUEST_TIMEOUT_S,
+            IMAGE_DEADLINE_S)
+        img_taat, img_flash = K.launch_count(), FA.launch_count()
+        stats = svc.stats()
+    finally:
+        svc.close()
+    img_batches = stats["batches"] - batches0
+    img_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    lat_ms = np.array(img_latency) * 1e3
+    progress("image", f"served {N_IMAGES} image queries from "
+             f"{IMAGE_THREADS} threads in {img_batches} micro-batches "
+             f"(device batch {MAX_BATCH}); flash launches {img_flash}, TAAT "
+             f"launches {img_taat}; p50 {np.percentile(lat_ms, 50):.2f} ms, "
+             f"p99 {np.percentile(lat_ms, 99):.2f} ms, "
+             f"{N_IMAGES / img_wall:.3f} images/s; encode_images "
+             f"{np.mean(img_encoder.tower_s) * 1e3:.2f} ms per batch; peak "
+             f"{img_peak_gb:.2f} GB; card {card}")
+    if img_flash < 1 or img_flash != arch_img.text.num_layers * img_batches:
+        raise AssertionError(f"{img_flash} flash launches in {img_batches} "
+                             f"image micro-batches")
+    if img_taat < 1:
+        raise AssertionError("the image path never launched the TAAT kernel")
+    check_results(index, cmap, [f"image {i} {hw}" for i, hw in
+                                enumerate(sizes)],
+                  [img_encoder.terms[image_key(im)] for im in images],
+                  img_results)
+    progress("image", f"all {N_IMAGES} results equal the matmul backend's")
+
+    # ---- 8. the whole tower, flash against plain attention; breakdown -------
+    tower_flash_check(img_encoder, params, arch_img,
+                      images[:TOWER_CHECK_B])
+    image_breakdown(img_encoder, images[:MAX_BATCH])
+
     max_err = max(bench["i16"]["max_abs_err"], bench["f32"]["max_abs_err"],
                   served["max_abs_err"])
-    kernel = dict(
-        name="taat_impact", route="cuda",
-        source="mllm_sparse_retrieval_tpu_torch/csrc/taat.cu",
-        replaces="mllm_sparse_retrieval_tpu/ops/impact_kernel.py:115",
-        launches=launches, max_abs_err=max_err, ms=served["ms"],
-        plain_ms=served["plain_ms"], bound_ms=served["bound_ms"],
-        bound_by=served["bound_by"], library_ms=served["library_ms"])
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    kernels = [
+        dict(name="taat_impact", route="cuda",
+             source="mllm_sparse_retrieval_tpu_torch/csrc/taat.cu",
+             replaces="mllm_sparse_retrieval_tpu/ops/impact_kernel.py:115",
+             launches=text_taat + img_taat, max_abs_err=max_err,
+             ms=served["ms"], plain_ms=served["plain_ms"],
+             bound_ms=served["bound_ms"], bound_by=served["bound_by"],
+             library_ms=served["library_ms"]),
+        dict(name="flash_attention_fwd", route="cuda",
+             source="mllm_sparse_retrieval_tpu_torch/csrc/flash_attn.cu",
+             replaces="mllm_sparse_retrieval_tpu/models/layers.py:199",
+             launches=text_flash + img_flash, **flash),
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

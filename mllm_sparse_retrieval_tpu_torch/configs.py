@@ -8,8 +8,8 @@ from dataclasses import dataclass
 
 
 class ModelFamily(str, enum.Enum):
-    """Supported MLLM families; this slice builds the text towers of
-    ``LLAVA_NEXT_LLAMA3`` and ``TINY_DEBUG``."""
+    """Supported MLLM families; the port builds ``LLAVA_NEXT_LLAMA3`` and
+    ``TINY_DEBUG``."""
 
     LLAVA_NEXT_LLAMA3 = "llava_next_llama3"   # llava-hf/llama3-llava-next-8b
     LLAVA_1_5 = "llava_1_5"                    # llava-hf/llava-1.5-7b
@@ -50,3 +50,5 @@ class ModelConfig:
     tiny_hidden_size: int = 128
     tiny_num_layers: int = 2
     tiny_num_heads: int = 4
+    tiny_image_size: int = 64
+    tiny_patch_size: int = 16

@@ -2,9 +2,10 @@
 
 The JAX llama tree (``embed``, ``blocks[i]``, ``final_norm``, ``lm_head``)
 maps one to one onto the port's dicts, in the same ``[in, out]`` dense
-orientation, so a test can run both towers on the same weights. Arrays
-arrive as numpy (the caller converts JAX arrays with ``np.asarray``); only
-the text tower is carried.
+orientation, so a test can run both models on the same weights; so do the
+ViT (``patch_embed``, ``pos_embed``, ``cls_token``, ``pre_ln``,
+``blocks[i]``), the projector and the ``image_newline`` embedding. Arrays
+arrive as numpy (the caller converts JAX arrays with ``np.asarray``).
 """
 
 from __future__ import annotations
@@ -30,12 +31,19 @@ def from_jax_params(tree: Dict, device="cuda",
                     dtype: Optional[torch.dtype] = None) -> Dict:
     """Port params from a JAX tree of numpy arrays.
 
-    ``tree`` is either the JAX MLLM tree (``{"vision", "projector",
-    "text"}``; only ``text`` is carried) or a bare llama tree. Returns
-    ``{"text": llama params}`` for ``mllm.encode``.
+    ``tree`` is either the JAX MLLM tree (``{"vision", "projector", "text"}``
+    and, for anyres configs, ``"image_newline"``) or a bare llama tree.
+    Returns the same keys (``{"text": llama params}`` for a bare tree) for
+    ``mllm.encode``.
     """
     text = tree["text"] if "text" in tree else tree
     missing = {"embed", "blocks", "final_norm"} - set(text)
     if missing:
         raise KeyError(f"not a llama parameter tree: missing {sorted(missing)}")
-    return {"text": _to_torch(text, torch.device(device), dtype)}
+    device = torch.device(device)
+    out = {"text": _to_torch(text, device, dtype)}
+    if "text" in tree:
+        for key in ("vision", "projector", "image_newline"):
+            if key in tree:
+                out[key] = _to_torch(tree[key], device, dtype)
+    return out

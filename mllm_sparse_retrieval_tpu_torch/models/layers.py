@@ -1,10 +1,10 @@
-"""Shared building blocks on tensors: dense, RMSNorm, RoPE, attention, masks.
+"""Shared building blocks on tensors: dense, norms, RoPE, attention, masks.
 
 Parameters are plain dicts of tensors in the JAX package's layout (dense
 weights ``[in, out]``, so ``y = x @ w``), which keeps weights converted from
-the JAX tree comparable one to one. The flash-attention path of the JAX
-package (its long-prompt Pallas kernel) is not on the text-query path and
-waits for the image-query slice.
+the JAX tree comparable one to one. Long prompts (anyres image queries) take
+the fused causal attention of ``ops/flash_attention.py``, whose CUDA kernel
+replaces the JAX package's Pallas flash kernel.
 """
 
 from __future__ import annotations
@@ -13,6 +13,8 @@ import math
 from typing import Dict, Optional
 
 import torch
+
+from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
 
 
 def dense(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -31,6 +33,19 @@ def rmsnorm(x: torch.Tensor, p: Dict[str, torch.Tensor],
     var = x.square().mean(dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * p["scale"].float()).to(dtype)
+
+
+def layernorm(x: torch.Tensor, p: Dict[str, torch.Tensor],
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm computed in f32 (biased variance) and cast back to the
+    input dtype."""
+    dtype = x.dtype
+    x = x.float()
+    mean = x.mean(dim=-1, keepdim=True)
+    var = (x - mean).square().mean(dim=-1, keepdim=True)
+    y = (x - mean) * torch.rsqrt(var + eps)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(dtype)
 
 
 def rope_frequencies(head_dim: int, max_len: int, theta: float = 10000.0,
@@ -82,3 +97,34 @@ def causal_padding_mask(attention_mask: torch.Tensor) -> torch.Tensor:
                                    device=attention_mask.device))
     pad = attention_mask.bool()[:, None, None, :]
     return causal[None, None] & pad
+
+
+FLASH_MIN_SEQ = 1024  # below this the [T, T] logits tensor is cheap anyway
+
+
+def flash_attention_eligible(seq_len: int, head_dim: int,
+                             device: torch.device) -> bool:
+    """Take the fused flash kernel when it pays and its tiling fits: long
+    sequences (anyres image prompts reach ~3k tokens, where plain attention
+    materialises a [B, H, T, T] f32 logits tensor per layer), the JAX
+    package's 512-aligned lengths, tensors on a CUDA device. The JAX gate
+    admits any multiple of 128 as head_dim; the CUDA kernel takes exactly
+    128 (every ported family's width), so other widths stay on the plain
+    route instead of reaching a kernel that refuses them."""
+    return (torch.device(device).type == "cuda"
+            and seq_len >= FLASH_MIN_SEQ
+            and seq_len % 512 == 0
+            and head_dim == FA.HEAD_DIM)
+
+
+def flash_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           attention_mask: torch.Tensor, *,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Causal attention through the flash kernel; padding is excluded as
+    segment ids (pad 0, real 1), which matches ``attention`` +
+    ``causal_padding_mask`` at every non-pad position.
+
+    q: ``[B, T, Hq, Dh]``; k/v: ``[B, T, Hkv, Dh]`` (GQA read in place);
+    attention_mask: ``[B, T]``.
+    """
+    return FA.flash_causal_attention(q, k, v, attention_mask, scale=scale)

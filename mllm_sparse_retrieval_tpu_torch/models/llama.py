@@ -16,6 +16,7 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from mllm_sparse_retrieval_tpu_torch.models import layers as L
 
@@ -89,7 +90,10 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     return params
 
 
-def _block(x, p, cfg: LlamaConfig, mask, cos, sin):
+def _block(x, p, cfg: LlamaConfig, mask, cos, sin, flash_mask=None):
+    """One decoder block; ``flash_mask`` (the ``[B, T]`` padding mask) takes
+    the flash kernel instead of ``attention`` over the ``[B, 1, T, T]``
+    ``mask``."""
     b, t, _ = x.shape
     dh = cfg.head_dim
     y = L.rmsnorm(x, p["attn_norm"], cfg.rms_eps)
@@ -98,7 +102,12 @@ def _block(x, p, cfg: LlamaConfig, mask, cos, sin):
     v = L.dense(y, p["v"]).view(b, t, cfg.num_kv_heads, dh)
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin)
-    attn = L.attention(q, k, v, mask).reshape(b, t, cfg.num_heads * dh)
+    if flash_mask is not None:
+        with record_function("attention"):
+            attn = L.flash_causal_attention(q, k, v, flash_mask)
+    else:
+        attn = L.attention(q, k, v, mask)
+    attn = attn.reshape(b, t, cfg.num_heads * dh)
     x = x + L.dense(attn, p["o"])
     y = L.rmsnorm(x, p["mlp_norm"], cfg.rms_eps)
     gated = F.silu(L.dense(y, p["gate"])) * L.dense(y, p["up"])
@@ -113,15 +122,22 @@ def rope_tables(cfg: LlamaConfig, seq_len: int, device="cuda"):
 
 @torch.no_grad()
 def apply(params: Dict, inputs_embeds: torch.Tensor,
-          attention_mask: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+          attention_mask: torch.Tensor, cfg: LlamaConfig,
+          allow_flash: bool = True) -> torch.Tensor:
     """Run the decoder stack; returns final-norm hidden states
-    ``[B, T, H]``."""
-    cos, sin = rope_tables(cfg, inputs_embeds.shape[1],
-                           device=inputs_embeds.device)
-    mask = L.causal_padding_mask(attention_mask)
+    ``[B, T, H]``. Long sequences (anyres image prompts) take the flash
+    kernel when ``layers.flash_attention_eligible`` holds and never build
+    the ``[B, 1, T, T]`` mask; ``allow_flash=False`` forces the plain
+    masked attention."""
+    t = inputs_embeds.shape[1]
+    cos, sin = rope_tables(cfg, t, device=inputs_embeds.device)
+    use_flash = allow_flash and L.flash_attention_eligible(
+        t, cfg.head_dim, inputs_embeds.device)
+    flash_mask = attention_mask if use_flash else None
+    mask = None if use_flash else L.causal_padding_mask(attention_mask)
     x = inputs_embeds
     for blk in params["blocks"]:
-        x = _block(x, blk, cfg, mask, cos, sin)
+        x = _block(x, blk, cfg, mask, cos, sin, flash_mask)
     return L.rmsnorm(x, params["final_norm"], cfg.rms_eps)
 
 

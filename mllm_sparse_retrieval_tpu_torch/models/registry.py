@@ -1,9 +1,10 @@
-"""Model-family registry, text towers only in this slice.
+"""Model-family registry.
 
 ``LLAVA_NEXT_LLAMA3`` is the reference's default model (LLaVA-NeXT-Llama3-8B:
-32 layers, hidden 4096, 32 heads / 8 KV heads, FFN 14336, vocab 128,256,
-RoPE theta 5e5). ``TINY_DEBUG`` is the self-contained random tiny family
-that tests use.
+a CLIP ViT-L/14-336 vision tower, 24 layers, hidden 1024, 16 heads, with the
+anyres multi-patch path; a 32-layer decoder, hidden 4096, 32 heads / 8 KV
+heads, FFN 14336, vocab 128,256, RoPE theta 5e5). ``TINY_DEBUG`` is the
+self-contained random tiny fixed-grid family that tests use.
 """
 
 from __future__ import annotations
@@ -15,11 +16,14 @@ import torch
 
 from mllm_sparse_retrieval_tpu_torch.configs import ModelConfig, ModelFamily
 from mllm_sparse_retrieval_tpu_torch.models import mllm, templates
+from mllm_sparse_retrieval_tpu_torch.models.anyres import (
+    DEFAULT_GRID_PINPOINTS)
 from mllm_sparse_retrieval_tpu_torch.models.llama import LlamaConfig
 from mllm_sparse_retrieval_tpu_torch.models.mllm import MLLMConfig
 from mllm_sparse_retrieval_tpu_torch.models.templates import PromptTemplate
 from mllm_sparse_retrieval_tpu_torch.models.tokenizer import (
     WordPieceLiteTokenizer)
+from mllm_sparse_retrieval_tpu_torch.models.vit import ViTConfig
 
 
 @dataclass(frozen=True)
@@ -32,15 +36,22 @@ class FamilySpec:
 
 def _llava_next_llama3_arch() -> MLLMConfig:
     return MLLMConfig(
+        vision=ViTConfig(image_size=336, patch_size=14, hidden_size=1024,
+                         num_layers=24, num_heads=16, feature_layer=-2),
         text=LlamaConfig(vocab_size=128256, hidden_size=4096, num_layers=32,
                          num_heads=32, num_kv_heads=8,
                          intermediate_size=14336, rope_theta=500000.0),
-        image_token_id=128256 - 1)
+        image_token_id=128256 - 1,
+        grid_pinpoints=DEFAULT_GRID_PINPOINTS)
 
 
 def tiny_debug_arch(model_cfg: Optional[ModelConfig] = None) -> MLLMConfig:
     m = model_cfg or ModelConfig()
     return MLLMConfig(
+        vision=ViTConfig(
+            image_size=m.tiny_image_size, patch_size=m.tiny_patch_size,
+            hidden_size=m.tiny_hidden_size, num_layers=m.tiny_num_layers,
+            num_heads=m.tiny_num_heads, feature_layer=-2),
         text=LlamaConfig(
             vocab_size=m.tiny_vocab_size, hidden_size=m.tiny_hidden_size,
             num_layers=m.tiny_num_layers, num_heads=m.tiny_num_heads,

@@ -1,0 +1,130 @@
+"""Vision tower: CLIP-style ViT (the JAX package's ``models/vit.py``).
+
+Patch embedding is reshape + matmul (a convolution whose stride equals its
+kernel is a patchwise matmul), so no cuDNN convolution and no TF32 question
+arises. Blocks are pre-LN with ``quick_gelu`` MLPs; the features are the
+hidden states of ``feature_layer`` with the CLS token dropped, LLaVA's
+``vision_feature_layer=-2`` / ``'default'`` select. Attention is the plain
+``layers.attention`` with an all-true mask (T = 577 at 336 px: no kernel).
+
+Only the CLIP tower is built: a CLS token, an MLP 4x wide and ``quick_gelu``
+are fixed. The JAX package's ``act``, ``use_cls_token`` and ``mlp_ratio``
+options take other values only in its Hugging Face converter, which is not
+ported.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict
+
+import torch
+
+from mllm_sparse_retrieval_tpu_torch.models import layers as L
+
+
+@dataclass(frozen=True)
+class ViTConfig:
+    image_size: int = 336
+    patch_size: int = 14
+    hidden_size: int = 1024
+    num_layers: int = 24
+    num_heads: int = 16
+    feature_layer: int = -2       # hidden layer used as image features
+
+    @property
+    def num_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+    @property
+    def seq_len(self) -> int:
+        return self.num_patches + 1  # + CLS
+
+
+def init_params(cfg: ViTConfig, generator: torch.Generator, device="cuda",
+                dtype=torch.bfloat16) -> Dict:
+    """Random weights drawn on ``device`` with the JAX package's scaling
+    (dense N(0, 1/fan_in), position and CLS embeddings N(0, 0.02²), norms
+    scale 1 / bias 0)."""
+    device = torch.device(device)
+
+    def normal(shape, scale):
+        w = torch.randn(shape, generator=generator, device=device,
+                        dtype=dtype)
+        return w.mul_(scale)
+
+    def dense_init(fan_in, fan_out):
+        return {"w": normal((fan_in, fan_out), 1.0 / math.sqrt(fan_in))}
+
+    def ln_init(dim):
+        return {"scale": torch.ones(dim, device=device, dtype=dtype),
+                "bias": torch.zeros(dim, device=device, dtype=dtype)}
+
+    h, m = cfg.hidden_size, cfg.hidden_size * 4
+    params = {
+        "patch_embed": dense_init(cfg.patch_size * cfg.patch_size * 3, h),
+        "pos_embed": normal((cfg.seq_len, h), 0.02),
+        "pre_ln": ln_init(h),
+        "blocks": [],
+        "cls_token": normal((h,), 0.02),
+    }
+    for _ in range(cfg.num_layers):
+        params["blocks"].append({
+            "ln1": ln_init(h), "qkv": dense_init(h, 3 * h),
+            "out": dense_init(h, h), "ln2": ln_init(h),
+            "fc1": dense_init(h, m), "fc2": dense_init(m, h)})
+    return params
+
+
+def patchify(pixel_values: torch.Tensor, patch: int) -> torch.Tensor:
+    """``[B, H, W, 3] -> [B, P, patch*patch*3]`` without convolution."""
+    b, h, w, c = pixel_values.shape
+    gh, gw = h // patch, w // patch
+    x = pixel_values.reshape(b, gh, patch, gw, patch, c)
+    x = x.permute(0, 1, 3, 2, 4, 5)  # [B, gh, gw, p, p, c]
+    return x.reshape(b, gh * gw, patch * patch * c)
+
+
+def _quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
+def _block(x, p, num_heads: int):
+    b, t, h = x.shape
+    dh = h // num_heads
+    y = L.layernorm(x, p["ln1"])
+    q, k, v = L.dense(y, p["qkv"]).chunk(3, dim=-1)
+    q = q.reshape(b, t, num_heads, dh)
+    k = k.reshape(b, t, num_heads, dh)
+    v = v.reshape(b, t, num_heads, dh)
+    mask = torch.ones((b, 1, t, t), dtype=torch.bool, device=x.device)
+    attn = L.attention(q, k, v, mask).reshape(b, t, h)
+    x = x + L.dense(attn, p["out"])
+    y = L.layernorm(x, p["ln2"])
+    y = _quick_gelu(L.dense(y, p["fc1"]))
+    return x + L.dense(y, p["fc2"])
+
+
+@torch.no_grad()
+def apply(params: Dict, pixel_values: torch.Tensor,
+          cfg: ViTConfig) -> torch.Tensor:
+    """Patch features ``[B, num_patches, hidden]`` from ``feature_layer``.
+
+    ``pixel_values``: ``[B, H, W, 3]`` float, already normalised on the host.
+    Every layer runs, as in the JAX package, though the last one's output is
+    not read at ``feature_layer=-2``.
+    """
+    x = patchify(pixel_values.to(params["patch_embed"]["w"].dtype),
+                 cfg.patch_size)
+    x = L.dense(x, params["patch_embed"])
+    cls = params["cls_token"].expand(x.shape[0], 1, cfg.hidden_size)
+    x = torch.cat([cls, x], dim=1)
+    x = x + params["pos_embed"][None]
+    x = L.layernorm(x, params["pre_ln"])
+    keep = range(len(params["blocks"]))[cfg.feature_layer]
+    for i, blk in enumerate(params["blocks"]):
+        x = _block(x, blk, cfg.num_heads)
+        if i == keep:
+            feats = x
+    return feats[:, 1:]  # drop CLS: LLaVA 'default' feature select

@@ -1,11 +1,13 @@
-"""Text query encoding with device term selection (the JAX package's
-``pipelines/encode.py``, the parts the online text path runs).
+"""Query encoding with device term selection (the JAX package's
+``pipelines/encode.py``, the parts the online text and image paths run).
 
-``make_text_ds_encode`` returns a plain function (PyTorch runs eagerly; the
-JAX package jits the same body) that runs the tower, selects terms on the
-device and packs everything the host needs into ONE int32 tensor, plus the
-``unpack_blocks`` spec for it. ``resolve_text_ds_rows`` turns the unpacked
-blocks into ``SelectedTerms`` by the reference's per-caption rule.
+``make_text_ds_encode`` / ``make_image_ds_encode`` return a plain function
+(PyTorch runs eagerly; the JAX package jits the same body) that runs the
+model, selects terms on the device and packs everything the host needs into
+ONE int32 tensor, plus the ``unpack_blocks`` spec for it.
+``resolve_text_ds_rows`` / ``resolve_image_ds_rows`` turn the unpacked
+blocks into ``SelectedTerms`` by the reference's per-caption / per-image
+rule.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from mllm_sparse_retrieval_tpu_torch.models.anyres import (  # noqa: F401
+    CLIP_MEAN, CLIP_STD)
 from mllm_sparse_retrieval_tpu_torch.models.api import encode_any
 from mllm_sparse_retrieval_tpu_torch.models.reps import normalize
 from mllm_sparse_retrieval_tpu_torch.ops.packing import pack_blocks
@@ -60,6 +64,58 @@ def make_text_ds_encode(arch, reps_loc, k_text_full: int, exp_k: int):
         return spec + [(hidden, True)]
 
     return _fn, _spec
+
+
+def make_image_ds_encode(arch, reps_loc, k_image: int, exp_k: int):
+    """Image counterpart of ``make_text_ds_encode``: ``fn(params, ids, mask,
+    pixels, fmask)`` packs (full-vocab top-k [+ expansion top-k],
+    L2-normalized dense); ``spec_fn()`` is shape-static (image selection has
+    no candidate set: the reference takes the top ``sparse_length`` vocab
+    terms). ``pixels`` is a pixel tensor or the anyres dict."""
+    hidden = arch.text.hidden_size
+
+    @torch.no_grad()
+    def _fn(p, ids, mask, pixels, fmask):
+        sparse, dense = encode_any(p, arch, ids, mask, pixels, reps_loc)
+        with record_function("term_select"):
+            fv, fi = vocab_topk(sparse, k_image)
+            blocks = [(fv, True), (fi, False)]
+            if fmask is not None:
+                ev, ei = filtered_topk(sparse, fmask, exp_k + k_image)
+                blocks += [(ev, True), (ei, False)]
+            return pack_blocks(blocks + [(normalize(dense), True)])
+
+    def _spec():
+        vocab = arch.text.vocab_size
+        ki = min(k_image, vocab)
+        spec = [(ki, True), (ki, False)]
+        if exp_k > 0:
+            ew = min(exp_k + k_image, vocab)
+            spec += [(ew, True), (ew, False)]
+        return spec + [(hidden, True)]
+
+    return _fn, _spec
+
+
+def resolve_image_ds_rows(parts, valid: int, sparse_cfg
+                          ) -> List[SelectedTerms]:
+    """SelectedTerms rows from the unpacked ``make_image_ds_encode`` output
+    (``parts`` INCLUDING the trailing dense block): top-k vocab terms,
+    optional expansion terms excluding the selected top-k ids."""
+    exp_k = sparse_cfg.num_expanded_tokens
+    fv, fi = parts[0], parts[1]
+    exp = (parts[2], parts[3]) if len(parts) == 5 else None
+    out: List[SelectedTerms] = []
+    for b in range(valid):
+        t_ids, t_vals = fi[b], fv[b]
+        if exp is not None:
+            # image expansion excludes the selected top-k ids
+            t_ids, t_vals = expand_terms(
+                t_ids, t_vals, t_ids, (exp[0][b], exp[1][b]), exp_k)
+        out.append(SelectedTerms(
+            t_ids.astype(np.int32),
+            quantize_weights(t_vals, sparse_cfg.quantization_scale)))
+    return out
 
 
 def expand_terms(t_ids, t_vals, excl_ids, exp_row, exp_k: int):

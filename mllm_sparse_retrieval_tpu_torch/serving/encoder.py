@@ -1,11 +1,13 @@
-"""Online query encoder: raw text -> (dense rep, SelectedTerms) on the card.
+"""Online query encoder: raw text or image -> (dense rep, SelectedTerms) on
+the card.
 
-The same encode math as the offline pipeline — the same function factory and
-row-resolve helper (``pipelines.encode.make_text_ds_encode`` /
-``resolve_text_ds_rows``) — repackaged for serving: every request batch is
-padded to ONE fixed ``(batch, text_len, candidates)`` shape, as in the JAX
-package, so a query's terms do not depend on how requests were batched.
-Image queries wait for the image-query slice.
+The same encode math as the offline pipeline — the same function factories
+and row-resolve helpers (``pipelines.encode.make_{text,image}_ds_encode`` /
+``resolve_{text,image}_ds_rows``) — repackaged for serving: every request
+batch is padded to ONE fixed shape, as in the JAX package, so a query's
+terms do not depend on how requests were batched. Anyres image prompts are
+padded to the family's longest prompt, rounded up to a multiple of 512 once
+it reaches ``FLASH_MIN_SEQ`` so that the decoder takes the flash kernel.
 """
 
 from __future__ import annotations
@@ -16,9 +18,13 @@ import numpy as np
 import torch
 
 from mllm_sparse_retrieval_tpu_torch.configs import RepsLoc
+from mllm_sparse_retrieval_tpu_torch.models.anyres import resize_bicubic
+from mllm_sparse_retrieval_tpu_torch.models.api import image_input_spec
+from mllm_sparse_retrieval_tpu_torch.models.layers import FLASH_MIN_SEQ
 from mllm_sparse_retrieval_tpu_torch.ops.packing import unpack_blocks
 from mllm_sparse_retrieval_tpu_torch.pipelines.encode import (
-    make_text_ds_encode, resolve_text_ds_rows)
+    CLIP_MEAN, CLIP_STD, make_image_ds_encode, make_text_ds_encode,
+    resolve_image_ds_rows, resolve_text_ds_rows)
 from mllm_sparse_retrieval_tpu_torch.sparse.term_selection import (
     get_filtered_ids, text_candidate_ids)
 
@@ -28,10 +34,10 @@ def _round_up(x: int, m: int) -> int:
 
 
 class OnlineQueryEncoder:
-    """Text-query encoder over one fixed padded shape.
+    """Text- and image-query encoder over fixed padded shapes.
 
-    ``encode_texts`` is not thread-safe by itself; the service calls it from
-    the micro-batcher's single dispatcher thread. Texts longer than
+    ``encode_texts`` / ``encode_images`` are not thread-safe by themselves;
+    the service calls them from the micro-batcher's single dispatcher thread. Texts longer than
     ``max_text_len`` tokens are truncated; queries with more than
     ``max_candidates`` distinct candidate tokens raise.
     """
@@ -63,6 +69,7 @@ class OnlineQueryEncoder:
             fm = np.zeros(arch.text.vocab_size, bool)
             fm[get_filtered_ids(tokenizer.get_vocab())] = True
             self._fmask = torch.from_numpy(fm).to(self.device)
+        self._img = None     # lazy image-path state (dict)
 
     def encode_texts(self, texts: Sequence[str], pad_to: Optional[int] = None
                      ) -> Tuple[np.ndarray, List]:
@@ -100,5 +107,93 @@ class OnlineQueryEncoder:
         parts = unpack_blocks(packed.cpu().numpy(), self._spec)
         terms = resolve_text_ds_rows(parts, n, cand_ids, cand_mask,
                                      self.sparse_cfg)
+        dense = np.asarray(parts[-1], np.float32)[:n]
+        return dense, terms
+
+    # ---- image queries -----------------------------------------------------
+
+    def _image_state(self) -> dict:
+        """Lazy image-path state: the encode function, its unpack spec, and
+        the family's prompt and pixel plumbing. Variable (anyres) families
+        pad every prompt to the family's longest one, so one shape serves
+        every grid."""
+        if self._img is not None:
+            return self._img
+        spec = image_input_spec(self.arch)
+        k_image = (self.sparse_cfg.sparse_length
+                   if self.sparse_cfg.sparse_manual else 128)
+        fn, spec_fn = make_image_ds_encode(
+            self.arch, self.reps_loc, k_image,
+            self.sparse_cfg.num_expanded_tokens)
+        st = {"spec": spec, "fn": fn, "unpack": spec_fn()}
+        if spec.variable:
+            base = self.template.image_prompt()
+            fixed_len = len(self.tokenizer.encode(
+                self.template.expand_image(base, spec.max_image_tokens)))
+            if fixed_len >= FLASH_MIN_SEQ:
+                fixed_len = _round_up(fixed_len, 512)
+            st["base_prompt"] = base
+            st["fixed_len"] = fixed_len
+        else:
+            prompt = self.template.expand_image(
+                self.template.image_prompt(), spec.num_image_tokens)
+            st["row"] = self.tokenizer.encode(prompt)
+        self._img = st
+        return st
+
+    def _fixed_pixels(self, spec, raw: np.ndarray) -> np.ndarray:
+        """Raw [H, W, 3] float in [0, 1] -> the fixed family's pixel layout:
+        resized to the square input size (uint8 round trip through the
+        PIL-equal bicubic resample when the size differs), CLIP-normalised,
+        ``spec.preprocess``."""
+        s = spec.image_size
+        raw = np.asarray(raw, np.float32)
+        if raw.ndim != 3 or raw.shape[2] != 3:
+            raise ValueError(f"image must be [H, W, 3], got {raw.shape}")
+        if raw.shape[:2] != (s, s):
+            u8 = np.clip(raw * 255.0, 0, 255).astype(np.uint8)
+            raw = resize_bicubic(u8, (s, s)).astype(np.float32) / 255.0
+        return spec.preprocess((raw - CLIP_MEAN) / CLIP_STD)
+
+    def image_inputs(self, images: Sequence[np.ndarray], pad_to: int):
+        """Device inputs ``(ids, mask, pixels)`` of one fixed-shape image
+        batch: the host preprocessing of ``encode_images``. Pad rows repeat
+        the last image. ``pixels`` is a tensor, or the anyres dict."""
+        n, b = len(images), int(pad_to)
+        if n == 0 or n > b:
+            raise ValueError(f"got {n} images for a batch of {b}")
+        st = self._image_state()
+        spec = st["spec"]
+        if spec.variable:
+            vitems = [spec.preprocess_example(np.asarray(im, np.float32))
+                      for im in images]
+            vitems += [vitems[-1]] * (b - n)
+            rows = [self.tokenizer.encode(self.template.expand_image(
+                st["base_prompt"], nt)) for _, nt in vitems]
+            ids, mask = self.tokenizer.pad_batch(
+                rows, max_len=st["fixed_len"], pad_to_multiple=16)
+            pixels = spec.batch_vision([item for item, _ in vitems])
+            d_px = {k: torch.from_numpy(v).to(self.device)
+                    for k, v in pixels.items()}
+        else:
+            px = [self._fixed_pixels(spec, im) for im in images]
+            px += [px[-1]] * (b - n)
+            ids, mask = self.tokenizer.pad_batch([st["row"]] * b,
+                                                 pad_to_multiple=16)
+            d_px = torch.from_numpy(np.stack(px)).to(self.device)
+        return (torch.from_numpy(ids).to(self.device).long(),
+                torch.from_numpy(mask).to(self.device), d_px)
+
+    def encode_images(self, images: Sequence[np.ndarray],
+                      pad_to: Optional[int] = None) -> Tuple[np.ndarray, List]:
+        """Encode raw images ([H, W, 3] float in [0, 1], any resolution) in
+        one fixed-shape call; same return contract as ``encode_texts``. Pad
+        rows never resolve."""
+        n = len(images)
+        st = self._image_state()
+        d_ids, d_mask, d_px = self.image_inputs(images, pad_to or n)
+        packed = st["fn"](self.params, d_ids, d_mask, d_px, self._fmask)
+        parts = unpack_blocks(packed.cpu().numpy(), st["unpack"])
+        terms = resolve_image_ds_rows(parts, n, self.sparse_cfg)
         dense = np.asarray(parts[-1], np.float32)[:n]
         return dense, terms

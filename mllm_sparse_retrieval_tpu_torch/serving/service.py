@@ -1,6 +1,6 @@
 """Transport-free retrieval service, sparse mode: validated queries ->
 micro-batched device calls (the JAX package's ``serving/service.py``, the
-sparse engine with live text encoding).
+sparse engine with live text and image encoding).
 
 Concurrent single queries coalesce in a :class:`MicroBatcher` into one
 encode + search per micro-batch. Depths are quantized up to fixed levels
@@ -27,11 +27,12 @@ TermsLike = Union[Mapping[object, float], Sequence[Tuple[object, float]]]
 @dataclass(frozen=True)
 class QueryRequest:
     """One validated query: ``terms`` keyed by the impact index's key space,
-    or raw ``text`` (needs a ``query_encoder``), and the requested
-    ``depth``."""
+    or raw ``text`` or ``image`` (needs a ``query_encoder``), and the
+    requested ``depth``."""
     terms: Optional[Dict[object, float]]
     depth: int
     text: Optional[str] = None
+    image: Optional[np.ndarray] = None   # raw [H, W, 3] float in [0, 1]
 
 
 class RetrievalService:
@@ -73,16 +74,18 @@ class RetrievalService:
     # ---- public API ----------------------------------------------------------
     def search_async(self, terms: Optional[TermsLike] = None,
                      depth: Optional[int] = None,
-                     text: Optional[str] = None) -> Future:
-        return self._batcher.submit(self._validate(terms, depth, text))
+                     text: Optional[str] = None, image=None) -> Future:
+        return self._batcher.submit(self._validate(terms, depth, text,
+                                                   image))
 
     def search(self, terms: Optional[TermsLike] = None,
                depth: Optional[int] = None, text: Optional[str] = None,
-               timeout: Optional[float] = 60.0):
+               image=None, timeout: Optional[float] = 60.0):
         """Blocking single query -> list of ``(doc_id, score)``,
-        score-descending, at most ``depth`` entries. Give ``text`` (encoded
-        live; needs a ``query_encoder``) or explicit ``terms``."""
-        return self.search_async(terms, depth, text).result(timeout)
+        score-descending, at most ``depth`` entries. Give ``text`` or
+        ``image`` (a raw ``[H, W, 3]`` float array in [0, 1], any size;
+        encoded live, needs a ``query_encoder``) or explicit ``terms``."""
+        return self.search_async(terms, depth, text, image).result(timeout)
 
     def stats(self) -> Dict[str, float]:
         s = self._batcher.stats()
@@ -102,21 +105,28 @@ class RetrievalService:
                                 self.query_encoder.sparse_cfg.is_filtered)
 
     # ---- validation (caller thread) ------------------------------------------
-    def _validate(self, terms, depth, text=None) -> QueryRequest:
+    def _validate(self, terms, depth, text=None, image=None) -> QueryRequest:
         depth = self.default_depth if depth is None else int(depth)
         if depth < 1 or depth > self.depth_levels[-1]:
             raise ValueError(f"depth must be in [1, {self.depth_levels[-1]}],"
                              f" got {depth}")
-        if text is not None:
+        if text is not None or image is not None:
             if self.query_encoder is None:
-                raise ValueError("text queries need a query_encoder")
+                raise ValueError("text/image queries need a query_encoder")
             if terms is not None:
-                raise ValueError("give text OR terms, not both")
-            if not isinstance(text, str) or not text.strip():
-                raise ValueError("text must be a non-empty string")
-            return QueryRequest(None, depth, text)
+                raise ValueError("give text/image OR terms, not both")
+            if text is not None and image is not None:
+                raise ValueError("give text OR image, not both")
+            if text is not None:
+                if not isinstance(text, str) or not text.strip():
+                    raise ValueError("text must be a non-empty string")
+                return QueryRequest(None, depth, text)
+            img = np.asarray(image, np.float32)
+            if img.ndim != 3 or img.shape[2] != 3:
+                raise ValueError(f"image must be [H, W, 3], got {img.shape}")
+            return QueryRequest(None, depth, None, img)
         if terms is None:
-            raise ValueError("mode='sparse' requires terms or text")
+            raise ValueError("mode='sparse' requires terms, text or image")
         pairs = terms.items() if isinstance(terms, Mapping) else terms
         t: Dict[object, float] = {}
         for k, w in pairs:
@@ -131,17 +141,26 @@ class RetrievalService:
         need = max(r.depth for r in reqs)
         return self.depth_levels[bisect.bisect_left(self.depth_levels, need)]
 
-    def _encode_text_requests(self, reqs: List[QueryRequest]) -> None:
-        """Replace text requests with their encoded terms — ONE fixed-shape
-        encode call for the whole micro-batch."""
-        sel = [i for i, r in enumerate(reqs) if r.text is not None]
-        if not sel:
-            return
-        _, terms_rows = self.query_encoder.encode_texts(
-            [reqs[i].text for i in sel], pad_to=self.device_batch)
-        for j, i in enumerate(sel):
-            reqs[i] = replace(reqs[i], text=None,
-                              terms=self._terms_dict(terms_rows[j]))
+    def _encode_media_requests(self, reqs: List[QueryRequest]) -> None:
+        """Replace text- and image-carrying requests with their encoded
+        terms — ONE fixed-shape encode call per modality for the whole
+        micro-batch."""
+        for sel, encode in (
+            ([i for i, r in enumerate(reqs) if r.text is not None],
+             lambda xs: self.query_encoder.encode_texts(
+                 xs, pad_to=self.device_batch)),
+            ([i for i, r in enumerate(reqs) if r.image is not None],
+             lambda xs: self.query_encoder.encode_images(
+                 xs, pad_to=self.device_batch)),
+        ):
+            if not sel:
+                continue
+            _, terms_rows = encode(
+                [reqs[i].text if reqs[i].text is not None else reqs[i].image
+                 for i in sel])
+            for j, i in enumerate(sel):
+                reqs[i] = replace(reqs[i], text=None, image=None,
+                                  terms=self._terms_dict(terms_rows[j]))
 
     def _terms_dict(self, st) -> Dict[object, float]:
         """SelectedTerms -> term dict in the index's id key space, folding
@@ -160,7 +179,7 @@ class RetrievalService:
         return out
 
     def _run_batch(self, reqs: List[QueryRequest]):
-        self._encode_text_requests(reqs)
+        self._encode_media_requests(reqs)
         return self._run_uniform(reqs)
 
     def _run_uniform(self, reqs: List[QueryRequest]):

@@ -1,6 +1,6 @@
 """The PyTorch port and ``chip_smoke.py`` import nothing of JAX and nothing
-of the JAX package, and the smoke check refuses to report a result without
-a card."""
+of the JAX package (nor Pillow, which the card machine lacks), and the smoke
+check refuses to report a result without a card."""
 
 import os
 import re
@@ -54,6 +54,20 @@ def test_no_import_statement_names_jax_or_the_jax_package():
     hits = [f"{f}: {m.group(0).strip()}" for f in files
             for m in pattern.finditer(f.read_text())]
     assert hits == []
+
+
+def test_port_imports_no_pillow():
+    script = _BLOCK_AND_IMPORT.replace(
+        "('jax', 'jaxlib', 'mllm_sparse_retrieval_tpu')",
+        "('jax', 'jaxlib', 'mllm_sparse_retrieval_tpu', 'PIL')")
+    assert script != _BLOCK_AND_IMPORT
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                          env=_env(), capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    pattern = re.compile(r"^\s*(import|from)\s+PIL\b", re.MULTILINE)
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert [f for f in files if pattern.search(f.read_text())] == []
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
