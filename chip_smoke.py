@@ -5,20 +5,23 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the port's two CUDA kernels from ``csrc/`` (one plain ``nvcc``
-call each, started together), holds each against its plain PyTorch version
-at the shapes the served paths give it (the TAAT kernel also at the
-benchmark shape), and serves text and image queries end to end through the
-port's ``RetrievalService`` on the full-width, full-depth
+It builds the port's CUDA kernels from ``csrc/`` (one plain ``nvcc`` call
+per source, all started together) and holds each against its plain PyTorch
+version at the shapes the port's paths give it: the TAAT kernel at the
+served and the benchmark shapes, the flash-attention forward at the served
+image shape and the dq and dkv backward kernels at the training shape. Then
+it drives the port's three paths end to end on the full-width, full-depth
 LLaVA-NeXT-Llama3-8B (bf16 weights drawn on the card from a seed): text
-queries through the 32-layer text tower; image queries through anyres
-preprocessing, the 24-layer ViT-L/14-336 on five 336 px tiles, the
-projector and the 3,072-token decoder, whose attention is the flash kernel.
-Both paths select terms on the device and score an impact index of 25,010
-synthetic docs with the TAAT kernel; every served result must equal the
-matmul backend's on the same terms. The whole tower is also run with the
-flash kernel and with plain attention on a 2-image batch, and the two
-representations compared.
+queries through ``RetrievalService`` and the 32-layer text tower; image
+queries through anyres preprocessing, the 24-layer ViT-L/14-336 on five
+336 px tiles, the projector and the 3,072-token decoder, whose attention is
+the flash kernel (both paths select terms on the device and score an impact
+index of 25,010 synthetic docs with the TAAT kernel; every served result
+must equal the matmul backend's on the same terms); and contrastive LoRA
+training, a few ``ContrastiveTrainer.train_on_batch`` steps on seeded
+image-caption pairs whose 3,072-token image prompts take the flash kernels
+forward and backward. The whole tower is also run, and differentiated,
+with the flash kernels and with plain attention, and the two compared.
 
 Each phase prints one progress line with the seconds since start. The last
 lines are a JSON object describing the kernels, the card's name and power
@@ -53,7 +56,9 @@ WARMUP_TIMEOUT_S, REQUEST_TIMEOUT_S, SERVE_DEADLINE_S = 60, 30, 60
 STAGES = ("vision", "tower", "attention", "lm_head",
           "term_select")        # profiler ranges of encode
 # flash kernel at the served image shape: 8 prompts of 3,072 tokens, 32 q-
-# and 8 kv-heads of 128, compared at the non-pad positions. Both sides take
+# and 8 kv-heads of 128, compared at every query that has a real key at or
+# before it (pad queries of a prompt included; an all-pad row must give
+# exactly 0 on both sides). Both sides take
 # bf16 and give bf16: each rounds its probabilities (the kernel unnormalised,
 # the plain version normalised) and its output to bf16, unit roundoff 2^-8.
 # So each element lies within FLASH_RTOL * (|ref| + sum_s p_s |v_s|) of the
@@ -73,6 +78,29 @@ IMAGE_REQUEST_TIMEOUT_S, IMAGE_DEADLINE_S = 120, 240
 # layers of random weights: the dense reps must stay this close (the H100
 # gave a min cosine of 0.99989 in every run, so 1 - cos has 9x headroom)
 TOWER_CHECK_B, DENSE_COS_FLOOR = 2, 0.999
+# the forward's log-sum-exp against torch.logsumexp of the plain f32 logits
+# (the same bf16 inputs, f32 sums in another order): within
+# LSE_RTOL * (1 + |ref|), +inf where a query has no admissible key
+LSE_RTOL = 1e-4
+# the backward kernels at the training shape (TRAIN_B prompts of 3,072
+# tokens, one all-pad). Both sides round P to bf16 before a product and each
+# gradient at the end; the plain version also rounds dP to bf16, the kernels
+# round dS and form di from the bf16 output. Each rounding moves a gradient
+# by at most 2^-8 times the magnitudes of the terms it sums
+# (FA.flash_bwd_magnitudes), di's up to twice that: every element lies
+# within BWD_RTOL * (|ref| + magnitude) of the plain one, and the mean abs
+# err under BWD_RTOL * mean |ref| (2^-8 of the mean magnitude where a
+# gradient cancels to 0)
+BWD_RTOL = 2.0 ** -6
+# training: LoRA rank 8 / alpha 16 on the seven text targets, dropout 0.1,
+# tau 0.05, remat, TRAIN_B image-caption pairs a step
+TRAIN_B, TRAIN_STEPS, TRAIN_LR = 4, 4, 1e-4
+LORA_RANK, LORA_ALPHA, LORA_DROPOUT, TAU = 8, 16, 0.1, 0.05
+# whole-model gradient, flash kernels against plain attention, at B=2 and
+# no dropout (after the training steps, so every adapter gradient is live):
+# the cosine of the concatenated adapter gradients. bf16 through 32 layers
+# forward and back; the H100 gave 0.999646, so 1 - cos has 11x headroom
+GRAD_CHECK_B, GRAD_COS_FLOOR = 2, 0.996
 
 
 def progress(phase: str, msg: str) -> None:
@@ -234,7 +262,7 @@ def build_kernels():
     from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
     from mllm_sparse_retrieval_tpu_torch.ops import impact_kernel as K
 
-    sources = (K.SOURCE, FA.SOURCE)
+    sources = (K.SOURCE, FA.SOURCE, FA.BWD_SOURCE)
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(sources)) as pool:
         results = list(pool.map(
@@ -243,51 +271,127 @@ def build_kernels():
         regs = [ln.strip() for ln in msgs.splitlines() if "registers" in ln]
         progress("build", f"{src}: nvcc {build_s:.2f}s -> {so.name}; "
                  + ("; ".join(regs) if regs else "already built"))
-    progress("build", f"both kernels in {time.monotonic() - t0:.2f}s")
+    progress("build", f"all {len(sources)} sources in "
+             f"{time.monotonic() - t0:.2f}s")
 
 
-def flash_bound(mask, hq, hkv, dh):
-    """Least time the card could take for one flash call on these inputs:
-    q, k, v, out and the mask moved once, against the multiply-adds of the
-    two products over the admissible (causal, same-segment) pairs — the
-    pad rows of each prompt attend among themselves."""
-    b, t = mask.shape
-    real = mask.sum(dim=1).tolist()
-    pairs = sum(n * (n + 1) // 2 + (t - n) * (t - n + 1) // 2 for n in real)
-    ops = 4 * hq * dh * pairs
-    nbytes = b * t * dh * 2 * (2 * hq + 2 * hkv) + b * t * 4
+def admissible_pairs(mask) -> int:
+    """(query, key) pairs the key-mask rule admits: for a right-padded row
+    of ``n`` real tokens, query ``t`` sees ``min(t + 1, n)`` keys."""
+    t = mask.shape[1]
+    return sum(n * (n + 1) // 2 + (t - n) * n
+               for n in mask.sum(dim=1).tolist())
+
+
+def bound(ops, nbytes):
+    """(least ms for ``ops`` bf16 tensor-core operations and ``nbytes`` of
+    device memory traffic, which of the two bounds it)."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops) * 1e3, by
 
 
+def flash_bound(mask, hq, hkv, dh):
+    """Least time the card could take for one flash forward on these
+    inputs: q, k, v, out and the mask moved once, against the multiply-adds
+    of the two products over the admissible pairs."""
+    b, t = mask.shape
+    ops = 4 * hq * dh * admissible_pairs(mask)
+    nbytes = b * t * dh * 2 * (2 * hq + 2 * hkv) + b * t * 4
+    return bound(ops, nbytes)
+
+
+def bwd_bound(mask, hq, hkv, dh, products, out_heads):
+    """Least time for one backward kernel: ``products`` 128-deep products
+    per admissible pair and head (dq: S, dP, dQ; dkv: S, dP, dV, dK), q, k,
+    v, dout, lse, di and the mask read once, ``out_heads`` heads of
+    gradient written once."""
+    b, t = mask.shape
+    ops = 2 * products * hq * dh * admissible_pairs(mask)
+    nbytes = (b * t * dh * 2 * (2 * hq + 2 * hkv + out_heads)
+              + 2 * b * hq * t * 4 + b * t * 4)
+    return bound(ops, nbytes)
+
+
+def has_key(mask):
+    """[B, T] bool: the query has a real key at or before it."""
+    return mask.bool().cumsum(dim=1) > 0
+
+
 def flash_errors(got, ref, ref_abs, mask):
     """Max and mean abs error of the kernel's output ``got`` against the
-    plain version's ``ref`` at the non-pad positions, and the share of each
-    limit they use (see ``FLASH_RTOL``; ``ref_abs`` is the plain version on
-    ``|v|``); raises past a limit or on a non-finite output."""
+    plain version's ``ref`` at every query with a real key at or before it,
+    and the share of each limit they use (see ``FLASH_RTOL``; ``ref_abs`` is
+    the plain version on ``|v|``); raises past a limit, on a non-finite
+    output, or unless both give exactly 0 where a query has no key."""
     import torch
 
     torch.cuda.synchronize()
-    real = mask.bool()
+    rows = has_key(mask)
     finite = bool(torch.isfinite(got.float()).all())
-    diff = (got.float() - ref.float()).abs()[real]
-    ref, ref_abs = ref.float().abs()[real], ref_abs.float()[real]
+    zeros = bool((got[~rows] == 0).all()) and bool((ref[~rows] == 0).all())
+    diff = (got.float() - ref.float()).abs()[rows]
+    ref, ref_abs = ref.float().abs()[rows], ref_abs.float()[rows]
     used = float((diff / (FLASH_RTOL * (ref + ref_abs))).max())
     mean_used = float(diff.mean() / (FLASH_RTOL * ref.mean()))
     err, mean_err = float(diff.max()), float(diff.mean())
-    if not finite or used > 1 or mean_used > 1:
+    if not finite or not zeros or used > 1 or mean_used > 1:
         raise AssertionError(
             f"flash kernel differs from the plain version: max abs err {err} "
             f"({used:.3g} of its element tolerance), mean abs err {mean_err} "
-            f"({mean_used:.3g} of its limit), finite {finite}")
+            f"({mean_used:.3g} of its limit), finite {finite}, zero rows "
+            f"without a key {zeros}")
     return err, mean_err, used, mean_used
 
 
+def lse_error(lse, q, k, mask):
+    """Largest share of ``LSE_RTOL * (1 + |ref|)`` that the forward's
+    log-sum-exp uses against ``torch.logsumexp`` of the plain f32 logits
+    (one kv-head group at a time); raises unless it is within the limit and
+    +inf exactly where a query has no admissible key."""
+    import torch
+
+    b, t, hq, dh = q.shape
+    hkv = k.shape[2]
+    rep = hq // hkv
+    pos = torch.arange(t, device=q.device)
+    ok = (pos[:, None] >= pos[None, :])[None, None] \
+        & mask.bool()[:, None, None, :]
+    rows = has_key(mask)[:, None, :].expand(-1, rep, -1)
+    used, inf_ok = 0.0, True
+    for g in range(hkv):
+        logits = torch.einsum("btgd,bsd->bgts",
+                              q[:, :, g * rep:(g + 1) * rep].float(),
+                              k[:, :, g].float()) * dh ** -0.5
+        ref = torch.logsumexp(logits.masked_fill_(~ok, float("-inf")), -1)
+        got = lse[:, g * rep:(g + 1) * rep]
+        diff = (got[rows] - ref[rows]).abs()
+        used = max(used, float((diff / (LSE_RTOL * (1 + ref[rows].abs())))
+                               .max()))
+        inf_ok &= bool((got[~rows] == float("inf")).all())
+        del logits, ref
+    if not inf_ok or not used <= 1:
+        raise AssertionError(f"flash log-sum-exp: {used:.3g} of its "
+                             f"tolerance, +inf without a key {inf_ok}")
+    return used
+
+
+def allowed_mask(mask):
+    """``[B, 1, T, T]`` boolean attend mask of the key-mask rule (for
+    ``scaled_dot_product_attention``)."""
+    import torch
+
+    t = mask.shape[1]
+    pos = torch.arange(t, device=mask.device)
+    return ((pos[:, None] >= pos[None, :])[None]
+            & mask.bool()[:, None, :])[:, None]
+
+
 def phase_flash(lengths, seq):
-    """The flash kernel at the served image shape against its plain version
-    (compared at the non-pad positions), its time, the plain version's and
-    that of ``scaled_dot_product_attention`` with the same boolean mask."""
+    """The flash forward kernel at the served image shape against its plain
+    version (compared at every query with a real key at or before it), its
+    log-sum-exp, its time, the plain version's and that of
+    ``scaled_dot_product_attention`` with the same boolean mask."""
     import torch
     import torch.nn.functional as F
 
@@ -304,34 +408,153 @@ def phase_flash(lengths, seq):
     ref = FA.flash_causal_attention_plain(q, k, v, mask)
     err, mean_err, used, mean_used = flash_errors(
         got, ref, FA.flash_causal_attention_plain(q, k, v.abs(), mask), mask)
+    out, lse = FA.flash_causal_attention_lse(q, k, v, mask)
+    if not torch.equal(out, got):
+        raise AssertionError("the forward with lse differs from the one "
+                             "without")
+    lse_used = lse_error(lse, q, k, mask)
+    del out, lse
     ms = device_ms(lambda: FA.flash_causal_attention(q, k, v, mask), 20)
     plain_ms = device_ms(
         lambda: FA.flash_causal_attention_plain(q, k, v, mask), 3)
-    pos = torch.arange(seq, device=DEVICE)
-    allowed = ((pos[:, None] >= pos[None, :])[None]
-               & (mask[:, :, None] == mask[:, None, :]))[:, None]
+    allowed = allowed_mask(mask)
     qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
 
     def library():
         return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=allowed,
                                               enable_gqa=True)
 
+    rows = has_key(mask)
     lib_err = float((library().transpose(1, 2).float()
-                     - ref.float()).abs()[mask.bool()].max())
+                     - ref.float()).abs()[rows].max())
     library_ms = device_ms(library, 5)
     bound_ms, bound_by = flash_bound(mask, hq, hkv, dh)
     progress("flash", f"B={b} T={seq} Hq={hq} Hkv={hkv} Dh={dh} bf16, real "
              f"lengths {list(lengths)}: max abs err {err:.3g}, mean abs "
-             f"err {mean_err:.3g} at the non-pad positions, all finite; "
-             f"largest share of the element tolerance {used:.3f}, mean err "
-             f"share of its limit {mean_used:.3f}; kernel {ms:.4f} ms, plain "
+             f"err {mean_err:.3g} at every query with a key, all finite, 0 "
+             f"where none; largest share of the element tolerance "
+             f"{used:.3f}, mean err share of its limit {mean_used:.3f}; lse "
+             f"share of its limit {lse_used:.3f}; kernel {ms:.4f} ms, plain "
              f"{plain_ms:.4f} ms, SDPA (boolean mask, GQA) "
              f"{library_ms:.4f} ms (max abs err vs plain {lib_err:.3g}), "
              f"bound {bound_ms:.4f} ms ({bound_by})")
     del q, k, v, got, ref, allowed, qh, kh, vh
     torch.cuda.empty_cache()
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                elem_share=used, mean_share=mean_used, lse_share=lse_used)
+
+
+def event_ms(fn, iters: int, warmup: int = 1) -> float:
+    """Mean device time of ``fn`` between two CUDA events over ``iters``
+    calls (for work that a CUDA graph cannot capture, such as autograd)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def grad_errors(got, ref, mag):
+    """(max abs err, mean abs err, largest share of the element limit, share
+    of the mean limit) of one gradient against the plain backward's (see
+    ``BWD_RTOL``)."""
+    got, ref = got.float(), ref.float()
+    diff = (got - ref).abs()
+    used = float((diff / (BWD_RTOL * (ref.abs() + mag))).nan_to_num_(
+        nan=0.0).max())
+    mean_ref = max(float(ref.abs().mean()), float(mag.mean()) * 2.0 ** -8)
+    return (float(diff.max()), float(diff.mean()), used,
+            float(diff.mean()) / (BWD_RTOL * mean_ref))
+
+
+def phase_flash_bwd(lengths, seq):
+    """The dq and dkv kernels at the training shape against the plain
+    backward (autograd through the plain version), their times, the plain
+    backward's, and the backward of ``scaled_dot_product_attention`` with
+    the same boolean mask (forward plus backward, minus forward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
+
+    b, hq, hkv, dh = len(lengths), FLASH_HQ, FLASH_HKV, FLASH_DH
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    q, k, v, dout = (torch.randn((b, seq, h, dh), generator=gen,
+                                 device=DEVICE, dtype=torch.bfloat16)
+                     for h in (hq, hkv, hkv, hq))
+    mask = torch.zeros((b, seq), dtype=torch.int32, device=DEVICE)
+    for i, n in enumerate(lengths):
+        mask[i, :n] = 1
+    out, lse = FA.flash_causal_attention_lse(q, k, v, mask)
+    di = FA.flash_bwd_di(out, dout)
+    dq = FA.flash_attention_bwd_dq(q, k, v, mask, lse, di, dout)
+    dk, dv = FA.flash_attention_bwd_dkv(q, k, v, mask, lse, di, dout)
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(x.float()).all()) for x in (dq, dk, dv)):
+        raise AssertionError("the backward kernels gave a non-finite value")
+    ref = FA.flash_causal_attention_plain_bwd(q, k, v, mask, dout)
+    mags = FA.flash_bwd_magnitudes(q, k, v, mask, dout)
+    errs = {name: grad_errors(g, r, m) for name, g, r, m in
+            zip(("dq", "dk", "dv"), (dq, dk, dv), ref, mags)}
+    del ref, mags
+    torch.cuda.empty_cache()
+    bad = {n: e for n, e in errs.items() if not (e[2] <= 1 and e[3] <= 1)}
+    if bad:
+        raise AssertionError(f"backward kernels differ from the plain "
+                             f"backward: {bad}")
+    dq_ms = device_ms(
+        lambda: FA.flash_attention_bwd_dq(q, k, v, mask, lse, di, dout), 10)
+    dkv_ms = device_ms(
+        lambda: FA.flash_attention_bwd_dkv(q, k, v, mask, lse, di, dout), 10)
+    plain_ms = event_ms(
+        lambda: FA.flash_causal_attention_plain_bwd(q, k, v, mask, dout), 2)
+    allowed = allowed_mask(mask)
+    qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    doh = dout.transpose(1, 2)
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=allowed,
+                                              enable_gqa=True)
+
+    def lib_fwd_bwd():
+        torch.autograd.grad(lib_fwd(), (qh, kh, vh), doh)
+
+    library_ms = event_ms(lib_fwd_bwd, 3) - event_ms(lib_fwd, 3)
+    del allowed, qh, kh, vh
+    dq_bound = bwd_bound(mask, hq, hkv, dh, 3, hq)
+    dkv_bound = bwd_bound(mask, hq, hkv, dh, 4, 2 * hkv)
+    whole = bwd_bound(mask, hq, hkv, dh, 5, hq + 2 * hkv)
+    shares = "; ".join(f"{n} max/mean abs err {e[0]:.3g}/{e[1]:.3g}, "
+                       f"element share {e[2]:.3f}, mean share {e[3]:.3f}"
+                       for n, e in errs.items())
+    progress("flash_bwd", f"B={b} T={seq} Hq={hq} Hkv={hkv} Dh={dh} bf16, "
+             f"real lengths {list(lengths)}: {shares}; dq kernel "
+             f"{dq_ms:.4f} ms (bound {dq_bound[0]:.4f} ms, {dq_bound[1]}), "
+             f"dkv kernel {dkv_ms:.4f} ms (bound {dkv_bound[0]:.4f} ms, "
+             f"{dkv_bound[1]}); both {dq_ms + dkv_ms:.4f} ms against a "
+             f"five-product bound of {whole[0]:.4f} ms ({whole[1]}); plain "
+             f"backward {plain_ms:.4f} ms; SDPA backward (boolean mask, GQA; "
+             f"forward+backward minus forward) {library_ms:.4f} ms")
+    del q, k, v, dout, out, lse, di, dq, dk, dv
+    torch.cuda.empty_cache()
+    common = dict(plain_ms=plain_ms, library_ms=library_ms)
+    return (dict(max_abs_err=errs["dq"][0], ms=dq_ms, bound_ms=dq_bound[0],
+                 bound_by=dq_bound[1], elem_share=errs["dq"][2],
+                 mean_share=errs["dq"][3], **common),
+            dict(max_abs_err=max(errs["dk"][0], errs["dv"][0]), ms=dkv_ms,
+                 bound_ms=dkv_bound[0], bound_by=dkv_bound[1],
+                 elem_share=max(errs["dk"][2], errs["dv"][2]),
+                 mean_share=max(errs["dk"][3], errs["dv"][3]), **common))
 
 
 def synthetic_lexicon(rng, n):
@@ -406,13 +629,14 @@ def host_ms(fn, iters: int) -> float:
     return (time.monotonic() - t0) * 1e3 / iters
 
 
-def profiled(fn):
+def profiled(fn, by_name=()):
     """One call of ``fn`` under ``torch.profiler``: (device ms of every
     kernel and copy it ran, their count, device ms under each of
-    ``STAGES``). A stage's time is that of the kernels that start inside
+    ``STAGES``, device ms of the kernels whose name contains each string of
+    ``by_name``). A stage's time is that of the kernels that start inside
     the device-side spans of its ``record_function`` ranges: the flash
-    kernel, launched through ctypes outside any aten op, is linked to no
-    CPU-side range but runs inside the ``attention`` spans."""
+    kernels, launched through ctypes outside any aten op, are linked to no
+    CPU-side range but run inside the ``attention`` spans."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -422,6 +646,7 @@ def profiled(fn):
         fn()
         torch.cuda.synchronize()
     spans, kernels = [], []
+    names = dict.fromkeys(by_name, 0.0)
     for evt in prof.events():
         if evt.device_type != DeviceType.CUDA:
             continue
@@ -430,12 +655,15 @@ def profiled(fn):
                 spans.append((evt.time_range.start, evt.time_range.end,
                               evt.name))
         else:
-            kernels.append((evt.time_range.start,
-                            evt.self_device_time_total / 1e3))
+            ms = evt.self_device_time_total / 1e3
+            kernels.append((evt.time_range.start, ms))
+            for key in by_name:
+                if key in evt.name:
+                    names[key] += ms
     stage = dict.fromkeys(STAGES, 0.0)
     for start, end, name in spans:
         stage[name] += sum(ms for t, ms in kernels if start <= t < end)
-    return sum(ms for _, ms in kernels), len(kernels), stage
+    return sum(ms for _, ms in kernels), len(kernels), stage, names
 
 
 def breakdown(encoder, index, q_idx, q_w, batch):
@@ -453,8 +681,8 @@ def breakdown(encoder, index, q_idx, q_w, batch):
         index.search_encoded(q_idx, q_w, DEPTH, backend="taat")
 
     encode_ms, search_ms = host_ms(encode, 5), host_ms(search, 20)
-    e_busy, e_n, stage = profiled(encode)
-    s_busy, s_n, _ = profiled(search)
+    e_busy, e_n, stage, _ = profiled(encode)
+    s_busy, s_n, _, _ = profiled(search)
     if e_busy <= 0.0 or s_busy <= 0.0:
         raise AssertionError("the profiler saw no device time")
     stages = ", ".join(f"{k} {stage[k]:.3f} ms"
@@ -484,7 +712,7 @@ def image_breakdown(encoder, images):
         torch.cuda.synchronize()
 
     encode_ms, inputs_ms = host_ms(encode, 2), host_ms(inputs, 2)
-    busy, n, stage = profiled(encode)
+    busy, n, stage, _ = profiled(encode)
     if busy <= 0.0 or stage["attention"] <= 0.0:
         raise AssertionError("the profiler saw no device time in the flash "
                              "attention ranges")
@@ -569,8 +797,9 @@ def tower_flash_check(encoder, params, arch, images):
     out = {}
     for flash in (True, False):
         before = FA.launch_count()
-        out[flash] = mllm.encode(params, arch, ids, mask, pixel_values=px,
-                                 allow_flash=flash)
+        with torch.inference_mode():
+            out[flash] = mllm.encode(params, arch, ids, mask, px,
+                                     allow_flash=flash)
         torch.cuda.synchronize()
         launched = FA.launch_count() - before
         if launched != (arch.text.num_layers if flash else 0):
@@ -590,6 +819,166 @@ def tower_flash_check(encoder, params, arch, images):
              f"{overlap:.3f}")
     if not cos >= DENSE_COS_FLOOR:
         raise AssertionError(f"dense cosine {cos} below {DENSE_COS_FLOOR}")
+
+
+def phase_train(params, arch, tok, tmpl, lexicon, rng, seq):
+    """Contrastive LoRA training on the full-width model: ``TRAIN_STEPS``
+    steps of ``ContrastiveTrainer.train_on_batch`` on ``TRAIN_B`` seeded
+    image-caption pairs each (image prompts of ``seq`` tokens on the flash
+    route), the last one profiled. Returns the trainer, the collated
+    batches and the launch counts of the run."""
+    import numpy as np
+    import torch
+
+    from mllm_sparse_retrieval_tpu_torch.configs import TrainConfig
+    from mllm_sparse_retrieval_tpu_torch.data.karpathy import Example
+    from mllm_sparse_retrieval_tpu_torch.models import lora
+    from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
+    from mllm_sparse_retrieval_tpu_torch.ops import impact_kernel as K
+    from mllm_sparse_retrieval_tpu_torch.train.trainer import (
+        ContrastiveTrainer, make_collator)
+
+    n = TRAIN_B * TRAIN_STEPS
+    img_rng = np.random.default_rng(SEED + 4)
+    sizes = [IMAGE_SIZES[(3 * i) % len(IMAGE_SIZES)] for i in range(n)]
+    raw = {f"i{i}": img_rng.integers(0, 256, size=hw + (3,), dtype=np.uint8)
+           .astype(np.float32) / 255.0 for i, hw in enumerate(sizes)}
+    examples = [Example(c, f"/nonexistent/train_{i}.jpg", f"t{i}", f"i{i}")
+                for i, c in enumerate(captions(rng, lexicon, n, 8, 14))]
+    collate = make_collator(tok, tmpl, arch,
+                            pixel_loader=lambda e: raw[e.img_id])
+    t0 = time.monotonic()
+    batches = [collate(examples[i * TRAIN_B:(i + 1) * TRAIN_B])
+               for i in range(TRAIN_STEPS)]
+    collate_s = (time.monotonic() - t0) / TRAIN_STEPS
+    seq = -(-seq // 16) * 16            # the collator pads to 16s
+    if batches[0].image_ids.shape[1] != seq:
+        raise AssertionError(f"image prompts of {batches[0].image_ids.shape}"
+                             f" tokens, not {seq}")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    adapters = lora.init_lora(gen, params, arch, rank=LORA_RANK,
+                              alpha=LORA_ALPHA, device=DEVICE)
+    cfg = TrainConfig(learning_rate=TRAIN_LR, tau=TAU, lora_rank=LORA_RANK,
+                      lora_alpha=LORA_ALPHA, lora_dropout=LORA_DROPOUT,
+                      remat=True, seed=SEED)
+    trainer = ContrastiveTrainer(params, arch, adapters, cfg, device=DEVICE)
+    start = [x.detach().clone() for x in lora.tree_leaves(adapters)]
+    layers = arch.text.num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launch_count()
+    K.reset_launch_count()
+    steps = []
+    for i, batch in enumerate(batches):
+        before = {k: FA.launch_count(k) for k in FA.KERNELS}
+        t_step = time.monotonic()
+        if i == len(batches) - 1:
+            box = {}
+            busy, n_kernels, _, names = profiled(
+                lambda: box.update(loss=trainer.train_on_batch(batch)),
+                by_name=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+            loss = box["loss"]
+        else:
+            loss = trainer.train_on_batch(batch)
+        torch.cuda.synchronize()
+        ms = (time.monotonic() - t_step) * 1e3
+        launched = {k: FA.launch_count(k) - before[k] for k in FA.KERNELS}
+        if launched != {"fwd": 2 * layers, "dq": layers, "dkv": layers}:
+            raise AssertionError(f"step {i}: flash launches {launched}, want "
+                                 f"{2 * layers} forward (with the remat "
+                                 f"recompute) and {layers} dq and dkv")
+        tokens = batch.text_ids.size + batch.image_ids.size
+        real = int(batch.text_mask.sum() + batch.image_mask.sum())
+        steps.append((loss, ms, tokens, real))
+        progress("train", f"step {i}: loss {loss:.5f}, {ms:.1f} ms host "
+                 f"clock{' (profiled)' if i == len(batches) - 1 else ''}, "
+                 f"{tokens / ms * 1e3:.0f} tokens/s ({real / ms * 1e3:.0f} "
+                 f"real tokens/s); flash launches {launched}")
+    launches = {k: FA.launch_count(k) for k in FA.KERNELS}
+    taat = K.launch_count()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    moved = max(float((x.detach() - y).abs().max())
+                for x, y in zip(lora.tree_leaves(adapters), start))
+    if not all(np.isfinite(x[0]) for x in steps) or not moved > 0:
+        raise AssertionError(f"training: losses {[x[0] for x in steps]}, "
+                             f"adapters moved {moved}")
+    if taat:
+        raise AssertionError(f"training launched the TAAT kernel {taat}x")
+    plain = [x[1] for x in steps[1:-1]]
+    bwd_ms = names["flash_bwd_dq"] + names["flash_bwd_dkv"]
+    progress("train", f"{TRAIN_STEPS} steps of {TRAIN_B} pairs (image prompts"
+             f" {seq} tokens, captions {batches[0].text_ids.shape[1]}), LoRA "
+             f"r={LORA_RANK} on {len(lora.tree_leaves(adapters)) // 3} "
+             f"projections, dropout {LORA_DROPOUT}, remat: host collate "
+             f"{collate_s * 1e3:.1f} ms per batch; steps after the first "
+             f"{np.mean(plain):.1f} ms mean; peak {peak:.2f} GB; adapters "
+             f"moved by up to {moved:.3g}; launches {launches}; profiled "
+             f"step: device {busy:.1f} ms in {n_kernels} kernels and "
+             f"copies, flash forward {names['flash_fwd']:.1f} ms, dq "
+             f"{names['flash_bwd_dq']:.1f} ms, dkv "
+             f"{names['flash_bwd_dkv']:.1f} ms (backward kernels "
+             f"{bwd_ms / busy:.3f} of the step's device time)")
+    return trainer, batches, launches
+
+
+def grad_check(trainer, batch):
+    """One step's adapter gradients at ``GRAD_CHECK_B`` pairs and no dropout,
+    through the flash kernels and through plain attention (both with
+    remat): the cosine of the concatenated gradients and the relative loss
+    difference."""
+    import torch
+    import torch.nn.functional as F
+
+    from mllm_sparse_retrieval_tpu_torch.configs import RepsLoc
+    from mllm_sparse_retrieval_tpu_torch.models import lora
+    from mllm_sparse_retrieval_tpu_torch.models.api import encode_any
+    from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
+    from mllm_sparse_retrieval_tpu_torch.train.contrastive import (
+        info_nce_loss)
+
+    b = GRAD_CHECK_B
+
+    def put(a, dtype=None):
+        return torch.from_numpy(a[:b]).to(DEVICE, dtype)
+
+    t_ids, i_ids = put(batch.text_ids, torch.long), put(batch.image_ids,
+                                                        torch.long)
+    t_mask, i_mask = put(batch.text_mask), put(batch.image_mask)
+    px = {k: put(v) for k, v in batch.pixels.items()}
+    leaves = [x for x in lora.tree_leaves(trainer.adapters)
+              if x.requires_grad]
+    out = {}
+    for flash in (True, False):
+        before = FA.launch_count("dq")
+        _, t_emb = encode_any(trainer.params, trainer.arch, t_ids, t_mask,
+                              None, RepsLoc.BEFORE_PAD, trainer.adapters,
+                              remat=True, allow_flash=flash)
+        _, i_emb = encode_any(trainer.params, trainer.arch, i_ids, i_mask,
+                              px, RepsLoc.BEFORE_PAD, trainer.adapters,
+                              remat=True, allow_flash=flash)
+        loss = info_nce_loss(t_emb, i_emb, TAU)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        torch.cuda.synchronize()
+        launched = FA.launch_count("dq") - before
+        if launched != (trainer.arch.text.num_layers if flash else 0):
+            raise AssertionError(f"allow_flash={flash}: {launched} dq "
+                                 f"launches")
+        out[flash] = (float(loss.detach()), torch.cat([
+            (torch.zeros_like(x) if g is None else g).flatten().float()
+            for x, g in zip(leaves, grads)]))
+        del t_emb, i_emb, loss, grads
+        torch.cuda.empty_cache()
+    (lf, gf), (lp, gp) = out[True], out[False]
+    cos = float(F.cosine_similarity(gf, gp, dim=0))
+    rel = abs(lf - lp) / abs(lp)
+    progress("grad", f"{b} pairs, one step's adapter gradients "
+             f"({gf.numel():,} values), flash kernels vs plain attention "
+             f"through {trainer.arch.text.num_layers} layers: cosine "
+             f"{cos:.6f} (floor {GRAD_COS_FLOOR}), gradient norms "
+             f"{float(gf.norm()):.5g} / {float(gp.norm()):.5g}, losses "
+             f"{lf:.6f} / {lp:.6f} (relative difference {rel:.3g})")
+    if not cos >= GRAD_COS_FLOOR:
+        raise AssertionError(f"gradient cosine {cos} below {GRAD_COS_FLOOR}")
 
 
 def same_up_to_ties(got, want):
@@ -671,6 +1060,8 @@ def main() -> int:
     seq = -(-fixed_len // 512) * 512 if fixed_len >= FLASH_MIN_SEQ \
         else fixed_len
     flash = phase_flash(image_prompt_len[:FLASH_B - 1] + [0], seq)
+    dq_kernel, dkv_kernel = phase_flash_bwd(
+        image_prompt_len[:TRAIN_B - 1] + [0], seq)
 
     # ---- 4. the model and the index -------------------------------------------
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
@@ -809,6 +1200,13 @@ def main() -> int:
     tower_flash_check(img_encoder, params, arch_img,
                       images[:TOWER_CHECK_B])
     image_breakdown(img_encoder, images[:MAX_BATCH])
+    del img_encoder, encoder
+    torch.cuda.empty_cache()
+
+    # ---- 9. contrastive LoRA training; flash against plain gradients ---------
+    trainer, batches, train_launches = phase_train(
+        params, arch_img, tok, tmpl, lexicon, rng, seq)
+    grad_check(trainer, batches[0])
 
     max_err = max(bench["i16"]["max_abs_err"], bench["f32"]["max_abs_err"],
                   served["max_abs_err"])
@@ -823,7 +1221,16 @@ def main() -> int:
         dict(name="flash_attention_fwd", route="cuda",
              source="mllm_sparse_retrieval_tpu_torch/csrc/flash_attn.cu",
              replaces="mllm_sparse_retrieval_tpu/models/layers.py:199",
-             launches=text_flash + img_flash, **flash),
+             launches=text_flash + img_flash + train_launches["fwd"],
+             **flash),
+        dict(name="flash_attention_bwd_dkv", route="cuda",
+             source="mllm_sparse_retrieval_tpu_torch/csrc/flash_attn_bwd.cu",
+             replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:941",
+             launches=train_launches["dkv"], **dkv_kernel),
+        dict(name="flash_attention_bwd_dq", route="cuda",
+             source="mllm_sparse_retrieval_tpu_torch/csrc/flash_attn_bwd.cu",
+             replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
+             launches=train_launches["dq"], **dq_kernel),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

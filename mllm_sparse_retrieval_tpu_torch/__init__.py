@@ -3,7 +3,15 @@
 The package mirrors the JAX package's subpackages and module names so each
 counterpart is easy to find. It imports ``torch`` and numpy, never JAX, and
 nothing of the JAX package. Entry points run on ``device="cuda"`` unless the
-caller passes ``device="cpu"``; the one hand-written kernel of this slice,
-term-at-a-time impact scoring, lives in ``ops/impact_kernel.py`` with its
-CUDA source in ``csrc/taat.cu``.
+caller passes ``device="cpu"``.
+
+Three paths are ported: text-query serving and image-query serving
+(``serving/``: ``RetrievalService`` with ``OnlineQueryEncoder``, on the
+LLaVA-NeXT anyres image path), and contrastive LoRA training
+(``train/trainer.py``: ``ContrastiveTrainer``). Their hand-written kernels
+live in three CUDA sources, built with plain ``nvcc`` at first use
+(``ops/cuda_build.py``): ``csrc/taat.cu``, term-at-a-time impact scoring
+(``ops/impact_kernel.py``); ``csrc/flash_attn.cu``, the causal
+flash-attention forward; and ``csrc/flash_attn_bwd.cu``, its dq and dkv
+backward kernels (both in ``ops/flash_attention.py``).
 """

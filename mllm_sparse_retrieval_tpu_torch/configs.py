@@ -1,5 +1,5 @@
 """Configuration dataclasses the port reads (a copy of the JAX package's
-``configs.py``, cut to the fields this slice uses)."""
+``configs.py``, cut to the classes the ported paths use)."""
 
 from __future__ import annotations
 
@@ -52,3 +52,53 @@ class ModelConfig:
     tiny_num_heads: int = 4
     tiny_image_size: int = 64
     tiny_patch_size: int = 16
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Contrastive LoRA fine-tuning (reference: src/train.py + scripts/train.sh).
+
+    Every field and default of the JAX package's ``TrainConfig``. The port's
+    trainer runs on one device: it raises for a mesh and for
+    ``load_kbit > 0`` (``models/quantization.py`` is not ported), and, as the
+    JAX trainer does without a mesh, ignores ``gather_save_gradient``,
+    ``shard_optimizer_state`` and ``shard_params_data_axis``.
+    """
+
+    learning_rate: float = 5e-5
+    num_epochs: int = 5
+    tau: float = 0.05                     # scripts/train.sh:30 (default 0.1 in code)
+    gather_save_gradient: bool = True     # grads flow through gathered negatives
+    lora_rank: int = 8
+    lora_alpha: int = 16
+    # train-time dropout on the DECODER LoRA paths (scripts/train.sh
+    # --lora_dropout 0.1; PEFT placement: dropout on the adapter input).
+    # The per-step randomness is derived from (seed, step), so checkpoint
+    # resume replays exactly. Vision/projector adapters (off in the
+    # reference recipe) train without dropout.
+    lora_dropout: float = 0.1
+    # k-bit base-weight loading (reference --load_kbit {4,8}); 0 = full
+    # precision. Not ported: the trainer raises for any other value.
+    load_kbit: int = 0
+    train_vision_lora: bool = False
+    train_projector_lora: bool = False
+    weight_decay: float = 0.0
+    warmup_steps: int = 0
+    # 'linear' reproduces HF Trainer's default lr_scheduler_type (decay to 0
+    # over total_steps); 'cosine' = warmup + cosine decay; 'constant' holds
+    # learning_rate.
+    lr_schedule: str = "constant"
+    total_steps: int = 0                  # required for 'linear' decay
+    # HF Trainer's implicit default (max_grad_norm=1.0); 0 disables.
+    max_grad_norm: float = 1.0
+    # Gradient accumulation: the step batch splits into this many
+    # microbatches; grads average across them before one optimizer update.
+    # Contrastive in-batch negatives come from the MICRObatch.
+    grad_accum_steps: int = 1
+    seed: int = 0
+    shard_optimizer_state: bool = True    # ZeRO-1 equivalent over the data axis
+    shard_params_data_axis: bool = False  # ZeRO-3/FSDP equivalent (ds_configs/zero3.json)
+    train_full: bool = False              # full finetune (no LoRA; reference --lora off)
+    remat: bool = False                   # gradient-checkpoint decoder blocks
+    output_dir: str = "./output"
+    checkpoint_every_steps: int = 0       # 0 = final-only (reference default)

@@ -1,22 +1,30 @@
 // Causal flash-attention forward for Hopper (sm_90a), plain C interface.
 //
-// Replaces the stock Pallas TPU kernel that
+// Replaces the forward of the stock Pallas TPU kernel that
 // mllm_sparse_retrieval_tpu/models/layers.py::flash_causal_attention calls
-// (jax.experimental.pallas.ops.tpu.flash_attention with causal=True and
-// SegmentIds(q=mask, kv=mask)), forward only. It computes
+// (jax.experimental.pallas.ops.tpu.flash_attention, _flash_attention_kernel).
+// It computes
 //
 //   out[b, t, h] = sum_s softmax_s(scale * q[b,t,h] . k[b,s,h/G]) v[b,s,h/G]
 //
-// over the admissible keys s <= t with seg[b, s] == seg[b, t] (G = Hq / Hkv,
-// native GQA: no K/V head is repeated). Inputs and output are bf16 in the
-// [B, T, H, 128] layout, read and written through their strides; products
-// accumulate in f32 and the softmax is f32. One segment-id vector serves
-// queries and keys, so every query admits its own key and a pad row attends
-// among its pads; the normaliser is guarded all the same (0, never NaN).
+// over the admissible keys: s <= t with mask[b, s] != 0 (G = Hq / Hkv,
+// native GQA: no K/V head is repeated). This is the JAX package's
+// `attention` + `causal_padding_mask` (SegmentIds(q=ones, kv=mask)): a pad
+// query attends to every real key at or before it. A query with no
+// admissible key (an all-pad row, or a position before the first real
+// token) gets an output of 0 and a log-sum-exp of +inf, so that the
+// backward kernels (flash_attn_bwd.cu) recompute P = 0 there. Inputs and
+// output are bf16 in the [B, T, H, 128] layout, read and written through
+// their strides; products accumulate in f32 and the softmax is f32.
+//
+// Optional output: lse[b, h, t] = log sum_s exp(scale * q . k_s) in f32,
+// natural base, over the admissible keys (+inf where there is none); a null
+// pointer writes none (serving).
 //
 // What bounds it on an H100: operations. A served call (B=8, T=3,072, 32
-// q-heads, ~2,943 real tokens a row) does ~5.7e11 FLOP of tensor-core work on
-// ~0.5 GB of q/k/v/out: ~0.57 ms at 989 TFLOP/s against ~0.15 ms of bytes.
+// q-heads; seven rows of 1,795-2,971 real tokens and one all-pad row) does
+// ~5.0e11 FLOP of tensor-core work on ~0.5 GB of q/k/v/out: ~0.51 ms at
+// 989 TFLOP/s against ~0.15 ms of bytes.
 //
 // What the design does about it:
 //   * one block of 4 warps per (64-query tile, q-head, batch row); each warp
@@ -34,126 +42,37 @@
 //     A fragments of the P V product once packed to bf16;
 //   * online softmax in the exp2 form, with scale * log2(e) folded into S;
 //   * key tiles above the diagonal are never visited, key tiles holding no
-//     key of the query tile's segments are skipped, and the per-element
-//     mask runs only on the diagonal tile and on tiles with mixed segments.
+//     real key are skipped, and the per-element mask runs only on the
+//     diagonal tile and on tiles that mix real and pad keys.
 // wgmma, TMA and warp specialisation are later work.
 //
 // Contract (checked by the Python wrapper, ops/flash_attention.py): head_dim
 // 128; q/k/v/out bf16 with unit last stride, every other stride a multiple
-// of 8 elements and 16-byte aligned storage; seg int32 [batch, seq]
-// contiguous; hq % hkv == 0.
+// of 8 elements and 16-byte aligned storage; mask int32 [batch, seq]
+// contiguous; lse f32 [batch, hq, seq] contiguous or null; hq % hkv == 0.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBlockM = 64;     // query rows per block
-constexpr int kBlockN = 64;     // keys per tile
-constexpr int kHeadDim = 128;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTileElems = kBlockM * kHeadDim;   // 8,192 bf16 = 16 KB
-constexpr int kChunks = kHeadDim / 8;            // 16-byte chunks per row
+using namespace flash;
+
 constexpr int kFixedSmem = 5 * kTileElems * 2;   // Q + 2 K + 2 V = 80 KB
-constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
-  const int32_t* seg;
+  const int32_t* mask;
+  float* lse;
   long long q_sb, q_st, q_sh;
   long long k_sb, k_st, k_sh;
   long long v_sb, v_st, v_sh;
   long long o_sb, o_st, o_sh;
-  int seq, group;
+  int seq, hq, group;
   float scale_log2;
 };
-
-// Element offset of 16-byte chunk `chunk` of row `row` in a [64][128] tile.
-// The XOR spreads the 8 rows of one ldmatrix 8x8 matrix over 8 distinct
-// 16-byte bank groups.
-__device__ __forceinline__ int swz(int row, int chunk) {
-  return row * kHeadDim + ((chunk ^ (row & 7)) << 3);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const int n = pred ? 16 : 0;   // 0 bytes read: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c[16x8] += a[16x16] b[16x8], bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {   // exp2(-inf) = 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy rows [row0, row0 + 64) of one head into a swizzled smem tile; rows
-// at or past `seq` are zero-filled (never NaN, so 0 * V stays 0).
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* base,
-                                          long long st, int row0, int seq,
-                                          int tid) {
-#pragma unroll
-  for (int it = 0; it < kBlockM * kChunks / kThreads; ++it) {
-    const int idx = it * kThreads + tid;
-    const int r = idx / kChunks;
-    const int c = idx % kChunks;
-    const int row = row0 + r;
-    const bool in = row < seq;
-    const __nv_bfloat16* src = base + (in ? row : seq - 1) * st + c * 8;
-    cp_async16(dst + swz(r, c), src, in);
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const Params p) {
@@ -162,62 +81,49 @@ flash_fwd_kernel(const Params p) {
   __nv_bfloat16* sK = sQ + kTileElems;        // two buffers
   __nv_bfloat16* sV = sK + 2 * kTileElems;    // two buffers
   unsigned char* sLive = smem_raw + kFixedSmem;   // per key tile flags
-  const int n_tiles_max = (p.seq + kBlockN - 1) / kBlockN;
+  const int n_tiles_max = (p.seq + kTile - 1) / kTile;
   unsigned char* sMixed = sLive + n_tiles_max;
-  __shared__ int sQmin, sQmax;
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int qt = gridDim.z - 1 - blockIdx.z;    // heavy causal tiles first
-  const int q0 = qt * kBlockM;
+  const int q0 = qt * kTile;
   const int hk = h / p.group;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int seq = p.seq;
-  const int32_t* seg = p.seg + static_cast<long long>(b) * seq;
+  const int32_t* mask = p.mask + static_cast<long long>(b) * seq;
 
   const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
   const __nv_bfloat16* kb = p.k + b * p.k_sb + hk * p.k_sh;
   const __nv_bfloat16* vb = p.v + b * p.v_sb + hk * p.v_sh;
 
-  // Q tile first, so its copy overlaps the segment scan below
+  // Q tile first, so its copy overlaps the mask scan below
   load_tile(sQ, qb, p.q_st, q0, seq, tid);
   cp_async_commit();
 
-  // segment range of this query tile, and which key tiles it needs
-  const int q_last = min(q0 + kBlockM, seq) - 1;
-  const int n_kt = q_last / kBlockN + 1;     // causal: tiles 0 .. n_kt - 1
-  if (tid == 0) {
-    sQmin = 0x7fffffff;
-    sQmax = -0x7fffffff - 1;
-  }
+  // which causal key tiles hold a real key (live), and which also hold a
+  // pad key (mixed: the element mask must run there)
+  const int q_last = min(q0 + kTile, seq) - 1;
+  const int n_kt = q_last / kTile + 1;     // causal: tiles 0 .. n_kt - 1
   for (int j = tid; j < n_kt; j += kThreads) {
     sLive[j] = 0;
     sMixed[j] = 0;
   }
   __syncthreads();
-  if (tid < kBlockM && q0 + tid < seq) {
-    const int s = seg[q0 + tid];
-    atomicMin(&sQmin, s);
-    atomicMax(&sQmax, s);
-  }
-  __syncthreads();
-  const int qmin = sQmin;
-  const int qmax = sQmax;
   for (int s = tid; s <= q_last; s += kThreads) {
-    const int sg = seg[s];
     // every writer stores the same value, so the races are benign
-    if (sg >= qmin && sg <= qmax) sLive[s / kBlockN] = 1;
-    if (sg != qmin || qmin != qmax) sMixed[s / kBlockN] = 1;
+    if (mask[s] != 0) sLive[s / kTile] = 1;
+    else sMixed[s / kTile] = 1;
   }
   __syncthreads();
 
   int j = 0;
   while (j < n_kt && !sLive[j]) ++j;
   if (j < n_kt) {
-    load_tile(sK, kb, p.k_st, j * kBlockN, seq, tid);
-    load_tile(sV, vb, p.v_st, j * kBlockN, seq, tid);
+    load_tile(sK, kb, p.k_st, j * kTile, seq, tid);
+    load_tile(sV, vb, p.v_st, j * kTile, seq, tid);
   }
   cp_async_commit();
   cp_async_wait<1>();      // Q has landed
@@ -234,8 +140,6 @@ flash_fwd_kernel(const Params p) {
   const int tig = lane & 3;     // thread in quad
   const int row_a = q0 + wr + g;
   const int row_b = row_a + 8;
-  const int seg_a = row_a < seq ? seg[row_a] : 0;
-  const int seg_b = row_b < seq ? seg[row_b] : 0;
 
   float o[16][4];
 #pragma unroll
@@ -249,9 +153,9 @@ flash_fwd_kernel(const Params p) {
     int jn = j + 1;
     while (jn < n_kt && !sLive[jn]) ++jn;
     if (jn < n_kt) {
-      load_tile(sK + (buf ^ 1) * kTileElems, kb, p.k_st, jn * kBlockN, seq,
+      load_tile(sK + (buf ^ 1) * kTileElems, kb, p.k_st, jn * kTile, seq,
                 tid);
-      load_tile(sV + (buf ^ 1) * kTileElems, vb, p.v_st, jn * kBlockN, seq,
+      load_tile(sV + (buf ^ 1) * kTileElems, vb, p.v_st, jn * kTile, seq,
                 tid);
     }
     cp_async_commit();
@@ -284,10 +188,9 @@ flash_fwd_kernel(const Params p) {
       for (int e = 0; e < 4; ++e) {
         float x = s[n][e] * p.scale_log2;
         if (need_mask) {
-          const int key = j * kBlockN + n * 8 + tig * 2 + (e & 1);
+          const int key = j * kTile + n * 8 + tig * 2 + (e & 1);
           const int row = e < 2 ? row_a : row_b;
-          const int sr = e < 2 ? seg_a : seg_b;
-          const bool ok = key <= row && key < seq && __ldg(seg + key) == sr;
+          const bool ok = key <= row && key < seq && __ldg(mask + key) != 0;
           x = ok ? x : -INFINITY;
         }
         s[n][e] = x;
@@ -325,29 +228,15 @@ flash_fwd_kernel(const Params p) {
     }
 
     // O += P V: the S fragments are P's A fragments
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dn = 0; dn < 8; ++dn) {
-        uint32_t bv[4];
-        ldsm_x4_trans(bv, cV + swz(kk * 16 + (lane & 15),
-                                   dn * 2 + (lane >> 4)));
-        mma_bf16(o[2 * dn], pa, bv[0], bv[1]);
-        mma_bf16(o[2 * dn + 1], pa, bv[2], bv[3]);
-      }
-    }
+    mma_acc_b(o, s, cV, lane);
     __syncthreads();   // every warp is done with buffer `buf` before reuse
     j = jn;
     buf ^= 1;
   }
   cp_async_wait<0>();
 
-  // normalise and write; l > 0 under self-attention, guarded all the same
+  // normalise and write; a row with no admissible key has l = 0: it gets 0
+  // and a log-sum-exp of +inf
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_r[r];
@@ -363,21 +252,27 @@ flash_fwd_kernel(const Params p) {
         *reinterpret_cast<uint32_t*>(dst + d * 8) =
             pack_bf16(o[d][2 * r] * inv, o[d][2 * r + 1] * inv);
       }
+      if (p.lse != nullptr && tig == 0) {
+        p.lse[(static_cast<long long>(b) * p.hq + h) * seq + row] =
+            l > 0.0f ? (m_r[r] + log2f(l)) * kLn2 : INFINITY;
+      }
     }
   }
 }
+
+int smem_set[kMaxDevices] = {};
 
 }  // namespace
 
 extern "C" {
 
 int flash_attn_fwd_bf16(const void* q, const void* k, const void* v, void* o,
-                        const void* seg, long long q_sb, long long q_st,
-                        long long q_sh, long long k_sb, long long k_st,
-                        long long k_sh, long long v_sb, long long v_st,
-                        long long v_sh, long long o_sb, long long o_st,
-                        long long o_sh, int batch, int seq, int hq, int hkv,
-                        float scale, void* stream) {
+                        const void* mask, void* lse, long long q_sb,
+                        long long q_st, long long q_sh, long long k_sb,
+                        long long k_st, long long k_sh, long long v_sb,
+                        long long v_st, long long v_sh, long long o_sb,
+                        long long o_st, long long o_sh, int batch, int seq,
+                        int hq, int hkv, float scale, void* stream) {
   if (batch <= 0 || seq <= 0) return 0;
   if (hq <= 0 || hkv <= 0 || hq % hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -386,33 +281,22 @@ int flash_attn_fwd_bf16(const void* q, const void* k, const void* v, void* o,
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
-  p.seg = static_cast<const int32_t*>(seg);
+  p.mask = static_cast<const int32_t*>(mask);
+  p.lse = static_cast<float*>(lse);
   p.q_sb = q_sb; p.q_st = q_st; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_st = k_st; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_st = v_st; p.v_sh = v_sh;
   p.o_sb = o_sb; p.o_st = o_st; p.o_sh = o_sh;
   p.seq = seq;
+  p.hq = hq;
   p.group = hq / hkv;
   p.scale_log2 = scale * kLog2e;
-  const int n_tiles = (seq + kBlockN - 1) / kBlockN;
+  const int n_tiles = (seq + kTile - 1) / kTile;
   const int smem = kFixedSmem + 2 * n_tiles;
-  // the attribute is per device and only ever grows; setting it again is
-  // harmless, so two threads racing here need no lock
-  constexpr int kMaxDevices = 64;
-  static int smem_set[kMaxDevices] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  cudaError_t err = ensure_smem(flash_fwd_kernel, smem, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (device < 0 || device >= kMaxDevices)
-    return static_cast<int>(cudaErrorInvalidDevice);
-  if (smem > smem_set[device]) {
-    err = cudaFuncSetAttribute(
-        flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set[device] = smem;
-  }
   const dim3 grid(static_cast<unsigned>(hq), static_cast<unsigned>(batch),
-                  static_cast<unsigned>((seq + kBlockM - 1) / kBlockM));
+                  static_cast<unsigned>(n_tiles));
   flash_fwd_kernel<<<grid, kThreads, smem,
                      static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());

@@ -20,15 +20,25 @@ from mllm_sparse_retrieval_tpu_torch.models.mllm import MLLMConfig
 
 
 def encode_any(params, arch, input_ids, attention_mask, vision_input=None,
-               reps_loc: RepsLoc = RepsLoc.BEFORE_PAD):
-    """``(sparse [B, V], dense [B, H])``. ``vision_input`` is a fixed-grid
-    pixel tensor or the anyres dict (``mllm.forward_hidden``)."""
+               reps_loc: RepsLoc = RepsLoc.BEFORE_PAD, lora=None,
+               position_ids=None, remat: bool = False,
+               allow_flash: bool = True, lora_seed: Optional[int] = None,
+               lora_dropout: float = 0.0):
+    """``(sparse [B, V], dense [B, H])``, in the JAX package's argument
+    order. ``vision_input`` is a fixed-grid pixel tensor or the anyres dict
+    (``mllm.forward_hidden``); ``position_ids`` (M-RoPE) belong to the
+    Qwen2.5-VL family, and the LLaVA families ignore them, as in the JAX
+    package. ``remat`` checkpoints the decoder blocks; ``lora_seed`` +
+    ``lora_dropout`` enable train-time dropout on the decoder adapters
+    (``models/llama.py``); inference callers pass neither."""
     if not isinstance(arch, MLLMConfig):
         raise NotImplementedError(
             f"{type(arch).__name__} is not ported yet (ROADMAP Queue 1 #6: "
             f"models/qwen_vl.py, models/internvl.py)")
-    return mllm.encode(params, arch, input_ids, attention_mask, reps_loc,
-                       pixel_values=vision_input)
+    return mllm.encode(params, arch, input_ids, attention_mask,
+                       vision_input, reps_loc, lora, remat=remat,
+                       allow_flash=allow_flash, lora_seed=lora_seed,
+                       lora_dropout=lora_dropout)
 
 
 @dataclass(frozen=True)

@@ -4,8 +4,9 @@ The JAX llama tree (``embed``, ``blocks[i]``, ``final_norm``, ``lm_head``)
 maps one to one onto the port's dicts, in the same ``[in, out]`` dense
 orientation, so a test can run both models on the same weights; so do the
 ViT (``patch_embed``, ``pos_embed``, ``cls_token``, ``pre_ln``,
-``blocks[i]``), the projector and the ``image_newline`` embedding. Arrays
-arrive as numpy (the caller converts JAX arrays with ``np.asarray``).
+``blocks[i]``), the projector and the ``image_newline`` embedding, and so
+do LoRA adapter trees (``models/lora.py``). Arrays arrive as numpy (the
+caller converts JAX arrays with ``np.asarray``).
 """
 
 from __future__ import annotations
@@ -47,3 +48,15 @@ def from_jax_params(tree: Dict, device="cuda",
             if key in tree:
                 out[key] = _to_torch(tree[key], device, dtype)
     return out
+
+
+def from_jax_lora(tree: Dict, device="cuda",
+                  dtype: Optional[torch.dtype] = None) -> Dict:
+    """Port a JAX LoRA adapter tree of numpy arrays (``{"text": {"blocks":
+    [{"q": {"a", "b", "scale"}, ...}]}, "vision": ..., "projector": ...}``)
+    to the port's tree of tensors, the same structure."""
+    if "text" not in tree and "vision" not in tree \
+            and "projector" not in tree:
+        raise KeyError("not a LoRA adapter tree: no text, vision or "
+                       "projector entry")
+    return _to_torch(tree, torch.device(device), dtype)

@@ -1,10 +1,13 @@
-"""Shared building blocks on tensors: dense, norms, RoPE, attention, masks.
+"""Shared building blocks on tensors: dense (+LoRA), norms, RoPE, attention,
+masks.
 
 Parameters are plain dicts of tensors in the JAX package's layout (dense
 weights ``[in, out]``, so ``y = x @ w``), which keeps weights converted from
-the JAX tree comparable one to one. Long prompts (anyres image queries) take
-the fused causal attention of ``ops/flash_attention.py``, whose CUDA kernel
-replaces the JAX package's Pallas flash kernel.
+the JAX tree comparable one to one. LoRA is an optional parallel dict of
+adapters, as in the JAX package, so adapter-only training is a choice of
+which leaves get gradients. Long prompts (anyres image queries) take the
+fused causal attention of ``ops/flash_attention.py``, whose CUDA kernels
+replace the JAX package's Pallas flash kernel, forward and backward.
 """
 
 from __future__ import annotations
@@ -17,12 +20,76 @@ import torch
 from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
 
 
-def dense(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """``x @ w (+ bias)``."""
+def dense(x: torch.Tensor, p: Dict[str, torch.Tensor],
+          lora: Optional[Dict[str, torch.Tensor]] = None,
+          lora_generator: Optional[torch.Generator] = None,
+          lora_dropout: float = 0.0) -> torch.Tensor:
+    """``x @ w (+ LoRA low-rank path) (+ bias)``, as the JAX package computes
+    it.
+
+    The LoRA path is factored, ``((x @ a) @ b) * scale``, never a
+    materialised delta-W. ``lora_generator`` + ``lora_dropout > 0`` apply
+    train-time dropout to the adapter input only (``keep / (1 - p)``); the
+    base path is untouched, and inference passes no generator.
+
+    dtype rule (a deviation from the JAX package): the adapter path runs in
+    the adapters' dtype and its output is cast to the base output's dtype
+    before the sum. The JAX package promotes instead, so f32 adapters over
+    bf16 weights turn the residual stream f32 from the first adapted
+    projection on; here it stays in the weights' dtype. Where both are f32
+    (the CPU tests) the two agree exactly.
+    """
     y = x @ p["w"]
+    if lora is not None:
+        a = lora["a"]
+        xl = x.to(a.dtype)
+        if lora_generator is not None and lora_dropout > 0.0:
+            keep = torch.rand(x.shape, generator=lora_generator,
+                              device=x.device) < 1.0 - lora_dropout
+            xl = torch.where(keep, xl / (1.0 - lora_dropout),
+                             torch.zeros((), dtype=a.dtype, device=x.device))
+        y = y + (((xl @ a) @ lora["b"]) * lora["scale"]).to(y.dtype)
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+def lora_init(generator: torch.Generator, in_dim: int, out_dim: int,
+              rank: int, alpha: float, dtype=torch.float32,
+              device="cuda") -> Dict[str, torch.Tensor]:
+    """Standard LoRA init: ``A ~ N(0, 1) / r``, ``B = 0`` (identity at step
+    0), ``scale = alpha / r``."""
+    a = torch.randn((in_dim, rank), generator=generator, dtype=dtype,
+                    device=device) / rank
+    return {"a": a,
+            "b": torch.zeros((rank, out_dim), dtype=dtype, device=device),
+            "scale": torch.tensor(alpha / rank, dtype=dtype, device=device)}
+
+
+def merge_lora_into_dense(p: Dict[str, torch.Tensor],
+                          lora: Dict[str, torch.Tensor]
+                          ) -> Dict[str, torch.Tensor]:
+    """``w + (a @ b) * scale`` (PEFT's ``merge_and_unload``), cast to ``w``'s
+    dtype (the dtype rule of ``dense``); other entries are kept."""
+    merged = dict(p)
+    delta = (lora["a"] @ lora["b"]) * lora["scale"]
+    merged["w"] = p["w"] + delta.to(p["w"].dtype)
+    return merged
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def fold_seed(seed: int, data: int) -> int:
+    """A new non-negative 63-bit seed from ``seed`` and ``data`` (the
+    splitmix64 finaliser): the counterpart of ``jax.random.fold_in`` for
+    integer seeds. LoRA dropout derives one seed per (step, micro-batch,
+    tower, block, call site) with it, so every mask is a pure function of
+    integers and a recompute (``remat``) draws the same mask."""
+    z = (int(seed) * 0x9E3779B97F4A7C15 + int(data) + 1) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
 
 
 def rmsnorm(x: torch.Tensor, p: Dict[str, torch.Tensor],
@@ -120,11 +187,14 @@ def flash_attention_eligible(seq_len: int, head_dim: int,
 def flash_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            attention_mask: torch.Tensor, *,
                            scale: Optional[float] = None) -> torch.Tensor:
-    """Causal attention through the flash kernel; padding is excluded as
-    segment ids (pad 0, real 1), which matches ``attention`` +
-    ``causal_padding_mask`` at every non-pad position.
+    """Causal attention through the flash kernels, differentiable
+    (``ops.flash_attention.FlashCausalAttention``). Key ``s`` is admissible
+    for query ``t`` iff ``s <= t`` and ``attention_mask[b, s]`` is set,
+    which is ``attention`` + ``causal_padding_mask`` at every query that has
+    a real key at or before it (a query with none gets 0 here, the uniform
+    average of ``v`` there).
 
     q: ``[B, T, Hq, Dh]``; k/v: ``[B, T, Hkv, Dh]`` (GQA read in place);
     attention_mask: ``[B, T]``.
     """
-    return FA.flash_causal_attention(q, k, v, attention_mask, scale=scale)
+    return FA.FlashCausalAttention.apply(q, k, v, attention_mask, scale)

@@ -1,22 +1,23 @@
 """Decoder LM: Llama-family architecture (RMSNorm, RoPE, GQA, SwiGLU).
 
-The language backbone of the LLaVA families, with the dense SwiGLU FFN.
-Parameters are a dict in the JAX package's tree layout (``embed``,
-``blocks[i]``, ``final_norm``, ``lm_head``); norms and softmax run in f32,
-matmuls in the weights' dtype. As in the JAX package, the LM head is not
-applied over the sequence: the sparse head needs logits at one position per
-sample only (models/reps.py).
+The language backbone of the LLaVA families, with the dense SwiGLU FFN and
+optional LoRA adapters on its seven projections. Parameters are a dict in
+the JAX package's tree layout (``embed``, ``blocks[i]``, ``final_norm``,
+``lm_head``); norms and softmax run in f32, matmuls in the weights' dtype.
+As in the JAX package, the LM head is not applied over the sequence: the
+sparse head needs logits at one position per sample only (models/reps.py).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from mllm_sparse_retrieval_tpu_torch.models import layers as L
 
@@ -90,16 +91,32 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     return params
 
 
-def _block(x, p, cfg: LlamaConfig, mask, cos, sin, flash_mask=None):
+def _block(x, p, cfg: LlamaConfig, mask, cos, sin, lora=None,
+           flash_mask=None, lora_seed=None, *, lora_dropout: float = 0.0):
     """One decoder block; ``flash_mask`` (the ``[B, T]`` padding mask) takes
     the flash kernel instead of ``attention`` over the ``[B, 1, T, T]``
-    ``mask``."""
+    ``mask``. ``lora`` is the block's adapter dict; with ``lora_seed`` and
+    ``lora_dropout > 0`` each LoRA call site draws its dropout mask from a
+    fresh generator seeded with ``fold_seed(lora_seed, site)``, sites in the
+    JAX order q, k, v, o, gate, up, down: a pure function of integers, so a
+    recompute under ``remat`` draws the same masks."""
     b, t, _ = x.shape
     dh = cfg.head_dim
+    site = [0]
+
+    def ld(y, name):
+        gen = None
+        if lora_seed is not None and lora_dropout > 0.0:
+            gen = torch.Generator(device=y.device).manual_seed(
+                L.fold_seed(lora_seed, site[0]))
+        site[0] += 1
+        return L.dense(y, p[name], lora.get(name) if lora else None, gen,
+                       lora_dropout)
+
     y = L.rmsnorm(x, p["attn_norm"], cfg.rms_eps)
-    q = L.dense(y, p["q"]).view(b, t, cfg.num_heads, dh)
-    k = L.dense(y, p["k"]).view(b, t, cfg.num_kv_heads, dh)
-    v = L.dense(y, p["v"]).view(b, t, cfg.num_kv_heads, dh)
+    q = ld(y, "q").view(b, t, cfg.num_heads, dh)
+    k = ld(y, "k").view(b, t, cfg.num_kv_heads, dh)
+    v = ld(y, "v").view(b, t, cfg.num_kv_heads, dh)
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin)
     if flash_mask is not None:
@@ -108,10 +125,10 @@ def _block(x, p, cfg: LlamaConfig, mask, cos, sin, flash_mask=None):
     else:
         attn = L.attention(q, k, v, mask)
     attn = attn.reshape(b, t, cfg.num_heads * dh)
-    x = x + L.dense(attn, p["o"])
+    x = x + ld(attn, "o")
     y = L.rmsnorm(x, p["mlp_norm"], cfg.rms_eps)
-    gated = F.silu(L.dense(y, p["gate"])) * L.dense(y, p["up"])
-    return x + L.dense(gated, p["down"])
+    gated = F.silu(ld(y, "gate")) * ld(y, "up")
+    return x + ld(gated, "down")
 
 
 def rope_tables(cfg: LlamaConfig, seq_len: int, device="cuda"):
@@ -120,24 +137,44 @@ def rope_tables(cfg: LlamaConfig, seq_len: int, device="cuda"):
                               device=device)
 
 
-@torch.no_grad()
 def apply(params: Dict, inputs_embeds: torch.Tensor,
           attention_mask: torch.Tensor, cfg: LlamaConfig,
-          allow_flash: bool = True) -> torch.Tensor:
+          lora: Optional[Dict] = None, remat: bool = False,
+          allow_flash: bool = True, lora_seed: Optional[int] = None,
+          lora_dropout: float = 0.0) -> torch.Tensor:
     """Run the decoder stack; returns final-norm hidden states
     ``[B, T, H]``. Long sequences (anyres image prompts) take the flash
-    kernel when ``layers.flash_attention_eligible`` holds and never build
+    kernels when ``layers.flash_attention_eligible`` holds and never build
     the ``[B, 1, T, T]`` mask; ``allow_flash=False`` forces the plain
-    masked attention."""
+    masked attention.
+
+    ``lora``: the text adapter tree ``{"blocks": [...]}``. ``remat=True``
+    checkpoints each block (``torch.utils.checkpoint``, non-reentrant):
+    activations are recomputed in the backward pass. ``lora_seed`` +
+    ``lora_dropout`` enable train-time dropout on the LoRA paths, block
+    ``i`` seeded with ``fold_seed(lora_seed, i)``. Differentiable; serving
+    callers run it under ``torch.inference_mode()``."""
     t = inputs_embeds.shape[1]
     cos, sin = rope_tables(cfg, t, device=inputs_embeds.device)
     use_flash = allow_flash and L.flash_attention_eligible(
         t, cfg.head_dim, inputs_embeds.device)
     flash_mask = attention_mask if use_flash else None
     mask = None if use_flash else L.causal_padding_mask(attention_mask)
+    dropout_on = lora_seed is not None and lora_dropout > 0.0 \
+        and lora is not None
     x = inputs_embeds
-    for blk in params["blocks"]:
-        x = _block(x, blk, cfg, mask, cos, sin, flash_mask)
+    for i, blk in enumerate(params["blocks"]):
+        blora = None
+        if lora is not None and "blocks" in lora and lora["blocks"][i]:
+            blora = lora["blocks"][i]
+        bseed = L.fold_seed(lora_seed, i) if dropout_on else None
+        args = (x, blk, cfg, mask, cos, sin, blora, flash_mask, bseed)
+        drop = lora_dropout if dropout_on else 0.0
+        if remat:
+            x = checkpoint(_block, *args, lora_dropout=drop,
+                           use_reentrant=False)
+        else:
+            x = _block(*args, lora_dropout=drop)
     return L.rmsnorm(x, params["final_norm"], cfg.rms_eps)
 
 

@@ -93,12 +93,15 @@ def init_params(cfg: MLLMConfig, generator: torch.Generator, device="cuda",
     return params
 
 
-def project_image_features(params: Dict, feats: torch.Tensor) -> torch.Tensor:
+def project_image_features(params: Dict, feats: torch.Tensor,
+                           lora: Optional[Dict] = None) -> torch.Tensor:
     """2-layer GELU MLP projector (exact-erf GELU, HF's default
-    ``projector_hidden_act='gelu'``)."""
-    x = L.dense(feats, params["projector"]["fc1"])
+    ``projector_hidden_act='gelu'``); ``lora`` is the projector's adapter
+    dict (``fc1``, ``fc2``)."""
+    lget = (lambda name: lora.get(name) if lora else None)
+    x = L.dense(feats, params["projector"]["fc1"], lget("fc1"))
     x = F.gelu(x, approximate="none")
-    return L.dense(x, params["projector"]["fc2"])
+    return L.dense(x, params["projector"]["fc2"], lget("fc2"))
 
 
 def splice_image_embeddings(token_embeds: torch.Tensor,
@@ -116,18 +119,21 @@ def splice_image_embeddings(token_embeds: torch.Tensor,
 
 def anyres_image_features(params: Dict, cfg: MLLMConfig,
                           pixel_values: torch.Tensor,
-                          feature_index: torch.Tensor) -> torch.Tensor:
+                          feature_index: torch.Tensor,
+                          lora: Optional[Dict] = None) -> torch.Tensor:
     """``[B, max_image_tokens, H]`` spliceable features for anyres inputs.
 
     All tiles run through the ViT as one flat batch (static shape; invalid
     tiles cost FLOPs but are never gathered), the per-image feature table
     gets the ``image_newline`` row appended, and the host-made gather map
-    lays the features out in HF ``pack_image_features`` order.
+    lays the features out in HF ``pack_image_features`` order. ``lora`` is
+    the whole adapter tree (its ``vision`` and ``projector`` entries apply).
     """
+    lget = (lambda name: lora.get(name) if lora else None)
     b, mt, s, _, c = pixel_values.shape
     feats = vit.apply(params["vision"], pixel_values.reshape(b * mt, s, s, c),
-                      cfg.vision)
-    proj = project_image_features(params, feats)
+                      cfg.vision, lget("vision"))
+    proj = project_image_features(params, feats, lget("projector"))
     ppt = proj.shape[1]
     table = proj.reshape(b, mt * ppt, proj.shape[-1])
     newline = params["image_newline"].to(table.dtype).expand(
@@ -137,44 +143,57 @@ def anyres_image_features(params: Dict, cfg: MLLMConfig,
     return torch.gather(table, 1, idx)
 
 
-@torch.no_grad()
 def forward_hidden(params: Dict, cfg: MLLMConfig, input_ids: torch.Tensor,
                    attention_mask: torch.Tensor, pixel_values=None,
-                   allow_flash: bool = True) -> torch.Tensor:
+                   lora: Optional[Dict] = None, remat: bool = False,
+                   allow_flash: bool = True, lora_seed: Optional[int] = None,
+                   lora_dropout: float = 0.0) -> torch.Tensor:
     """Final-layer hidden states ``[B, T, H]`` for text or image+text inputs.
 
     ``pixel_values``: ``[B, H, W, 3]`` for fixed-grid families, or the
     anyres dict ``{"pixels": [B, mt, S, S, 3], "feature_index": [B, n]}``.
+    ``lora_seed``/``lora_dropout`` apply to the decoder adapters;
+    vision/projector adapters train without dropout, as in the JAX package.
     The ``vision`` range names the ViT and projector in a profiler trace.
     """
+    lget = (lambda name: lora.get(name) if lora else None)
     embeds = llama.embed_tokens(params["text"], input_ids)
     if pixel_values is not None:
         with record_function("vision"):
             if isinstance(pixel_values, dict):
                 img = anyres_image_features(params, cfg,
                                             pixel_values["pixels"],
-                                            pixel_values["feature_index"])
+                                            pixel_values["feature_index"],
+                                            lora)
             else:
-                feats = vit.apply(params["vision"], pixel_values, cfg.vision)
-                img = project_image_features(params, feats)
+                feats = vit.apply(params["vision"], pixel_values, cfg.vision,
+                                  lget("vision"))
+                img = project_image_features(params, feats,
+                                             lget("projector"))
             embeds = splice_image_embeddings(
                 embeds, img.to(embeds.dtype), input_ids == cfg.image_token_id)
     with record_function("tower"):
         return llama.apply(params["text"], embeds, attention_mask, cfg.text,
-                           allow_flash=allow_flash)
+                           lget("text"), remat=remat, allow_flash=allow_flash,
+                           lora_seed=lora_seed, lora_dropout=lora_dropout)
 
 
-@torch.no_grad()
 def encode(params: Dict, cfg: MLLMConfig, input_ids: torch.Tensor,
-           attention_mask: torch.Tensor,
-           reps_loc: RepsLoc = RepsLoc.BEFORE_PAD, pixel_values=None,
-           allow_flash: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+           attention_mask: torch.Tensor, pixel_values=None,
+           reps_loc: RepsLoc = RepsLoc.BEFORE_PAD,
+           lora: Optional[Dict] = None, remat: bool = False,
+           allow_flash: bool = True, lora_seed: Optional[int] = None,
+           lora_dropout: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(sparse_weights [B, V] f32, dense_embs [B, H])`` for text or
-    image+text inputs (``pixel_values`` as in ``forward_hidden``). The
-    ``vision``, ``tower`` and ``lm_head`` ranges name the stages in a
+    image+text inputs, in the JAX package's argument order (``pixel_values``
+    as in ``forward_hidden``). Differentiable with respect to ``lora`` (and
+    the params); serving callers run it under ``torch.inference_mode()``.
+    The ``vision``, ``tower`` and ``lm_head`` ranges name the stages in a
     profiler trace."""
     hidden = forward_hidden(params, cfg, input_ids, attention_mask,
-                            pixel_values, allow_flash)
+                            pixel_values, lora, remat=remat,
+                            allow_flash=allow_flash, lora_seed=lora_seed,
+                            lora_dropout=lora_dropout)
     with record_function("lm_head"):
         head = llama.lm_head_weight(params["text"], cfg.text)
         return R.extract_reps(hidden, attention_mask, head, reps_loc)

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -90,30 +90,31 @@ def _quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
-def _block(x, p, num_heads: int):
+def _block(x, p, num_heads: int, lora: Optional[Dict] = None):
     b, t, h = x.shape
     dh = h // num_heads
+    lget = (lambda name: lora.get(name) if lora else None)
     y = L.layernorm(x, p["ln1"])
-    q, k, v = L.dense(y, p["qkv"]).chunk(3, dim=-1)
+    q, k, v = L.dense(y, p["qkv"], lget("qkv")).chunk(3, dim=-1)
     q = q.reshape(b, t, num_heads, dh)
     k = k.reshape(b, t, num_heads, dh)
     v = v.reshape(b, t, num_heads, dh)
     mask = torch.ones((b, 1, t, t), dtype=torch.bool, device=x.device)
     attn = L.attention(q, k, v, mask).reshape(b, t, h)
-    x = x + L.dense(attn, p["out"])
+    x = x + L.dense(attn, p["out"], lget("out"))
     y = L.layernorm(x, p["ln2"])
-    y = _quick_gelu(L.dense(y, p["fc1"]))
-    return x + L.dense(y, p["fc2"])
+    y = _quick_gelu(L.dense(y, p["fc1"], lget("fc1")))
+    return x + L.dense(y, p["fc2"], lget("fc2"))
 
 
-@torch.no_grad()
-def apply(params: Dict, pixel_values: torch.Tensor,
-          cfg: ViTConfig) -> torch.Tensor:
+def apply(params: Dict, pixel_values: torch.Tensor, cfg: ViTConfig,
+          lora: Optional[Dict] = None) -> torch.Tensor:
     """Patch features ``[B, num_patches, hidden]`` from ``feature_layer``.
 
     ``pixel_values``: ``[B, H, W, 3]`` float, already normalised on the host.
     Every layer runs, as in the JAX package, though the last one's output is
-    not read at ``feature_layer=-2``.
+    not read at ``feature_layer=-2``. ``lora``: the vision adapter tree
+    ``{"blocks": [...]}`` (no dropout, as in the JAX package).
     """
     x = patchify(pixel_values.to(params["patch_embed"]["w"].dtype),
                  cfg.patch_size)
@@ -124,7 +125,10 @@ def apply(params: Dict, pixel_values: torch.Tensor,
     x = L.layernorm(x, params["pre_ln"])
     keep = range(len(params["blocks"]))[cfg.feature_layer]
     for i, blk in enumerate(params["blocks"]):
-        x = _block(x, blk, cfg.num_heads)
+        blora = None
+        if lora is not None and "blocks" in lora and lora["blocks"][i]:
+            blora = lora["blocks"][i]
+        x = _block(x, blk, cfg.num_heads, blora)
         if i == keep:
             feats = x
     return feats[:, 1:]  # drop CLS: LLaVA 'default' feature select

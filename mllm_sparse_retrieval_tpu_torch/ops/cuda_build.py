@@ -1,8 +1,9 @@
 """Build the package's CUDA sources with plain ``nvcc`` and load them with ctypes.
 
 Each ``csrc/*.cu`` file exposes an ``extern "C"`` interface and includes no
-PyTorch header, so one ``nvcc`` call builds it in seconds. The shared library
-is named by a hash of its source and flags, so a stale build is never loaded.
+PyTorch header (only the shared ``csrc/*.cuh`` helpers), so one ``nvcc``
+call builds it in seconds. The shared library is named by a hash of its
+source, the headers and the flags, so a stale build is never loaded.
 No lock file is used: a build writes a file named by its process id and
 renames it into place, which is atomic, so a build that was cut off leaves
 nothing another process could wait on.
@@ -49,9 +50,13 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the shared library for ``csrc/<source>`` lives once built."""
+    """Where the shared library for ``csrc/<source>`` lives once built; its
+    name hashes the source, every header in ``csrc/`` and the flags."""
     src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}_{digest.hexdigest()[:16]}.so"
 
 

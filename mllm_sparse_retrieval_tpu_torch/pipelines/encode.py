@@ -1,10 +1,12 @@
 """Query encoding with device term selection (the JAX package's
-``pipelines/encode.py``, the parts the online text and image paths run).
+``pipelines/encode.py``, the parts the online text and image paths and the
+trainer's collator run).
 
 ``make_text_ds_encode`` / ``make_image_ds_encode`` return a plain function
 (PyTorch runs eagerly; the JAX package jits the same body) that runs the
-model, selects terms on the device and packs everything the host needs into
-ONE int32 tensor, plus the ``unpack_blocks`` spec for it.
+model under ``torch.inference_mode()``, selects terms on the device and
+packs everything the host needs into ONE int32 tensor, plus the
+``unpack_blocks`` spec for it.
 ``resolve_text_ds_rows`` / ``resolve_image_ds_rows`` turn the unpacked
 blocks into ``SelectedTerms`` by the reference's per-caption / per-image
 rule.
@@ -12,14 +14,16 @@ rule.
 
 from __future__ import annotations
 
-from typing import List
+import os
+import zlib
+from typing import Callable, List
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from mllm_sparse_retrieval_tpu_torch.models.anyres import (  # noqa: F401
-    CLIP_MEAN, CLIP_STD)
+from mllm_sparse_retrieval_tpu_torch.data.karpathy import Example
+from mllm_sparse_retrieval_tpu_torch.models.anyres import CLIP_MEAN, CLIP_STD
 from mllm_sparse_retrieval_tpu_torch.models.api import encode_any
 from mllm_sparse_retrieval_tpu_torch.models.reps import normalize
 from mllm_sparse_retrieval_tpu_torch.ops.packing import pack_blocks
@@ -30,16 +34,17 @@ from mllm_sparse_retrieval_tpu_torch.sparse.term_selection import (
 
 
 def make_text_ds_encode(arch, reps_loc, k_text_full: int, exp_k: int):
-    """``(fn, spec_fn)``: ``fn(params, ids, mask, cand_ids, cand_mask,
-    fmask)`` packs (full-vocab top-k, candidate top-k [+ expansion top-k],
-    L2-normalized dense) into one int32 tensor; ``spec_fn(cand_w)`` gives
-    the matching ``unpack_blocks`` spec. ``fmask`` is the filtered-vocab
-    bool mask when ``exp_k > 0``, else None."""
+    """``(fn, spec_fn)``: ``fn(params, lora, ids, mask, cand_ids, cand_mask,
+    fmask)`` (``lora`` an adapter tree or None) packs (full-vocab top-k,
+    candidate top-k [+ expansion top-k], L2-normalized dense) into one
+    int32 tensor; ``spec_fn(cand_w)`` gives the matching ``unpack_blocks``
+    spec. ``fmask`` is the filtered-vocab bool mask when ``exp_k > 0``, else
+    None."""
     hidden = arch.text.hidden_size
 
-    @torch.no_grad()
-    def _fn(p, ids, mask, cand_ids, cand_mask, fmask):
-        sparse, dense = encode_any(p, arch, ids, mask, None, reps_loc)
+    @torch.inference_mode()
+    def _fn(p, lora, ids, mask, cand_ids, cand_mask, fmask):
+        sparse, dense = encode_any(p, arch, ids, mask, None, reps_loc, lora)
         with record_function("term_select"):
             fv, fi = vocab_topk(sparse, k_text_full)
             cv, ci, cnt = candidate_topk(sparse, cand_ids, cand_mask, 128)
@@ -67,16 +72,17 @@ def make_text_ds_encode(arch, reps_loc, k_text_full: int, exp_k: int):
 
 
 def make_image_ds_encode(arch, reps_loc, k_image: int, exp_k: int):
-    """Image counterpart of ``make_text_ds_encode``: ``fn(params, ids, mask,
-    pixels, fmask)`` packs (full-vocab top-k [+ expansion top-k],
+    """Image counterpart of ``make_text_ds_encode``: ``fn(params, lora, ids,
+    mask, pixels, fmask)`` packs (full-vocab top-k [+ expansion top-k],
     L2-normalized dense); ``spec_fn()`` is shape-static (image selection has
     no candidate set: the reference takes the top ``sparse_length`` vocab
     terms). ``pixels`` is a pixel tensor or the anyres dict."""
     hidden = arch.text.hidden_size
 
-    @torch.no_grad()
-    def _fn(p, ids, mask, pixels, fmask):
-        sparse, dense = encode_any(p, arch, ids, mask, pixels, reps_loc)
+    @torch.inference_mode()
+    def _fn(p, lora, ids, mask, pixels, fmask):
+        sparse, dense = encode_any(p, arch, ids, mask, pixels, reps_loc,
+                                   lora)
         with record_function("term_select"):
             fv, fi = vocab_topk(sparse, k_image)
             blocks = [(fv, True), (fi, False)]
@@ -168,3 +174,46 @@ def resolve_text_ds_rows(parts, valid: int, cand_ids, cand_mask,
             t_ids.astype(np.int32),
             quantize_weights(t_vals, sparse_cfg.quantization_scale)))
     return out
+
+
+def default_pixel_loader(image_size: int) -> Callable[[Example], np.ndarray]:
+    """Deterministic synthetic CLIP-normalised ``[S, S, 3]`` pixels for an
+    example whose image file is absent (seeded by ``zlib.crc32`` of its
+    ``img_id``, as in the JAX package). The port does not decode image files
+    (the card machine has no Pillow): for a file that exists it raises, and
+    the caller injects a ``pixel_loader`` instead."""
+    mean, std = CLIP_MEAN, CLIP_STD
+
+    def load(ex: Example) -> np.ndarray:
+        if os.path.exists(ex.image_path):
+            raise _file_error(ex)
+        # crc32, NOT hash(): str hashes are salted per process
+        rng = np.random.default_rng(zlib.crc32(str(ex.img_id).encode()))
+        arr = rng.uniform(size=(image_size, image_size, 3)).astype(np.float32)
+        return (arr - mean) / std
+
+    return load
+
+
+def default_raw_image_loader(
+    synthetic_size: tuple = (480, 640),
+) -> Callable[[Example], np.ndarray]:
+    """Deterministic synthetic un-normalised ``[H, W, 3]`` pixels in [0, 1]
+    at ``synthetic_size`` for an example whose image file is absent: the
+    input form of the variable-token (anyres) families. For a file that
+    exists it raises, as ``default_pixel_loader`` does."""
+
+    def load(ex: Example) -> np.ndarray:
+        if os.path.exists(ex.image_path):
+            raise _file_error(ex)
+        rng = np.random.default_rng(zlib.crc32(str(ex.img_id).encode()))
+        return rng.uniform(size=synthetic_size + (3,)).astype(np.float32)
+
+    return load
+
+
+def _file_error(ex: Example) -> NotImplementedError:
+    return NotImplementedError(
+        f"{ex.image_path} exists, and the port does not decode image files "
+        f"(no Pillow on the card machine): pass a pixel_loader that returns "
+        f"the image as an [H, W, 3] float array")

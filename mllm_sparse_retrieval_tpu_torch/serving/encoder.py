@@ -36,17 +36,21 @@ def _round_up(x: int, m: int) -> int:
 class OnlineQueryEncoder:
     """Text- and image-query encoder over fixed padded shapes.
 
-    ``encode_texts`` / ``encode_images`` are not thread-safe by themselves;
-    the service calls them from the micro-batcher's single dispatcher thread. Texts longer than
+    ``lora``: an adapter tree (``models/lora.py``) served unmerged, as the
+    JAX package's encoder does; every encode runs under
+    ``torch.inference_mode()``. ``encode_texts`` / ``encode_images`` are
+    not thread-safe by themselves; the service calls them from the
+    micro-batcher's single dispatcher thread. Texts longer than
     ``max_text_len`` tokens are truncated; queries with more than
     ``max_candidates`` distinct candidate tokens raise.
     """
 
     def __init__(self, params, arch, tokenizer, template, sparse_cfg, *,
-                 reps_loc: RepsLoc = RepsLoc.BEFORE_PAD,
+                 reps_loc: RepsLoc = RepsLoc.BEFORE_PAD, lora=None,
                  max_text_len: int = 64, max_candidates: int = 256,
                  device="cuda"):
         self.params = params
+        self.lora = lora
         self.arch = arch
         self.tokenizer = tokenizer
         self.template = template
@@ -102,8 +106,8 @@ class OnlineQueryEncoder:
         d_ids, d_mask, d_ci, d_cm = (torch.from_numpy(x).to(self.device)
                                      for x in (ids, mask, cand_ids,
                                                cand_mask))
-        packed = self._fn(self.params, d_ids.long(), d_mask, d_ci, d_cm,
-                          self._fmask)
+        packed = self._fn(self.params, self.lora, d_ids.long(), d_mask, d_ci,
+                          d_cm, self._fmask)
         parts = unpack_blocks(packed.cpu().numpy(), self._spec)
         terms = resolve_text_ds_rows(parts, n, cand_ids, cand_mask,
                                      self.sparse_cfg)
@@ -192,7 +196,8 @@ class OnlineQueryEncoder:
         n = len(images)
         st = self._image_state()
         d_ids, d_mask, d_px = self.image_inputs(images, pad_to or n)
-        packed = st["fn"](self.params, d_ids, d_mask, d_px, self._fmask)
+        packed = st["fn"](self.params, self.lora, d_ids, d_mask, d_px,
+                          self._fmask)
         parts = unpack_blocks(packed.cpu().numpy(), st["unpack"])
         terms = resolve_image_ds_rows(parts, n, self.sparse_cfg)
         dense = np.asarray(parts[-1], np.float32)[:n]

@@ -1,20 +1,38 @@
 """PyTorch port on the card: the CUDA TAAT and flash-attention kernels
-against their plain PyTorch versions. Marked ``cuda``; each test skips where
-no card is present (decided inside the test, so every pytest worker collects
-the same tests). This file imports nothing of JAX, so it also runs where JAX
-is absent:
+(forward, and the dq and dkv backward kernels) against their plain PyTorch
+versions. Marked ``cuda``; each test skips where no card is present (decided
+inside the test, so every pytest worker collects the same tests). This file
+imports nothing of JAX, so it also runs where JAX is absent:
 
     pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: TAAT exact (integer weights, sums below 2^24). Flash attention,
-at the non-pad positions, bf16 in and out on both sides: the kernel rounds
-its unnormalised probabilities to bf16 and divides at the end, the plain
-version normalises in f32 and then rounds, and each output is rounded to
-bf16 (unit roundoff 2^-8). So each element lies within
+Tolerances: TAAT exact (integer weights, sums below 2^24). Flash forward,
+at every query that has a real key at or before it, bf16 in and out on both
+sides: the kernel rounds its unnormalised probabilities to bf16 and divides
+at the end, the plain version normalises in f32 and then rounds, and each
+output is rounded to bf16 (unit roundoff 2^-8). So each element lies within
 ``2^-7 * (|ref| + sum_s p_s |v_s|)`` of the plain one (the sum is the plain
 version run on ``|v|``), and the mean abs err, which rounding keeps far
 below that worst case (1.1e-4 against a mean ``|ref|`` of about 0.045 at
-the served shape on an H100), stays under ``2^-7 * mean |ref|``.
+the served shape on an H100), stays under ``2^-7 * mean |ref|``. A query
+with no admissible key gets exactly 0 from both. The forward's log-sum-exp
+lies within ``1e-4 * (1 + |ref|)`` of ``torch.logsumexp`` of the plain f32
+logits (the same bf16 inputs, f32 sums in another order) and is +inf where
+there is no admissible key.
+
+Backward: both sides round P to bf16 before a product and each gradient to
+bf16 at the end; the plain version also rounds dP = dout . v to bf16, the
+kernels round dS, and the two form di differently (the kernels from the
+bf16 output). Each of those roundings moves a gradient by at most its unit
+roundoff 2^-8 times the magnitudes of the terms it sums
+(``flash_bwd_magnitudes``), di's up to twice that, so every element of dq,
+dk and dv lies within ``2^-6 * (|ref| + magnitude)`` of the plain one and
+the mean abs err under ``2^-6 * mean |ref|``. Where a gradient cancels to
+0 (a query whose only key is itself: dS = P (dP - di) = 0 exactly, which
+the plain version gets exactly and the kernels to rounding noise), the
+mean is held instead to ``2^-6 * 2^-8 * mean magnitude``. On an H100 the
+kernels' errors against an f64 computation from the same bf16 inputs were
+as large as the plain version's (largest element shares 0.05-0.18).
 """
 
 import numpy as np
@@ -83,17 +101,36 @@ def test_kernel_rejects_what_it_does_not_take():
 
 
 FLASH_RTOL = 2.0 ** -7
+BWD_RTOL = 2.0 ** -6
+LSE_RTOL = 1e-4
+
+
+def _has_key(mask):
+    """[B, T] bool: the query has a real key at or before it."""
+    return mask.bool().cumsum(dim=1) > 0
 
 
 def _assert_flash_close(got, q, k, v, mask):
     ref = FA.flash_causal_attention_plain(q, k, v, mask).float()
     ref_abs = FA.flash_causal_attention_plain(q, k, v.abs(), mask).float()
-    real = mask.bool()
+    rows = _has_key(mask)
     assert torch.isfinite(got.float()).all()
-    diff = (got.float() - ref).abs()[real]
-    ref, ref_abs = ref.abs()[real], ref_abs[real]
+    assert bool((got[~rows] == 0).all()) and bool((ref[~rows] == 0).all())
+    diff = (got.float() - ref).abs()[rows]
+    ref, ref_abs = ref.abs()[rows], ref_abs[rows]
     assert bool((diff <= FLASH_RTOL * (ref + ref_abs)).all())
     assert float(diff.mean()) <= FLASH_RTOL * float(ref.mean())
+
+
+def _assert_grad_close(got, ref, mag, name):
+    got, ref = got.float(), ref.float()
+    assert torch.isfinite(got).all(), name
+    diff = (got - ref).abs()
+    assert bool((diff <= BWD_RTOL * (ref.abs() + mag)).all()), \
+        (name, float(diff.max()))
+    floor = float(mag.mean()) * 2.0 ** -8
+    assert float(diff.mean()) <= BWD_RTOL * max(float(ref.abs().mean()),
+                                                floor), name
 
 
 def _flash_inputs(seed, b, t, hq, hkv, lengths, dev, dh=128):
@@ -152,3 +189,120 @@ def test_flash_kernel_rejects_what_it_does_not_take():
     with pytest.raises(ValueError, match="devices"):
         FA.flash_causal_attention(q, k, v, mask.cpu())
     assert FA.launch_count() == before
+
+
+@pytest.mark.parametrize("shape", [
+    (3, 1024, 8, 2, (1024, 700, 0)),
+    (2, 200, 4, 4, (137, 200)),
+])
+def test_flash_lse_matches_logsumexp(shape):
+    dev = _card()
+    b, t, hq, hkv, lengths = shape
+    q, k, v, mask = _flash_inputs(5, b, t, hq, hkv, lengths, dev)
+    out, lse = FA.flash_causal_attention_lse(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert lse.shape == (b, hq, t) and lse.dtype == torch.float32
+    assert torch.equal(out, FA.flash_causal_attention(q, k, v, mask))
+    kr = k.float().repeat_interleave(hq // hkv, dim=2)
+    logits = torch.einsum("bthd,bshd->bhts", q.float(), kr) * 128 ** -0.5
+    pos = torch.arange(t, device=dev)
+    ok = (pos[:, None] >= pos[None, :])[None, None] \
+        & mask.bool()[:, None, None, :]
+    ref = torch.logsumexp(logits.masked_fill(~ok, float("-inf")), dim=-1)
+    rows = _has_key(mask)[:, None, :].expand(-1, hq, -1)
+    assert bool(torch.isinf(lse[~rows]).all()) and bool((lse[~rows] > 0).all())
+    diff = (lse[rows] - ref[rows]).abs()
+    assert bool((diff <= LSE_RTOL * (1 + ref[rows].abs())).all())
+
+
+def _bwd_case(seed, b, t, hq, hkv, lengths, dev):
+    q, k, v, mask = _flash_inputs(seed, b, t, hq, hkv, lengths, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dout = torch.randn(q.shape, generator=gen, device=dev,
+                       dtype=torch.bfloat16)
+    return q, k, v, mask, dout
+
+
+def _assert_bwd_close(grads, q, k, v, mask, dout):
+    ref = FA.flash_causal_attention_plain_bwd(q, k, v, mask, dout)
+    mags = FA.flash_bwd_magnitudes(q, k, v, mask, dout)
+    for name, got, r, m in zip(("dq", "dk", "dv"), grads, ref, mags):
+        assert got.shape == r.shape and got.dtype == torch.bfloat16, name
+        _assert_grad_close(got, r, m, name)
+
+
+@pytest.mark.parametrize("shape", [
+    # (b, t, hq, hkv, lengths): ragged rows and an all-pad row with GQA,
+    # T not a multiple of the 64-row tile with MHA, one real token
+    (3, 1024, 8, 2, (1024, 700, 0)),
+    (2, 200, 4, 4, (137, 200)),
+    (1, 64, 2, 1, (1,)),
+])
+def test_flash_bwd_kernels_match_plain(shape):
+    dev = _card()
+    b, t, hq, hkv, lengths = shape
+    q, k, v, mask, dout = _bwd_case(6, b, t, hq, hkv, lengths, dev)
+    out, lse = FA.flash_causal_attention_lse(q, k, v, mask)
+    di = FA.flash_bwd_di(out, dout)
+    before = {n: FA.launch_count(n) for n in FA.KERNELS}
+    dq = FA.flash_attention_bwd_dq(q, k, v, mask, lse, di, dout)
+    dk, dv = FA.flash_attention_bwd_dkv(q, k, v, mask, lse, di, dout)
+    torch.cuda.synchronize()
+    assert {n: FA.launch_count(n) - before[n] for n in FA.KERNELS} == \
+        {"fwd": 0, "dq": 1, "dkv": 1}
+    _assert_bwd_close((dq, dk, dv), q, k, v, mask, dout)
+    both = FA.flash_causal_attention_bwd(q, k, v, mask, out, lse, dout)
+    for x, y in zip(both, (dq, dk, dv)):      # fixed sum order, no atomics
+        assert torch.equal(x, y)
+
+
+def test_flash_function_trains_through_the_kernels():
+    dev = _card()
+    q, k, v, mask, dout = _bwd_case(7, 2, 1024, 8, 2, (1024, 513), dev)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = {n: FA.launch_count(n) for n in FA.KERNELS}
+    out = FA.FlashCausalAttention.apply(*leaves, mask, None)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert {n: FA.launch_count(n) - before[n] for n in FA.KERNELS} == \
+        {"fwd": 1, "dq": 1, "dkv": 1}
+    _assert_flash_close(out.detach(), q, k, v, mask)
+    _assert_bwd_close([x.grad for x in leaves], q, k, v, mask, dout)
+    with torch.no_grad():                     # no gradient wanted: no lse
+        FA.FlashCausalAttention.apply(q, k, v, mask, None)
+    assert FA.launch_count("fwd") - before["fwd"] == 2
+
+
+def test_flash_bwd_reads_strided_views():
+    dev = _card()
+    q, k, v, mask, dout = _bwd_case(8, 2, 256, 4, 2, (256, 100), dev)
+    qkv = torch.cat([q, k, v], dim=2)          # [B, T, 8, 128]: strided views
+    qs, ks, vs = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    wide = torch.cat([dout, dout], dim=2)[:, :, :4]
+    out, lse = FA.flash_causal_attention_lse(qs, ks, vs, mask)
+    grads = FA.flash_causal_attention_bwd(qs, ks, vs, mask, out, lse, wide)
+    _assert_bwd_close(grads, q, k, v, mask, dout)
+
+
+def test_flash_bwd_rejects_what_it_does_not_take():
+    dev = _card()
+    q, k, v, mask, dout = _bwd_case(9, 1, 64, 2, 1, (64,), dev)
+    out, lse = FA.flash_causal_attention_lse(q, k, v, mask)
+    before = {n: FA.launch_count(n) for n in FA.KERNELS}
+    with pytest.raises(TypeError, match="bfloat16"):
+        FA.flash_causal_attention_bwd(q, k, v, mask, out, lse, dout.float())
+    with pytest.raises(ValueError, match="last dimension"):
+        dt = dout.transpose(1, 3).contiguous().transpose(1, 3)
+        FA.flash_causal_attention_bwd(q, k, v, mask, out, lse, dt)
+    with pytest.raises(ValueError, match="lse"):
+        FA.flash_causal_attention_bwd(q, k, v, mask, out, lse[:, :1], dout)
+    with pytest.raises(ValueError, match="di"):
+        FA.flash_attention_bwd_dq(q, k, v, mask, lse, lse.double(), dout)
+    with pytest.raises(ValueError, match="must match"):
+        FA.flash_causal_attention_bwd(q, k, v, mask, out[:, :32],
+                                      lse, dout)
+    with pytest.raises(ValueError, match="devices"):
+        FA.flash_causal_attention_bwd(q, k, v, mask.cpu(), out, lse, dout)
+    with pytest.raises(ValueError, match="device"):
+        FA.flash_causal_attention_lse(q.cpu(), k.cpu(), v.cpu(), mask.cpu())
+    assert {n: FA.launch_count(n) for n in FA.KERNELS} == before

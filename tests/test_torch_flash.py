@@ -1,16 +1,25 @@
 """PyTorch port, flash attention on the CPU: the plain version of the flash
 kernel against the JAX package's ``layers.attention`` +
-``causal_padding_mask`` (what its Pallas flash kernel equals at every
-non-pad position), and ``llama.apply`` with the flash route forced against
-JAX ``llama.apply``, on seeded inputs and weights carried across with
-``from_jax_params``. The kernel itself runs only on the card
+``causal_padding_mask``, ``llama.apply`` with the flash route forced against
+JAX ``llama.apply``, and ``mllm.encode`` at ``AFTER_PAD`` with the flash
+route forced against JAX ``encode``, on seeded inputs and weights carried
+across with ``from_jax_params``. The kernels themselves run only on the card
 (``tests/test_torch_cuda.py``).
 
-Tolerances (f32 on the CPU): ``atol=rtol=1e-5`` at the non-pad positions
-(XLA and PyTorch sum the logits and the P V product in different orders).
-Pad positions differ by design (segment ids against the padding mask) and
-are only required to be finite.
+The flash route's rule: key ``s`` is admissible for query ``t`` iff
+``s <= t`` and ``mask[b, s]`` is set, which equals ``causal_padding_mask``
+at every query that has a real key at or before it, pad queries included.
+A query with none (an all-pad row) gets 0 from the port's plain version and
+kernel, and the uniform average of ``v`` over all ``T`` keys from JAX (every
+logit of the row is ``finfo.min``); such rows are checked to be 0, not
+compared.
+
+Tolerances (f32 on the CPU): ``atol=rtol=1e-5`` at every compared position
+(XLA and PyTorch sum the logits and the P V product in different orders);
+``1e-4`` on sparse logits (the LM head adds a hidden-size-long dot product).
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -19,14 +28,15 @@ import pytest
 import torch
 
 from mllm_sparse_retrieval_tpu.configs import ModelConfig as JModelConfig
+from mllm_sparse_retrieval_tpu.configs import RepsLoc as JRepsLoc
 from mllm_sparse_retrieval_tpu.models import layers as JL
 from mllm_sparse_retrieval_tpu.models import llama as jllama
 from mllm_sparse_retrieval_tpu.models import mllm as jmllm
 from mllm_sparse_retrieval_tpu.models.registry import (
     tiny_debug_arch as j_tiny_arch)
-from mllm_sparse_retrieval_tpu_torch.configs import ModelConfig
+from mllm_sparse_retrieval_tpu_torch.configs import ModelConfig, RepsLoc
 from mllm_sparse_retrieval_tpu_torch.models import layers as L
-from mllm_sparse_retrieval_tpu_torch.models import llama
+from mllm_sparse_retrieval_tpu_torch.models import llama, mllm
 from mllm_sparse_retrieval_tpu_torch.models.convert_jax import from_jax_params
 from mllm_sparse_retrieval_tpu_torch.models.registry import tiny_debug_arch
 from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
@@ -51,6 +61,11 @@ def _jax_attention(q, k, v, mask):
                                    JL.causal_padding_mask(jnp.asarray(mask))))
 
 
+def _has_key(mask):
+    """[B, T] bool: the query has a real key at or before it."""
+    return np.cumsum(np.asarray(mask) != 0, axis=1) > 0
+
+
 @pytest.mark.parametrize("shape", [
     # (b, t, hq, hkv, dh, lengths): the eligible shape with GQA and ragged
     # right padding, an all-pad row, MHA, a chunked plain version
@@ -65,9 +80,11 @@ def test_flash_plain_matches_jax_attention(shape, monkeypatch):
         monkeypatch.setattr(FA, "_PLAIN_CHUNK_ELEMS", 3 * 70 * t)
     got = FA.flash_causal_attention_plain(_t(q), _t(k), _t(v), _t(mask))
     ref = _jax_attention(q, k, v, mask)
-    real = mask.astype(bool)
-    np.testing.assert_allclose(got.numpy()[real], ref[real], **TOL)
+    rows = _has_key(mask)             # pad rows of a real prompt included
+    assert rows.sum() > np.asarray(mask).sum() or 0 in lengths
+    np.testing.assert_allclose(got.numpy()[rows], ref[rows], **TOL)
     assert torch.isfinite(got).all()
+    assert (got.numpy()[~rows] == 0).all()
     assert got.shape == (b, t, hq, dh)
 
 
@@ -141,12 +158,57 @@ def test_llama_apply_with_flash_forced_matches_jax(tower, monkeypatch, t):
     assert len(calls) == arch.text.num_layers
     ref = np.asarray(jllama.apply(jparams["text"], jnp.asarray(emb),
                                   jnp.asarray(mask), jarch.text))
-    real = mask.astype(bool)
-    np.testing.assert_allclose(got.numpy()[real], ref[real], **TOL)
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)   # pad rows too
     assert torch.isfinite(got).all()
     # allow_flash=False forces the plain masked attention
     calls.clear()
     plain = llama.apply(params["text"], _t(emb), _t(mask), arch.text,
                         allow_flash=False)
     assert calls == []
-    np.testing.assert_allclose(plain.numpy()[real], ref[real], **TOL)
+    np.testing.assert_allclose(plain.numpy(), ref, **TOL)
+
+
+@pytest.mark.parametrize("gqa", [False, True])
+def test_encode_after_pad_with_flash_forced_matches_jax(monkeypatch, gqa):
+    """``AFTER_PAD`` reads position T-1, a pad row of every right-padded
+    prompt: on the flash route it must see the prompt, as JAX's does."""
+    cfg = dict(tiny_vocab_size=256, tiny_hidden_size=64, tiny_num_layers=2,
+               tiny_num_heads=4)
+    jarch = j_tiny_arch(JModelConfig(dtype="float32", **cfg))
+    arch = tiny_debug_arch(ModelConfig(dtype="float32", **cfg))
+    if gqa:
+        jarch = dataclasses.replace(jarch, text=dataclasses.replace(
+            jarch.text, num_kv_heads=2))
+        arch = dataclasses.replace(arch, text=dataclasses.replace(
+            arch.text, num_kv_heads=2))
+    jparams = jmllm.init_params(jax.random.PRNGKey(3), jarch, jnp.float32)
+    params = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams),
+                             device="cpu")
+    rng = np.random.default_rng(9)
+    ids = rng.integers(5, 256, size=(3, 64)).astype(np.int32)
+    mask = np.zeros((3, 64), np.int32)
+    for i, n in enumerate((40, 64, 7)):
+        mask[i, :n] = 1
+    calls = []
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return FA.flash_causal_attention(*a, **kw)
+
+    monkeypatch.setattr(L, "flash_attention_eligible", lambda *a: True)
+    monkeypatch.setattr(L, "flash_causal_attention", spy)
+    sparse, dense = mllm.encode(params, arch, _t(ids).long(), _t(mask),
+                                reps_loc=RepsLoc.AFTER_PAD)
+    assert len(calls) == arch.text.num_layers
+    jsparse, jdense = jmllm.encode(jparams, jarch, jnp.asarray(ids),
+                                   jnp.asarray(mask), None,
+                                   JRepsLoc.AFTER_PAD)
+    np.testing.assert_allclose(dense.numpy(), np.asarray(jdense), **TOL)
+    np.testing.assert_allclose(sparse.numpy(), np.asarray(jsparse),
+                               atol=1e-4, rtol=1e-4)
+    # two prompts that differ only in their real tokens differ at T-1
+    ids2 = ids.copy()
+    ids2[0, :40] = rng.integers(5, 256, size=40)
+    _, dense2 = mllm.encode(params, arch, _t(ids2).long(), _t(mask),
+                            reps_loc=RepsLoc.AFTER_PAD)
+    assert float((dense2[0] - dense[0]).abs().max()) > 1e-3

@@ -109,7 +109,7 @@ def test_llama_hidden_matches_jax(tower):
 @pytest.mark.parametrize("loc", ["before_pad", "after_pad"])
 def test_mllm_encode_matches_jax(tower, loc):
     j_arch, arch, jparams, params, ids, mask = tower
-    sparse, dense = mllm.encode(params, arch, _t(ids).long(), _t(mask),
+    sparse, dense = mllm.encode(params, arch, _t(ids).long(), _t(mask), None,
                                 RepsLoc(loc))
     jsparse, jdense = jmllm.encode(jparams, j_arch, jnp.asarray(ids),
                                    jnp.asarray(mask), None, JRepsLoc(loc))

@@ -258,7 +258,7 @@ def test_mllm_encode_fixed_grid_pixels_match_jax(fixed_model, loc):
     mask[1, -4:] = 0
     px = rng.normal(size=(2, 64, 64, 3)).astype(np.float32)
     sparse, dense = mllm.encode(params, arch, _t(ids).long(), _t(mask),
-                                RepsLoc(loc), pixel_values=_t(px))
+                                _t(px), RepsLoc(loc))
     jsparse, jdense = jmllm.encode(jparams, jarch, jnp.asarray(ids),
                                    jnp.asarray(mask), jnp.asarray(px),
                                    JRepsLoc(loc))
