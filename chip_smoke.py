@@ -8,8 +8,10 @@ Run from the repository root on a machine with a CUDA card:
 It builds the port's CUDA kernels from ``csrc/`` (one plain ``nvcc`` call
 per source, all started together) and holds each against its plain PyTorch
 version at the shapes the port's paths give it: the TAAT kernel at the
-served and the benchmark shapes, the flash-attention forward at the served
-image shape and the dq and dkv backward kernels at the training shape. Then
+served and the benchmark shapes; the flash-attention forward and the dq and
+dkv backward kernels on synthetic 3,072-token rows with an all-pad row
+(what the kernels line reports) and on the rows of the profiled training
+step; each with its bound and its share of the bf16 peak. Then
 it drives the port's three paths end to end on the full-width, full-depth
 LLaVA-NeXT-Llama3-8B (bf16 weights drawn on the card from a seed): text
 queries through ``RetrievalService`` and the 32-layer text tower; image
@@ -253,9 +255,24 @@ def phase_kernel_bench(rng):
     return out
 
 
+def sass_counts(so) -> str:
+    """Tensor-core instructions in a built library's SASS (``cuobjdump``
+    beside ``nvcc``): HGMMA is wgmma, HMMA is mma.sync."""
+    from mllm_sparse_retrieval_tpu_torch.ops import cuda_build
+
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    words = sass.split()
+    hgmma = sum(w.startswith("HGMMA.") for w in words)
+    hmma = sum(w.startswith("HMMA.") for w in words)
+    return f"SASS {hgmma} HGMMA, {hmma} HMMA"
+
+
 def build_kernels():
     """Every kernel of the port, one ``nvcc`` each, all started together;
-    prints each build's time and ``-Xptxas -v`` register report."""
+    prints each build's time, ``-Xptxas -v`` register report and count of
+    tensor-core instructions."""
     from concurrent.futures import ThreadPoolExecutor
 
     from mllm_sparse_retrieval_tpu_torch.ops import cuda_build
@@ -268,9 +285,11 @@ def build_kernels():
         results = list(pool.map(
             lambda src: cuda_build.build(src, verbose=True), sources))
     for src, (so, build_s, msgs) in zip(sources, results):
-        regs = [ln.strip() for ln in msgs.splitlines() if "registers" in ln]
+        regs = [ln.strip() for ln in msgs.splitlines()
+                if "registers" in ln or "spill" in ln or "arning" in ln]
         progress("build", f"{src}: nvcc {build_s:.2f}s -> {so.name}; "
-                 + ("; ".join(regs) if regs else "already built"))
+                 + ("; ".join(regs) if regs else "already built")
+                 + f"; {sass_counts(so)}")
     progress("build", f"all {len(sources)} sources in "
              f"{time.monotonic() - t0:.2f}s")
 
@@ -388,16 +407,17 @@ def allowed_mask(mask):
 
 
 def phase_flash(lengths, seq):
-    """The flash forward kernel at the served image shape against its plain
-    version (compared at every query with a real key at or before it), its
-    log-sum-exp, its time, the plain version's and that of
+    """The flash forward kernel on one prompt a row, of ``lengths`` real
+    tokens each (the served image shape, or the training step's), against
+    its plain version (compared at every query with a real key at or before
+    it), its log-sum-exp, its time, the plain version's and that of
     ``scaled_dot_product_attention`` with the same boolean mask."""
     import torch
     import torch.nn.functional as F
 
     from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
 
-    b, hq, hkv, dh = FLASH_B, FLASH_HQ, FLASH_HKV, FLASH_DH
+    b, hq, hkv, dh = len(lengths), FLASH_HQ, FLASH_HKV, FLASH_DH
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
     q, k, v = (torch.randn((b, seq, h, dh), generator=gen, device=DEVICE,
                            dtype=torch.bfloat16) for h in (hq, hkv, hkv))
@@ -437,7 +457,8 @@ def phase_flash(lengths, seq):
              f"share of its limit {lse_used:.3f}; kernel {ms:.4f} ms, plain "
              f"{plain_ms:.4f} ms, SDPA (boolean mask, GQA) "
              f"{library_ms:.4f} ms (max abs err vs plain {lib_err:.3g}), "
-             f"bound {bound_ms:.4f} ms ({bound_by})")
+             f"bound {bound_ms:.4f} ms ({bound_by}), share of the bf16 "
+             f"peak {bound_ms / ms:.3f}")
     del q, k, v, got, ref, allowed, qh, kh, vh
     torch.cuda.empty_cache()
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -539,10 +560,12 @@ def phase_flash_bwd(lengths, seq):
                        for n, e in errs.items())
     progress("flash_bwd", f"B={b} T={seq} Hq={hq} Hkv={hkv} Dh={dh} bf16, "
              f"real lengths {list(lengths)}: {shares}; dq kernel "
-             f"{dq_ms:.4f} ms (bound {dq_bound[0]:.4f} ms, {dq_bound[1]}), "
-             f"dkv kernel {dkv_ms:.4f} ms (bound {dkv_bound[0]:.4f} ms, "
-             f"{dkv_bound[1]}); both {dq_ms + dkv_ms:.4f} ms against a "
-             f"five-product bound of {whole[0]:.4f} ms ({whole[1]}); plain "
+             f"{dq_ms:.4f} ms (bound {dq_bound[0]:.4f} ms, {dq_bound[1]}; "
+             f"share of the bf16 peak {dq_bound[0] / dq_ms:.3f}), dkv "
+             f"kernel {dkv_ms:.4f} ms (bound {dkv_bound[0]:.4f} ms, "
+             f"{dkv_bound[1]}; share {dkv_bound[0] / dkv_ms:.3f}); both "
+             f"{dq_ms + dkv_ms:.4f} ms against a five-product bound of "
+             f"{whole[0]:.4f} ms ({whole[1]}); plain "
              f"backward {plain_ms:.4f} ms; SDPA backward (boolean mask, GQA; "
              f"forward+backward minus forward) {library_ms:.4f} ms")
     del q, k, v, dout, out, lse, di, dq, dk, dv
@@ -1059,9 +1082,17 @@ def main() -> int:
         tmpl.image_prompt(), arch_img.max_image_tokens)))
     seq = -(-fixed_len // 512) * 512 if fixed_len >= FLASH_MIN_SEQ \
         else fixed_len
+    # the kernels at the synthetic shapes (one all-pad row; the kernels
+    # line reports these) and at the rows of the profiled training step
+    # (four real image prompts, no all-pad row)
+    train_lengths = [image_prompt_len[(3 * i) % len(IMAGE_SIZES)]
+                     for i in range((TRAIN_STEPS - 1) * TRAIN_B,
+                                    TRAIN_STEPS * TRAIN_B)]
     flash = phase_flash(image_prompt_len[:FLASH_B - 1] + [0], seq)
+    phase_flash(train_lengths, seq)
     dq_kernel, dkv_kernel = phase_flash_bwd(
         image_prompt_len[:TRAIN_B - 1] + [0], seq)
+    phase_flash_bwd(train_lengths, seq)
 
     # ---- 4. the model and the index -------------------------------------------
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)

@@ -1,14 +1,15 @@
 // Causal flash-attention backward for Hopper (sm_90a), plain C interface:
-// a dq kernel and a dkv kernel.
+// a dkv kernel and a dq kernel.
 //
 // Replaces the backward of the stock Pallas TPU kernel behind the custom VJP
-// of mllm_sparse_retrieval_tpu/models/layers.py::flash_causal_attention
-// (jax.experimental.pallas.ops.tpu.flash_attention, _flash_attention_bwd_dq
-// and _flash_attention_bwd_dkv). With the forward's log-sum-exp lse
-// (flash_attn.cu, natural base, +inf for a query with no admissible key),
-// di[b, h, t] = sum_d out . dout (computed by the caller) and the forward's
-// key-mask rule (key s is admissible for query t iff s <= t and
-// mask[b, s] != 0), both kernels recompute
+// of mllm_sparse_retrieval_tpu/models/layers.py:199 (flash_causal_attention):
+// jax/experimental/pallas/ops/tpu/flash_attention.py:941
+// (_flash_attention_bwd_dkv, pallas_call :1121) and :1287
+// (_flash_attention_bwd_dq, pallas_call :1456; jax 0.9.0). With the
+// forward's log-sum-exp lse (flash_attn.cu, natural base, +inf for a query
+// with no admissible key), di[b, h, t] = sum_d out . dout (computed by the
+// caller) and the forward's key-mask rule (key s is admissible for query t
+// iff s <= t and mask[b, s] != 0), both kernels recompute
 //
 //   P  = exp(scale * q . k - lse)          (0 where not admissible)
 //   dS = P * (dout . v - di)
@@ -17,51 +18,74 @@
 // kernel dQ = scale * dS k. GQA is native: query head h reads kv head
 // h / G (G = Hq / Hkv), and the dkv block of one kv head sums over its G
 // query heads itself, so K/V are never repeated and no atomics are used:
-// the sum order is fixed and the result deterministic.
+// the sum order is fixed and the result deterministic, bit for bit.
 //
 // Layout and types: q/k/v/dout and the outputs dq/dk/dv are bf16 [B, T, H,
 // 128], read and written through their strides; lse and di are f32
-// [B, Hq, T] contiguous; mask int32 [B, T] contiguous. Products are
-// mma.sync m16n8k16 bf16 -> f32; P and dS are rounded to bf16 before each
-// product, as the forward rounds P.
+// [B, Hq, T] contiguous; mask int32 [B, T] contiguous. Products are bf16 ->
+// f32; P and dS are rounded to bf16 before each product, as the forward
+// rounds P.
 //
 // What bounds it on an H100: operations. Per admissible (query, key) pair
 // and head the backward does five 128-deep products (S and dP in both
 // kernels, dV, dK, dQ), 2.5x the forward's two. At the training shape (B=4,
-// T=3,072, 32/8 heads; three image rows and an all-pad row) that is
-// ~0.57 ms at 989 TFLOP/s against ~0.1 ms of bytes.
+// T=3,072, 32/8 heads; three image rows and an all-pad row) the dkv
+// kernel's four are 0.4535 ms at 989 TFLOP/s and the dq kernel's three
+// 0.3401 ms, against ~0.1 ms of bytes. Only wgmma reaches that rate.
 //
-// What the design does about it:
-//   * dkv: one block of 4 warps per (64-key tile, kv head, batch row); each
-//     warp owns 16 keys and keeps their dK and dV rows in f32 registers for
-//     the whole loop over the G query heads and the query tiles at or after
-//     the key tile, and writes them once. K and V stay in shared memory; Q
-//     and dout tiles (with their lse and di) are double-buffered with
-//     cp.async. The key-tile index is the grid's slowest dimension, in
-//     order, so the heaviest tiles (early keys, most queries) start first.
-//     A key tile with no real key writes zeros and stops;
-//   * dq: one block per (64-query tile, q head, batch row), the forward's
-//     grid and tile skip: key tiles above the diagonal are never visited,
-//     key tiles with no real key are skipped, and the per-element mask runs
-//     on the diagonal tile and on tiles that mix real and pad keys;
-//   * S^T = K Q^T and dP^T = V dout^T leave P^T and dS^T in accumulator
-//     fragments that are exactly the A operands of dV += P^T dout and
-//     dK += dS^T Q, so they never leave registers (the same holds for P, dS
-//     and dQ += dS K in the dq kernel).
-// wgmma, TMA and one fused kernel are later work.
+// dkv, for Hopper (hopper_common.cuh holds the building blocks):
+//   * one block of three warpgroups (384 threads) per (128-key tile, kv
+//     head, batch row); the key-tile index is the grid's slowest dimension,
+//     in order, so the heaviest tiles (early keys, most queries) start
+//     first. A key tile with no real key writes zeros and stops;
+//   * warpgroup 0 is the producer (setmaxnreg 24): one thread loads K and V
+//     once by TMA (32 KB each) and streams, for each of the G query heads
+//     and each 64-query tile at or after the key tile, Q and dout (16 KB
+//     each) and their 64 lse and di values through a ring of 2 stages on
+//     full/empty mbarriers; TMA zero-fills rows past T;
+//   * warpgroups 1 and 2 are consumers (setmaxnreg 240), 64 keys each:
+//     S^T = K Q^T and dP^T = V dout^T are 16 wgmma m64n64k16 with both
+//     operands in shared memory, committed as two groups so P^T is formed
+//     while dP^T is still on the tensor cores; P^T and dS^T, rounded to
+//     bf16 in registers, are the register A operands of dV += P^T dout and
+//     dK += dS^T Q (8 wgmma m64n128k16, dout and Q as MN-major B operands).
+//     dK and dV stay in registers (64 f32 a thread each) for the whole
+//     loop and are written once; a consumer skips the query tile that lies
+//     wholly before its keys;
+//   * shared memory per block: K, V 64 KB + 2 x (Q, dout 32 KB + 512 bytes
+//     of lse and di) = 129 KB.
+// Registers as `nvcc -Xptxas -v` reports them on the card (CUDA 12.8):
+// 168 a thread at launch (384 threads), the consumers at up to 240 after
+// setmaxnreg and the producer at 24; 32 bytes of spill stores and 44 of
+// loads (a 32-byte frame): a few loop-invariant integers of the consumers
+// kept in local memory across each iteration's products (dK, dV, S^T and
+// dP^T take 192 of the 240 registers), and the producer's. The mma.sync
+// design this replaces ran at 255 with 12-64 bytes of spills.
+// Measured by chip_smoke.py (see PERF.md): 0.92 ms at the synthetic
+// training shape,
+// 2.02x the bound; what holds it back: S^T and dP^T are m64n64 products
+// with both operands in shared memory, which need about the whole
+// shared-memory bandwidth at the tensor-core rate, and each iteration's
+// four products depend on one another with only two warpgroups to overlap.
+//
+// dq (the first, mma.sync design; wgmma is later work): one block of 4 warps
+// per (64-query tile, q head, batch row), the forward's grid and tile skip;
+// mma.sync m16n8k16 with ldmatrix operands (flash_common.cuh), cp.async
+// double buffering, dS and dQ += dS K in registers.
 //
 // Contract (checked by the Python wrapper, ops/flash_attention.py): head_dim
 // 128; every bf16 tensor has unit last stride, its other strides multiples
 // of 8 elements and 16-byte aligned storage; hq % hkv == 0.
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
 using namespace flash;
+using namespace hopper;
 
 constexpr int kDqSmem = 6 * kTileElems * 2;    // Q, dO, 2 K, 2 V = 96 KB
-constexpr int kDkvSmem = 6 * kTileElems * 2;   // K, V, 2 Q, 2 dO = 96 KB
 
 struct Params {
   const __nv_bfloat16* q;
@@ -234,136 +258,277 @@ flash_bwd_dq_kernel(const Params p) {
              dq, p.scale);
 }
 
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + kTileElems;
-  __nv_bfloat16* sQ = sV + kTileElems;        // two buffers
-  __nv_bfloat16* sDO = sQ + 2 * kTileElems;   // two buffers
-  __shared__ float sL[2][kTile];              // lse * log2(e) of a q tile
-  __shared__ float sD[2][kTile];              // di of a q tile
-  __shared__ int sAny;
+// ---- dkv: wgmma, TMA and warp specialisation -------------------------------
+
+constexpr int kDkvKeys = 128;                  // keys per block, 64 a consumer
+constexpr int kDkvRows = 64;                   // queries per streamed tile
+constexpr int kDkvStages = 2;                  // Q/dO/lse/di ring
+constexpr int kDkvThreads = 384;               // producer + 2 consumers
+constexpr int kKvPanel = kDkvKeys * 128;       // 128 rows x 64 dims: 16 KB
+constexpr int kKvTile = 2 * kKvPanel;
+constexpr int kQPanel = kDkvRows * 128;        // 64 rows x 64 dims: 8 KB
+constexpr int kQTile = 2 * kQPanel;
+constexpr int kStatBytes = kDkvRows * 4;
+constexpr int kSmemV = kKvTile;                // K at 0
+constexpr int kSmemQ = 2 * kKvTile;
+constexpr int kSmemDO = kSmemQ + kDkvStages * kQTile;
+constexpr int kSmemL = kSmemDO + kDkvStages * kQTile;
+constexpr int kSmemD = kSmemL + kDkvStages * kStatBytes;
+constexpr int kSmemBar = kSmemD + kDkvStages * kStatBytes;
+constexpr int kDkvSmem = 1024 + kSmemBar + 64;   // + alignment slack
+
+struct DkvParams {
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  const int32_t* mask;
+  long long dk_sb, dk_st, dk_sh;
+  long long dv_sb, dv_st, dv_sh;
+  int seq, hq, group;
+  float scale, scale_log2;
+};
+
+// Write a consumer warpgroup's 64 x 128 f32 accumulator rows (row0 + 16w +
+// g and + 8) times `mul` as bf16; rows at or past `seq` are dropped.
+__device__ __forceinline__ void store_wg_rows(__nv_bfloat16* base,
+                                              long long st, int row0,
+                                              int seq, const float (&acc)[64],
+                                              float mul) {
+  const int lane = threadIdx.x & 31;
+  const int w = (threadIdx.x / 32) & 3;
+  const int tig = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 16 * w + (lane >> 2) + 8 * r;
+    if (row < seq) {
+      __nv_bfloat16* dst = base + row * st + tig * 2;
+#pragma unroll
+      for (int d = 0; d < 16; ++d) {
+        *reinterpret_cast<uint32_t*>(dst + d * 8) =
+            pack_bf16(acc[4 * d + 2 * r] * mul, acc[4 * d + 2 * r + 1] * mul);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void dkv_consume(const DkvParams& p,
+                                            unsigned char* smem,
+                                            uint64_t* bar, int k0, int nq,
+                                            int total, int b, int hk) {
+  uint64_t* kv_full = bar;
+  uint64_t* full = bar + 1;
+  uint64_t* empty = bar + 1 + kDkvStages;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128 - 1;          // keys 64 wg .. 64 wg + 63
+  const int w = (tid / 32) & 3;
+  const int lane = tid & 31;
+  const int tig = lane & 3;
+  const int seq = p.seq;
+  const int kwg = k0 + 64 * wg;
+  const int key_a = kwg + 16 * w + (lane >> 2);
+  const int key_b = key_a + 8;
+  const int32_t* mask = p.mask + static_cast<long long>(b) * seq;
+  const bool ok_a = key_a < seq && mask[key_a] != 0;
+  const bool ok_b = key_b < seq && mask[key_b] != 0;
+  const int t0 = k0 / kDkvRows;
+
+  float dk[64], dv[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.0f;
+
+  mbar_wait(kv_full, 0);
+  const unsigned char* sK = smem + wg * 64 * 128;
+  const unsigned char* sV = smem + kSmemV + wg * 64 * 128;
+  for (int it = 0; it < total; ++it) {
+    const int s = it % kDkvStages;
+    const int q0 = (t0 + it % nq) * kDkvRows;
+    mbar_wait(full + s, (it / kDkvStages) & 1);
+    if (q0 + kDkvRows <= kwg) {        // every query precedes every key here
+      if (lane == 0) mbar_arrive(empty + s);
+      continue;
+    }
+    const unsigned char* sQ = smem + kSmemQ + s * kQTile;
+    const unsigned char* sDO = smem + kSmemDO + s * kQTile;
+    const float* sL = reinterpret_cast<const float*>(smem + kSmemL +
+                                                     s * kStatBytes);
+    const float* sD = reinterpret_cast<const float*>(smem + kSmemD +
+                                                     s * kStatBytes);
+
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries each, committed
+    // apart, so that P^T is formed while dP^T is still on the tensor cores
+    float st[32], dpt[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const int off_a = (kk >> 2) * kKvPanel + (kk & 3) * 32;
+      const int off_b = (kk >> 2) * kQPanel + (kk & 3) * 32;
+      wgmma_m64n64k16_ss(st, sw128_desc(sK + off_a, kLboK),
+                         sw128_desc(sQ + off_b, kLboK), kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const int off_a = (kk >> 2) * kKvPanel + (kk & 3) * 32;
+      const int off_b = (kk >> 2) * kQPanel + (kk & 3) * 32;
+      wgmma_m64n64k16_ss(dpt, sw128_desc(sV + off_a, kLboK),
+                         sw128_desc(sDO + off_b, kLboK), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(st);
+
+    // P^T = exp2(S^T * scale * log2(e) - lse * log2(e)) under the key mask
+    // (the causal part only on the diagonal, queries past T only at the
+    // end)
+    const bool edge = q0 < kwg + 64 || q0 + kDkvRows > seq;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int col = 8 * n + 2 * tig;
+      const float2 lse2 = *reinterpret_cast<const float2*>(sL + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = q0 + col + (e & 1);
+        const int key = e < 2 ? key_a : key_b;
+        bool ok = e < 2 ? ok_a : ok_b;
+        if (edge) ok = ok && key <= q && q < seq;
+        const float x = ok ? st[4 * n + e] * p.scale_log2 : -INFINITY;
+        st[4 * n + e] =
+            fast_exp2(x - ((e & 1) ? lse2.y : lse2.x) * kLog2e);
+      }
+    }
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) a_operand(pa[kk], st, kk);
+
+    // dS^T = P^T * (dP^T - di)
+    wgmma_wait<0>();
+    fence_regs(dpt);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 di2 =
+          *reinterpret_cast<const float2*>(sD + 8 * n + 2 * tig);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dpt[4 * n + e] = st[4 * n + e] *
+                         (dpt[4 * n + e] - ((e & 1) ? di2.y : di2.x));
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) a_operand(da[kk], dpt, kk);
+
+    // dV += P^T dO and dK += dS^T Q: P^T and dS^T in registers (bf16),
+    // dO and Q MN-major B operands across both 64-dim panels
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_m64n128k16_rs_tn(dv, pa[kk], sw128_desc(sDO + kk * 2048, kQPanel),
+                             1);
+      wgmma_m64n128k16_rs_tn(dk, da[kk], sw128_desc(sQ + kk * 2048, kQPanel),
+                             1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dk);
+    fence_regs(dv);
+    fence_regs(pa);
+    fence_regs(da);
+    if (lane == 0) mbar_arrive(empty + s);   // this warp is done with stage s
+  }
+
+  store_wg_rows(p.dk + b * p.dk_sb + hk * p.dk_sh, p.dk_st, kwg, seq, dk,
+                p.scale);
+  store_wg_rows(p.dv + b * p.dv_sb + hk * p.dv_sh, p.dv_st, kwg, seq, dv,
+                1.0f);
+}
+
+__global__ void __launch_bounds__(kDkvThreads, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ DkvParams p,
+                     const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_do,
+                     const __grid_constant__ CUtensorMap tm_lse,
+                     const __grid_constant__ CUtensorMap tm_di) {
+  extern __shared__ unsigned char smem_raw[];
+  // TMA's 128-byte swizzle and the wgmma descriptors need 1024-byte tiles
+  unsigned char* smem = smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + kSmemBar);
+  uint64_t* kv_full = bar;
+  uint64_t* full = bar + 1;
+  uint64_t* empty = bar + 1 + kDkvStages;
+  __shared__ int s_any;
 
   const int hk = blockIdx.x;
   const int b = blockIdx.y;
-  const int kt = blockIdx.z;                  // early keys are the heaviest
-  const int k0 = kt * kTile;
+  const int k0 = blockIdx.z * kDkvKeys;    // early keys are the heaviest
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
   const int warp = tid >> 5;
   const int seq = p.seq;
   const int group = p.group;
   const int32_t* mask = p.mask + static_cast<long long>(b) * seq;
-  const int wr = warp * 16;
 
-  __nv_bfloat16* dkb = p.dk + b * p.dk_sb + hk * p.dk_sh;
-  __nv_bfloat16* dvb = p.dv + b * p.dv_sb + hk * p.dv_sh;
-
-  load_tile(sK, p.k + b * p.k_sb + hk * p.k_sh, p.k_st, k0, seq, tid);
-  load_tile(sV, p.v + b * p.v_sb + hk * p.v_sh, p.v_st, k0, seq, tid);
-  cp_async_commit();
-
-  if (tid == 0) sAny = 0;
-  __syncthreads();
-  for (int s = k0 + tid; s < min(k0 + kTile, seq); s += kThreads)
-    if (mask[s] != 0) sAny = 1;    // benign race: every writer stores 1
-  __syncthreads();
-
-  float dk[16][4], dv[16][4];
-#pragma unroll
-  for (int d = 0; d < 16; ++d) {
-    dk[d][0] = dk[d][1] = dk[d][2] = dk[d][3] = 0.0f;
-    dv[d][0] = dv[d][1] = dv[d][2] = dv[d][3] = 0.0f;
+  if (tid == 0) {
+    s_any = 0;
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kDkvStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);           // one arrival per consumer warp
+    }
+    fence_barrier_init();
   }
-  if (!sAny) {           // no real key here: no query attends to this tile
-    cp_async_wait<0>();
-    store_rows(dkb, p.dk_st, k0 + wr, seq, lane, dk, 0.0f);
-    store_rows(dvb, p.dv_st, k0 + wr, seq, lane, dv, 0.0f);
+  __syncthreads();
+  for (int s = k0 + tid; s < min(k0 + kDkvKeys, seq); s += kDkvThreads)
+    if (mask[s] != 0) s_any = 1;       // benign race: every writer stores 1
+  __syncthreads();
+  if (!s_any) {     // no real key here: no query attends to this tile
+    for (int i = tid; i < kDkvKeys * 16; i += kDkvThreads) {
+      const int row = k0 + i / 16;
+      if (row < seq) {
+        const int c = (i % 16) * 8;
+        *reinterpret_cast<uint4*>(p.dk + b * p.dk_sb + row * p.dk_st +
+                                  hk * p.dk_sh + c) = make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(p.dv + b * p.dv_sb + row * p.dv_st +
+                                  hk * p.dv_sh + c) = make_uint4(0, 0, 0, 0);
+      }
+    }
     return;
   }
 
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const int key_a = k0 + wr + g;
-  const int key_b = key_a + 8;
-  const bool ok_a = key_a < seq && mask[key_a] != 0;
-  const bool ok_b = key_b < seq && mask[key_b] != 0;
-
-  // iterations: every query tile at or after this key tile, for each of
-  // the G query heads of this kv head
-  const int n_qt = (seq + kTile - 1) / kTile;
-  const int nq = n_qt - kt;
+  // iterations: every 64-query tile at or after this key tile, for each of
+  // the G query heads of this kv head, in a fixed order
+  const int nq = (seq + kDkvRows - 1) / kDkvRows - k0 / kDkvRows;
   const int total = group * nq;
-
-  auto issue = [&](int it, int buf) {
-    const int h = hk * group + it / nq;
-    const int q0 = (kt + it % nq) * kTile;
-    load_tile(sQ + buf * kTileElems, p.q + b * p.q_sb + h * p.q_sh, p.q_st,
-              q0, seq, tid);
-    load_tile(sDO + buf * kTileElems, p.dout + b * p.do_sb + h * p.do_sh,
-              p.do_st, q0, seq, tid);
-    if (tid < kTile) {
-      const int t = q0 + tid;
-      const long long at = (static_cast<long long>(b) * p.hq + h) * seq + t;
-      sL[buf][tid] = t < seq ? p.lse[at] * kLog2e : INFINITY;
-      sD[buf][tid] = t < seq ? p.di[at] : 0.0f;
-    }
-  };
-
-  issue(0, 0);
-  cp_async_commit();
-
-  for (int it = 0; it < total; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < total) issue(it + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();    // K, V and this iteration's tiles have landed
-    __syncthreads();
-
-    const int q0 = (kt + it % nq) * kTile;
-    const bool diag = q0 == k0;
-    const __nv_bfloat16* cQ = sQ + buf * kTileElems;
-    const __nv_bfloat16* cDO = sDO + buf * kTileElems;
-    const float* cL = sL[buf];
-    const float* cD = sD[buf];
-
-    // P^T = exp2(S^T * scale * log2(e) - lse * log2(e)), rows are keys
-    float s[8][4];
-    mma_rows_bt(s, sK, wr, cQ, lane);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + tig * 2 + (e & 1);
-        const int key = e < 2 ? key_a : key_b;
-        const bool ok = (e < 2 ? ok_a : ok_b) && (!diag || key <= q0 + col);
-        const float x = ok ? s[n][e] * p.scale_log2 : -INFINITY;
-        s[n][e] = fast_exp2(x - cL[col]);
+  if (warp < 4) {
+    // producer warpgroup: one thread issues every load
+    setmaxnreg_dec<24>();
+    if (tid == 0) {
+      mbar_expect_tx(kv_full, 2 * kKvTile);
+      tma_load_4d(smem, &tm_k, kv_full, 0, hk, k0, b);
+      tma_load_4d(smem + kKvPanel, &tm_k, kv_full, kPanelCols, hk, k0, b);
+      tma_load_4d(smem + kSmemV, &tm_v, kv_full, 0, hk, k0, b);
+      tma_load_4d(smem + kSmemV + kKvPanel, &tm_v, kv_full, kPanelCols, hk,
+                  k0, b);
+      for (int it = 0; it < total; ++it) {
+        const int s = it % kDkvStages;
+        if (it >= kDkvStages) mbar_wait(empty + s, (it / kDkvStages - 1) & 1);
+        const int h = hk * group + it / nq;
+        const int q0 = (k0 / kDkvRows + it % nq) * kDkvRows;
+        mbar_expect_tx(full + s, 2 * kQTile + 2 * kStatBytes);
+        unsigned char* dst_q = smem + kSmemQ + s * kQTile;
+        unsigned char* ddo = smem + kSmemDO + s * kQTile;
+        tma_load_4d(dst_q, &tm_q, full + s, 0, h, q0, b);
+        tma_load_4d(dst_q + kQPanel, &tm_q, full + s, kPanelCols, h, q0, b);
+        tma_load_4d(ddo, &tm_do, full + s, 0, h, q0, b);
+        tma_load_4d(ddo + kQPanel, &tm_do, full + s, kPanelCols, h, q0, b);
+        // lse and di rows of (b, h): a box running past T reads the next
+        // row's values (or zeros at the end), which the mask never uses
+        const int at = (b * p.hq + h) * seq + q0;
+        tma_load_1d(smem + kSmemL + s * kStatBytes, &tm_lse, full + s, at);
+        tma_load_1d(smem + kSmemD + s * kStatBytes, &tm_di, full + s, at);
       }
     }
-
-    // dV += P^T dO
-    mma_acc_b(dv, s, cDO, lane);
-
-    // dS^T = P^T * (V dO^T - di)
-    float ds[8][4];
-    mma_rows_bt(ds, sV, wr, cDO, lane);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        ds[n][e] = s[n][e] * (ds[n][e] - cD[n * 8 + tig * 2 + (e & 1)]);
-    }
-
-    // dK += dS^T Q
-    mma_acc_b(dk, ds, cQ, lane);
-    __syncthreads();   // every warp is done with buffer `buf` before reuse
+  } else {
+    setmaxnreg_inc<240>();
+    dkv_consume(p, smem, bar, k0, nq, total, b, hk);
   }
-  cp_async_wait<0>();
-
-  store_rows(dkb, p.dk_st, k0 + wr, seq, lane, dk, p.scale);
-  store_rows(dvb, p.dv_st, k0 + wr, seq, lane, dv, 1.0f);
 }
 
 int dq_smem_set[kMaxDevices] = {};
@@ -399,6 +564,46 @@ Params make_params(const void* q, const void* k, const void* v,
   return p;
 }
 
+// The dkv kernel: tensor maps of q, k, v and dout (128-byte swizzled boxes of
+// 64 or 128 rows) and of lse and di (boxes of 64 f32), then one block per
+// (128-key tile, kv head, batch row).
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               void* dk, void* dv, const void* mask, const void* lse,
+               const void* di, const long long* st, int batch, int seq,
+               int hq, int hkv, float scale, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_lse, tm_di;
+  const long long n_stat = static_cast<long long>(batch) * hq * seq;
+  int rc = bthd_map(&tm_q, q, batch, seq, hq, st[0], st[1], st[2], kDkvRows);
+  if (rc == 0)
+    rc = bthd_map(&tm_k, k, batch, seq, hkv, st[3], st[4], st[5], kDkvKeys);
+  if (rc == 0)
+    rc = bthd_map(&tm_v, v, batch, seq, hkv, st[6], st[7], st[8], kDkvKeys);
+  if (rc == 0)
+    rc = bthd_map(&tm_do, dout, batch, seq, hq, st[9], st[10], st[11],
+                  kDkvRows);
+  if (rc == 0) rc = f32_map(&tm_lse, lse, n_stat, kDkvRows);
+  if (rc == 0) rc = f32_map(&tm_di, di, n_stat, kDkvRows);
+  if (rc != 0) return rc;
+  DkvParams p;
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.mask = static_cast<const int32_t*>(mask);
+  p.dk_sb = st[15]; p.dk_st = st[16]; p.dk_sh = st[17];
+  p.dv_sb = st[18]; p.dv_st = st[19]; p.dv_sh = st[20];
+  p.seq = seq;
+  p.hq = hq;
+  p.group = hq / hkv;
+  p.scale = scale;
+  p.scale_log2 = scale * kLog2e;
+  cudaError_t err = ensure_smem(flash_bwd_dkv_kernel, kDkvSmem, dkv_smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(hkv), static_cast<unsigned>(batch),
+                  static_cast<unsigned>((seq + kDkvKeys - 1) / kDkvKeys));
+  flash_bwd_dkv_kernel<<<grid, kDkvThreads, kDkvSmem, stream>>>(
+      p, tm_q, tm_k, tm_v, tm_do, tm_lse, tm_di);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -419,14 +624,9 @@ int flash_attn_bwd_bf16(const void* q, const void* k, const void* v,
   const int n_tiles = (seq + kTile - 1) / kTile;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dk != nullptr && dv != nullptr) {
-    cudaError_t err = ensure_smem(flash_bwd_dkv_kernel, kDkvSmem,
-                                  dkv_smem_set);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid(static_cast<unsigned>(hkv), static_cast<unsigned>(batch),
-                    static_cast<unsigned>(n_tiles));
-    flash_bwd_dkv_kernel<<<grid, kThreads, kDkvSmem, s>>>(p);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    const int err = launch_dkv(q, k, v, dout, dk, dv, mask, lse, di, strides,
+                               batch, seq, hq, hkv, scale, s);
+    if (err != 0) return err;
   }
   if (dq != nullptr) {
     const int smem = kDqSmem + 2 * n_tiles;
@@ -442,7 +642,7 @@ int flash_attn_bwd_bf16(const void* q, const void* k, const void* v,
 }
 
 const char* flash_attn_bwd_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return error_string(code);
 }
 
 }  // extern "C"

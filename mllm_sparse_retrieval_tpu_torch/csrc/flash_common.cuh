@@ -1,11 +1,15 @@
-// Building blocks shared by the flash-attention kernels (flash_attn.cu,
-// forward; flash_attn_bwd.cu, the dq and dkv backward kernels).
+// Building blocks shared by the flash-attention kernels: constants and
+// helpers of all three (flash_attn.cu, the forward; flash_attn_bwd.cu, the
+// dkv and dq backward kernels), and the mma.sync path that only the dq
+// kernel still runs (the forward and dkv kernels run on wgmma and TMA:
+// hopper_common.cuh).
 //
-// Tiles are 64 rows of one head, 128 bf16 dims each, in shared memory with
-// an XOR swizzle; products are mma.sync m16n8k16 bf16 -> f32 with operands
-// fetched by ldmatrix. A block has 4 warps; warp w owns rows 16w .. 16w+15
-// of its 64-row tile, so each thread holds two rows (g and g + 8 of its
-// warp's 16, g = lane / 4) of every 16 x 8 accumulator fragment.
+// mma.sync path: tiles are 64 rows of one head, 128 bf16 dims each, in
+// shared memory with an XOR swizzle; products are mma.sync m16n8k16 bf16 ->
+// f32 with operands fetched by ldmatrix. A block has 4 warps; warp w owns
+// rows 16w .. 16w+15 of its 64-row tile, so each thread holds two rows (g
+// and g + 8 of its warp's 16, g = lane / 4) of every 16 x 8 accumulator
+// fragment.
 
 #pragma once
 

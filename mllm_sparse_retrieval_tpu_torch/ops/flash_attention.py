@@ -227,6 +227,15 @@ def _check_kernel_inputs(*tensors) -> None:
                              "elements and their storage 16-byte aligned")
 
 
+def _tma_view(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a contiguous copy of it where a dimension of extent > 1 has
+    stride 0 (a broadcast): the kernels read their inputs through TMA
+    tensor maps, which take no zero stride."""
+    if any(s == 0 and n > 1 for s, n in zip(x.stride(), x.shape)):
+        return x.contiguous()
+    return x
+
+
 def _raise_on(rc: int, lib, name: str, kernel: str) -> None:
     if rc != 0:
         msg = getattr(lib, name)(rc).decode()
@@ -241,6 +250,7 @@ def _scale(scale, dh) -> float:
 def _forward_kernel(q, k, v, mask, scale, want_lse: bool):
     """Launch the forward kernel: ``(out, lse or None)``."""
     _check_kernel_inputs(q, k, v)
+    q, k, v = (_tma_view(x) for x in (q, k, v))
     b, t, hq, dh = q.shape
     seg = mask.to(torch.int32).contiguous()
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -310,6 +320,7 @@ def _backward_kernels(q, k, v, mask, lse, di, dout, scale, which):
     if q.device.type != "cuda":
         raise ValueError(f"no flash kernel for device {q.device}")
     _check_kernel_inputs(q, k, v, dout)
+    q, k, v, dout = (_tma_view(x) for x in (q, k, v, dout))
     b, t, hq, dh = q.shape
     if dout.shape != q.shape:
         raise ValueError(f"dout {tuple(dout.shape)} must match q "

@@ -306,3 +306,71 @@ def test_flash_bwd_rejects_what_it_does_not_take():
     with pytest.raises(ValueError, match="device"):
         FA.flash_causal_attention_lse(q.cpu(), k.cpu(), v.cpu(), mask.cpu())
     assert {n: FA.launch_count(n) for n in FA.KERNELS} == before
+
+
+# The forward and dkv kernels on wgmma and TMA: 128-query and 128-key tiles,
+# 64-query tiles streamed through dkv. Shapes: (b, t, hq, hkv, lengths).
+HOPPER_SHAPES = [
+    (1, 1536, 8, 2, (1000,)),          # B=1, G=4, a row ending mid-tile
+    (2, 1000, 4, 4, (1000, 0)),        # G=1, T not a tile multiple, all-pad
+    (3, 200, 8, 2, (200, 77, 0)),      # T=200 (two ragged tiles), G=4
+    (2, 1536, 4, 1, (1536, 1300)),     # one kv head for four query heads
+]
+
+
+@pytest.mark.parametrize("shape", HOPPER_SHAPES)
+def test_hopper_forward_matches_plain(shape):
+    dev = _card()
+    b, t, hq, hkv, lengths = shape
+    q, k, v, mask = _flash_inputs(11, b, t, hq, hkv, lengths, dev)
+    out, lse = FA.flash_causal_attention_lse(q, k, v, mask)
+    torch.cuda.synchronize()
+    _assert_flash_close(out, q, k, v, mask)
+    rows = _has_key(mask)[:, None, :].expand(-1, hq, -1)
+    assert bool((lse[~rows] == float("inf")).all())   # exactly where no key
+    assert bool(torch.isfinite(lse[rows]).all())
+
+
+@pytest.mark.parametrize("shape", HOPPER_SHAPES)
+def test_hopper_dkv_matches_plain_and_repeats_bit_for_bit(shape):
+    dev = _card()
+    b, t, hq, hkv, lengths = shape
+    q, k, v, mask, dout = _bwd_case(12, b, t, hq, hkv, lengths, dev)
+    out, lse = FA.flash_causal_attention_lse(q, k, v, mask)
+    di = FA.flash_bwd_di(out, dout)
+    dk, dv = FA.flash_attention_bwd_dkv(q, k, v, mask, lse, di, dout)
+    dk2, dv2 = FA.flash_attention_bwd_dkv(q, k, v, mask, lse, di, dout)
+    torch.cuda.synchronize()
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    _, ref_k, ref_v = FA.flash_causal_attention_plain_bwd(q, k, v, mask, dout)
+    _, mag_k, mag_v = FA.flash_bwd_magnitudes(q, k, v, mask, dout)
+    _assert_grad_close(dk, ref_k, mag_k, "dk")
+    _assert_grad_close(dv, ref_v, mag_v, "dv")
+    real = mask.bool()[:, :, None, None]
+    assert bool((dk.masked_select(~real) == 0).all())   # pad keys: no query
+    assert bool((dv.masked_select(~real) == 0).all())
+
+
+def test_hopper_kernels_read_a_broadcast_kv_head():
+    dev = _card()
+    q, k, v, mask, dout = _bwd_case(13, 2, 256, 4, 2, (256, 130), dev)
+    kb, vb = k[:1].expand(2, -1, -1, -1), v[:1].expand(2, -1, -1, -1)
+    out, lse = FA.flash_causal_attention_lse(q, kb, vb, mask)
+    _assert_flash_close(out, q, kb.contiguous(), vb.contiguous(), mask)
+    grads = FA.flash_causal_attention_bwd(q, kb, vb, mask, out, lse, dout)
+    _assert_bwd_close(grads, q, kb.contiguous(), vb.contiguous(), mask, dout)
+
+
+@pytest.mark.parametrize("scale", [0.03, -0.05])
+def test_hopper_forward_takes_any_scale(scale):
+    dev = _card()
+    q, k, v, mask = _flash_inputs(14, 2, 384, 4, 2, (384, 250), dev)
+    got = FA.flash_causal_attention(q, k, v, mask, scale=scale)
+    ref = FA.flash_causal_attention_plain(q, k, v, mask, scale=scale).float()
+    ref_abs = FA.flash_causal_attention_plain(q, k, v.abs(), mask,
+                                              scale=scale).float()
+    torch.cuda.synchronize()
+    rows = _has_key(mask)
+    diff = (got.float() - ref).abs()[rows]
+    assert bool((diff <= FLASH_RTOL * (ref.abs()[rows] + ref_abs[rows]))
+                .all())

@@ -98,6 +98,21 @@ def test_flash_wrapper_takes_the_plain_version_on_the_cpu():
     assert FA.launch_count() == before        # no kernel on the CPU
 
 
+def test_tma_view_copies_only_broadcast_inputs():
+    """The kernels read through TMA tensor maps, which take no zero stride:
+    a broadcast input is copied, every other view passed as it is."""
+    x = torch.arange(2 * 6 * 3 * 8, dtype=torch.float32).reshape(2, 6, 3, 8)
+    assert FA._tma_view(x) is x
+    head = x[:, :, 1:2]                     # extent-1 head: no copy needed
+    assert FA._tma_view(head) is head
+    wide = x[:, :, :2]                      # strided view: read in place
+    assert FA._tma_view(wide) is wide
+    bcast = x[:1].expand(2, -1, -1, -1)     # batch stride 0
+    got = FA._tma_view(bcast)
+    assert got is not bcast and got.is_contiguous()
+    assert torch.equal(got, bcast)
+
+
 def test_flash_inputs_are_checked():
     q, k, v, mask = _qkv(3, 1, 16, 4, 2, 8, (16,))
     with pytest.raises(ValueError, match="multiple of kv heads"):
