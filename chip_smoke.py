@@ -162,9 +162,20 @@ def taat_bound(matrix, safe_idx, safe_w):
     return max(t_bytes, t_ops) * 1e3, by
 
 
-def check_kernel(label, matrix, safe_idx, safe_w, iters):
+def replay_floor_ms(iters: int = 200) -> float:
+    """Device time of the smallest launch, ``zero_()`` of 8 f32 values,
+    replayed as ``device_ms`` replays a kernel: the part of a tiny kernel's
+    time that no kernel design removes."""
+    import torch
+
+    tiny = torch.empty(8, device=DEVICE)
+    return device_ms(tiny.zero_, iters)
+
+
+def check_kernel(label, matrix, safe_idx, safe_w, iters, floor=False):
     """Kernel vs plain version (must be exactly equal), their times, the
-    f32 query-table matmul's time and the bound."""
+    f32 query-table matmul's time and the bound; with ``floor``, also the
+    replay floor of the smallest launch."""
     import torch
 
     from mllm_sparse_retrieval_tpu_torch.ops import impact_kernel as K
@@ -193,10 +204,15 @@ def check_kernel(label, matrix, safe_idx, safe_w, iters):
                                max(3, iters // 10))
     del mat32, table, lib
     bound_ms, bound_by = taat_bound(matrix, safe_idx, safe_w)
+    split = K.taat_split(safe_idx.shape[0], matrix.shape[1],
+                         K._sm_count(matrix.device))
+    floor_ms = replay_floor_ms() if floor else None
     progress("kernel", f"{label}: exact (max abs err {err}); kernel "
-             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, f32 query-table "
-             f"matmul {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-             f"({bound_by})")
+             f"{ms:.4f} ms (term split {split}), plain {plain_ms:.4f} ms, "
+             f"f32 query-table matmul {library_ms:.4f} ms, bound "
+             f"{bound_ms:.4f} ms ({bound_by})"
+             + (f", replay floor of the smallest launch {floor_ms:.4f} ms"
+                if floor else ""))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
@@ -255,24 +271,25 @@ def phase_kernel_bench(rng):
     return out
 
 
-def sass_counts(so) -> str:
+def sass_counts(so):
     """Tensor-core instructions in a built library's SASS (``cuobjdump``
-    beside ``nvcc``): HGMMA is wgmma, HMMA is mma.sync."""
+    beside ``nvcc``): (HGMMA, the wgmma count; HMMA, the mma.sync
+    count)."""
     from mllm_sparse_retrieval_tpu_torch.ops import cuda_build
 
     tool = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
                           text=True, timeout=120, check=True).stdout
     words = sass.split()
-    hgmma = sum(w.startswith("HGMMA.") for w in words)
-    hmma = sum(w.startswith("HMMA.") for w in words)
-    return f"SASS {hgmma} HGMMA, {hmma} HMMA"
+    return (sum(w.startswith("HGMMA.") for w in words),
+            sum(w.startswith("HMMA.") for w in words))
 
 
 def build_kernels():
     """Every kernel of the port, one ``nvcc`` each, all started together;
     prints each build's time, ``-Xptxas -v`` register report and count of
-    tensor-core instructions."""
+    tensor-core instructions. Every flash kernel runs on wgmma: a flash
+    library with an mma.sync instruction fails."""
     from concurrent.futures import ThreadPoolExecutor
 
     from mllm_sparse_retrieval_tpu_torch.ops import cuda_build
@@ -287,9 +304,14 @@ def build_kernels():
     for src, (so, build_s, msgs) in zip(sources, results):
         regs = [ln.strip() for ln in msgs.splitlines()
                 if "registers" in ln or "spill" in ln or "arning" in ln]
+        hgmma, hmma = sass_counts(so)
         progress("build", f"{src}: nvcc {build_s:.2f}s -> {so.name}; "
                  + ("; ".join(regs) if regs else "already built")
-                 + f"; {sass_counts(so)}")
+                 + f"; SASS {hgmma} HGMMA, {hmma} HMMA")
+        if src != K.SOURCE and (hmma or not hgmma):
+            raise AssertionError(f"{src}: {hgmma} wgmma and {hmma} mma.sync "
+                                 f"instructions; the flash kernels run on "
+                                 f"wgmma only")
     progress("build", f"all {len(sources)} sources in "
              f"{time.monotonic() - t0:.2f}s")
 
@@ -1171,7 +1193,8 @@ def main() -> int:
     matrix = index._materialize("i16")
     served = check_kernel(
         f"served shape {tuple(matrix.shape)} int16, B={q_idx.shape[0]} "
-        f"Q={q_idx.shape[1]}", matrix, safe_idx, safe_w, iters=200)
+        f"Q={q_idx.shape[1]}", matrix, safe_idx, safe_w, iters=200,
+        floor=True)
     breakdown(encoder, index, q_idx, q_w, texts[:MAX_BATCH])
 
     # ---- 7. image queries through the service ---------------------------------

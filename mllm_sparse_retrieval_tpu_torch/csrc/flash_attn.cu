@@ -89,13 +89,8 @@ constexpr int kSmemK = kQBufs * kTileBytes;   // Q buffers at 0
 constexpr int kSmemV = kSmemK + kStages * kTileBytes;
 constexpr int kSmemBar = kSmemV + kStages * kTileBytes;
 constexpr int kSmemFlags = kSmemBar + 256;    // 16 barriers, then 2 flag sets
-constexpr int kScanThreads = 96;              // warps 1-3 of warpgroup 0
-static_assert(kBM == kBN, "Q and K/V tiles share one panel layout");
-
-// one flag set: 4 mask words per key tile, then a live and a mixed byte
-__host__ __device__ constexpr int flag_set_bytes(int n_tiles) {
-  return (18 * n_tiles + 15) & ~15;
-}
+static_assert(kBM == kBN && kBM == kItemRows,
+              "Q and K/V tiles share one panel layout and the item walk");
 
 struct Params {
   __nv_bfloat16* o;
@@ -105,40 +100,6 @@ struct Params {
   int seq, hq, batch, group, n_items;
   float scale_log2;
 };
-
-// Work item i (0 .. n_items - 1): a (128-query tile, q-head, batch row),
-// the heaviest causal tiles first.
-struct Item {
-  int h, b, q0, n_kt;
-};
-
-__device__ __forceinline__ Item item_at(const Params& p, int i) {
-  const int per = p.hq * p.batch;
-  const int n_qt = (p.seq + kBM - 1) / kBM;
-  Item it;
-  it.q0 = (n_qt - 1 - i / per) * kBM;
-  it.b = (i % per) / p.hq;
-  it.h = i % p.hq;
-  it.n_kt = (min(it.q0 + kBM, p.seq) - 1) / kBN + 1;   // causal key tiles
-  return it;
-}
-
-struct Flags {
-  uint32_t* bits;          // real-key bits, 4 words per key tile
-  unsigned char* live;     // the key tile holds a real key
-  unsigned char* mixed;    // ... and a pad key
-};
-
-__device__ __forceinline__ Flags flags_at(unsigned char* smem, int set,
-                                          int seq) {
-  const int n_tiles = (seq + kBN - 1) / kBN;
-  unsigned char* base = smem + kSmemFlags + set * flag_set_bytes(n_tiles);
-  Flags f;
-  f.bits = reinterpret_cast<uint32_t*>(base);
-  f.live = base + 16 * n_tiles;
-  f.mixed = f.live + n_tiles;
-  return f;
-}
 
 // The block's barriers: Q buffers, the K and V rings, the flag sets.
 struct Bars {
@@ -151,37 +112,6 @@ __device__ __forceinline__ Bars bars_at(unsigned char* smem) {
   return {b, b + kQBufs, b + 2 * kQBufs, b + 2 * kQBufs + kStages,
           b + 2 * kQBufs + 2 * kStages, b + 2 * kQBufs + 3 * kStages,
           b + 2 * kQBufs + 4 * kStages, b + 2 * kQBufs + 4 * kStages + 2};
-}
-
-// The first live key tile at or after j (n_kt if none).
-__device__ __forceinline__ int next_live(const unsigned char* live, int j,
-                                         int n_kt) {
-  while (j < n_kt && !live[j]) ++j;
-  return j;
-}
-
-// S = Q K^T for this warpgroup's 64 rows and one 128-key tile: 8 k-steps
-// of 16 dims, both operands K-major in shared memory.
-__device__ __forceinline__ void issue_qk(float (&sc)[64],
-                                         const unsigned char* sQ,
-                                         const unsigned char* sK) {
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    const int off = (kk >> 2) * kPanelBytes + (kk & 3) * 32;
-    wgmma_m64n128k16_ss(sc, sw128_desc(sQ + off, kLboK),
-                        sw128_desc(sK + off, kLboK), kk > 0);
-  }
-}
-
-// O += P V: P in registers (bf16, 8 k-steps of 16 keys), V an MN-major B
-// operand across both 64-dim panels.
-__device__ __forceinline__ void issue_pv(float (&o)[64],
-                                         const uint32_t (&pa)[8][4],
-                                         const unsigned char* sV) {
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
-    wgmma_m64n128k16_rs_tn(o, pa[kk], sw128_desc(sV + kk * 2048, kPanelBytes),
-                           1);
 }
 
 // One step of the online softmax on key tile j, under the key mask where
@@ -264,12 +194,12 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem,
   for (int c = 0, i = blockIdx.x; i < p.n_items; ++c, i += gridDim.x) {
     const int set = c & 1;               // flag set and Q buffer
     const unsigned use = (c >> 1) & 1;
-    const Item item = item_at(p, i);
+    const Item item = item_at(i, p.seq, p.hq, p.batch);
     const int n_kt = item.n_kt;
     const int row_a = item.q0 + 64 * wg + 16 * w + (lane >> 2);
     const int row_b = row_a + 8;
     mbar_wait(bar.f_full + set, use);
-    const Flags f = flags_at(smem, set, seq);
+    const Flags f = flags_at(smem + kSmemFlags, set, seq);
     int n_live = 0;
     for (int j = 0; j < n_kt; ++j) n_live += f.live[j];
 
@@ -376,56 +306,6 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem,
   }
 }
 
-// Warps 1-3 of warpgroup 0: for each of the block's items, a word of
-// real-key bits per 32 keys of the causal key range (4 words a pass a warp,
-// their loads in flight together), and which key tiles are live (hold a
-// real key) and mixed (hold a pad key too), into the item's flag set while
-// the consumers still work on the item before. Every writer of a flag
-// stores 1, so the races are benign.
-__device__ __forceinline__ void scan_masks(const Params& p,
-                                           unsigned char* smem,
-                                           const Bars& bar) {
-  const int st = threadIdx.x - 32;
-  const int sw = st / 32;
-  const int lane = threadIdx.x & 31;
-  constexpr int kScanWarps = kScanThreads / 32;
-  for (int c = 0, i = blockIdx.x; i < p.n_items; ++c, i += gridDim.x) {
-    const int set = c & 1;
-    if (c >= 2) mbar_wait(bar.f_empty + set, ((c >> 1) - 1) & 1);
-    const Item item = item_at(p, i);
-    const Flags f = flags_at(smem, set, p.seq);
-    const int q_last = min(item.q0 + kBM, p.seq) - 1;
-    const int32_t* mask = p.mask + static_cast<long long>(item.b) * p.seq;
-    for (int j = st; j < item.n_kt; j += kScanThreads) {
-      f.live[j] = 0;
-      f.mixed[j] = 0;
-    }
-    named_sync(3, kScanThreads);
-    const int n_words = 4 * item.n_kt;
-    for (int base = sw; base < n_words; base += 4 * kScanWarps) {
-      int32_t m[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int key = (base + u * kScanWarps) * 32 + lane;
-        m[u] = key <= q_last ? __ldg(mask + key) : 0;
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int wd = base + u * kScanWarps;
-        const bool in = wd * 32 + lane <= q_last;
-        const unsigned rb = __ballot_sync(0xffffffffu, in && m[u] != 0);
-        const unsigned pb = __ballot_sync(0xffffffffu, in && m[u] == 0);
-        if (lane == 0 && wd < n_words) {
-          f.bits[wd] = rb;
-          if (rb) f.live[wd / 4] = 1;
-          if (pb) f.mixed[wd / 4] = 1;
-        }
-      }
-    }
-    mbar_arrive(bar.f_full + set);       // every scanner thread
-  }
-}
-
 // Thread 0: for each of the block's items, Q into its buffer, then K and V
 // of each live key tile into the ring. K and V of one tile share a stage
 // but not its barriers: K is freed once S has landed, V once O += P V has.
@@ -437,10 +317,10 @@ __device__ __forceinline__ void produce(const Params& p, unsigned char* smem,
   int gt = 0;
   for (int c = 0, i = blockIdx.x; i < p.n_items; ++c, i += gridDim.x) {
     const int set = c & 1;
-    const Item item = item_at(p, i);
+    const Item item = item_at(i, p.seq, p.hq, p.batch);
     const int hk = item.h / p.group;
     mbar_wait(bar.f_full + set, (c >> 1) & 1);
-    const Flags f = flags_at(smem, set, p.seq);
+    const Flags f = flags_at(smem + kSmemFlags, set, p.seq);
     if (c >= 2) mbar_wait(bar.q_empty + set, ((c >> 1) - 1) & 1);
     unsigned char* dq = smem + set * kTileBytes;
     mbar_expect_tx(bar.q_full + set, kTileBytes);
@@ -504,14 +384,15 @@ flash_fwd_kernel(const __grid_constant__ Params p,
   if (tid < 128) {
     setmaxnreg_dec<24>();
     if (tid == 0) produce(p, smem, bar, &tm_q, &tm_k, &tm_v);
-    else if (tid >= 32) scan_masks(p, smem, bar);
+    else if (tid >= 32)
+      scan_masks(p.mask, p.seq, p.hq, p.batch, p.n_items, smem + kSmemFlags,
+                 bar.f_full, bar.f_empty);
   } else {
     setmaxnreg_inc<240>();
     consume<kPos>(p, smem, bar);
   }
 }
 
-int sm_count[kMaxDevices] = {};
 int smem_set[2][kMaxDevices] = {};   // [kPos]
 
 }  // namespace
@@ -544,19 +425,12 @@ int flash_attn_fwd_bf16(const void* q, const void* k, const void* v, void* o,
   p.group = hq / hkv;
   p.n_items = hq * batch * ((seq + kBM - 1) / kBM);
   p.scale_log2 = scale * kLog2e;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  int sms = 0;
+  cudaError_t err = device_sms(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (device < 0 || device >= kMaxDevices)
-    return static_cast<int>(cudaErrorInvalidDevice);
-  if (sm_count[device] == 0) {
-    err = cudaDeviceGetAttribute(&sm_count[device],
-                                 cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   const int smem = 1024 + kSmemFlags +
                    2 * flag_set_bytes((seq + kBN - 1) / kBN);
-  const int grid = p.n_items < sm_count[device] ? p.n_items : sm_count[device];
+  const int grid = p.n_items < sms ? p.n_items : sms;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (scale > 0.0f) {
     err = ensure_smem(flash_fwd_kernel<true>, smem, smem_set[1]);

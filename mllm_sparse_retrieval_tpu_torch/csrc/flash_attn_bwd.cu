@@ -18,7 +18,7 @@
 // kernel dQ = scale * dS k. GQA is native: query head h reads kv head
 // h / G (G = Hq / Hkv), and the dkv block of one kv head sums over its G
 // query heads itself, so K/V are never repeated and no atomics are used:
-// the sum order is fixed and the result deterministic, bit for bit.
+// both kernels sum in a fixed order and are deterministic, bit for bit.
 //
 // Layout and types: q/k/v/dout and the outputs dq/dk/dv are bf16 [B, T, H,
 // 128], read and written through their strides; lse and di are f32
@@ -31,47 +31,77 @@
 // kernels, dV, dK, dQ), 2.5x the forward's two. At the training shape (B=4,
 // T=3,072, 32/8 heads; three image rows and an all-pad row) the dkv
 // kernel's four are 0.4535 ms at 989 TFLOP/s and the dq kernel's three
-// 0.3401 ms, against ~0.1 ms of bytes. Only wgmma reaches that rate.
+// 0.3401 ms, against ~0.1 ms of bytes. Only wgmma reaches that rate. Both
+// kernels are built from hopper_common.cuh: a producer warpgroup (setmaxnreg
+// 24) whose thread 0 issues every TMA load on full/empty mbarriers, and two
+// consumer warpgroups (setmaxnreg 240) that run wgmma on what has landed.
 //
-// dkv, for Hopper (hopper_common.cuh holds the building blocks):
+// dq, the forward's shape with the dq algebra:
+//   * persistent: one block of three warpgroups (384 threads) per SM walks
+//     the work items, each a (128-query tile, q head, batch row), heaviest
+//     causal tiles first (hopper_common.cuh's item walk, shared with the
+//     forward);
+//   * producer: for each item, Q and dout (32 KB each) and the item's 128
+//     lse and di values into one buffer, then the 128-key K and V tiles
+//     (32 KB each) of every live key tile at or before the diagonal into a
+//     ring of 2 stages. K and V have their own full and empty barriers: V is
+//     freed once dP has landed, K only after dQ += dS K, which reads it a
+//     second time. Q and dout are freed once the item's last S and dP have
+//     landed, so the next item's load overlaps the last dQ product. Warps
+//     1-3 of the producer warpgroup scan the next item's key mask
+//     meanwhile, once per item;
+//   * consumers, 64 query rows each: S = Q K^T and dP = dout V^T are 8
+//     wgmma m64n128k16 each, both operands K-major in shared memory,
+//     committed as two groups, so P = exp2(S * scale * log2(e) - lse *
+//     log2(e)) (one FFMA and one ex2 a value; lse is per row) is formed
+//     while dP is still on the tensor cores. The element mask runs only on
+//     the diagonal tile and on tiles that mix real and pad keys. dS = P *
+//     (dP - di), packed to bf16 in registers, is the A operand of dQ += dS
+//     K, 8 wgmma m64n128k16 with K an MN-major B operand (the forward's
+//     O += P V, K in V's place). dQ (64 f32 a thread) stays in registers
+//     for the item and is written once, times scale;
+//   * shared memory per block: Q, dout 64 KB + 2 x (K 32 KB + V 32 KB) +
+//     lse and di 1 KB = 193 KB, plus 2 x 18 bytes per 128 keys of T for the
+//     flag sets.
+//
+// dkv:
 //   * one block of three warpgroups (384 threads) per (128-key tile, kv
 //     head, batch row); the key-tile index is the grid's slowest dimension,
 //     in order, so the heaviest tiles (early keys, most queries) start
 //     first. A key tile with no real key writes zeros and stops;
-//   * warpgroup 0 is the producer (setmaxnreg 24): one thread loads K and V
-//     once by TMA (32 KB each) and streams, for each of the G query heads
-//     and each 64-query tile at or after the key tile, Q and dout (16 KB
-//     each) and their 64 lse and di values through a ring of 2 stages on
-//     full/empty mbarriers; TMA zero-fills rows past T;
-//   * warpgroups 1 and 2 are consumers (setmaxnreg 240), 64 keys each:
-//     S^T = K Q^T and dP^T = V dout^T are 16 wgmma m64n64k16 with both
-//     operands in shared memory, committed as two groups so P^T is formed
-//     while dP^T is still on the tensor cores; P^T and dS^T, rounded to
-//     bf16 in registers, are the register A operands of dV += P^T dout and
-//     dK += dS^T Q (8 wgmma m64n128k16, dout and Q as MN-major B operands).
-//     dK and dV stay in registers (64 f32 a thread each) for the whole
-//     loop and are written once; a consumer skips the query tile that lies
-//     wholly before its keys;
+//   * producer: K and V loaded once by TMA (32 KB each), then, for each of
+//     the G query heads and each 64-query tile at or after the key tile, Q
+//     and dout (16 KB each) and their 64 lse and di values through a ring of
+//     2 stages; TMA zero-fills rows past T;
+//   * consumers, 64 keys each: S^T = K Q^T and dP^T = V dout^T are 16 wgmma
+//     m64n64k16 with both operands in shared memory, committed as two
+//     groups so P^T is formed while dP^T is still on the tensor cores; P^T
+//     and dS^T, rounded to bf16 in registers, are the register A operands
+//     of dV += P^T dout and dK += dS^T Q (8 wgmma m64n128k16, dout and Q as
+//     MN-major B operands). dK and dV stay in registers (64 f32 a thread
+//     each) for the whole loop and are written once; a consumer skips the
+//     query tile that lies wholly before its keys;
 //   * shared memory per block: K, V 64 KB + 2 x (Q, dout 32 KB + 512 bytes
 //     of lse and di) = 129 KB.
-// Registers as `nvcc -Xptxas -v` reports them on the card (CUDA 12.8):
-// 168 a thread at launch (384 threads), the consumers at up to 240 after
-// setmaxnreg and the producer at 24; 32 bytes of spill stores and 44 of
-// loads (a 32-byte frame): a few loop-invariant integers of the consumers
-// kept in local memory across each iteration's products (dK, dV, S^T and
-// dP^T take 192 of the 240 registers), and the producer's. The mma.sync
-// design this replaces ran at 255 with 12-64 bytes of spills.
-// Measured by chip_smoke.py (see PERF.md): 0.92 ms at the synthetic
-// training shape,
-// 2.02x the bound; what holds it back: S^T and dP^T are m64n64 products
-// with both operands in shared memory, which need about the whole
-// shared-memory bandwidth at the tensor-core rate, and each iteration's
-// four products depend on one another with only two warpgroups to overlap.
 //
-// dq (the first, mma.sync design; wgmma is later work): one block of 4 warps
-// per (64-query tile, q head, batch row), the forward's grid and tile skip;
-// mma.sync m16n8k16 with ldmatrix operands (flash_common.cuh), cp.async
-// double buffering, dS and dQ += dS K in registers.
+// Registers as `nvcc -Xptxas -v` reports them on the card (CUDA 12.8): both
+// kernels 168 a thread at launch (384 threads), the consumers at up to 240
+// after setmaxnreg and the producer warpgroup at 24. dq: 52 bytes of spill
+// stores, all in the producer and scanner warps (none between its wgmmas in
+// the SASS); dkv: 32 bytes, a few loop-invariant integers of the consumers
+// (dK, dV, S^T and dP^T take 192 of the 240 registers) and the producer's.
+//
+// Measured by chip_flash_ab.py (PERF.md; NVIDIA H100 80GB HBM3, 700 W), at
+// the synthetic training shape: dq 0.66-0.67 ms, 1.95-1.97x its bound (the
+// mma.sync design it replaces: 1.25-1.27 ms), 0.68-0.70 ms on the training
+// step's rows; dkv 0.91-0.93 ms, 2.0x its bound. What holds dq back is not
+// measured apart: each tile's chain (S and dP, then P and dS, then dQ += dS
+// K, which waits on dS) runs in order inside a warpgroup, with only the
+// other warpgroup to fill the tensor cores; ping-pong of the two on named
+// barriers gained nothing (0.667-0.669 against 0.663-0.668 ms), and forming
+// P without the scale folded into one FFMA was 1.7% slower. dkv: S^T and
+// dP^T are m64n64 products with both operands in shared memory, which need
+// about the whole shared-memory bandwidth at the tensor-core rate.
 //
 // Contract (checked by the Python wrapper, ops/flash_attention.py): head_dim
 // 128; every bf16 tensor has unit last stride, its other strides multiples
@@ -85,177 +115,285 @@ namespace {
 using namespace flash;
 using namespace hopper;
 
-constexpr int kDqSmem = 6 * kTileElems * 2;    // Q, dO, 2 K, 2 V = 96 KB
+// ---- dq: wgmma, TMA and warp specialisation, persistent --------------------
 
-struct Params {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const __nv_bfloat16* dout;
+constexpr int kDqThreads = 384;                // producer + 2 consumers
+constexpr int kDqStages = 2;                   // K/V ring
+constexpr int kDqTile = 2 * kItemPanel;        // 128 rows x 128 dims: 32 KB
+constexpr int kDqStat = kItemRows * 4;         // 128 f32 of lse or di
+constexpr int kDqSmemDO = kDqTile;             // Q at 0
+constexpr int kDqSmemK = 2 * kDqTile;
+constexpr int kDqSmemV = kDqSmemK + kDqStages * kDqTile;
+constexpr int kDqSmemL = kDqSmemV + kDqStages * kDqTile;   // lse, then di
+constexpr int kDqSmemBar = kDqSmemL + 2 * kDqStat;
+constexpr int kDqSmemFlags = kDqSmemBar + 128;   // 14 barriers, 2 flag sets
+
+struct DqParams {
   __nv_bfloat16* dq;
-  __nv_bfloat16* dk;
-  __nv_bfloat16* dv;
   const int32_t* mask;
-  const float* lse;
-  const float* di;
-  long long q_sb, q_st, q_sh;
-  long long k_sb, k_st, k_sh;
-  long long v_sb, v_st, v_sh;
-  long long do_sb, do_st, do_sh;
   long long dq_sb, dq_st, dq_sh;
-  long long dk_sb, dk_st, dk_sh;
-  long long dv_sb, dv_st, dv_sh;
-  int seq, hq, group;
+  int seq, hq, batch, group, n_items;
   float scale, scale_log2;
 };
 
-// Write one warp's 16 x 128 f32 accumulator rows (g and g + 8 of rows
-// row0 .. row0 + 15) times `mul` as bf16; rows at or past `seq` are dropped.
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long st,
-                                           int row0, int seq, int lane,
-                                           const float (&acc)[16][4],
-                                           float mul) {
-  const int g = lane >> 2;
+// The dq block's barriers: the Q/dout buffer, the K and V rings, the flag
+// sets.
+struct DqBars {
+  uint64_t *q_full, *q_empty, *k_full, *v_full, *k_empty, *v_empty;
+  uint64_t *f_full, *f_empty;
+};
+
+__device__ __forceinline__ DqBars dq_bars_at(unsigned char* smem) {
+  uint64_t* b = reinterpret_cast<uint64_t*>(smem + kDqSmemBar);
+  constexpr int S = kDqStages;
+  return {b, b + 1, b + 2, b + 2 + S, b + 2 + 2 * S, b + 2 + 3 * S,
+          b + 2 + 4 * S, b + 4 + 4 * S};
+}
+
+// Write a consumer warpgroup's 64 x 128 f32 accumulator rows (row0 + 16w +
+// g and + 8) times `mul` as bf16; rows at or past `seq` are dropped.
+__device__ __forceinline__ void store_wg_rows(__nv_bfloat16* base,
+                                              long long st, int row0,
+                                              int seq, const float (&acc)[64],
+                                              float mul) {
+  const int lane = threadIdx.x & 31;
+  const int w = (threadIdx.x / 32) & 3;
   const int tig = lane & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + 8 * r;
+    const int row = row0 + 16 * w + (lane >> 2) + 8 * r;
     if (row < seq) {
       __nv_bfloat16* dst = base + row * st + tig * 2;
 #pragma unroll
       for (int d = 0; d < 16; ++d) {
         *reinterpret_cast<uint32_t*>(dst + d * 8) =
-            pack_bf16(acc[d][2 * r] * mul, acc[d][2 * r + 1] * mul);
+            pack_bf16(acc[4 * d + 2 * r] * mul, acc[4 * d + 2 * r + 1] * mul);
       }
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sDO = sQ + kTileElems;
-  __nv_bfloat16* sK = sDO + kTileElems;       // two buffers
-  __nv_bfloat16* sV = sK + 2 * kTileElems;    // two buffers
-  unsigned char* sLive = smem_raw + kDqSmem;  // per key tile flags
-  const int n_tiles_max = (p.seq + kTile - 1) / kTile;
-  unsigned char* sMixed = sLive + n_tiles_max;
-
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int qt = gridDim.z - 1 - blockIdx.z;    // heavy causal tiles first
-  const int q0 = qt * kTile;
-  const int hk = h / p.group;
+// A consumer warpgroup: 64 query rows of each of the block's items against
+// every live key tile. `gt` counts the K/V tiles of the ring consumed so
+// far, over all items.
+__device__ __forceinline__ void dq_consume(const DqParams& p,
+                                           unsigned char* smem,
+                                           const DqBars& bar) {
   const int tid = threadIdx.x;
+  const int wg = tid / 128 - 1;          // rows 64 wg .. 64 wg + 63
+  const int w = (tid / 32) & 3;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int seq = p.seq;
-  const int32_t* mask = p.mask + static_cast<long long>(b) * seq;
-
-  const __nv_bfloat16* kb = p.k + b * p.k_sb + hk * p.k_sh;
-  const __nv_bfloat16* vb = p.v + b * p.v_sb + hk * p.v_sh;
-
-  load_tile(sQ, p.q + b * p.q_sb + h * p.q_sh, p.q_st, q0, seq, tid);
-  load_tile(sDO, p.dout + b * p.do_sb + h * p.do_sh, p.do_st, q0, seq, tid);
-  cp_async_commit();
-
-  // the forward's tile skip: live key tiles hold a real key, mixed ones
-  // also a pad key
-  const int q_last = min(q0 + kTile, seq) - 1;
-  const int n_kt = q_last / kTile + 1;
-  for (int j = tid; j < n_kt; j += kThreads) {
-    sLive[j] = 0;
-    sMixed[j] = 0;
-  }
-  __syncthreads();
-  for (int s = tid; s <= q_last; s += kThreads) {
-    if (mask[s] != 0) sLive[s / kTile] = 1;
-    else sMixed[s / kTile] = 1;
-  }
-  __syncthreads();
-
-  int j = 0;
-  while (j < n_kt && !sLive[j]) ++j;
-  if (j < n_kt) {
-    load_tile(sK, kb, p.k_st, j * kTile, seq, tid);
-    load_tile(sV, vb, p.v_st, j * kTile, seq, tid);
-  }
-  cp_async_commit();
-
-  const int wr = warp * 16;
-  const int g = lane >> 2;
   const int tig = lane & 3;
-  const int row_a = q0 + wr + g;
-  const int row_b = row_a + 8;
-  const long long stat = (static_cast<long long>(b) * p.hq + h) * seq;
-  // lse in the exp2 domain of the scaled logits; +inf gives P = 0
-  const float lse_a = row_a < seq ? p.lse[stat + row_a] * kLog2e : INFINITY;
-  const float lse_b = row_b < seq ? p.lse[stat + row_b] * kLog2e : INFINITY;
-  const float di_a = row_a < seq ? p.di[stat + row_a] : 0.0f;
-  const float di_b = row_b < seq ? p.di[stat + row_b] : 0.0f;
+  const int r_a = 64 * wg + 16 * w + (lane >> 2);   // row in the item
+  const unsigned char* sQ = smem + wg * 64 * 128;
+  const unsigned char* sDO = smem + kDqSmemDO + wg * 64 * 128;
+  const float* sL = reinterpret_cast<const float*>(smem + kDqSmemL);
+  const float* sD = sL + kItemRows;
+  int gt = 0;
+  for (int c = 0, i = blockIdx.x; i < p.n_items; ++c, i += gridDim.x) {
+    const int set = c & 1;
+    const Item item = item_at(i, p.seq, p.hq, p.batch);
+    const int n_kt = item.n_kt;
+    const int row_a = item.q0 + r_a;
+    const int row_b = row_a + 8;
+    mbar_wait(bar.f_full + set, (c >> 1) & 1);
+    const Flags f = flags_at(smem + kDqSmemFlags, set, p.seq);
+    int n_live = 0;
+    for (int j = 0; j < n_kt; ++j) n_live += f.live[j];
 
-  float dq[16][4];
+    mbar_wait(bar.q_full, c & 1);      // also where no tile is live
+    // -lse in the exp2 domain (-inf where no key is admissible: P = 0)
+    const float nl_a = -sL[r_a] * kLog2e;
+    const float nl_b = -sL[r_a + 8] * kLog2e;
+    const float di_a = sD[r_a];
+    const float di_b = sD[r_a + 8];
+    float dq[64];
 #pragma unroll
-  for (int d = 0; d < 16; ++d)
-    dq[d][0] = dq[d][1] = dq[d][2] = dq[d][3] = 0.0f;
+    for (int k = 0; k < 64; ++k) dq[k] = 0.0f;
+    if (n_live == 0 && lane == 0) mbar_arrive(bar.q_empty);
 
-  int buf = 0;
-  while (j < n_kt) {
-    int jn = j + 1;
-    while (jn < n_kt && !sLive[jn]) ++jn;
-    if (jn < n_kt) {
-      load_tile(sK + (buf ^ 1) * kTileElems, kb, p.k_st, jn * kTile, seq,
-                tid);
-      load_tile(sV + (buf ^ 1) * kTileElems, vb, p.v_st, jn * kTile, seq,
-                tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();    // Q, dO and tile j have landed
-    __syncthreads();
+    int j = -1;
+    for (int it = 0; it < n_live; ++it, ++gt) {
+      j = next_live(f.live, j + 1, n_kt);
+      const int s = gt % kDqStages;
+      const unsigned ph = (gt / kDqStages) & 1;
+      const unsigned char* sK = smem + kDqSmemK + s * kDqTile;
+      const unsigned char* sV = smem + kDqSmemV + s * kDqTile;
 
-    const __nv_bfloat16* cK = sK + buf * kTileElems;
-    const __nv_bfloat16* cV = sV + buf * kTileElems;
+      // S = Q K^T and dP = dO V^T, committed apart, so that P is formed
+      // while dP is still on the tensor cores (both waits come before the
+      // fence: a wait between the two would make ptxas fence again)
+      float sc[64], dp[64];
+      mbar_wait(bar.k_full + s, ph);
+      mbar_wait(bar.v_full + s, ph);
+      wgmma_fence();
+      issue_qk(sc, sQ, sK);
+      wgmma_commit();
+      issue_qk(dp, sDO, sV);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(sc);
 
-    // P = exp2(S * scale * log2(e) - lse * log2(e)) under the key mask
-    float s[8][4];
-    mma_rows_bt(s, sQ, wr, cK, lane);
-    const bool need_mask = (j == qt) || sMixed[j];
+      // P = exp2(S * scale * log2(e) - lse * log2(e)) under the key mask
+      // (the diagonal tile, and tiles that mix real and pad keys)
+      if (f.mixed[j] || j == n_kt - 1) {
+        uint32_t wd[4];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+        for (int u = 0; u < 4; ++u) wd[u] = f.bits[4 * j + u];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * p.scale_log2;
-        if (need_mask) {
-          const int key = j * kTile + n * 8 + tig * 2 + (e & 1);
-          const int row = e < 2 ? row_a : row_b;
-          const bool ok = key <= row && key < seq && __ldg(mask + key) != 0;
-          x = ok ? x : -INFINITY;
+        for (int n = 0; n < 16; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * n + 2 * tig + (e & 1);
+            const int key = j * kItemRows + col;
+            const bool ok = key <= (e < 2 ? row_a : row_b) &&
+                            ((wd[n >> 2] >> (col & 31)) & 1u);
+            const float x = fmaf(sc[4 * n + e], p.scale_log2,
+                                 e < 2 ? nl_a : nl_b);
+            sc[4 * n + e] = fast_exp2(ok ? x : -INFINITY);
+          }
         }
-        s[n][e] = fast_exp2(x - (e < 2 ? lse_a : lse_b));
+      } else {
+#pragma unroll
+        for (int n = 0; n < 16; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[4 * n + e] = fast_exp2(fmaf(sc[4 * n + e], p.scale_log2,
+                                           e < 2 ? nl_a : nl_b));
+        }
       }
-    }
 
-    // dS = P * (dO V^T - di)
-    float ds[8][4];
-    mma_rows_bt(ds, sDO, wr, cV, lane);
+      // dS = P * (dP - di); V, and after the item's last tile Q and dO,
+      // are no longer read
+      wgmma_wait<0>();
+      fence_regs(dp);
+      if (lane == 0) {
+        mbar_arrive(bar.v_empty + s);
+        if (it == n_live - 1) mbar_arrive(bar.q_empty);
+      }
+      uint32_t da[8][4];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < 16; ++n) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        ds[n][e] = s[n][e] * (ds[n][e] - (e < 2 ? di_a : di_b));
-    }
+        for (int e = 0; e < 4; ++e)
+          dp[4 * n + e] = sc[4 * n + e] *
+                          (dp[4 * n + e] - (e < 2 ? di_a : di_b));
+      }
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) a_operand(da[kk], dp, kk);
+      fence_regs(da);    // packed before the fence, not between the wgmmas
 
-    // dQ += dS K
-    mma_acc_b(dq, ds, cK, lane);
-    __syncthreads();   // every warp is done with buffer `buf` before reuse
-    j = jn;
-    buf ^= 1;
+      // dQ += dS K: K an MN-major B operand, as V in the forward's O += P V
+      wgmma_fence();
+      issue_pv(dq, da, sK);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(da);
+      if (lane == 0) mbar_arrive(bar.k_empty + s);
+    }
+    if (lane == 0) mbar_arrive(bar.f_empty + set);
+    store_wg_rows(p.dq + item.b * p.dq_sb + item.h * p.dq_sh, p.dq_st,
+                  item.q0 + 64 * wg, p.seq, dq, p.scale);
   }
-  cp_async_wait<0>();
+}
 
-  store_rows(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_st, q0 + wr, seq, lane,
-             dq, p.scale);
+// Thread 0: for each of the block's items, Q, dO, lse and di into their
+// buffer once the consumers are done with the item before, then K and V of
+// each live key tile into the ring. K and V of one tile share a stage but
+// not its barriers: V is freed once dP has landed, K once dQ += dS K has.
+__device__ __forceinline__ void dq_produce(
+    const DqParams& p, unsigned char* smem, const DqBars& bar,
+    const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+    const CUtensorMap* tm_do, const CUtensorMap* tm_lse,
+    const CUtensorMap* tm_di) {
+  int gt = 0;
+  for (int c = 0, i = blockIdx.x; i < p.n_items; ++c, i += gridDim.x) {
+    const int set = c & 1;
+    const Item item = item_at(i, p.seq, p.hq, p.batch);
+    const int hk = item.h / p.group;
+    if (c >= 1) mbar_wait(bar.q_empty, (c - 1) & 1);
+    mbar_expect_tx(bar.q_full, 2 * kDqTile + 2 * kDqStat);
+    tma_load_4d(smem, tm_q, bar.q_full, 0, item.h, item.q0, item.b);
+    tma_load_4d(smem + kItemPanel, tm_q, bar.q_full, kPanelCols, item.h,
+                item.q0, item.b);
+    tma_load_4d(smem + kDqSmemDO, tm_do, bar.q_full, 0, item.h, item.q0,
+                item.b);
+    tma_load_4d(smem + kDqSmemDO + kItemPanel, tm_do, bar.q_full, kPanelCols,
+                item.h, item.q0, item.b);
+    // lse and di rows of (b, h): a box running past T reads the next row's
+    // values (or zeros at the end), which only rows past T use, and those
+    // are never written
+    const int at = (item.b * p.hq + item.h) * p.seq + item.q0;
+    tma_load_1d(smem + kDqSmemL, tm_lse, bar.q_full, at);
+    tma_load_1d(smem + kDqSmemL + kDqStat, tm_di, bar.q_full, at);
+    mbar_wait(bar.f_full + set, (c >> 1) & 1);
+    const Flags f = flags_at(smem + kDqSmemFlags, set, p.seq);
+    for (int j = 0; j < item.n_kt; ++j) {
+      if (!f.live[j]) continue;
+      const int s = gt % kDqStages;
+      const unsigned parity = (gt / kDqStages - 1) & 1;
+      unsigned char* dk = smem + kDqSmemK + s * kDqTile;
+      unsigned char* dv = smem + kDqSmemV + s * kDqTile;
+      if (gt >= kDqStages) mbar_wait(bar.k_empty + s, parity);
+      mbar_expect_tx(bar.k_full + s, kDqTile);
+      tma_load_4d(dk, tm_k, bar.k_full + s, 0, hk, j * kItemRows, item.b);
+      tma_load_4d(dk + kItemPanel, tm_k, bar.k_full + s, kPanelCols, hk,
+                  j * kItemRows, item.b);
+      if (gt >= kDqStages) mbar_wait(bar.v_empty + s, parity);
+      mbar_expect_tx(bar.v_full + s, kDqTile);
+      tma_load_4d(dv, tm_v, bar.v_full + s, 0, hk, j * kItemRows, item.b);
+      tma_load_4d(dv + kItemPanel, tm_v, bar.v_full + s, kPanelCols, hk,
+                  j * kItemRows, item.b);
+      ++gt;
+    }
+    mbar_arrive(bar.f_empty + set);      // done reading this flag set
+  }
+}
+
+// Persistent: one block per SM walks the work items i = blockIdx.x,
+// blockIdx.x + gridDim.x, ...
+__global__ void __launch_bounds__(kDqThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ DqParams p,
+                    const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_lse,
+                    const __grid_constant__ CUtensorMap tm_di) {
+  extern __shared__ unsigned char smem_raw[];
+  // TMA's 128-byte swizzle and the wgmma descriptors need 1024-byte tiles
+  unsigned char* smem = smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023);
+  const DqBars bar = dq_bars_at(smem);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(bar.q_full, 1);
+    mbar_init(bar.q_empty, 8);           // one arrival per consumer warp
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(bar.k_full + s, 1);
+      mbar_init(bar.v_full + s, 1);
+      mbar_init(bar.k_empty + s, 8);
+      mbar_init(bar.v_empty + s, 8);
+    }
+    for (int k = 0; k < 2; ++k) {
+      mbar_init(bar.f_full + k, kScanThreads);
+      mbar_init(bar.f_empty + k, 8 + 1); // consumer warps and the producer
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    setmaxnreg_dec<24>();
+    if (tid == 0)
+      dq_produce(p, smem, bar, &tm_q, &tm_k, &tm_v, &tm_do, &tm_lse, &tm_di);
+    else if (tid >= 32)
+      scan_masks(p.mask, p.seq, p.hq, p.batch, p.n_items,
+                 smem + kDqSmemFlags, bar.f_full, bar.f_empty);
+  } else {
+    setmaxnreg_inc<240>();
+    dq_consume(p, smem, bar);
+  }
 }
 
 // ---- dkv: wgmma, TMA and warp specialisation -------------------------------
@@ -286,29 +424,6 @@ struct DkvParams {
   int seq, hq, group;
   float scale, scale_log2;
 };
-
-// Write a consumer warpgroup's 64 x 128 f32 accumulator rows (row0 + 16w +
-// g and + 8) times `mul` as bf16; rows at or past `seq` are dropped.
-__device__ __forceinline__ void store_wg_rows(__nv_bfloat16* base,
-                                              long long st, int row0,
-                                              int seq, const float (&acc)[64],
-                                              float mul) {
-  const int lane = threadIdx.x & 31;
-  const int w = (threadIdx.x / 32) & 3;
-  const int tig = lane & 3;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 16 * w + (lane >> 2) + 8 * r;
-    if (row < seq) {
-      __nv_bfloat16* dst = base + row * st + tig * 2;
-#pragma unroll
-      for (int d = 0; d < 16; ++d) {
-        *reinterpret_cast<uint32_t*>(dst + d * 8) =
-            pack_bf16(acc[4 * d + 2 * r] * mul, acc[4 * d + 2 * r + 1] * mul);
-      }
-    }
-  }
-}
 
 __device__ __forceinline__ void dkv_consume(const DkvParams& p,
                                             unsigned char* smem,
@@ -534,34 +649,48 @@ flash_bwd_dkv_kernel(const __grid_constant__ DkvParams p,
 int dq_smem_set[kMaxDevices] = {};
 int dkv_smem_set[kMaxDevices] = {};
 
-Params make_params(const void* q, const void* k, const void* v,
-                   const void* dout, void* dq, void* dk, void* dv,
-                   const void* mask, const void* lse, const void* di,
-                   const long long* st, int seq, int hq, int hkv,
-                   float scale) {
-  Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.dout = static_cast<const __nv_bfloat16*>(dout);
+// The dq kernel: tensor maps of q and dout (128-row boxes), k and v
+// (128-row boxes) and of lse and di (boxes of 128 f32), then one persistent
+// block per SM, or one per item where there are fewer items.
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              void* dq, const void* mask, const void* lse, const void* di,
+              const long long* st, int batch, int seq, int hq, int hkv,
+              float scale, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_lse, tm_di;
+  const long long n_stat = static_cast<long long>(batch) * hq * seq;
+  int rc = bthd_map(&tm_q, q, batch, seq, hq, st[0], st[1], st[2], kItemRows);
+  if (rc == 0)
+    rc = bthd_map(&tm_k, k, batch, seq, hkv, st[3], st[4], st[5], kItemRows);
+  if (rc == 0)
+    rc = bthd_map(&tm_v, v, batch, seq, hkv, st[6], st[7], st[8], kItemRows);
+  if (rc == 0)
+    rc = bthd_map(&tm_do, dout, batch, seq, hq, st[9], st[10], st[11],
+                  kItemRows);
+  if (rc == 0) rc = f32_map(&tm_lse, lse, n_stat, kItemRows);
+  if (rc == 0) rc = f32_map(&tm_di, di, n_stat, kItemRows);
+  if (rc != 0) return rc;
+  DqParams p;
   p.dq = static_cast<__nv_bfloat16*>(dq);
-  p.dk = static_cast<__nv_bfloat16*>(dk);
-  p.dv = static_cast<__nv_bfloat16*>(dv);
   p.mask = static_cast<const int32_t*>(mask);
-  p.lse = static_cast<const float*>(lse);
-  p.di = static_cast<const float*>(di);
-  long long* dst[21] = {&p.q_sb,  &p.q_st,  &p.q_sh,  &p.k_sb,  &p.k_st,
-                        &p.k_sh,  &p.v_sb,  &p.v_st,  &p.v_sh,  &p.do_sb,
-                        &p.do_st, &p.do_sh, &p.dq_sb, &p.dq_st, &p.dq_sh,
-                        &p.dk_sb, &p.dk_st, &p.dk_sh, &p.dv_sb, &p.dv_st,
-                        &p.dv_sh};
-  for (int i = 0; i < 21; ++i) *dst[i] = st[i];
+  p.dq_sb = st[12]; p.dq_st = st[13]; p.dq_sh = st[14];
   p.seq = seq;
   p.hq = hq;
+  p.batch = batch;
   p.group = hq / hkv;
+  p.n_items = hq * batch * ((seq + kItemRows - 1) / kItemRows);
   p.scale = scale;
   p.scale_log2 = scale * kLog2e;
-  return p;
+  int sms = 0;
+  cudaError_t err = device_sms(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int smem = 1024 + kDqSmemFlags +
+                   2 * flag_set_bytes((seq + kItemRows - 1) / kItemRows);
+  err = ensure_smem(flash_bwd_dq_kernel, smem, dq_smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = p.n_items < sms ? p.n_items : sms;
+  flash_bwd_dq_kernel<<<grid, kDqThreads, smem, stream>>>(
+      p, tm_q, tm_k, tm_v, tm_do, tm_lse, tm_di);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The dkv kernel: tensor maps of q, k, v and dout (128-byte swizzled boxes of
@@ -619,9 +748,6 @@ int flash_attn_bwd_bf16(const void* q, const void* k, const void* v,
   if (batch <= 0 || seq <= 0) return 0;
   if (hq <= 0 || hkv <= 0 || hq % hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Params p = make_params(q, k, v, dout, dq, dk, dv, mask, lse, di,
-                               strides, seq, hq, hkv, scale);
-  const int n_tiles = (seq + kTile - 1) / kTile;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dk != nullptr && dv != nullptr) {
     const int err = launch_dkv(q, k, v, dout, dk, dv, mask, lse, di, strides,
@@ -629,14 +755,9 @@ int flash_attn_bwd_bf16(const void* q, const void* k, const void* v,
     if (err != 0) return err;
   }
   if (dq != nullptr) {
-    const int smem = kDqSmem + 2 * n_tiles;
-    cudaError_t err = ensure_smem(flash_bwd_dq_kernel, smem, dq_smem_set);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid(static_cast<unsigned>(hq), static_cast<unsigned>(batch),
-                    static_cast<unsigned>(n_tiles));
-    flash_bwd_dq_kernel<<<grid, kThreads, smem, s>>>(p);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    const int err = launch_dq(q, k, v, dout, dq, mask, lse, di, strides,
+                              batch, seq, hq, hkv, scale, s);
+    if (err != 0) return err;
   }
   return 0;
 }

@@ -1,9 +1,10 @@
-// Hopper (sm_90a) building blocks of the flash-attention forward
-// (flash_attn.cu) and dkv (flash_attn_bwd.cu) kernels: mbarriers, TMA tile
-// loads from a CUtensorMap, wgmma shared-memory descriptors for the
-// 128-byte swizzle, warpgroup MMA (wgmma.mma_async), setmaxnreg; and, on
-// the host, the tensor maps, encoded at each launch through the runtime's
-// driver entry point (so nothing links -lcuda).
+// Hopper (sm_90a) building blocks of the flash-attention kernels (the
+// forward in flash_attn.cu, dq and dkv in flash_attn_bwd.cu): mbarriers, TMA
+// tile loads from a CUtensorMap, wgmma shared-memory descriptors for the
+// 128-byte swizzle, warpgroup MMA (wgmma.mma_async), setmaxnreg, the work
+// items and key-mask flags of the two query-tile kernels (forward, dq); and,
+// on the host, the tensor maps, encoded at each launch through the
+// runtime's driver entry point (so nothing links -lcuda).
 //
 // Tiles in shared memory. A tile of R rows x 128 bf16 dims is two panels of
 // R x 64 dims, each filled by one TMA box {64 dims, 1 head, R rows, 1 batch}
@@ -277,6 +278,142 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tn(float* d,
         "r"(scale_d));
 }
 
+// ---- device: work items and key-mask flags of the query-tile kernels ----
+//
+// The forward and dq kernels are persistent: one block per SM walks the
+// work items i = blockIdx.x, blockIdx.x + gridDim.x, ..., each a (128-query
+// tile, q-head, batch row), heaviest causal tiles first, against 128-key
+// tiles at or before the diagonal. Warps 1-3 of the producer warpgroup scan
+// each item's key mask into one of two flag sets, while the consumers still
+// work on the item before.
+
+constexpr int kItemRows = 128;           // queries per item, keys per tile
+constexpr int kItemPanel = kItemRows * 128;   // 128 rows x 64 dims: 16 KB
+constexpr int kScanThreads = 96;         // warps 1-3 of warpgroup 0
+
+struct Item {
+  int h, b, q0, n_kt;                    // n_kt: causal key tiles
+};
+
+__device__ __forceinline__ Item item_at(int i, int seq, int hq, int batch) {
+  const int per = hq * batch;
+  const int n_qt = (seq + kItemRows - 1) / kItemRows;
+  Item it;
+  it.q0 = (n_qt - 1 - i / per) * kItemRows;
+  it.b = (i % per) / hq;
+  it.h = i % hq;
+  it.n_kt = (min(it.q0 + kItemRows, seq) - 1) / kItemRows + 1;
+  return it;
+}
+
+// one flag set: 4 mask words per key tile, then a live and a mixed byte
+__host__ __device__ constexpr int flag_set_bytes(int n_tiles) {
+  return (18 * n_tiles + 15) & ~15;
+}
+
+struct Flags {
+  uint32_t* bits;          // real-key bits, 4 words per key tile
+  unsigned char* live;     // the key tile holds a real key
+  unsigned char* mixed;    // ... and a pad key
+};
+
+// flag set `set` (0 or 1) of the two that start at `sets`
+__device__ __forceinline__ Flags flags_at(unsigned char* sets, int set,
+                                          int seq) {
+  const int n_tiles = (seq + kItemRows - 1) / kItemRows;
+  unsigned char* base = sets + set * flag_set_bytes(n_tiles);
+  Flags f;
+  f.bits = reinterpret_cast<uint32_t*>(base);
+  f.live = base + 16 * n_tiles;
+  f.mixed = f.live + n_tiles;
+  return f;
+}
+
+// The first live key tile at or after j (n_kt if none).
+__device__ __forceinline__ int next_live(const unsigned char* live, int j,
+                                         int n_kt) {
+  while (j < n_kt && !live[j]) ++j;
+  return j;
+}
+
+// Warps 1-3 of warpgroup 0: for each of the block's items, a word of
+// real-key bits per 32 keys of the causal key range (4 words a pass a warp,
+// their loads in flight together), and which key tiles are live (hold a
+// real key) and mixed (hold a pad key too), into flag set c % 2 (the
+// block's c-th item). f_full[set] takes one arrival per scanner thread,
+// f_empty[set] is the consumers' and the producer's release. Every writer
+// of a flag stores 1, so the races are benign.
+__device__ __forceinline__ void scan_masks(const int32_t* mask, int seq,
+                                           int hq, int batch, int n_items,
+                                           unsigned char* sets,
+                                           uint64_t* f_full,
+                                           uint64_t* f_empty) {
+  const int st = threadIdx.x - 32;
+  const int sw = st / 32;
+  const int lane = threadIdx.x & 31;
+  constexpr int kScanWarps = kScanThreads / 32;
+  for (int c = 0, i = blockIdx.x; i < n_items; ++c, i += gridDim.x) {
+    const int set = c & 1;
+    if (c >= 2) mbar_wait(f_empty + set, ((c >> 1) - 1) & 1);
+    const Item item = item_at(i, seq, hq, batch);
+    const Flags f = flags_at(sets, set, seq);
+    const int q_last = min(item.q0 + kItemRows, seq) - 1;
+    const int32_t* row = mask + static_cast<long long>(item.b) * seq;
+    for (int j = st; j < item.n_kt; j += kScanThreads) {
+      f.live[j] = 0;
+      f.mixed[j] = 0;
+    }
+    named_sync(3, kScanThreads);
+    const int n_words = 4 * item.n_kt;
+    for (int base = sw; base < n_words; base += 4 * kScanWarps) {
+      int32_t m[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int key = (base + u * kScanWarps) * 32 + lane;
+        m[u] = key <= q_last ? __ldg(row + key) : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int wd = base + u * kScanWarps;
+        const bool in = wd * 32 + lane <= q_last;
+        const unsigned rb = __ballot_sync(0xffffffffu, in && m[u] != 0);
+        const unsigned pb = __ballot_sync(0xffffffffu, in && m[u] == 0);
+        if (lane == 0 && wd < n_words) {
+          f.bits[wd] = rb;
+          if (rb) f.live[wd / 4] = 1;
+          if (pb) f.mixed[wd / 4] = 1;
+        }
+      }
+    }
+    mbar_arrive(f_full + set);           // every scanner thread
+  }
+}
+
+// S = Q K^T (or dP = dO V^T) for a warpgroup's 64 rows of a 128-row tile
+// and one 128-key tile: 8 k-steps of 16 dims, both operands K-major in
+// shared memory.
+__device__ __forceinline__ void issue_qk(float (&sc)[64],
+                                         const unsigned char* sQ,
+                                         const unsigned char* sK) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const int off = (kk >> 2) * kItemPanel + (kk & 3) * 32;
+    wgmma_m64n128k16_ss(sc, sw128_desc(sQ + off, kLboK),
+                        sw128_desc(sK + off, kLboK), kk > 0);
+  }
+}
+
+// O += P V (or dQ += dS K): P in registers (bf16, 8 k-steps of 16 keys),
+// the 128-key tile an MN-major B operand across both 64-dim panels.
+__device__ __forceinline__ void issue_pv(float (&o)[64],
+                                         const uint32_t (&pa)[8][4],
+                                         const unsigned char* sV) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_m64n128k16_rs_tn(o, pa[kk], sw128_desc(sV + kk * 2048, kItemPanel),
+                           1);
+}
+
 // ---- host: tensor maps ------------------------------------------------------
 
 using EncodeTiledFn = CUresult (*)(
@@ -349,6 +486,24 @@ inline int f32_map(CUtensorMap* map, const void* base, long long n, int box) {
       CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? 0 : kMapError + static_cast<int>(rc);
+}
+
+// The current device's number of SMs (the grid of a persistent kernel),
+// looked up once per device; threads racing here store the same value.
+inline cudaError_t device_sms(int* sms) {
+  static int count[flash::kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 0 || device >= flash::kMaxDevices)
+    return cudaErrorInvalidDevice;
+  if (count[device] == 0) {
+    err = cudaDeviceGetAttribute(&count[device],
+                                 cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+  }
+  *sms = count[device];
+  return cudaSuccess;
 }
 
 // The message for a launcher's return code: a CUDA runtime error, or a

@@ -4,7 +4,7 @@ Each ``csrc/*.cu`` file exposes an ``extern "C"`` interface and includes no
 PyTorch header (only the shared ``csrc/*.cuh`` helpers), so one ``nvcc``
 call builds it in seconds. The shared library is named by a hash of its
 source, the headers and the flags, so a stale build is never loaded.
-The forward and dkv kernels encode their TMA tensor maps on the host through
+The flash kernels encode their TMA tensor maps on the host through
 the runtime's driver entry point (``cudaGetDriverEntryPointByVersion``), so
 nothing links ``-lcuda``.
 No lock file is used: a build writes a file named by its process id and

@@ -5,7 +5,9 @@ PyTorch version.
 ``[T+1, N]`` impact matrix (int16 or f32) whose row 0 is a dead zero row;
 ``q_idx`` is already shifted by +1 and padding slots point at row 0 with
 weight 0. The kernel (``csrc/taat.cu``) replaces the JAX package's Pallas
-``_taat_kernel``; its design notes are in the source.
+``_taat_kernel``; its design notes are in the source. ``taat_split`` picks
+its launch geometry: how many parts a block splits a query's terms into, so
+that a small batch still fills the card.
 
 ``impact_scores_taat`` takes the plain version only for tensors on the CPU.
 For CUDA tensors it launches the kernel or raises; there is no fallback.
@@ -25,10 +27,14 @@ from mllm_sparse_retrieval_tpu_torch.ops import cuda_build
 
 SOURCE = "taat.cu"
 COLS_ALIGN = 8   # each kernel thread owns 8 consecutive columns
+BLOCK_COLS = 2048         # columns of a 256-thread block at split 1
+SPLITS = (1, 2, 4, 8)     # the kernel's term splits (csrc/taat.cu)
+FILL_BLOCKS_PER_SM = 3    # blocks a small batch is split to give each SM
 
 _count_lock = threading.Lock()
 _launches = 0
 _lib = None
+_sm_counts = {}
 
 
 def launch_count() -> int:
@@ -48,7 +54,7 @@ def _library() -> ctypes.CDLL:
         lib = cuda_build.load(SOURCE)
         args = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_longlong,
                                         ctypes.c_int, ctypes.c_int,
-                                        ctypes.c_void_p]
+                                        ctypes.c_int, ctypes.c_void_p]
         for fn in (lib.taat_i16, lib.taat_f32):
             fn.argtypes = args
             fn.restype = ctypes.c_int
@@ -56,6 +62,29 @@ def _library() -> ctypes.CDLL:
         lib.taat_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def taat_split(batch: int, n_cols: int, sms: int) -> int:
+    """The kernel's term split for a ``[batch, n_cols]`` call on a card of
+    ``sms`` SMs: the least split whose blocks (one per query and tile of
+    ``BLOCK_COLS / split`` columns) give every SM ``FILL_BLOCKS_PER_SM``,
+    else the largest. On an H100 (132 SMs) a served batch of 8 queries
+    over 26,624 docs gets 4, the best of the four there, and a bench batch
+    of 256 gets 1 (PERF.md)."""
+    for split in SPLITS:
+        tiles = -(-n_cols // (BLOCK_COLS // split))
+        if batch * tiles >= sms * FILL_BLOCKS_PER_SM:
+            return split
+    return SPLITS[-1]
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sm_counts[index]
 
 
 def _check_inputs(matrix: torch.Tensor, q_idx: torch.Tensor,
@@ -120,10 +149,11 @@ def impact_scores_taat(matrix: torch.Tensor, q_idx: torch.Tensor,
         return out
     lib = _library()
     fn = lib.taat_i16 if matrix.dtype == torch.int16 else lib.taat_f32
+    split = taat_split(b, n_cols, _sm_count(matrix.device))
     with torch.cuda.device(matrix.device):
         stream = torch.cuda.current_stream(matrix.device).cuda_stream
         rc = fn(matrix.data_ptr(), q_idx.data_ptr(), q_w.data_ptr(),
-                out.data_ptr(), n_rows, n_cols, b, q, stream)
+                out.data_ptr(), n_rows, n_cols, b, q, split, stream)
     if rc != 0:
         msg = lib.taat_error_string(rc).decode()
         raise RuntimeError(f"TAAT kernel launch failed ({rc}): {msg}")

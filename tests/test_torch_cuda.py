@@ -65,8 +65,19 @@ def _inputs(seed, t, n, b, q, dtype, dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.int16, torch.float32])
-@pytest.mark.parametrize("shape", [(50, 2048, 8, 12), (300, 4104, 3, 300),
-                                   (7, 8, 1, 2)])
+@pytest.mark.parametrize("shape", [
+    # (matrix rows, columns, batch, slots); the term split the wrapper picks
+    # on a 132-SM card (taat_split) beside each. Duplicate, dead and padding
+    # slots in every case.
+    (50, 2048, 8, 12),         # split 8
+    (300, 4104, 3, 300),       # split 8, two staging chunks of 256 slots
+    (7, 8, 1, 2),              # split 8, one 8-column tile
+    (20, 2048, 400, 16),       # split 1
+    (50, 26624, 30, 64),       # split 2
+    (50, 26624, 8, 64),        # split 4, the served batch and width
+    (300, 4104, 8, 300),       # split 8, a last tile of 8 columns
+    (300, 4104, 1, 64),        # split 8, one query
+])
 def test_kernel_equals_plain(dtype, shape):
     dev = _card()
     matrix, q_idx, q_w = _inputs(0, *shape, dtype, dev)
@@ -308,8 +319,9 @@ def test_flash_bwd_rejects_what_it_does_not_take():
     assert {n: FA.launch_count(n) for n in FA.KERNELS} == before
 
 
-# The forward and dkv kernels on wgmma and TMA: 128-query and 128-key tiles,
-# 64-query tiles streamed through dkv. Shapes: (b, t, hq, hkv, lengths).
+# The Hopper kernels on wgmma and TMA: 128-query items against 128-key
+# tiles (forward, dq), 64-query tiles streamed through 128-key blocks (dkv).
+# Shapes: (b, t, hq, hkv, lengths).
 HOPPER_SHAPES = [
     (1, 1536, 8, 2, (1000,)),          # B=1, G=4, a row ending mid-tile
     (2, 1000, 4, 4, (1000, 0)),        # G=1, T not a tile multiple, all-pad
@@ -349,6 +361,24 @@ def test_hopper_dkv_matches_plain_and_repeats_bit_for_bit(shape):
     real = mask.bool()[:, :, None, None]
     assert bool((dk.masked_select(~real) == 0).all())   # pad keys: no query
     assert bool((dv.masked_select(~real) == 0).all())
+
+
+@pytest.mark.parametrize("shape", HOPPER_SHAPES)
+def test_hopper_dq_matches_plain_and_repeats_bit_for_bit(shape):
+    dev = _card()
+    b, t, hq, hkv, lengths = shape
+    q, k, v, mask, dout = _bwd_case(15, b, t, hq, hkv, lengths, dev)
+    out, lse = FA.flash_causal_attention_lse(q, k, v, mask)
+    di = FA.flash_bwd_di(out, dout)
+    dq = FA.flash_attention_bwd_dq(q, k, v, mask, lse, di, dout)
+    dq2 = FA.flash_attention_bwd_dq(q, k, v, mask, lse, di, dout)
+    torch.cuda.synchronize()
+    assert torch.equal(dq, dq2)                 # fixed order, no atomics
+    ref_q, _, _ = FA.flash_causal_attention_plain_bwd(q, k, v, mask, dout)
+    mag_q, _, _ = FA.flash_bwd_magnitudes(q, k, v, mask, dout)
+    _assert_grad_close(dq, ref_q, mag_q, "dq")
+    rows = _has_key(mask)[:, :, None, None]
+    assert bool((dq.masked_select(~rows) == 0).all())   # no admissible key
 
 
 def test_hopper_kernels_read_a_broadcast_kv_head():

@@ -112,6 +112,27 @@ def test_launch_count_does_not_move_on_cpu():
     assert K.launch_count() == 0
 
 
+@pytest.mark.parametrize("batch, n_cols, sms, want", [
+    (8, 26624, 132, 4),        # the served text batch: 104 blocks at split 1
+    (1, 8, 132, 8),            # one query, one tile: the largest split
+    (1, 26624, 132, 8),
+    (30, 26624, 132, 2),       # 390 blocks at split 1: just short of 396
+    (31, 26624, 132, 1),       # 403 blocks
+    (256, 26624, 132, 1),      # the bench batch fills the card unsplit
+    (256, 26624, 4000, 4),     # a wider card needs more blocks
+])
+def test_taat_split_fills_the_card(batch, n_cols, sms, want):
+    """The least term split whose blocks give every SM three, else the
+    largest."""
+    split = K.taat_split(batch, n_cols, sms)
+    assert split == want and split in K.SPLITS
+    blocks = batch * -(-n_cols // (K.BLOCK_COLS // split))
+    assert blocks >= sms * K.FILL_BLOCKS_PER_SM or split == K.SPLITS[-1]
+    if split > 1:
+        fewer = batch * -(-n_cols // (K.BLOCK_COLS // (split // 2)))
+        assert fewer < sms * K.FILL_BLOCKS_PER_SM
+
+
 @pytest.mark.parametrize("setting", [True, False])
 def test_matmul_backend_restores_the_tf32_switch(setting):
     """The matmul backend turns TF32 off only for its own matmul."""
