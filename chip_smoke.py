@@ -6,20 +6,29 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``csrc/`` (one plain ``nvcc`` call
-per source, all started together) and holds each against its plain PyTorch
+per source, all started together with the ``g++`` call of the native
+index builder) and holds each against its plain PyTorch
 version at the shapes the port's paths give it: the TAAT kernel at the
 served and the benchmark shapes; the flash-attention forward and the dq and
 dkv backward kernels on synthetic 3,072-token rows with an all-pad row
 (what the kernels line reports) and on the rows of the profiled training
 step; each with its bound and its share of the bf16 peak. Then
-it drives the port's three paths end to end on the full-width, full-depth
+it drives the port's four paths end to end on the full-width, full-depth
 LLaVA-NeXT-Llama3-8B (bf16 weights drawn on the card from a seed): text
 queries through ``RetrievalService`` and the 32-layer text tower; image
 queries through anyres preprocessing, the 24-layer ViT-L/14-336 on five
 336 px tiles, the projector and the 3,072-token decoder, whose attention is
 the flash kernel (both paths select terms on the device and score an impact
 index of 25,010 synthetic docs with the TAAT kernel; every served result
-must equal the matmul backend's on the same terms); and contrastive LoRA
+must equal the matmul backend's on the same terms); offline evaluation, a
+flickr-layout CSV of 64 seeded images and 320 captions read by
+``CrossModalCorpus``, encoded by ``encode_examples`` as documents and as
+queries (the image prompts take the flash kernel), written as artifacts,
+indexed by both impact-index builders (layouts equal) and the dense flat
+index, and searched text->image and image->text by ``run_search`` (dense,
+sparse through the TAAT kernel, min-max and RRF fusion, recall: the sparse
+run equal to the matmul backend's, the dense run within 1e-5 of a float64
+product, recall equal to a numpy count); and contrastive LoRA
 training, a few ``ContrastiveTrainer.train_on_batch`` steps on seeded
 image-caption pairs whose 3,072-token image prompts take the flash kernels
 forward and backward. The whole tower is also run, and differentiated,
@@ -103,6 +112,13 @@ LORA_RANK, LORA_ALPHA, LORA_DROPOUT, TAU = 8, 16, 0.1, 0.05
 # the cosine of the concatenated adapter gradients. bf16 through 32 layers
 # forward and back; the H100 gave 0.999646, so 1 - cos has 11x headroom
 GRAD_CHECK_B, GRAD_COS_FLOOR = 2, 0.996
+# offline evaluation: a flickr-layout corpus of OFF_IMAGES images (the eight
+# IMAGE_SIZES, all five pinpoints) with OFF_CAPS captions each, encoded at
+# batch OFF_BATCH as documents and as queries, searched both ways at depth
+# OFF_DEPTH. Dense scores must lie within OFF_DENSE_TOL of a float64 product
+# of the same f32 vectors (the card sums 4,096 products in f32, TF32 off)
+OFF_IMAGES, OFF_CAPS, OFF_BATCH, OFF_DEPTH = 64, 5, 8, 100
+OFF_KS, OFF_DENSE_TOL, OFF_ALPHA = (1, 5, 10, 100), 1e-5, 0.5
 
 
 def progress(phase: str, msg: str) -> None:
@@ -286,21 +302,33 @@ def sass_counts(so):
 
 
 def build_kernels():
-    """Every kernel of the port, one ``nvcc`` each, all started together;
-    prints each build's time, ``-Xptxas -v`` register report and count of
-    tensor-core instructions. Every flash kernel runs on wgmma: a flash
-    library with an mma.sync instruction fails."""
+    """Every kernel of the port, one ``nvcc`` each, all started together
+    with the ``g++`` call of the native index builder; prints each build's
+    time, ``-Xptxas -v`` register report and count of tensor-core
+    instructions. Every flash kernel runs on wgmma: a flash library with an
+    mma.sync instruction fails."""
     from concurrent.futures import ThreadPoolExecutor
 
     from mllm_sparse_retrieval_tpu_torch.ops import cuda_build
     from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
     from mllm_sparse_retrieval_tpu_torch.ops import impact_kernel as K
 
+    from mllm_sparse_retrieval_tpu_torch.index import native
+
     sources = (K.SOURCE, FA.SOURCE, FA.BWD_SOURCE)
     t0 = time.monotonic()
-    with ThreadPoolExecutor(len(sources)) as pool:
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        # the native index builder's g++ call runs beside the nvcc calls
+        def build_native():
+            t = time.monotonic()
+            return native.build(), time.monotonic() - t
+
+        gxx = pool.submit(build_native)
         results = list(pool.map(
             lambda src: cuda_build.build(src, verbose=True), sources))
+        gxx_so, gxx_s = gxx.result()
+    progress("build", f"index/native/impact_builder.cc: {native.compiler()} "
+             f"{' '.join(native.CXX_FLAGS)} {gxx_s:.2f}s -> {gxx_so.name}")
     for src, (so, build_s, msgs) in zip(sources, results):
         regs = [ln.strip() for ln in msgs.splitlines()
                 if "registers" in ln or "spill" in ln or "arning" in ln]
@@ -312,8 +340,8 @@ def build_kernels():
             raise AssertionError(f"{src}: {hgmma} wgmma and {hmma} mma.sync "
                                  f"instructions; the flash kernels run on "
                                  f"wgmma only")
-    progress("build", f"all {len(sources)} sources in "
-             f"{time.monotonic() - t0:.2f}s")
+    progress("build", f"all {len(sources)} CUDA sources and the index "
+             f"builder in {time.monotonic() - t0:.2f}s")
 
 
 def admissible_pairs(mask) -> int:
@@ -711,6 +739,19 @@ def profiled(fn, by_name=()):
     return sum(ms for _, ms in kernels), len(kernels), stage, names
 
 
+def profiled_again(fn):
+    """``profiled`` of a call without side effects, run once more if the
+    profiler returned no device time: one run of this script on an H100
+    (PR 8's tree) saw none in the text breakdown, and 180 profiles of a
+    small workload in six processes right after all saw theirs."""
+    out = profiled(fn)
+    if out[0] <= 0.0:
+        progress("breakdown", "the profiler returned no device time; "
+                 "profiling the call again")
+        out = profiled(fn)
+    return out
+
+
 def breakdown(encoder, index, q_idx, q_w, batch):
     """Where one served text micro-batch's time goes: the host clock of the
     encoder's real ``encode_texts`` call and of the TAAT search of its
@@ -726,8 +767,8 @@ def breakdown(encoder, index, q_idx, q_w, batch):
         index.search_encoded(q_idx, q_w, DEPTH, backend="taat")
 
     encode_ms, search_ms = host_ms(encode, 5), host_ms(search, 20)
-    e_busy, e_n, stage, _ = profiled(encode)
-    s_busy, s_n, _, _ = profiled(search)
+    e_busy, e_n, stage, _ = profiled_again(encode)
+    s_busy, s_n, _, _ = profiled_again(search)
     if e_busy <= 0.0 or s_busy <= 0.0:
         raise AssertionError("the profiler saw no device time")
     stages = ", ".join(f"{k} {stage[k]:.3f} ms"
@@ -757,7 +798,7 @@ def image_breakdown(encoder, images):
         torch.cuda.synchronize()
 
     encode_ms, inputs_ms = host_ms(encode, 2), host_ms(inputs, 2)
-    busy, n, stage, _ = profiled(encode)
+    busy, n, stage, _ = profiled_again(encode)
     if busy <= 0.0 or stage["attention"] <= 0.0:
         raise AssertionError("the profiler saw no device time in the flash "
                              "attention ranges")
@@ -1026,12 +1067,306 @@ def grad_check(trainer, batch):
         raise AssertionError(f"gradient cosine {cos} below {GRAD_COS_FLOOR}")
 
 
-def same_up_to_ties(got, want):
+def offline_image(img_id):
+    """Seeded uint8 pixels, as [H, W, 3] floats in [0, 1], of the offline
+    corpus image ``img_id`` (an int string), in size IMAGE_SIZES[id % 8]."""
+    import numpy as np
+
+    i = int(img_id)
+    return (np.random.default_rng(i).integers(
+        0, 256, size=IMAGE_SIZES[i % len(IMAGE_SIZES)] + (3,),
+        dtype=np.uint8).astype(np.float32) / 255.0)
+
+
+def numpy_recall(run, get_target, ks):
+    """recall@k of a run counted apart from ``eval.recall``: per query, the
+    docs ordered by a stable numpy sort of their scores, the first target's
+    position against each cutoff, over the run's query count."""
+    import numpy as np
+
+    hits = np.zeros(len(ks), np.int64)
+    for q in run:
+        entry = run[q]
+        docs = entry["docs"] if "docs" in entry else entry
+        if not docs:
+            continue
+        ids = np.array(list(docs.keys()))
+        order = np.argsort(-np.array(list(docs.values()), np.float64),
+                           kind="stable")
+        t = get_target(q)
+        targets = [str(x) for x in t] if isinstance(t, list) else [str(t)]
+        pos = np.nonzero(np.isin(ids[order], targets))[0]
+        if pos.size:
+            hits += pos[0] < np.array(ks)
+    return {k: int(h) / max(len(run), 1) for k, h in zip(ks, hits)}
+
+
+def check_dense_run(run, queries, qids, corpus, doc_ids, label):
+    """Every returned score within OFF_DENSE_TOL of the float64 product of
+    the query and the doc, the scores those of the float64 top-depth within
+    it, and every doc clearly above the cut returned. Returns the largest
+    score error."""
+    import numpy as np
+
+    ref = queries.astype(np.float64) @ corpus.astype(np.float64).T
+    col = {d: i for i, d in enumerate(doc_ids)}
+    worst = 0.0
+    for r, q in enumerate(qids):
+        docs = run[q]["docs"]
+        idx = np.array([col[d] for d in docs])
+        got = np.array(list(docs.values()), np.float64)
+        err = np.abs(got - ref[r, idx])
+        top = np.sort(ref[r])[::-1][:len(docs)]
+        worst = max(worst, float(err.max()))
+        above = set(np.nonzero(ref[r] > top[-1] + 2 * OFF_DENSE_TOL)[0])
+        if len(docs) != min(OFF_DEPTH, len(doc_ids)) or \
+                err.max() > OFF_DENSE_TOL or \
+                np.abs(np.sort(got)[::-1] - top).max() > OFF_DENSE_TOL or \
+                not above <= set(idx.tolist()):
+            raise AssertionError(f"{label}: query {q}'s dense run is not the "
+                                 f"float64 top-{OFF_DEPTH} within "
+                                 f"{OFF_DENSE_TOL} (max err {err.max()})")
+    return worst
+
+
+def phase_offline(params, arch, tok, tmpl, lexicon, card):
+    """The offline evaluation path on the full-width model: a flickr CSV,
+    ``CrossModalCorpus``, ``encode_examples`` of the images and captions as
+    documents and as queries, ``write_artifacts``, both impact-index
+    builders on the jsonl (layouts equal, saved and loaded),
+    ``DenseFlatIndex`` from the pickles, and ``run_search`` text->image and
+    image->text (dense, sparse, min-max hybrid; RRF once) with recall.
+    Returns the TAAT and flash launches of the path."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mllm_sparse_retrieval_tpu_torch.configs import (
+        SearchConfig, SparseConfig)
+    from mllm_sparse_retrieval_tpu_torch.data import CrossModalCorpus
+    from mllm_sparse_retrieval_tpu_torch.index import (
+        DenseFlatIndex, ImpactIndex)
+    from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
+    from mllm_sparse_retrieval_tpu_torch.ops import impact_kernel as K
+    from mllm_sparse_retrieval_tpu_torch.pipelines.encode import (
+        encode_examples, write_artifacts)
+    from mllm_sparse_retrieval_tpu_torch.search import engine
+    from mllm_sparse_retrieval_tpu_torch.search.fusion import fuse
+    from mllm_sparse_retrieval_tpu_torch.search.runs import ArrayRun
+
+    t_phase = time.monotonic()
+    rng = np.random.default_rng(SEED + 3)   # leaves the main stream alone
+    sparse_cfg = SparseConfig()
+    loader = lambda ex: offline_image(ex.img_id)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "data")
+        os.makedirs(os.path.join(root, "flickr"))
+        caps = captions(rng, lexicon, OFF_IMAGES * OFF_CAPS, 8, 14)
+        with open(os.path.join(root, "flickr", "flickr_test.csv"), "w") as f:
+            f.write("imgid,filename,caption,sentid\n")
+            for i in range(OFF_IMAGES):
+                for c in range(OFF_CAPS):
+                    j = OFF_CAPS * i + c
+                    f.write(f"{1000 + i},{1000 + i}.jpg,{caps[j]},{j}\n")
+        corpus = CrossModalCorpus("flickr", "test", root)
+        sizes = {IMAGE_SIZES[int(i) % len(IMAGE_SIZES)]
+                 for i in corpus.img_id_list}
+        progress("offline", f"corpus: {corpus.num_images} images of sizes "
+                 f"{sorted(sizes)}, {corpus.num_texts} captions "
+                 f"(CrossModalCorpus, flickr layout)")
+
+        # ---- encode: documents and queries of both modalities -----------
+        K.reset_launch_count()
+        FA.reset_launch_count()
+        enc, rates = {}, {}
+        for kind, mode in (("image", "single"), ("text", "full")):
+            for is_query in (False, True):
+                examples = corpus.examples(mode)
+                f0 = FA.launch_count()
+                t0 = time.monotonic()
+                res = encode_examples(
+                    examples, params, arch, tok, tmpl, encode_type=kind,
+                    sparse_cfg=sparse_cfg, batch_size=OFF_BATCH,
+                    is_query=is_query, pixel_loader=loader, device=DEVICE)
+                torch.cuda.synchronize()
+                secs = time.monotonic() - t0
+                flash = FA.launch_count() - f0
+                want = (arch.text.num_layers * -(-len(examples) // OFF_BATCH)
+                        if kind == "image" else 0)
+                if flash != want:
+                    raise AssertionError(f"{kind} encode: {flash} flash "
+                                         f"launches, expected {want}")
+                if res.ids != [e.img_id if kind == "image" else e.text_id
+                               for e in examples] or \
+                        res.dense.shape != (len(examples),
+                                            arch.text.hidden_size) or \
+                        not np.isfinite(res.dense).all():
+                    raise AssertionError(f"{kind} encode: wrong output")
+                role = "queries" if is_query else "documents"
+                rates[(kind, role)] = len(examples) / secs
+                write_artifacts(res, os.path.join(tmp, kind, "dense"),
+                                os.path.join(tmp, kind, "sparse"),
+                                is_query=is_query)
+                enc[(kind, is_query)] = res
+                progress("offline", f"encode_examples: {len(examples)} "
+                         f"{kind} {role} in {secs:.2f} s "
+                         f"({rates[(kind, role)]:.2f}/s), flash launches "
+                         f"{flash} ({arch.text.num_layers} per batch of "
+                         f"{OFF_BATCH})" if kind == "image" else
+                         f"encode_examples: {len(examples)} {kind} {role} "
+                         f"in {secs:.2f} s ({rates[(kind, role)]:.2f}/s)")
+
+        # ---- index: native and Python builders, save/load; dense ---------
+        impact, dense, build_s = {}, {}, {}
+        for kind in ("image", "text"):
+            jsonl = [os.path.join(tmp, kind, "sparse", "corpus_0.jsonl")]
+            built = {}
+            for use_native in (True, False):
+                t0 = time.monotonic()
+                built[use_native] = ImpactIndex.from_jsonl(
+                    jsonl, use_native=use_native, device=DEVICE)
+                build_s[(kind, use_native)] = time.monotonic() - t0
+            nat, py = built[True], built[False]
+            layout = ("doc_terms", "doc_weights", "csr_offsets", "csr_docs",
+                      "csr_weights")
+            if nat.term_to_idx != py.term_to_idx or \
+                    nat.doc_ids != py.doc_ids or not all(
+                        np.array_equal(getattr(nat, a), getattr(py, a))
+                        for a in layout):
+                raise AssertionError(f"{kind}: the native and the Python "
+                                     f"builders' layouts differ")
+            nat.save(os.path.join(tmp, kind, "index"))
+            impact[kind] = ImpactIndex.load(os.path.join(tmp, kind, "index"),
+                                            device=DEVICE)
+            if not all(np.array_equal(getattr(impact[kind], a),
+                                      getattr(nat, a)) for a in layout):
+                raise AssertionError(f"{kind}: the saved index loads back "
+                                     f"different")
+            dense[kind] = DenseFlatIndex.load(os.path.join(tmp, kind,
+                                                           "dense"),
+                                              device=DEVICE)
+            progress("offline", f"{kind} index: {nat.num_docs} docs, "
+                     f"{nat.num_terms} terms, {int(nat.csr_offsets[-1])} "
+                     f"postings; native build "
+                     f"{build_s[(kind, True)]:.4f} s, Python build "
+                     f"{build_s[(kind, False)]:.4f} s, layouts equal, saved "
+                     f"and loaded; dense {dense[kind].size} x "
+                     f"{dense[kind].dim} from the pickle")
+        with open(os.path.join(tmp, "image", "dense", "query.pkl"),
+                  "rb") as f:
+            q_reps, q_ids = pickle.load(f)
+        if q_ids != enc[("image", True)].ids or q_reps.dtype != np.float32:
+            raise AssertionError("query.pkl does not hold the image queries")
+
+        # ---- search both ways; checks ------------------------------------
+        recorded = []
+        real_encode = engine.encode_examples
+
+        def recording(*a, **kw):
+            res = real_encode(*a, **kw)
+            recorded.append(res)
+            return res
+
+        engine.encode_examples = recording
+        outs, table = {}, []
+        try:
+            for qtype, dtype_, rule in (("text", "image", "minmax"),
+                                        ("image", "text", "minmax"),
+                                        ("text", "image", "rrf")):
+                mode = "full" if qtype == "text" else "single"
+                tgt = (lambda qt: lambda q: corpus.get_target(q, qt))(qtype)
+                t0 = time.monotonic()
+                taat0, flash0 = K.launch_count(), FA.launch_count()
+                out = engine.run_search(
+                    corpus.examples(mode), params, arch, tok, tmpl,
+                    query_type=qtype, sparse_cfg=sparse_cfg,
+                    search_cfg=SearchConfig(depth=OFF_DEPTH,
+                                            alpha=OFF_ALPHA),
+                    dense_index=dense[dtype_], impact_index=impact[dtype_],
+                    batch_size=OFF_BATCH, pixel_loader=loader,
+                    get_target=tgt, ks=OFF_KS, fusion_rule=rule,
+                    device=DEVICE)
+                secs = time.monotonic() - t0
+                taat = K.launch_count() - taat0
+                flash = FA.launch_count() - flash0
+                q_enc = recorded[-1]
+                label = f"{qtype}->{dtype_} {rule}"
+                if taat < 1:
+                    raise AssertionError(f"{label}: no TAAT launch")
+                # sparse: the matmul backend on the same encoded terms
+                ref_s, ref_i = impact[dtype_].search(
+                    q_enc.query_weights, OFF_DEPTH, backend="matmul")
+                for q, s_row, i_row in zip(q_enc.ids, ref_s, ref_i):
+                    docs = out.sparse_run[q]["docs"]
+                    if not same_up_to_ties(list(docs.items()),
+                                           list(zip(i_row, s_row)),
+                                           OFF_DEPTH):
+                        raise AssertionError(f"{label}: query {q}'s sparse "
+                                             f"run differs from the matmul "
+                                             f"backend's")
+                # dense: a float64 product over the loaded pickles
+                dense_err = check_dense_run(
+                    out.dense_run, q_enc.dense, q_enc.ids,
+                    np.concatenate(dense[dtype_]._chunks),
+                    dense[dtype_].lookup, label)
+                # recall: counted apart in numpy
+                for name in ("dense", "sparse", "fusion"):
+                    rec = getattr(out, f"{name}_recall").recalls
+                    ref = numpy_recall(getattr(out, f"{name}_run"), tgt,
+                                       OFF_KS)
+                    if rec != ref:
+                        raise AssertionError(f"{label} {name}: recall {rec}"
+                                             f" != numpy count {ref}")
+                    table.append((label, name, rec))
+                outs[label] = (out, q_enc)
+                progress("offline", f"run_search {label}: "
+                         f"{len(q_enc.ids)} queries in {secs:.2f} s; TAAT "
+                         f"launches {taat}, flash launches {flash}; sparse "
+                         f"run equal to the matmul backend's, dense within "
+                         f"{OFF_DENSE_TOL} of float64 (max err "
+                         f"{dense_err:.3g}), recall equal to the numpy "
+                         f"count")
+        finally:
+            engine.encode_examples = real_encode
+        taat_total, flash_total = K.launch_count(), FA.launch_count()
+
+        # ---- per-leg host times for 64 queries ---------------------------
+        out, q_enc = outs["text->image minmax"]
+        qd, qw = q_enc.dense[:64], q_enc.query_weights[:64]
+        qids = q_enc.ids[:64]
+        d_ms = host_ms(lambda: dense["image"].search_ids(qd, OFF_DEPTH), 5)
+        s_ms = host_ms(lambda: impact["image"].search(qw, OFF_DEPTH), 5)
+        d_s, d_i = dense["image"].search_ids(qd, OFF_DEPTH)
+        s_s, s_i = impact["image"].search(qw, OFF_DEPTH)
+        f_ms = host_ms(lambda: fuse(
+            [ArrayRun(qids, d_s.tolist(), d_i, scores_sorted=True),
+             ArrayRun(qids, s_s, s_i, scores_sorted=True)],
+            [OFF_ALPHA, 1 - OFF_ALPHA]), 5)
+    for label, name, rec in table:
+        progress("offline", f"recall {label:22s} {name:6s} "
+                 + ", ".join(f"r@{k} {rec[k]:.4f}" for k in OFF_KS)
+                 + " (random weights: a check, not a result)")
+    progress("offline", f"per 64 text queries against {OFF_IMAGES} images "
+             f"at depth {OFF_DEPTH}: dense {d_ms:.3f} ms, sparse (taat) "
+             f"{s_ms:.3f} ms, min-max fusion {f_ms:.3f} ms (host clock); "
+             f"encode images/s documents "
+             f"{rates[('image', 'documents')]:.2f}, queries "
+             f"{rates[('image', 'queries')]:.2f}; captions/s documents "
+             f"{rates[('text', 'documents')]:.2f}, queries "
+             f"{rates[('text', 'queries')]:.2f}; TAAT launches "
+             f"{taat_total}, flash launches {flash_total}; phase "
+             f"{time.monotonic() - t_phase:.2f} s; card {card}")
+    return taat_total, flash_total
+
+
+def same_up_to_ties(got, want, depth=DEPTH):
     """Equal (doc, score) sets, except for docs tied at the depth cut."""
     g, w = set(got), set(want)
     if sorted(s for _, s in g) != sorted(s for _, s in w):
         return False
-    if len(got) < DEPTH:
+    if len(got) < depth:
         return g == w
     cut = min(s for _, s in g)
     return {x for x in g if x[1] > cut} == {x for x in w if x[1] > cut}
@@ -1257,7 +1592,12 @@ def main() -> int:
     del img_encoder, encoder
     torch.cuda.empty_cache()
 
-    # ---- 9. contrastive LoRA training; flash against plain gradients ---------
+    # ---- 9. offline evaluation: corpus -> encode -> indexes -> search ------
+    off_taat, off_flash = phase_offline(params, arch_img, tok, tmpl, lexicon,
+                                        card)
+    torch.cuda.empty_cache()
+
+    # ---- 10. contrastive LoRA training; flash against plain gradients --------
     trainer, batches, train_launches = phase_train(
         params, arch_img, tok, tmpl, lexicon, rng, seq)
     grad_check(trainer, batches[0])
@@ -1268,14 +1608,15 @@ def main() -> int:
         dict(name="taat_impact", route="cuda",
              source="mllm_sparse_retrieval_tpu_torch/csrc/taat.cu",
              replaces="mllm_sparse_retrieval_tpu/ops/impact_kernel.py:115",
-             launches=text_taat + img_taat, max_abs_err=max_err,
+             launches=text_taat + img_taat + off_taat, max_abs_err=max_err,
              ms=served["ms"], plain_ms=served["plain_ms"],
              bound_ms=served["bound_ms"], bound_by=served["bound_by"],
              library_ms=served["library_ms"]),
         dict(name="flash_attention_fwd", route="cuda",
              source="mllm_sparse_retrieval_tpu_torch/csrc/flash_attn.cu",
              replaces="mllm_sparse_retrieval_tpu/models/layers.py:199",
-             launches=text_flash + img_flash + train_launches["fwd"],
+             launches=text_flash + img_flash + off_flash
+             + train_launches["fwd"],
              **flash),
         dict(name="flash_attention_bwd_dkv", route="cuda",
              source="mllm_sparse_retrieval_tpu_torch/csrc/flash_attn_bwd.cu",

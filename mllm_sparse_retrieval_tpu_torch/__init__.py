@@ -5,10 +5,15 @@ counterpart is easy to find. It imports ``torch`` and numpy, never JAX, and
 nothing of the JAX package. Entry points run on ``device="cuda"`` unless the
 caller passes ``device="cpu"``.
 
-Three paths are ported: text-query serving and image-query serving
+Four paths are ported: text-query serving and image-query serving
 (``serving/``: ``RetrievalService`` with ``OnlineQueryEncoder``, on the
-LLaVA-NeXT anyres image path), and contrastive LoRA training
-(``train/trainer.py``: ``ContrastiveTrainer``). Their hand-written kernels
+LLaVA-NeXT anyres image path), contrastive LoRA training
+(``train/trainer.py``: ``ContrastiveTrainer``), and offline evaluation
+(``data.CrossModalCorpus`` -> ``pipelines.encode.encode_examples`` ->
+``write_artifacts`` -> ``index.ImpactIndex.from_jsonl`` (the native C++
+builder in ``index/native``) and ``index.DenseFlatIndex`` ->
+``search.engine.run_search`` -> host fusion and recall; the CLIs in
+``cli/``). Their hand-written kernels
 live in three CUDA sources, built with plain ``nvcc`` at first use
 (``ops/cuda_build.py``): ``csrc/taat.cu``, term-at-a-time impact scoring
 (``ops/impact_kernel.py``); ``csrc/flash_attn.cu``, the causal

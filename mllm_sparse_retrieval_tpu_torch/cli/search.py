@@ -1,0 +1,155 @@
+"""Search + evaluate: encode queries, search the indexes, fuse, print recall.
+
+Dense only (``--passage-reps``), sparse only (``--sparse-index``), or
+hybrid (both, fused on the host with ``--alpha``). Prints the recall
+summary (and ``--metrics``) of each run.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import torch
+
+from mllm_sparse_retrieval_tpu_torch.cli.common import (
+    Profiler, StepTimer, add_common_args, build_everything, get_logger,
+    sparse_config_from_args)
+from mllm_sparse_retrieval_tpu_torch.configs import RepsLoc, SearchConfig
+from mllm_sparse_retrieval_tpu_torch.index.dense import DenseFlatIndex
+from mllm_sparse_retrieval_tpu_torch.index.impact import ImpactIndex
+from mllm_sparse_retrieval_tpu_torch.search.engine import run_search
+from mllm_sparse_retrieval_tpu_torch.search.fusion import write_trec_run
+
+# values of the JAX package's flags that the port does not have yet, and
+# where ROADMAP.md queues them
+_NOT_PORTED = {
+    ("impact_wire", "compact48"): "the compact48 wire (ROADMAP Queue 1 #4)",
+    ("fusion_mode", "device"): "device fusion (ROADMAP Queue 1 #5: "
+                               "search/device_fusion.py)",
+    ("eval_mode", "device"): "device evaluation (ROADMAP Queue 1 #5: "
+                             "eval/device_eval.py)",
+    ("dense_dtype", "int8"): "the int8 SQ8 dense tier (ROADMAP Queue 1 #5)",
+}
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__)
+    add_common_args(parser)
+    parser.add_argument("--passage-reps", default=None,
+                        help="dense corpus dir (corpus_*.pkl)")
+    parser.add_argument("--sparse-index", default=None,
+                        help="impact index dir")
+    parser.add_argument("--query-type", default="text",
+                        choices=["text", "image"])
+    parser.add_argument("--depth", type=int, default=1000)
+    parser.add_argument("--alpha", type=float, default=0.5)
+    parser.add_argument("--remove-query", action="store_true")
+    parser.add_argument("--impact-backend", default="auto",
+                        choices=["auto", "taat", "matmul"],
+                        help="sparse scoring backend (auto = the TAAT CUDA "
+                             "kernel on the card, the f32 matmul elsewhere)")
+    parser.add_argument("--impact-wire", default="i32",
+                        choices=["i32", "compact48"],
+                        help="sparse result format; only i32 is ported "
+                             "(compact48: ROADMAP Queue 1 #4)")
+    parser.add_argument("--fusion-mode", default="host",
+                        choices=["host", "device"],
+                        help="hybrid fusion route; only host is ported "
+                             "(device: ROADMAP Queue 1 #5)")
+    parser.add_argument("--fusion-rule", default="minmax",
+                        choices=["minmax", "rrf"],
+                        help="hybrid fusion formula: minmax = the "
+                             "reference's weighted min-max sum; rrf = "
+                             "Reciprocal Rank Fusion")
+    parser.add_argument("--ann-rank", type=int, default=0,
+                        help="not ported: the ANN dense tier is ROADMAP "
+                             "Queue 1 #5; 0 = exact flat search")
+    parser.add_argument("--eval-mode", default="host",
+                        choices=["host", "device"],
+                        help="where recall is computed; only host is "
+                             "ported (device: ROADMAP Queue 1 #5)")
+    parser.add_argument("--metrics", default="",
+                        help="extra ranking metrics beyond recall, comma-"
+                             "separated from {mrr,ndcg,map}")
+    parser.add_argument("--dense-dtype", default="float32",
+                        choices=["float32", "bfloat16", "int8"],
+                        help="device dtype of the dense corpus matrix: "
+                             "float32 (FAISS-flat parity) or bfloat16 (half "
+                             "the bytes, f32 accumulation and scores); int8 "
+                             "is not ported (ROADMAP Queue 1 #5)")
+    parser.add_argument("--save-dir", default=None,
+                        help="write TREC run files here")
+    parser.add_argument("--limit", type=int, default=0)
+    args = parser.parse_args(argv)
+
+    for (flag, value), what in _NOT_PORTED.items():
+        if getattr(args, flag) == value:
+            parser.error(f"--{flag.replace('_', '-')} {value}: {what} is "
+                         f"not ported")
+    if args.ann_rank:
+        parser.error("--ann-rank: the ANN dense tier is not ported (ROADMAP "
+                     "Queue 1 #5)")
+    if args.passage_reps is None and args.sparse_index is None:
+        parser.error("need --passage-reps and/or --sparse-index")
+
+    logger = get_logger("search")
+    timer = StepTimer(logger)
+    timer.phase("setup")
+    corpus, params, arch, tok, template, lora = build_everything(args)
+    sparse_cfg = sparse_config_from_args(args)
+    search_cfg = SearchConfig(
+        passage_reps=args.passage_reps, sparse_index=args.sparse_index,
+        depth=args.depth, alpha=args.alpha, remove_query=args.remove_query,
+        query_type=args.query_type, batch_size=max(args.batch_size, 1))
+
+    dense_index = impact_index = None
+    if args.passage_reps:
+        timer.phase("load dense index")
+        dense_index = DenseFlatIndex.load(
+            args.passage_reps, device=args.device,
+            dtype={"bfloat16": torch.bfloat16}.get(args.dense_dtype,
+                                                   torch.float32))
+        logger.info("dense index: %d vectors", dense_index.size)
+    if args.sparse_index:
+        timer.phase("load sparse index")
+        impact_index = ImpactIndex.load(args.sparse_index, device=args.device)
+        logger.info("impact index: %d docs / %d terms",
+                    impact_index.num_docs, impact_index.num_terms)
+
+    mode = "full" if args.query_type == "text" else "single"
+    queries = corpus.examples(mode)
+    if args.limit:
+        queries = queries[: args.limit]
+    logger.info("searching %d %s queries on %s", len(queries),
+                args.query_type, args.device)
+
+    timer.phase("search")
+    with Profiler(args.profile_dir):
+        out = run_search(
+            queries, params, arch, tok, template,
+            query_type=args.query_type, sparse_cfg=sparse_cfg,
+            search_cfg=search_cfg, dense_index=dense_index,
+            impact_index=impact_index, reps_loc=RepsLoc(args.reps_loc),
+            batch_size=args.batch_size, lora=lora,
+            impact_backend=args.impact_backend,
+            fusion_rule=args.fusion_rule,
+            metrics=[m for m in args.metrics.split(",") if m],
+            get_target=lambda qid: corpus.get_target(qid, args.query_type),
+            device=args.device)
+    timer.close()
+
+    if args.save_dir:
+        os.makedirs(args.save_dir, exist_ok=True)
+        for name, run in (("dense", out.dense_run),
+                          ("sparse", out.sparse_run),
+                          ("fusion", out.fusion_run)):
+            if run:
+                write_trec_run(run, os.path.join(args.save_dir,
+                                                 f"{name}.trec"), name)
+
+    print(out.summary())
+
+
+if __name__ == "__main__":
+    main()

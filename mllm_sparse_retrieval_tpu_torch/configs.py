@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
+from typing import Optional
 
 
 class ModelFamily(str, enum.Enum):
@@ -26,6 +27,20 @@ class RepsLoc(str, enum.Enum):
 
     BEFORE_PAD = "before_pad"
     AFTER_PAD = "after_pad"
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Dataset selection and host-side collation."""
+
+    dataset_name: str = "flickr"          # 'coco' | 'flickr'
+    data_root: str = "/root/reference/data"
+    split: str = "test"
+    per_device_batch_size: int = 4
+    encode_is_query: bool = False
+    use_few_shot: bool = False
+    few_shot_sum: int = 200               # {name}_{split}_{few_shot_sum}.csv
+    image_root: Optional[str] = None      # override image directory
+
 
 @dataclass(frozen=True)
 class SparseConfig:
@@ -52,6 +67,20 @@ class ModelConfig:
     tiny_num_heads: int = 4
     tiny_image_size: int = 64
     tiny_patch_size: int = 16
+
+
+@dataclass(frozen=True)
+class SearchConfig:
+    """Query-time settings."""
+
+    passage_reps: Optional[str] = None    # dir with dense corpus shards
+    sparse_index: Optional[str] = None    # dir with impact index
+    depth: int = 1000
+    alpha: float = 0.5                    # dense weight in min-max fusion
+    batch_size: int = 128
+    remove_query: bool = False            # drop self-hit (doc id == query id)
+    query_type: str = "text"              # 'text' | 'image'
+    save_dir: Optional[str] = None
 
 
 @dataclass(frozen=True)

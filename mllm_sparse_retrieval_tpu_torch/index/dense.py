@@ -1,0 +1,174 @@
+"""Dense flat MIPS index on one device (the JAX package's
+``index/dense.py::DenseFlatIndex``; FAISS-flat equivalent).
+
+The corpus matrix lives on ``device`` in f32 or bf16 and is scored by
+``ops/mips.py``; queries go in fixed-size chunks, two in flight
+(``ops/stream.py``). Artifacts are the reference's pickles:
+``corpus_{shard}.pkl`` holds ``(np.ndarray [N, d] float32, ids list)``, so
+either package loads the other's. Not ported: the int8 (SQ8) tier,
+``doc_filter`` and meshes (ROADMAP Queue 1 #5, #9).
+"""
+
+from __future__ import annotations
+
+import collections
+import glob
+import os
+import pickle
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from mllm_sparse_retrieval_tpu_torch.ops.mips import DTYPES, mips_topk_packed
+from mllm_sparse_retrieval_tpu_torch.ops.packing import unpack_topk
+from mllm_sparse_retrieval_tpu_torch.ops.stream import pipeline_dispatch
+
+
+class DenseFlatIndex:
+    """Exact inner-product search over a corpus embedding matrix.
+
+    ``dtype=torch.bfloat16`` keeps the device corpus (and the queries) in
+    bf16, half the device bytes, with f32 accumulation and f32 scores, so
+    near-ties can rank differently from the f32 index; saved pickles stay
+    f32 either way.
+    """
+
+    def __init__(self, dim: Optional[int] = None, dtype=torch.float32,
+                 device="cuda"):
+        if dtype not in DTYPES:
+            raise NotImplementedError(
+                f"dense dtype {dtype}: the port has float32 and bfloat16 "
+                f"(the int8 SQ8 tier is ROADMAP Queue 1 #5)")
+        self.dim = dim
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self._chunks: List[np.ndarray] = []
+        self.lookup: List[str] = []
+        self._corpus_dev: Optional[torch.Tensor] = None
+        self._n_valid = 0
+        self._lookup_arr_src = None
+
+    # ---- construction ------------------------------------------------------
+    def add(self, reps: np.ndarray, ids: Sequence) -> None:
+        reps = np.asarray(reps, dtype=np.float32)
+        if reps.ndim != 2:
+            raise ValueError(f"reps must be [N, d], got {reps.shape}")
+        if self.dim is None:
+            self.dim = reps.shape[1]
+        if reps.shape[1] != self.dim:
+            raise ValueError(f"dim mismatch: {reps.shape[1]} != {self.dim}")
+        if len(ids) != reps.shape[0]:
+            raise ValueError("ids/reps length mismatch")
+        self._chunks.append(reps)
+        self.lookup.extend(str(i) for i in ids)
+        self._corpus_dev = None
+        self._lookup_arr_src = None
+
+    @property
+    def size(self) -> int:
+        return len(self.lookup)
+
+    def _materialize(self) -> None:
+        if self._corpus_dev is not None:
+            return
+        corpus = np.concatenate(self._chunks) if len(self._chunks) != 1 \
+            else self._chunks[0]
+        self._n_valid = corpus.shape[0]
+        self._corpus_dev = torch.from_numpy(corpus).to(self.device).to(
+            self.dtype)
+
+    # ---- search --------------------------------------------------------------
+    def _dispatch_chunk(self, chunk: np.ndarray, depth: int) -> torch.Tensor:
+        """Enqueue one chunk's scoring; no host sync. Queries travel in
+        the corpus dtype (half the bytes for bf16)."""
+        q = torch.from_numpy(np.ascontiguousarray(chunk, np.float32)).to(
+            self.device).to(self.dtype)
+        return mips_topk_packed(q, self._corpus_dev, depth)
+
+    def search(self, q_reps: np.ndarray, depth: int
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """Exact top-``depth`` MIPS: (scores [B, k] f32, row indices
+        [B, k]), ``k = min(depth, size)``."""
+        self._materialize()
+        return unpack_topk(self._dispatch_chunk(
+            np.asarray(q_reps, np.float32), depth).cpu().numpy())
+
+    def batch_search(self, q_reps: np.ndarray, depth: int,
+                     batch_size: int = 128, lookahead: int = 3
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """``search`` in chunks of ``batch_size`` queries (the last one
+        zero-padded to that size), up to ``lookahead`` chunks in flight."""
+        self._materialize()
+        q_reps = np.asarray(q_reps, dtype=np.float32)
+        n = q_reps.shape[0]
+        all_scores, all_idx = [], []
+
+        def chunks():
+            for start in range(0, n, batch_size):
+                chunk = q_reps[start:start + batch_size]
+                valid = chunk.shape[0]
+                if valid < batch_size:
+                    chunk = np.concatenate(
+                        [chunk, np.zeros((batch_size - valid,
+                                          chunk.shape[1]), chunk.dtype)])
+                yield chunk, valid
+
+        def dispatch(item):
+            chunk, valid = item
+            return self._dispatch_chunk(chunk, depth), valid
+
+        def resolve(handle):
+            out, valid = handle
+            scores, idx = unpack_topk(out.cpu().numpy())
+            all_scores.append(scores[:valid])
+            all_idx.append(idx[:valid])
+
+        collections.deque(
+            pipeline_dispatch(chunks(), dispatch, resolve, lookahead),
+            maxlen=0)
+        if not all_scores:
+            k = min(depth, self._n_valid)
+            return np.zeros((0, k), np.float32), np.zeros((0, k), np.int32)
+        return np.concatenate(all_scores), np.concatenate(all_idx)
+
+    def search_ids(self, q_reps: np.ndarray, depth: int,
+                   batch_size: int = 128
+                   ) -> Tuple[np.ndarray, List[List[str]]]:
+        """``batch_search`` with row indices mapped to lookup ids."""
+        scores, idx = self.batch_search(q_reps, depth, batch_size)
+        if self._lookup_arr_src is not self.lookup or \
+                len(self._lookup_arr) != len(self.lookup):
+            self._lookup_arr = np.asarray(self.lookup)
+            self._lookup_arr_src = self.lookup
+        return scores, self._lookup_arr[idx].tolist()
+
+    # ---- persistence -----------------------------------------------------------
+    def save_shard(self, path: str) -> None:
+        """Write the reference's ``(embeddings, lookup_ids)`` pickle."""
+        corpus = np.concatenate(self._chunks) if self._chunks else \
+            np.zeros((0, self.dim or 0), np.float32)
+        with open(path, "wb") as f:
+            pickle.dump((corpus, list(self.lookup)), f)
+
+    @classmethod
+    def load(cls, path_or_dir: str, dtype=torch.float32,
+             device="cuda") -> "DenseFlatIndex":
+        """Load a ``corpus*.pkl`` file, a directory of them (else of any
+        ``*.pkl``), or ``query.pkl``."""
+        if os.path.isdir(path_or_dir):
+            files = sorted(glob.glob(os.path.join(path_or_dir,
+                                                  "corpus*.pkl")))
+            if not files:
+                files = sorted(glob.glob(os.path.join(path_or_dir, "*.pkl")))
+            if not files:
+                raise FileNotFoundError(f"no *.pkl shards under "
+                                        f"{path_or_dir}")
+        else:
+            files = [path_or_dir]
+        index = cls(dtype=dtype, device=device)
+        for fp in files:
+            with open(fp, "rb") as f:
+                reps, lookup = pickle.load(f)
+            index.add(np.asarray(reps), lookup)
+        return index

@@ -16,10 +16,12 @@ CSR triples. Two backends give equal scores:
 ``backend='auto'`` is ``'taat'`` on CUDA and ``'matmul'`` elsewhere. The
 index lives on ``device`` (``"cuda"`` unless the caller passes another).
 Persistence is the JAX package's ``terms.json`` + ``index.npz`` format, so
-an index saved by either package loads in the other.
+an index saved by either package loads in the other. ``from_jsonl`` builds
+from the encode pipeline's corpus jsonl, with the native C++ builder
+(``index/native``) or the Python one; both give one layout.
 
-Not ported yet: the native C++ builder, ``DocFilter``, the ``compact48``
-wire, the stream entry points, ``explain``, arena capacity and sharding.
+Not ported yet: ``DocFilter``, the ``compact48`` wire, the stream entry
+points, ``explain``, arena capacity and sharding.
 """
 
 from __future__ import annotations
@@ -590,6 +592,50 @@ class ImpactIndex:
                  doc_terms=self.doc_terms, doc_weights=self.doc_weights,
                  csr_offsets=self.csr_offsets, csr_docs=self.csr_docs,
                  csr_weights=self.csr_weights)
+
+    @classmethod
+    def from_jsonl(cls, paths: Sequence[str], use_native: bool = True,
+                   device="cuda") -> "ImpactIndex":
+        """Build from corpus jsonl files (``{"id", "content", "vector":
+        {token: weight}}`` a line, what ``write_artifacts`` writes).
+
+        ``use_native=True`` parses, interns, packs and impact-sorts in the
+        C++ builder (``index/native``), built at first use; if it cannot be
+        built, this raises. ``use_native=False`` takes the Python builder
+        (``add`` + ``finalize``). Both give the same layout.
+        """
+        if use_native:
+            from mllm_sparse_retrieval_tpu_torch.index import native
+            builder = native.NativeImpactBuilder()
+            for path in paths:
+                builder.add_jsonl_file(path)
+            return cls._from_packed(builder.finalize(), device)
+        index = cls(device)
+        for path in paths:
+            with open(path) as f:
+                for line in f:
+                    if not line.strip():
+                        continue
+                    doc = json.loads(line)
+                    index.add(doc["id"], doc["vector"])
+        index.finalize()
+        return index
+
+    @classmethod
+    def _from_packed(cls, packed: dict, device="cuda") -> "ImpactIndex":
+        """An index from the native builder's arrays, relabelled
+        hot-first like ``finalize``."""
+        index = cls(device)
+        index.term_to_idx = {k: i for i, k in enumerate(packed["term_keys"])}
+        index.doc_ids = list(packed["doc_ids"])
+        index.doc_terms = packed["doc_terms"]
+        index.doc_weights = packed["doc_weights"]
+        index.csr_offsets = packed["csr_offsets"]
+        index.csr_docs = packed["csr_docs"]
+        index.csr_weights = packed["csr_weights"]
+        index._doc_vectors = [None] * len(index.doc_ids)  # type: ignore
+        index._reorder_terms_by_df()
+        return index
 
     @classmethod
     def load(cls, directory: str, device="cuda") -> "ImpactIndex":

@@ -3,7 +3,8 @@
 - full-vocab top-k for the fallback / manual vectors (``vocab_topk``);
 - text vectors: logits gathered at the caption's candidate ids (padded
   ``[B, C]`` with a validity mask), top-k within them (``candidate_topk``);
-- expansion terms: top-k over the filtered-id pool (``filtered_topk``).
+- expansion terms: top-k over the filtered-id pool (``filtered_topk``);
+- ``pad_candidates``: the host side, candidate rows padded to one width.
 
 Ties break toward the lower index, as ``lax.top_k`` and the host golden
 implementation (``(-value, index)`` stable sort) do: the selections here are
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 NEG_INF = torch.finfo(torch.float32).min
@@ -57,3 +59,16 @@ def filtered_topk(sparse_logits: torch.Tensor, filtered_mask: torch.Tensor,
     masked = sparse_logits.float().masked_fill(~filtered_mask[None, :],
                                                NEG_INF)
     return _stable_topk(masked, k)
+
+
+def pad_candidates(rows, pad_multiple: int = 64):
+    """Host helper: sorted candidate id arrays -> (ids [B, C] int32, mask
+    [B, C] bool), C the longest row rounded up to ``pad_multiple``."""
+    longest = max((len(r) for r in rows), default=1)
+    c = max(-(-max(longest, 1) // pad_multiple) * pad_multiple, pad_multiple)
+    ids = np.zeros((len(rows), c), np.int32)
+    mask = np.zeros((len(rows), c), bool)
+    for i, r in enumerate(rows):
+        ids[i, : len(r)] = r
+        mask[i, : len(r)] = True
+    return ids, mask

@@ -4,12 +4,14 @@
 Token ids are the primary key space. ``canonical_id_map`` reproduces the
 string-keyed artifact path's collision merges (lowercase, leading-character
 filter) on ids, so an id-keyed index scores exactly like a string-keyed one.
+``doc_string_vector`` / ``query_string_weights`` build the string-keyed
+forms themselves: the corpus jsonl and query.tsv artifacts.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Mapping, Sequence
+from typing import Callable, Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 
@@ -112,3 +114,48 @@ def canonical_id_map(
             s = filter_token(s)
         out[tid] = first.setdefault(s, tid)
     return out
+
+
+# ---- string-keyed views (the corpus jsonl / query.tsv artifact forms) ----
+
+def _term_strings(token_ids: np.ndarray, id_to_token: Mapping[int, str],
+                  is_filtered: bool) -> List[Tuple[int, str]]:
+    """Token ids -> lowercase (optionally ``filter_token``-ed) strings;
+    ids outside ``id_to_token`` drop (a model can predict ids past the
+    tokenizer's vocabulary)."""
+    out = []
+    for tid in token_ids.tolist():
+        if tid not in id_to_token:
+            continue
+        tok = id_to_token[tid].lower()
+        if is_filtered:
+            tok = filter_token(tok)
+        out.append((tid, tok))
+    return out
+
+
+def doc_string_vector(terms: SelectedTerms, id_to_token: Mapping[int, str],
+                      is_filtered: bool) -> Dict[str, int]:
+    """Document vector keyed by token string: ids that map to one string
+    overwrite each other, last write wins (the reference's dict
+    assembly)."""
+    vec: Dict[str, int] = {}
+    strings = dict(_term_strings(terms.token_ids, id_to_token, is_filtered))
+    for tid, w in zip(terms.token_ids.tolist(), terms.weights.tolist()):
+        if tid in strings:
+            vec[strings[tid]] = int(w)
+    return vec
+
+
+def query_string_weights(terms: SelectedTerms,
+                         id_to_token: Mapping[int, str],
+                         is_filtered: bool) -> Dict[str, int]:
+    """Query weights keyed by token string, colliding strings summed and
+    non-positive weights dropped: the arithmetic of a query serialized as
+    each token repeated weight-many times and counted back."""
+    vec: Dict[str, int] = {}
+    strings = dict(_term_strings(terms.token_ids, id_to_token, is_filtered))
+    for tid, w in zip(terms.token_ids.tolist(), terms.weights.tolist()):
+        if tid in strings and w > 0:
+            vec[strings[tid]] = vec.get(strings[tid], 0) + int(w)
+    return vec

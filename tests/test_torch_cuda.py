@@ -1,6 +1,7 @@
 """PyTorch port on the card: the CUDA TAAT and flash-attention kernels
 (forward, and the dq and dkv backward kernels) against their plain PyTorch
-versions. Marked ``cuda``; each test skips where no card is present (decided
+versions, and the tiny offline evaluation path on the card against the
+same path on the CPU (its tolerances are in its docstring). Marked ``cuda``; each test skips where no card is present (decided
 inside the test, so every pytest worker collects the same tests). This file
 imports nothing of JAX, so it also runs where JAX is absent:
 
@@ -404,3 +405,84 @@ def test_hopper_forward_takes_any_scale(scale):
     diff = (got.float() - ref).abs()[rows]
     assert bool((diff <= FLASH_RTOL * (ref.abs()[rows] + ref_abs[rows]))
                 .all())
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def test_offline_path_on_the_card_matches_the_cpu(tmp_path):
+    """The tiny offline path (``encode_examples`` -> ``write_artifacts`` ->
+    ``ImpactIndex.from_jsonl`` (native) -> ``run_search``, hybrid) on the
+    card and on the CPU, one f32 model: the card run launches the TAAT
+    kernel; selected terms, the sparse jsonl and the sparse runs are exact
+    (integer weights), dense vectors and dense scores within 1e-5 (f32
+    matmuls summed in another order, TF32 off), runs compared as
+    ``(doc, score)`` sets up to docs tied at the depth cut."""
+    dev = _card()
+    from mllm_sparse_retrieval_tpu_torch.configs import (
+        ModelConfig, ModelFamily, SearchConfig, SparseConfig)
+    from mllm_sparse_retrieval_tpu_torch.data import CrossModalCorpus
+    from mllm_sparse_retrieval_tpu_torch.index import (
+        DenseFlatIndex, ImpactIndex)
+    from mllm_sparse_retrieval_tpu_torch.models import build_model
+    from mllm_sparse_retrieval_tpu_torch.pipelines.encode import (
+        encode_examples, write_artifacts)
+    from mllm_sparse_retrieval_tpu_torch.search.engine import run_search
+
+    rng = np.random.default_rng(8)
+    words = ["dog", "cat", "red", "bus", "man", "kite", "boat", "lake",
+             "snow", "child", "bird", "wire", "grass", "city", "tree"]
+    lines = ["imgid,filename,caption,sentid"]
+    for i in range(10):
+        for c in range(3):
+            lines.append(f"{i},{i}.jpg,a {' '.join(rng.choice(words, 5))},"
+                         f"{3 * i + c}")
+    (tmp_path / "flickr").mkdir()
+    (tmp_path / "flickr" / "flickr_test.csv").write_text(
+        "\n".join(lines) + "\n")
+    corpus = CrossModalCorpus("flickr", "test", str(tmp_path))
+    params, arch, tok, tmpl = build_model(
+        ModelConfig(family=ModelFamily.TINY_DEBUG, dtype="float32"),
+        captions=list(corpus.text_dict.values()), device="cpu")
+    out = []
+    for where, p in (("cpu", params), (dev, _to_device(params, dev))):
+        enc = encode_examples(corpus.examples_single(), p, arch, tok, tmpl,
+                              encode_type="image", sparse_cfg=SparseConfig(),
+                              batch_size=4, device=where)
+        root = tmp_path / f"run{len(out)}"
+        write_artifacts(enc, str(root / "dense"), str(root / "sparse"))
+        index = ImpactIndex.from_jsonl([str(root / "sparse" /
+                                            "corpus_0.jsonl")], device=where)
+        K.reset_launch_count()
+        res = run_search(
+            corpus.examples_full(), p, arch, tok, tmpl, query_type="text",
+            sparse_cfg=SparseConfig(), search_cfg=SearchConfig(depth=6),
+            dense_index=DenseFlatIndex.load(str(root / "dense"),
+                                            device=where),
+            impact_index=index, batch_size=8,
+            get_target=lambda q: corpus.get_target(q, "text"), device=where)
+        out.append((enc, res, K.launch_count(),
+                    (root / "sparse" / "corpus_0.jsonl").read_text()))
+    (c_enc, c_res, c_taat, c_jsonl), (g_enc, g_res, g_taat, g_jsonl) = out
+    assert g_taat >= 1 and c_taat == 0
+    assert g_enc.ids == c_enc.ids and g_jsonl == c_jsonl
+    np.testing.assert_allclose(g_enc.dense, c_enc.dense, atol=1e-5,
+                               rtol=1e-5)
+    for name, tol in (("dense_run", 1e-5), ("sparse_run", 0.0)):
+        g, c = getattr(g_res, name), getattr(c_res, name)
+        assert set(g) == set(c)
+        for q in g:
+            a = sorted(g[q]["docs"].items(), key=lambda kv: -kv[1])
+            b = dict(c[q]["docs"])
+            assert len(a) == len(b)
+            cut = a[-1][1] + 2 * tol if len(a) == 6 else -np.inf
+            for doc, s in a:
+                if s > cut:
+                    assert doc in b and abs(b[doc] - s) <= tol + 1e-12
+    assert set(g_res.fusion_run) == set(c_res.fusion_run)
+    assert g_res.summary().count("recall") == 3

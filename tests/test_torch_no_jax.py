@@ -1,6 +1,8 @@
 """The PyTorch port and ``chip_smoke.py`` import nothing of JAX and nothing
-of the JAX package (nor Pillow, which the card machine lacks), and the smoke
-check refuses to report a result without a card."""
+of the JAX package (nor Pillow, which the card machine lacks), every port
+module (the offline evaluation path's ``cli``, ``eval``, ``search`` and
+``index/native`` included) imports with JAX blocked, and the smoke check
+refuses to report a result without a card."""
 
 import os
 import re
@@ -27,8 +29,15 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+print(' '.join(names))
 print('imported', len(names))
 """
+
+# the offline evaluation path's modules, which the walk must reach
+OFFLINE = ("cli.common", "cli.encode", "cli.index", "cli.search",
+           "data.karpathy", "eval.metrics", "eval.recall", "index.dense",
+           "index.native", "ops.mips", "ops.stream", "pipelines.encode",
+           "search.engine", "search.fusion", "search.runs")
 
 
 def _env():
@@ -43,6 +52,10 @@ def test_port_and_chip_smoke_import_without_jax():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 20
+    imported = set(proc.stdout.splitlines()[-2].split())
+    missing = {m for m in OFFLINE
+               if f"mllm_sparse_retrieval_tpu_torch.{m}" not in imported}
+    assert missing == set()
 
 
 def test_no_import_statement_names_jax_or_the_jax_package():
@@ -52,6 +65,10 @@ def test_no_import_statement_names_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                           REPO / "chip_flash_ab.py"]
     assert len(files) > 20
+    scanned = {str(f.relative_to(PORT)) for f in files
+               if f.is_relative_to(PORT)}
+    assert {m.replace(".", "/") + ".py" for m in OFFLINE
+            if m != "index.native"} | {"index/native/__init__.py"} <= scanned
     hits = [f"{f}: {m.group(0).strip()}" for f in files
             for m in pattern.finditer(f.read_text())]
     assert hits == []
