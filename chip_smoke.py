@@ -13,7 +13,7 @@ served and the benchmark shapes; the flash-attention forward and the dq and
 dkv backward kernels on synthetic 3,072-token rows with an all-pad row
 (what the kernels line reports) and on the rows of the profiled training
 step; each with its bound and its share of the bf16 peak. Then
-it drives the port's four paths end to end on the full-width, full-depth
+it drives the port's five paths end to end on the full-width, full-depth
 LLaVA-NeXT-Llama3-8B (bf16 weights drawn on the card from a seed): text
 queries through ``RetrievalService`` and the 32-layer text tower; image
 queries through anyres preprocessing, the 24-layer ViT-L/14-336 on five
@@ -28,7 +28,17 @@ indexed by both impact-index builders (layouts equal) and the dense flat
 index, and searched text->image and image->text by ``run_search`` (dense,
 sparse through the TAAT kernel, min-max and RRF fusion, recall: the sparse
 run equal to the matmul backend's, the dense run within 1e-5 of a float64
-product, recall equal to a numpy count); and contrastive LoRA
+product, recall equal to a numpy count; then the device routes, fusion on
+the device and evaluation from device ranks, held to the host fuse of the
+same encodings within 1e-5 and to its recall); hybrid dense + sparse
+serving, a dense flat index of the impact index's 25,010 doc ids at the
+model's dense width (f32, and once bf16) beside it, text and image queries
+through ``RetrievalService(dense_index=..., impact_index=...)`` fused on
+the device, filtered text queries, RRF and dense mode, every result held
+to the host fuse (float64) of the two engines' own runs within 1e-5, with
+one TAAT launch per micro-batch and the flash kernel 32 times per image
+micro-batch, and the text queries served through a sparse and a hybrid
+service in turns; and contrastive LoRA
 training, a few ``ContrastiveTrainer.train_on_batch`` steps on seeded
 image-caption pairs whose 3,072-token image prompts take the flash kernels
 forward and backward. The whole tower is also run, and differentiated,
@@ -119,6 +129,18 @@ GRAD_CHECK_B, GRAD_COS_FLOOR = 2, 0.996
 # of the same f32 vectors (the card sums 4,096 products in f32, TF32 off)
 OFF_IMAGES, OFF_CAPS, OFF_BATCH, OFF_DEPTH = 64, 5, 8, 100
 OFF_KS, OFF_DENSE_TOL, OFF_ALPHA = (1, 5, 10, 100), 1e-5, 0.5
+# hybrid serving: a dense flat index of the impact index's N_DOCS doc ids at
+# the model's dense width (4,096), f32 (and one bf16 pass); per served query
+# HYB_PLANT of its sparse top-DEPTH docs get dense rows near the query's own
+# dense vector, so both runs share docs. Each engine takes HYB_CAND
+# candidates, fused with weight HYB_ALPHA on the dense run; fused scores
+# must lie within HYB_TOL of the host fuse (float64) of the two engines'
+# own runs, the JAX package's device-fusion tolerance. HYB_ALLOW_MOD: the
+# filter allows the docs whose number is 0 mod it (about 10%)
+HYB_CAND, HYB_ALPHA, HYB_TOL, HYB_PLANT, HYB_ALLOW_MOD = 100, 0.5, 1e-5, 3, 10
+HYB_RRF_QUERIES = 8
+HYB_AB_ROUNDS = 3               # text serving rounds per side, in turns
+HYB_STAGES = ("impact_search", "dense_search", "fusion")
 
 
 def progress(phase: str, msg: str) -> None:
@@ -270,8 +292,12 @@ def phase_kernel_bench(rng):
     # score tensor (the index's chunk budget, _SCORE_MEMORY_FACTOR)
     q_i = torch.from_numpy(q_idx.astype(np.int32)).to(DEVICE)
     q_f = torch.from_numpy(q_w.astype(np.float32)).to(DEVICE)
+    # a doc filter of ~10% (its own stream: the main one stays as it was)
+    mask = torch.from_numpy(np.random.default_rng(SEED + 5).random(
+        index._materialize("i16").shape[1]) < 0.1).to(DEVICE)
     factors = []
-    for fn, dtype in ((SP._taat_topk, "i16"), (SP._impact_topk, "f32")):
+    for fn, dtype in ((SP._taat_topk, "i16"), (SP._impact_topk, "f32"),
+                      (lambda *a: SP._taat_topk(*a, mask), "i16")):
         matrix = index._materialize(dtype)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -281,7 +307,8 @@ def phase_kernel_bench(rng):
         factors.append((torch.cuda.max_memory_allocated() - base)
                        / (BENCH_B * matrix.shape[1] * 4))
     progress("kernel", f"search chunk peak memory / score tensor: taat "
-             f"{factors[0]:.3f}, matmul {factors[1]:.3f} (depth 1000)")
+             f"{factors[0]:.3f}, matmul {factors[1]:.3f}, filtered taat "
+             f"{factors[2]:.3f} (depth 1000)")
     index.drop_device_cache()
     torch.cuda.empty_cache()
     return out
@@ -666,30 +693,38 @@ def image_key(image) -> str:
 
 
 class RecordingEncoder:
-    """Wraps an encoder and keeps the terms it selected for each text or
-    image, so the served results can be checked against the matmul backend
-    on exactly the terms that were served."""
+    """Wraps an encoder and keeps the terms it selected and the dense vector
+    of each text or image, and the keys of each call (one call per served
+    micro-batch), so the served results can be checked on exactly what was
+    served."""
 
     def __init__(self, encoder):
         self._enc = encoder
         self.terms = {}
+        self.dense = {}
+        self.calls = []
         self.tower_s = []
 
     def __getattr__(self, name):
         return getattr(self._enc, name)
 
+    def _record(self, keys, dense, terms):
+        self.terms.update(zip(keys, terms))
+        self.dense.update(zip(keys, dense))
+        self.calls.append(keys)
+
     def encode_texts(self, texts, pad_to=None):
         t0 = time.monotonic()
         dense, terms = self._enc.encode_texts(texts, pad_to)
         self.tower_s.append(time.monotonic() - t0)
-        self.terms.update(zip(texts, terms))
+        self._record(list(texts), dense, terms)
         return dense, terms
 
     def encode_images(self, images, pad_to=None):
         t0 = time.monotonic()
         dense, terms = self._enc.encode_images(images, pad_to)
         self.tower_s.append(time.monotonic() - t0)
-        self.terms.update(zip(map(image_key, images), terms))
+        self._record([image_key(im) for im in images], dense, terms)
         return dense, terms
 
 
@@ -702,10 +737,10 @@ def host_ms(fn, iters: int) -> float:
     return (time.monotonic() - t0) * 1e3 / iters
 
 
-def profiled(fn, by_name=()):
+def profiled(fn, by_name=(), stages=STAGES):
     """One call of ``fn`` under ``torch.profiler``: (device ms of every
     kernel and copy it ran, their count, device ms under each of
-    ``STAGES``, device ms of the kernels whose name contains each string of
+    ``stages``, device ms of the kernels whose name contains each string of
     ``by_name``). A stage's time is that of the kernels that start inside
     the device-side spans of its ``record_function`` ranges: the flash
     kernels, launched through ctypes outside any aten op, are linked to no
@@ -724,7 +759,7 @@ def profiled(fn, by_name=()):
         if evt.device_type != DeviceType.CUDA:
             continue
         if getattr(evt, "is_user_annotation", False):
-            if evt.name in STAGES:
+            if evt.name in stages:
                 spans.append((evt.time_range.start, evt.time_range.end,
                               evt.name))
         else:
@@ -733,22 +768,22 @@ def profiled(fn, by_name=()):
             for key in by_name:
                 if key in evt.name:
                     names[key] += ms
-    stage = dict.fromkeys(STAGES, 0.0)
+    stage = dict.fromkeys(stages, 0.0)
     for start, end, name in spans:
         stage[name] += sum(ms for t, ms in kernels if start <= t < end)
     return sum(ms for _, ms in kernels), len(kernels), stage, names
 
 
-def profiled_again(fn):
+def profiled_again(fn, stages=STAGES):
     """``profiled`` of a call without side effects, run once more if the
     profiler returned no device time: one run of this script on an H100
     (PR 8's tree) saw none in the text breakdown, and 180 profiles of a
     small workload in six processes right after all saw theirs."""
-    out = profiled(fn)
+    out = profiled(fn, stages=stages)
     if out[0] <= 0.0:
         progress("breakdown", "the profiler returned no device time; "
                  "profiling the call again")
-        out = profiled(fn)
+        out = profiled(fn, stages=stages)
     return out
 
 
@@ -811,10 +846,11 @@ def image_breakdown(encoder, images):
              f"{stage['attention'] / stage['tower']:.3f})")
 
 
-def serve(svc, kind, queries, n_threads, request_timeout, deadline_s):
-    """``queries`` through ``svc.search(**{kind: q})`` from ``n_threads``
-    client threads under one deadline: (results, latency seconds, wall
-    seconds). Raises on a hang or on any client's error."""
+def serve(svc, kind, queries, n_threads, request_timeout, deadline_s,
+          **extra):
+    """``queries`` through ``svc.search(**{kind: q}, **extra)`` from
+    ``n_threads`` client threads under one deadline: (results, latency
+    seconds, wall seconds). Raises on a hang or on any client's error."""
     results, latency = [None] * len(queries), [None] * len(queries)
     errors = []
 
@@ -822,7 +858,7 @@ def serve(svc, kind, queries, n_threads, request_timeout, deadline_s):
         try:
             for i in rows:
                 t_req = time.monotonic()
-                results[i] = svc.search(**{kind: queries[i]},
+                results[i] = svc.search(**{kind: queries[i]}, **extra,
                                         timeout=request_timeout)
                 latency[i] = time.monotonic() - t_req
         except BaseException as e:  # noqa: BLE001 — reported below
@@ -1129,6 +1165,51 @@ def check_dense_run(run, queries, qids, corpus, doc_ids, label):
     return worst
 
 
+def host_fused_run(dense, impact, q_enc):
+    """The host route's min-max fused run of one encoding of the queries,
+    each query's top OFF_DEPTH fused docs (what the device route keeps)."""
+    from mllm_sparse_retrieval_tpu_torch.search.fusion import fuse
+    from mllm_sparse_retrieval_tpu_torch.search.runs import ArrayRun
+
+    # one chunk of every query, the device route's product shape
+    d_s, d_i = dense.search_ids(q_enc.dense, OFF_DEPTH,
+                                batch_size=len(q_enc.ids))
+    # the matmul backend: integer impacts score exactly as TAAT does, and
+    # the reference launches no kernel inside the counted run
+    s_s, s_i = impact.search(q_enc.query_weights, OFF_DEPTH,
+                             backend="matmul")
+    fused = fuse([ArrayRun(q_enc.ids, d_s.tolist(), d_i, scores_sorted=True),
+                  ArrayRun(q_enc.ids, s_s, s_i, scores_sorted=True)],
+                 [OFF_ALPHA, 1 - OFF_ALPHA])
+    return {q: dict(sorted(docs.items(), key=lambda kv: -kv[1])[:OFF_DEPTH])
+            for q, docs in fused.items()}
+
+
+def taat_chunks(impact, n_queries):
+    """The TAAT launches of one search of ``n_queries`` on ``impact``: one
+    per chunk of its plan, taken just before the search (the chunk width
+    depends on what the index already holds on the device)."""
+    return -(-n_queries // impact._search_plan("taat", OFF_DEPTH)["max_b"])
+
+
+def target_tied_at(run, get_target, k, tie):
+    """True when some query has a target within ``tie`` of its k-th score
+    and another doc on the other side of the cut within it too: recall@k
+    there depends on the order of scores the two routes round
+    differently."""
+    for q, docs in run.items():
+        rows = sorted(docs.items(), key=lambda kv: -kv[1])
+        if len(rows) <= k:
+            continue
+        t = get_target(q)
+        targets = {str(x) for x in t} if isinstance(t, list) else {str(t)}
+        edge = rows[k - 1][1]
+        if abs(rows[k][1] - edge) <= tie and any(
+                d in targets and abs(s - edge) <= tie for d, s in rows):
+            return True
+    return False
+
+
 def phase_offline(params, arch, tok, tmpl, lexicon, card):
     """The offline evaluation path on the full-width model: a flickr CSV,
     ``CrossModalCorpus``, ``encode_examples`` of the images and captions as
@@ -1146,6 +1227,7 @@ def phase_offline(params, arch, tok, tmpl, lexicon, card):
     from mllm_sparse_retrieval_tpu_torch.configs import (
         SearchConfig, SparseConfig)
     from mllm_sparse_retrieval_tpu_torch.data import CrossModalCorpus
+    from mllm_sparse_retrieval_tpu_torch.eval.recall import recall_at_k
     from mllm_sparse_retrieval_tpu_torch.index import (
         DenseFlatIndex, ImpactIndex)
     from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
@@ -1278,6 +1360,7 @@ def phase_offline(params, arch, tok, tmpl, lexicon, card):
                 mode = "full" if qtype == "text" else "single"
                 tgt = (lambda qt: lambda q: corpus.get_target(q, qt))(qtype)
                 t0 = time.monotonic()
+                want = taat_chunks(impact[dtype_], len(corpus.examples(mode)))
                 taat0, flash0 = K.launch_count(), FA.launch_count()
                 out = engine.run_search(
                     corpus.examples(mode), params, arch, tok, tmpl,
@@ -1293,8 +1376,9 @@ def phase_offline(params, arch, tok, tmpl, lexicon, card):
                 flash = FA.launch_count() - flash0
                 q_enc = recorded[-1]
                 label = f"{qtype}->{dtype_} {rule}"
-                if taat < 1:
-                    raise AssertionError(f"{label}: no TAAT launch")
+                if taat != want:
+                    raise AssertionError(f"{label}: {taat} TAAT launches, "
+                                         f"expected {want} (one per chunk)")
                 # sparse: the matmul backend on the same encoded terms
                 ref_s, ref_i = impact[dtype_].search(
                     q_enc.query_weights, OFF_DEPTH, backend="matmul")
@@ -1328,6 +1412,60 @@ def phase_offline(params, arch, tok, tmpl, lexicon, card):
                          f"{OFF_DENSE_TOL} of float64 (max err "
                          f"{dense_err:.3g}), recall equal to the numpy "
                          f"count")
+
+            # ---- device fusion and device evaluation ---------------------
+            for qtype, dtype_, eval_mode in (("text", "image", "host"),
+                                             ("image", "text", "host"),
+                                             ("image", "text", "device")):
+                mode = "full" if qtype == "text" else "single"
+                tgt = (lambda qt: lambda q: corpus.get_target(q, qt))(qtype)
+                label = f"{qtype}->{dtype_} device" + (
+                    "+eval" if eval_mode == "device" else "")
+                t0 = time.monotonic()
+                want = taat_chunks(impact[dtype_], len(corpus.examples(mode)))
+                taat0 = K.launch_count()
+                out = engine.run_search(
+                    corpus.examples(mode), params, arch, tok, tmpl,
+                    query_type=qtype, sparse_cfg=sparse_cfg,
+                    search_cfg=SearchConfig(depth=OFF_DEPTH,
+                                            alpha=OFF_ALPHA),
+                    dense_index=dense[dtype_], impact_index=impact[dtype_],
+                    batch_size=OFF_BATCH, pixel_loader=loader,
+                    get_target=tgt, ks=OFF_KS, fusion_mode="device",
+                    eval_mode=eval_mode, device=DEVICE)
+                secs = time.monotonic() - t0
+                taat = K.launch_count() - taat0
+                if taat != want:
+                    raise AssertionError(f"{label}: {taat} TAAT launches, "
+                                         f"expected {want} (one per chunk)")
+                host_run = host_fused_run(dense[dtype_], impact[dtype_],
+                                          recorded[-1])
+                host_rec = recall_at_k(host_run, tgt, OFF_KS).recalls
+                if eval_mode == "host":
+                    for q, docs in host_run.items():
+                        got = list(out.fusion_run[q].items())
+                        if not close_up_to_ties(got, list(docs.items()),
+                                                HYB_TOL, OFF_DEPTH):
+                            raise AssertionError(f"{label}: query {q}'s "
+                                                 f"fused run differs from "
+                                                 f"the host fuse")
+                    what = "fused run equal to the host fuse (within " \
+                        f"{HYB_TOL})"
+                else:
+                    if out.fusion_run:
+                        raise AssertionError(f"{label}: a run was copied")
+                rec = out.fusion_recall.recalls
+                ks = [k for k in OFF_KS
+                      if not target_tied_at(host_run, tgt, k, 2 * HYB_TOL)]
+                if not ks or any(rec[k] != host_rec[k] for k in ks):
+                    raise AssertionError(f"{label}: recall {rec} != host "
+                                         f"recall {host_rec} at {ks}")
+                if eval_mode == "device":
+                    what = f"recall equal to the host recall at k={ks}"
+                table.append((label, "fusion", rec))
+                progress("offline", f"run_search {label}: "
+                         f"{len(recorded[-1].ids)} queries in {secs:.2f} s; "
+                         f"TAAT launches {taat}; {what}")
         finally:
             engine.encode_examples = real_encode
         taat_total, flash_total = K.launch_count(), FA.launch_count()
@@ -1358,6 +1496,456 @@ def phase_offline(params, arch, tok, tmpl, lexicon, card):
              f"{rates[('text', 'queries')]:.2f}; TAAT launches "
              f"{taat_total}, flash launches {flash_total}; phase "
              f"{time.monotonic() - t_phase:.2f} s; card {card}")
+    return taat_total, flash_total
+
+
+def close_up_to_ties(got, want, tol, depth=DEPTH):
+    """(doc, score) lists equal within ``tol``, up to docs tied at the
+    depth cut: rank-wise scores within ``tol``, and every doc more than
+    ``2 * tol`` above the last kept score in both, its scores within
+    ``tol``."""
+    if len(got) != len(want):
+        return False
+    gs = sorted((float(x) for _, x in got), reverse=True)
+    ws = sorted((float(x) for _, x in want), reverse=True)
+    if any(abs(a - b) > tol for a, b in zip(gs, ws)):
+        return False
+    w = {d: float(x) for d, x in want}
+    cut = gs[-1] + 2 * tol if len(got) >= depth else float("-inf")
+    return all(d in w and abs(w[d] - float(x)) <= tol
+               for d, x in got if float(x) > cut)
+
+
+def terms_dict(st, cmap):
+    """SelectedTerms -> the impact index's term dict, as the service builds
+    it: ids folded through the canonical map, non-positive weights
+    dropped, colliding ids summed."""
+    import numpy as np
+
+    ids = np.asarray(st.token_ids, np.int64)
+    w = np.asarray(st.weights, np.float64)
+    ids = np.where(ids < cmap.shape[0],
+                   cmap[np.minimum(ids, cmap.shape[0] - 1)], -1)
+    out = {}
+    for k, v in zip(ids.tolist(), w.tolist()):
+        if k >= 0 and v > 0:
+            out[k] = out.get(k, 0.0) + v
+    return out
+
+
+def host_fused_rows(dense, index, cmap, dense_rows, terms_rows, flt=None,
+                    rule="minmax"):
+    """The host route for one served micro-batch: each engine's own run at
+    HYB_CAND on the served shapes (the batch padded to the served device
+    batch as the service pads it), fused by ``search.fusion.fuse`` (or
+    ``fuse_rrf``) in float64 and cut to DEPTH. Returns (fused rows of
+    (doc, score), the two runs)."""
+    import numpy as np
+
+    from mllm_sparse_retrieval_tpu_torch.search.fusion import fuse, fuse_rrf
+
+    n = len(dense_rows)
+    q = np.zeros((MAX_BATCH, dense_rows[0].shape[0]), np.float32)
+    q[:n] = np.stack(dense_rows)
+    d_s, d_i = dense.search_ids(
+        q, HYB_CAND, batch_size=MAX_BATCH,
+        doc_filter=None if flt is None else flt["dense"])
+    q_idx, q_w = index.encode_queries(
+        [terms_dict(st, cmap) for st in terms_rows] + [{}] * (MAX_BATCH - n))
+    s_s, s_i = index.search_encoded(
+        q_idx, q_w, HYB_CAND, backend="taat",
+        doc_filter=None if flt is None else flt["sparse"])
+    runs = []
+    for rows_s, rows_i in ((d_s, d_i), (s_s, s_i)):
+        run = {}
+        for j in range(n):
+            srow = [float(x) for x in rows_s[j]]
+            if srow:
+                run[str(j)] = {"docs": dict(zip(rows_i[j], srow)),
+                               "max_score": srow[0], "min_score": srow[-1]}
+        runs.append(run)
+    fused = (fuse_rrf if rule == "rrf" else fuse)(
+        runs, [HYB_ALPHA, 1.0 - HYB_ALPHA])
+    return [sorted(fused.get(str(j), {}).items(), key=lambda kv: -kv[1])
+            [:DEPTH] for j in range(n)], runs
+
+
+def check_hybrid(label, enc, keys, results, dense, index, cmap, flt=None,
+                 allowed=None, rule="minmax", tol=HYB_TOL):
+    """Every served result of ``keys`` against the host route on exactly
+    the terms and dense vector served, per served micro-batch (one encoder
+    call each). Unfiltered min-max: at least one query of every batch must
+    fuse a doc that both runs found. Filtered: every doc allowed."""
+    by_key = dict(zip(keys, results))
+    batches = 0
+    for call in enc.calls:
+        want, runs = host_fused_rows(dense, index, cmap,
+                                     [enc.dense[k] for k in call],
+                                     [enc.terms[k] for k in call], flt, rule)
+        both = False
+        for j, k in enumerate(call):
+            got = by_key[k]
+            if not got or not close_up_to_ties(got, want[j], tol):
+                raise AssertionError(f"{label}: query {j} of a batch: "
+                                     f"served {got} != host {want[j]}")
+            if allowed is not None and not {d for d, _ in got} <= allowed:
+                raise AssertionError(f"{label}: a filtered query got a "
+                                     f"doc the filter excludes")
+            d_docs = runs[0].get(str(j), {}).get("docs", {})
+            s_docs = runs[1].get(str(j), {}).get("docs", {})
+            both |= any(d in d_docs and d in s_docs for d, _ in got)
+        if flt is None and rule == "minmax" and not both:
+            raise AssertionError(f"{label}: no query of a batch fused a doc "
+                                 f"found by both runs")
+        batches += 1
+    return batches
+
+
+def check_filtered_legs(enc, index, cmap, flt, allowed_cols):
+    """Each filtered sparse leg (the filtered TAAT top-k) against the
+    unfiltered kernel scores of the allowed docs: the same scores exactly
+    (integer impacts), every doc allowed."""
+    import numpy as np
+    import torch
+
+    from mllm_sparse_retrieval_tpu_torch.ops import score_programs as SP
+
+    matrix = index._materialize("i16")
+    pos = {d: i for i, d in enumerate(index.doc_ids)}
+    for call in enc.calls:
+        terms = [enc.terms[k] for k in call]
+        q_idx, q_w = index.encode_query_terms(terms, cmap)
+        leg_s, leg_i = index.search_encoded(q_idx, q_w, HYB_CAND,
+                                            backend="taat", doc_filter=flt)
+        full = SP._taat_scores(
+            matrix, torch.from_numpy(q_idx).to(DEVICE),
+            torch.from_numpy(q_w).to(DEVICE))[:, :len(index.doc_ids)]
+        full = full.cpu().numpy()
+        for j in range(len(call)):
+            cols = np.array([pos[d] for d in leg_i[j]], np.int64)
+            ref = full[j, allowed_cols]
+            ref = np.sort(ref[ref > 0])[::-1][:HYB_CAND]
+            if not (np.isin(cols, allowed_cols).all()
+                    and np.array_equal(full[j, cols], np.array(leg_s[j],
+                                                                np.float32))
+                    and np.array_equal(np.array(leg_s[j], np.float32), ref)):
+                raise AssertionError("a filtered sparse leg differs from "
+                                     "the unfiltered scores of the allowed "
+                                     "docs")
+
+
+def hybrid_breakdown(dense, index, cmap, enc):
+    """Where one served hybrid text micro-batch's search time goes: the
+    host clock of ``FusedHybridSearcher.search_encoded`` on the first
+    served batch and, from one profiled call, the device time of its
+    ``impact_search`` (TAAT scoring and top-k), ``dense_search`` (MIPS and
+    top-k) and ``fusion`` ranges and the device's busy share."""
+    import numpy as np
+
+    from mllm_sparse_retrieval_tpu_torch.search.device_fusion import (
+        FusedHybridSearcher)
+
+    call = enc.calls[0]
+    q = np.zeros((MAX_BATCH, enc.dense[call[0]].shape[0]), np.float32)
+    q[:len(call)] = np.stack([enc.dense[k] for k in call])
+    q_idx, q_w = index.encode_query_terms(
+        [enc.terms[k] for k in call]
+        + [enc.terms[call[0]]] * (MAX_BATCH - len(call)), cmap)
+    fused = FusedHybridSearcher(dense, index, alpha=HYB_ALPHA,
+                                backend="taat")
+
+    def search():
+        fused.search_encoded(q, q_idx, q_w, HYB_CAND, out_depth=DEPTH)
+
+    ms = host_ms(search, 20)
+    busy, n, stage, _ = profiled_again(search, stages=HYB_STAGES)
+    if busy <= 0.0 or min(stage.values()) <= 0.0:
+        raise AssertionError(f"the profiler saw no device time in a hybrid "
+                             f"range: {stage}")
+    progress("hybrid", f"breakdown of one {MAX_BATCH}-query hybrid search "
+             f"(candidate depth {HYB_CAND}, out depth {DEPTH}): "
+             f"{ms:.3f} ms host clock, device {busy:.4f} ms in {n} kernels "
+             f"and copies (busy share {busy / ms:.3f}; "
+             + ", ".join(f"{k} {v:.4f} ms" for k, v in stage.items()) + ")")
+
+
+def latency_line(lat_s, n, wall):
+    import numpy as np
+
+    ms = np.array(lat_s) * 1e3
+    return (f"p50 {np.percentile(ms, 50):.2f} ms, p99 "
+            f"{np.percentile(ms, 99):.2f} ms, {n / wall:.2f} QPS")
+
+
+def alternating_rounds(make_service, run, texts):
+    """The text queries served in turns through each service of
+    ``make_service`` (sparse, hybrid, hybrid, sparse, ... HYB_AB_ROUNDS
+    times each, so neither side always runs first), every service built and
+    warmed once: the medians of each side's p50, p99 and QPS. Host clocks
+    of single runs spread widely; the medians of turns on one card are the
+    comparison. Returns the TAAT launches of the rounds."""
+    import numpy as np
+
+    svcs = {name: make() for name, make in make_service.items()}
+    names = list(svcs)
+    order = [names[(r + (r // 2)) % 2] for r in range(2 * HYB_AB_ROUNDS)]
+    stats = {name: [] for name in names}
+    taat = 0
+    try:
+        for svc in svcs.values():
+            svc.search(text=texts[0], timeout=WARMUP_TIMEOUT_S)
+        for name in order:
+            _, lat, wall, n_taat, _, batches = run(
+                svcs[name], "text", texts, N_THREADS, REQUEST_TIMEOUT_S,
+                SERVE_DEADLINE_S)
+            if n_taat != batches:
+                raise AssertionError(f"{name} round: {n_taat} TAAT launches "
+                                     f"in {batches} micro-batches")
+            taat += n_taat
+            ms = np.array(lat) * 1e3
+            stats[name].append((np.percentile(ms, 50), np.percentile(ms, 99),
+                                len(texts) / wall))
+    finally:
+        for svc in svcs.values():
+            svc.close()
+    med = {name: np.median(np.array(v), axis=0) for name, v in stats.items()}
+    progress("hybrid", f"text serving in turns ({' '.join(order)}), "
+             f"medians: " + "; ".join(
+                 f"{name} p50 {m[0]:.2f} ms, p99 {m[1]:.2f} ms, "
+                 f"{m[2]:.2f} QPS" for name, m in med.items())
+             + "; QPS of each round: " + "; ".join(
+                 f"{name} " + ", ".join(f"{x[2]:.1f}" for x in v)
+                 for name, v in stats.items()))
+    return taat
+
+
+def phase_hybrid(params, arch, arch_img, tok, tmpl, index, cmap, texts,
+                 images, sparse_lines, card):
+    """Hybrid dense + sparse serving on the full-width model: a dense flat
+    index of the impact index's doc ids at the model's dense width, text
+    and image queries through ``RetrievalService(dense_index=...,
+    impact_index=...)`` (device-fused min-max), filtered requests and RRF
+    (host fusion), dense mode and a bf16 dense index, each served result
+    held to the host fuse of the two engines' own runs. Returns the TAAT
+    and flash launches of the served runs."""
+    import numpy as np
+    import torch
+
+    from mllm_sparse_retrieval_tpu_torch.configs import SparseConfig
+    from mllm_sparse_retrieval_tpu_torch.index import (
+        DenseFlatIndex, DocFilter)
+    from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
+    from mllm_sparse_retrieval_tpu_torch.ops import impact_kernel as K
+    from mllm_sparse_retrieval_tpu_torch.serving import (
+        OnlineQueryEncoder, RetrievalService)
+
+    t_phase = time.monotonic()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    sparse_cfg = SparseConfig()
+    txt_enc = RecordingEncoder(OnlineQueryEncoder(
+        params, arch, tok, tmpl, sparse_cfg, max_text_len=64,
+        device=DEVICE))
+    img_enc = RecordingEncoder(OnlineQueryEncoder(
+        params, arch_img, tok, tmpl, sparse_cfg, device=DEVICE))
+
+    # ---- query vectors (one direct encode), then the dense index ---------
+    q_dense, q_terms = [], []
+    for enc, items, fn in ((txt_enc, texts, "encode_texts"),
+                           (img_enc, images, "encode_images")):
+        for i in range(0, len(items), MAX_BATCH):
+            d, t = getattr(enc._enc, fn)(items[i:i + MAX_BATCH],
+                                         pad_to=MAX_BATCH)
+            q_dense += list(d)
+            q_terms += t
+    dim = q_dense[0].shape[0]
+    rng = np.random.default_rng(SEED + 4)
+    vecs = rng.standard_normal((N_DOCS, dim), dtype=np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    _, top_ids = index.search_terms(q_terms, DEPTH, canonical_map=cmap,
+                                    backend="taat")
+    pos = {d: i for i, d in enumerate(index.doc_ids)}
+    planted = 0
+    for qv, ids in zip(q_dense, top_ids):
+        u = qv / np.linalg.norm(qv)
+        for d in ids[:HYB_PLANT]:
+            g = rng.standard_normal(dim).astype(np.float32)
+            v = u + 0.3 * g / np.linalg.norm(g)
+            vecs[pos[d]] = v / np.linalg.norm(v)
+            planted += 1
+    order = rng.permutation(N_DOCS)
+    dense = DenseFlatIndex(dim=dim, device=DEVICE)
+    dense.add(vecs[order], [index.doc_ids[i] for i in order])
+    dense_bf16 = DenseFlatIndex(dim=dim, dtype=torch.bfloat16, device=DEVICE)
+    dense_bf16.add(vecs[order], [index.doc_ids[i] for i in order])
+    del vecs
+    dense._materialize()
+    dense_bf16._materialize()
+    torch.cuda.synchronize()
+    allow_ids = index.doc_ids[::HYB_ALLOW_MOD]
+    allowed = set(allow_ids)
+    allowed_cols = np.arange(0, N_DOCS, HYB_ALLOW_MOD)
+    progress("hybrid", f"dense index: {dense.size} docs x {dim} f32 "
+             f"({dense._corpus_dev.numel() * 4 / 1e9:.3f} GB on the card) "
+             f"and bf16, the impact index's doc ids in another order; "
+             f"{planted} dense rows planted near {len(q_dense)} queries' "
+             f"vectors (from one direct encode), {HYB_PLANT} of each "
+             f"query's sparse top-{DEPTH}; filter of {len(allow_ids)} docs; "
+             f"{base_gb:.2f} GB allocated before the dense indexes, "
+             f"{torch.cuda.memory_allocated() / 1e9:.2f} GB after")
+
+    def run(svc, kind, queries, threads, timeout, deadline, **extra):
+        K.reset_launch_count()
+        FA.reset_launch_count()
+        b0 = svc.stats()["batches"]
+        res, lat, wall = serve(svc, kind, queries, threads, timeout,
+                               deadline, **extra)
+        return (res, lat, wall, K.launch_count(), FA.launch_count(),
+                svc.stats()["batches"] - b0)
+
+    def hybrid_service(dense_index, enc, **kw):
+        return RetrievalService(
+            dense_index, index, query_encoder=enc, backend="taat",
+            alpha=HYB_ALPHA, candidate_depth=HYB_CAND, max_batch=MAX_BATCH,
+            device_batch=MAX_BATCH, depth_levels=(DEPTH,), max_wait_ms=10.0,
+            **kw)
+
+    taat_total = flash_total = 0
+    # ---- text: device-fused, then filtered ---------------------------------
+    svc = hybrid_service(dense, txt_enc, filters={"tenth": allow_ids})
+    try:
+        svc.search(text=texts[0], timeout=WARMUP_TIMEOUT_S)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        txt_enc.calls.clear()
+        res, lat, wall, taat, flash, batches = run(
+            svc, "text", texts, N_THREADS, REQUEST_TIMEOUT_S,
+            SERVE_DEADLINE_S)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        calls = list(txt_enc.calls)
+        txt_enc.calls.clear()
+        f_res, f_lat, f_wall, f_taat, f_flash, f_batches = run(
+            svc, "text", texts, N_THREADS, REQUEST_TIMEOUT_S,
+            SERVE_DEADLINE_S, filter="tenth")
+        f_calls = list(txt_enc.calls)
+    finally:
+        svc.close()
+    taat_total += taat + f_taat
+    flash_total += flash + f_flash
+    progress("hybrid", f"served {len(texts)} text queries from {N_THREADS} "
+             f"threads in {batches} micro-batches, device-fused: "
+             f"{latency_line(lat, len(texts), wall)} (sparse text phase: "
+             f"{sparse_lines['text']}); TAAT launches {taat}, flash "
+             f"{flash}; peak {peak_gb:.2f} GB; card {card}")
+    progress("hybrid", f"served {len(texts)} filtered text queries in "
+             f"{f_batches} micro-batches, host-fused: "
+             f"{latency_line(f_lat, len(texts), f_wall)}; TAAT launches "
+             f"{f_taat}")
+    if taat != batches or f_taat != f_batches or flash or f_flash:
+        raise AssertionError(f"hybrid text: TAAT launches {taat} in "
+                             f"{batches} batches, filtered {f_taat} in "
+                             f"{f_batches}; flash {flash + f_flash}")
+    txt_enc.calls[:] = calls
+    n_b = check_hybrid("hybrid text", txt_enc, texts, res, dense, index,
+                       cmap)
+    txt_enc.calls[:] = f_calls
+    flt = {"dense": DocFilter.from_ids(dense.lookup, allow_ids),
+           "sparse": DocFilter.from_ids(index.doc_ids, allow_ids)}
+    check_hybrid("filtered hybrid text", txt_enc, texts, f_res, dense,
+                 index, cmap, flt=flt, allowed=allowed)
+    check_filtered_legs(txt_enc, index, cmap, flt["sparse"], allowed_cols)
+    progress("hybrid", f"all {len(texts)} device-fused results equal the "
+             f"host fuse of the two engines' runs (within {HYB_TOL}, "
+             f"{n_b} batches, each with a doc found by both runs); all "
+             f"{len(texts)} filtered results equal the host fuse of the "
+             f"filtered runs, every doc allowed, every sparse leg equal to "
+             f"the unfiltered kernel scores of the allowed docs")
+    hybrid_breakdown(dense, index, cmap, txt_enc)
+
+    # ---- sparse and hybrid text serving in turns (one host, one card) -----
+    ab_taat = alternating_rounds(
+        {"sparse": lambda: hybrid_service(None, txt_enc),
+         "hybrid": lambda: hybrid_service(dense, txt_enc)},
+        run, texts)
+    taat_total += ab_taat
+
+    # ---- RRF, bf16 dense, dense mode --------------------------------------
+    rrf_q = texts[:HYB_RRF_QUERIES]
+    svc = hybrid_service(dense, txt_enc, fusion_rule="rrf")
+    try:
+        txt_enc.calls.clear()
+        r_res, _, _, r_taat, _, r_batches = run(
+            svc, "text", rrf_q, N_THREADS, REQUEST_TIMEOUT_S,
+            SERVE_DEADLINE_S)
+    finally:
+        svc.close()
+    check_hybrid("rrf hybrid text", txt_enc, rrf_q, r_res, dense, index,
+                 cmap, rule="rrf", tol=1e-12)
+    svc = hybrid_service(dense_bf16, txt_enc)
+    try:
+        txt_enc.calls.clear()
+        h_res, _, _, h_taat, _, h_batches = run(
+            svc, "text", texts, N_THREADS, REQUEST_TIMEOUT_S,
+            SERVE_DEADLINE_S)
+    finally:
+        svc.close()
+    check_hybrid("hybrid text, bf16 dense index", txt_enc, texts, h_res,
+                 dense_bf16, index, cmap)
+    taat_total += r_taat + h_taat
+    if r_taat != r_batches or h_taat != h_batches:
+        raise AssertionError("rrf / bf16 hybrid: TAAT launches differ from "
+                             "the micro-batches")
+    svc = RetrievalService(dense_index=dense, max_batch=MAX_BATCH,
+                           depth_levels=(DEPTH,), max_wait_ms=10.0)
+    text_vecs = q_dense[:len(texts)]
+    try:
+        d_res, d_lat, d_wall, d_taat, _, _ = run(
+            svc, "dense", text_vecs, N_THREADS, REQUEST_TIMEOUT_S,
+            SERVE_DEADLINE_S)
+    finally:
+        svc.close()
+    ref_s, ref_i = dense.search_ids(np.stack(text_vecs), DEPTH,
+                                    batch_size=MAX_BATCH)
+    for j, (got, s_row, i_row) in enumerate(zip(d_res, ref_s, ref_i)):
+        if not close_up_to_ties(got, list(zip(i_row, s_row)), HYB_TOL):
+            raise AssertionError(f"dense mode: query {j} differs from "
+                                 f"search_ids")
+    if d_taat:
+        raise AssertionError("dense mode launched the TAAT kernel")
+    progress("hybrid", f"RRF: {len(rrf_q)} queries equal fuse_rrf of the "
+             f"same runs; bf16 dense index: {len(texts)} device-fused "
+             f"results equal the host fuse; dense mode: {len(texts)} "
+             f"results equal search_ids "
+             f"({latency_line(d_lat, len(texts), d_wall)})")
+
+    # ---- images ------------------------------------------------------------
+    svc = hybrid_service(dense, img_enc)
+    try:
+        svc.search(image=images[0], timeout=IMAGE_REQUEST_TIMEOUT_S)
+        torch.cuda.synchronize()
+        img_enc.calls.clear()
+        i_res, i_lat, i_wall, i_taat, i_flash, i_batches = run(
+            svc, "image", images, IMAGE_THREADS, IMAGE_REQUEST_TIMEOUT_S,
+            IMAGE_DEADLINE_S)
+    finally:
+        svc.close()
+    taat_total += i_taat
+    flash_total += i_flash
+    progress("hybrid", f"served {len(images)} image queries from "
+             f"{IMAGE_THREADS} threads in {i_batches} micro-batches, "
+             f"device-fused: {latency_line(i_lat, len(images), i_wall)} "
+             f"(sparse image phase: {sparse_lines['image']}); TAAT launches "
+             f"{i_taat}, flash {i_flash}; card {card}")
+    if i_taat != i_batches or i_flash != arch_img.text.num_layers * i_batches:
+        raise AssertionError(f"hybrid image: TAAT {i_taat}, flash {i_flash} "
+                             f"in {i_batches} micro-batches")
+    n_b = check_hybrid("hybrid image", img_enc,
+                       [image_key(im) for im in images], i_res, dense, index,
+                       cmap)
+    progress("hybrid", f"all {len(images)} image results equal the host "
+             f"fuse ({n_b} batches, each with a doc found by both runs); "
+             f"phase {time.monotonic() - t_phase:.2f} s")
+    del dense, dense_bf16
+    torch.cuda.empty_cache()
     return taat_total, flash_total
 
 
@@ -1506,6 +2094,7 @@ def main() -> int:
 
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     lat_ms = np.array(latency) * 1e3
+    sparse_lines = {"text": latency_line(latency, N_QUERIES, wall)}
     progress("slice", f"served {N_QUERIES} text queries from {N_THREADS} "
              f"threads in {stats['batches'] - batches0} micro-batches; "
              f"TAAT launches {text_taat}, flash launches {text_flash}; "
@@ -1566,6 +2155,7 @@ def main() -> int:
     img_batches = stats["batches"] - batches0
     img_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     lat_ms = np.array(img_latency) * 1e3
+    sparse_lines["image"] = latency_line(img_latency, N_IMAGES, img_wall)
     progress("image", f"served {N_IMAGES} image queries from "
              f"{IMAGE_THREADS} threads in {img_batches} micro-batches "
              f"(device batch {MAX_BATCH}); flash launches {img_flash}, TAAT "
@@ -1592,12 +2182,17 @@ def main() -> int:
     del img_encoder, encoder
     torch.cuda.empty_cache()
 
-    # ---- 9. offline evaluation: corpus -> encode -> indexes -> search ------
+    # ---- 9. hybrid dense + sparse serving ------------------------------------
+    hyb_taat, hyb_flash = phase_hybrid(params, spec.arch, arch_img, tok, tmpl,
+                                       index, cmap, texts, images,
+                                       sparse_lines, card)
+
+    # ---- 10. offline evaluation: corpus -> encode -> indexes -> search -----
     off_taat, off_flash = phase_offline(params, arch_img, tok, tmpl, lexicon,
                                         card)
     torch.cuda.empty_cache()
 
-    # ---- 10. contrastive LoRA training; flash against plain gradients --------
+    # ---- 11. contrastive LoRA training; flash against plain gradients --------
     trainer, batches, train_launches = phase_train(
         params, arch_img, tok, tmpl, lexicon, rng, seq)
     grad_check(trainer, batches[0])
@@ -1608,14 +2203,15 @@ def main() -> int:
         dict(name="taat_impact", route="cuda",
              source="mllm_sparse_retrieval_tpu_torch/csrc/taat.cu",
              replaces="mllm_sparse_retrieval_tpu/ops/impact_kernel.py:115",
-             launches=text_taat + img_taat + off_taat, max_abs_err=max_err,
+             launches=text_taat + img_taat + hyb_taat + off_taat,
+             max_abs_err=max_err,
              ms=served["ms"], plain_ms=served["plain_ms"],
              bound_ms=served["bound_ms"], bound_by=served["bound_by"],
              library_ms=served["library_ms"]),
         dict(name="flash_attention_fwd", route="cuda",
              source="mllm_sparse_retrieval_tpu_torch/csrc/flash_attn.cu",
              replaces="mllm_sparse_retrieval_tpu/models/layers.py:199",
-             launches=text_flash + img_flash + off_flash
+             launches=text_flash + img_flash + hyb_flash + off_flash
              + train_launches["fwd"],
              **flash),
         dict(name="flash_attention_bwd_dkv", route="cuda",

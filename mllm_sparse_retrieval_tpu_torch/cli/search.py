@@ -1,8 +1,10 @@
 """Search + evaluate: encode queries, search the indexes, fuse, print recall.
 
 Dense only (``--passage-reps``), sparse only (``--sparse-index``), or
-hybrid (both, fused on the host with ``--alpha``). Prints the recall
-summary (and ``--metrics``) of each run.
+hybrid (both, fused with ``--alpha``: on the host, or on the device with
+``--fusion-mode device``). Prints the recall summary (and ``--metrics``) of
+each run; ``--eval-mode device`` computes them from target ranks on the
+device and writes no run.
 """
 
 from __future__ import annotations
@@ -25,10 +27,6 @@ from mllm_sparse_retrieval_tpu_torch.search.fusion import write_trec_run
 # where ROADMAP.md queues them
 _NOT_PORTED = {
     ("impact_wire", "compact48"): "the compact48 wire (ROADMAP Queue 1 #4)",
-    ("fusion_mode", "device"): "device fusion (ROADMAP Queue 1 #5: "
-                               "search/device_fusion.py)",
-    ("eval_mode", "device"): "device evaluation (ROADMAP Queue 1 #5: "
-                             "eval/device_eval.py)",
     ("dense_dtype", "int8"): "the int8 SQ8 dense tier (ROADMAP Queue 1 #5)",
 }
 
@@ -55,20 +53,24 @@ def main(argv=None):
                              "(compact48: ROADMAP Queue 1 #4)")
     parser.add_argument("--fusion-mode", default="host",
                         choices=["host", "device"],
-                        help="hybrid fusion route; only host is ported "
-                             "(device: ROADMAP Queue 1 #5)")
+                        help="hybrid fusion route: 'host' = the "
+                             "reference's run fusion in Python; 'device' = "
+                             "the fused top-k on the device, one packed "
+                             "copy per chunk (fusion run and recall only)")
     parser.add_argument("--fusion-rule", default="minmax",
                         choices=["minmax", "rrf"],
                         help="hybrid fusion formula: minmax = the "
                              "reference's weighted min-max sum; rrf = "
-                             "Reciprocal Rank Fusion")
+                             "Reciprocal Rank Fusion (host route only)")
     parser.add_argument("--ann-rank", type=int, default=0,
                         help="not ported: the ANN dense tier is ROADMAP "
                              "Queue 1 #5; 0 = exact flat search")
     parser.add_argument("--eval-mode", default="host",
                         choices=["host", "device"],
-                        help="where recall is computed; only host is "
-                             "ported (device: ROADMAP Queue 1 #5)")
+                        help="device: recall (and --metrics) from target "
+                             "ranks computed on the device, one [B, 1+T] "
+                             "copy per chunk instead of the run; no run is "
+                             "written (incompatible with --save-dir)")
     parser.add_argument("--metrics", default="",
                         help="extra ranking metrics beyond recall, comma-"
                              "separated from {mrr,ndcg,map}")
@@ -90,8 +92,24 @@ def main(argv=None):
     if args.ann_rank:
         parser.error("--ann-rank: the ANN dense tier is not ported (ROADMAP "
                      "Queue 1 #5)")
+    if args.fusion_rule == "rrf" and args.fusion_mode == "device":
+        parser.error("--fusion-rule rrf is host-path only (the device-"
+                     "fused program implements the min-max rule)")
     if args.passage_reps is None and args.sparse_index is None:
         parser.error("need --passage-reps and/or --sparse-index")
+    if args.fusion_mode == "device" and (
+            args.passage_reps is None or args.sparse_index is None):
+        parser.error("--fusion-mode device needs both --passage-reps "
+                     "and --sparse-index")
+    if args.eval_mode == "device":
+        if args.save_dir:
+            parser.error("--eval-mode device never materializes runs; "
+                         "drop --save-dir or use --eval-mode host")
+        if args.passage_reps and args.sparse_index \
+                and args.fusion_mode != "device":
+            parser.error("--eval-mode device with both indexes needs "
+                         "--fusion-mode device (host fusion materializes "
+                         "the runs this mode avoids fetching)")
 
     logger = get_logger("search")
     timer = StepTimer(logger)
@@ -133,7 +151,8 @@ def main(argv=None):
             impact_index=impact_index, reps_loc=RepsLoc(args.reps_loc),
             batch_size=args.batch_size, lora=lora,
             impact_backend=args.impact_backend,
-            fusion_rule=args.fusion_rule,
+            fusion_mode=args.fusion_mode, fusion_rule=args.fusion_rule,
+            eval_mode=args.eval_mode,
             metrics=[m for m in args.metrics.split(",") if m],
             get_target=lambda qid: corpus.get_target(qid, args.query_type),
             device=args.device)

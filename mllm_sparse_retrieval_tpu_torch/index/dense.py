@@ -5,8 +5,10 @@ The corpus matrix lives on ``device`` in f32 or bf16 and is scored by
 ``ops/mips.py``; queries go in fixed-size chunks, two in flight
 (``ops/stream.py``). Artifacts are the reference's pickles:
 ``corpus_{shard}.pkl`` holds ``(np.ndarray [N, d] float32, ids list)``, so
-either package loads the other's. Not ported: the int8 (SQ8) tier,
-``doc_filter`` and meshes (ROADMAP Queue 1 #5, #9).
+either package loads the other's. ``doc_filter`` (an
+``index.filter.DocFilter`` built against ``lookup``) scopes a search to the
+docs it allows. Not ported: the int8 (SQ8) tier and meshes (ROADMAP Queue
+1 #5, #9).
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from mllm_sparse_retrieval_tpu_torch.ops.mips import DTYPES, mips_topk_packed
+from mllm_sparse_retrieval_tpu_torch.ops.mips import (
+    DTYPES, mips_topk_packed)
 from mllm_sparse_retrieval_tpu_torch.ops.packing import unpack_topk
 from mllm_sparse_retrieval_tpu_torch.ops.stream import pipeline_dispatch
 
@@ -79,30 +82,40 @@ class DenseFlatIndex:
             self.dtype)
 
     # ---- search --------------------------------------------------------------
-    def _dispatch_chunk(self, chunk: np.ndarray, depth: int) -> torch.Tensor:
-        """Enqueue one chunk's scoring; no host sync. Queries travel in
-        the corpus dtype (half the bytes for bf16)."""
+    def _dispatch_chunk(self, chunk: np.ndarray, depth: int,
+                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Enqueue one chunk's scoring and return the packed ``[B, 2k]``
+        int32 device tensor, with no host sync. Queries travel in the
+        corpus dtype (half the bytes for bf16). ``mask`` (a device bool
+        ``[N]`` from ``DocFilter.device_mask``) scores excluded rows -inf."""
         q = torch.from_numpy(np.ascontiguousarray(chunk, np.float32)).to(
             self.device).to(self.dtype)
-        return mips_topk_packed(q, self._corpus_dev, depth)
+        return mips_topk_packed(q, self._corpus_dev, depth, mask)
 
-    def search(self, q_reps: np.ndarray, depth: int
+    def _mask(self, doc_filter) -> Optional[torch.Tensor]:
+        return None if doc_filter is None else doc_filter.device_mask(
+            self._corpus_dev.shape[0], self.device)
+
+    def search(self, q_reps: np.ndarray, depth: int, doc_filter=None
                ) -> Tuple[np.ndarray, np.ndarray]:
         """Exact top-``depth`` MIPS: (scores [B, k] f32, row indices
-        [B, k]), ``k = min(depth, size)``."""
+        [B, k]), ``k = min(depth, size)``. Rows ``doc_filter`` excludes
+        come back as score -inf (``search_ids`` drops them)."""
         self._materialize()
         return unpack_topk(self._dispatch_chunk(
-            np.asarray(q_reps, np.float32), depth).cpu().numpy())
+            np.asarray(q_reps, np.float32), depth,
+            self._mask(doc_filter)).cpu().numpy())
 
     def batch_search(self, q_reps: np.ndarray, depth: int,
-                     batch_size: int = 128, lookahead: int = 3
-                     ) -> Tuple[np.ndarray, np.ndarray]:
+                     batch_size: int = 128, lookahead: int = 3,
+                     doc_filter=None) -> Tuple[np.ndarray, np.ndarray]:
         """``search`` in chunks of ``batch_size`` queries (the last one
         zero-padded to that size), up to ``lookahead`` chunks in flight."""
         self._materialize()
         q_reps = np.asarray(q_reps, dtype=np.float32)
         n = q_reps.shape[0]
         all_scores, all_idx = [], []
+        mask = self._mask(doc_filter)
 
         def chunks():
             for start in range(0, n, batch_size):
@@ -116,7 +129,7 @@ class DenseFlatIndex:
 
         def dispatch(item):
             chunk, valid = item
-            return self._dispatch_chunk(chunk, depth), valid
+            return self._dispatch_chunk(chunk, depth, mask), valid
 
         def resolve(handle):
             out, valid = handle
@@ -133,15 +146,24 @@ class DenseFlatIndex:
         return np.concatenate(all_scores), np.concatenate(all_idx)
 
     def search_ids(self, q_reps: np.ndarray, depth: int,
-                   batch_size: int = 128
-                   ) -> Tuple[np.ndarray, List[List[str]]]:
-        """``batch_search`` with row indices mapped to lookup ids."""
-        scores, idx = self.batch_search(q_reps, depth, batch_size)
+                   batch_size: int = 128, doc_filter=None):
+        """``batch_search`` with row indices mapped to lookup ids:
+        (scores [B, k] f32, id rows). With ``doc_filter`` both are ragged
+        lists: a row drops its -inf entries where fewer than ``depth``
+        allowed docs exist (the sparse engine's zero-score rule)."""
+        scores, idx = self.batch_search(q_reps, depth, batch_size,
+                                        doc_filter=doc_filter)
         if self._lookup_arr_src is not self.lookup or \
                 len(self._lookup_arr) != len(self.lookup):
             self._lookup_arr = np.asarray(self.lookup)
             self._lookup_arr_src = self.lookup
-        return scores, self._lookup_arr[idx].tolist()
+        ids = self._lookup_arr[idx].tolist()
+        if doc_filter is None:
+            return scores, ids
+        keep = scores > -np.inf
+        return ([s[k].tolist() for s, k in zip(scores, keep)],
+                [[d for d, kk in zip(row, k) if kk]
+                 for row, k in zip(ids, keep)])
 
     # ---- persistence -----------------------------------------------------------
     def save_shard(self, path: str) -> None:

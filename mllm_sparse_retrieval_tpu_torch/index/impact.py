@@ -20,8 +20,11 @@ an index saved by either package loads in the other. ``from_jsonl`` builds
 from the encode pipeline's corpus jsonl, with the native C++ builder
 (``index/native``) or the Python one; both give one layout.
 
-Not ported yet: ``DocFilter``, the ``compact48`` wire, the stream entry
-points, ``explain``, arena capacity and sharding.
+``search_encoded(doc_filter=...)`` scopes a search to the docs of an
+``index.filter.DocFilter``: the scorer runs unchanged, excluded columns
+score -inf before the top-k, and the resolve drops them with the zero
+scores, so rows become ragged. Not ported yet: the ``compact48`` wire, the
+stream entry points, ``explain``, arena capacity and sharding.
 """
 
 from __future__ import annotations
@@ -461,20 +464,23 @@ class ImpactIndex:
         return self.search_encoded(q_idx, q_w, depth, backend=backend)
 
     def search(self, query_vectors: Sequence[SparseVector], depth: int,
-               backend: str = "auto"
+               backend: str = "auto", doc_filter=None
                ) -> Tuple[List[List[float]], List[List[str]]]:
         """Batch impact search: (score lists, ranked doc-id lists), one row
-        per query; docs with zero score are never returned, so rows may be
-        shorter than ``depth``."""
+        per query; docs with zero score (and docs ``doc_filter`` excludes)
+        are never returned, so rows may be shorter than ``depth``."""
         q_idx, q_w = self.encode_queries(query_vectors)
-        return self.search_encoded(q_idx, q_w, depth, backend=backend)
+        return self.search_encoded(q_idx, q_w, depth, backend=backend,
+                                   doc_filter=doc_filter)
 
     def search_encoded(self, q_idx: np.ndarray, q_w: np.ndarray, depth: int,
-                       backend: str = "auto"
+                       backend: str = "auto", doc_filter=None
                        ) -> Tuple[List[List[float]], List[List[str]]]:
         """Search pre-encoded padded query arrays (see ``encode_queries``):
-        term ids are this index's compact ids, padding has weight 0."""
-        plan = self._search_plan(backend, depth)
+        term ids are this index's compact ids, padding has weight 0.
+        ``doc_filter`` (a ``DocFilter`` built against ``doc_ids``) keeps
+        only the docs it allows."""
+        plan = self._search_plan(backend, depth, doc_filter)
         self._check_wire(q_idx, q_w)
         out_s: List[List[float]] = []
         out_i: List[List[str]] = []
@@ -489,8 +495,9 @@ class ImpactIndex:
         return out_s, out_i
 
     # ---- search internals (plan / dispatch / resolve) ------------------------
-    def _search_plan(self, backend: str, depth: int) -> dict:
-        """Resolve backend + device matrix + chunk budget once per search."""
+    def _search_plan(self, backend: str, depth: int, doc_filter=None) -> dict:
+        """Resolve backend + device matrix + chunk budget (+ the filter's
+        padded device mask) once per search."""
         if backend == "auto":
             backend = "taat" if self.device.type == "cuda" else "matmul"
         if backend not in ("taat", "matmul"):
@@ -508,8 +515,10 @@ class ImpactIndex:
         score_budget = self.hbm_budget_bytes - resident
         per_query = n_pad * 4 * _SCORE_MEMORY_FACTOR
         max_b = max(8, int(score_budget // per_query) // 8 * 8)
+        mask = None if doc_filter is None else \
+            doc_filter.device_mask(n_pad, dev.device)
         return dict(backend=backend, dev=dev, max_b=max_b,
-                    k=min(depth, self._n_valid))
+                    k=min(depth, self._n_valid), mask=mask)
 
     def _check_wire(self, q_idx, q_w) -> None:
         """Results come back on the i32 wire (f32 score bits and int32 doc
@@ -553,13 +562,15 @@ class ImpactIndex:
             self.device)
         d_w = torch.from_numpy(np.ascontiguousarray(q_w, np.float32)).to(
             self.device)
-        fn = _taat_topk if plan["backend"] == "taat" else _impact_topk
-        return fn(plan["dev"], d_idx, d_w, self._n_valid, plan["k"])
+        taat = plan["backend"] == "taat"
+        fn = _taat_topk if taat else _impact_topk
+        return fn(plan["dev"], d_idx, d_w, self._n_valid, plan["k"],
+                  plan["mask"])
 
     def _resolve_encoded(self, packed_dev: torch.Tensor, b: int
                          ) -> Tuple[List[List[float]], List[List[str]]]:
         """Copy one packed result to the host and convert it to ragged
-        rows (zero-score docs dropped)."""
+        rows (zero-score docs and filtered-out -inf entries dropped)."""
         scores, idx = unpack_topk(packed_dev[:b].cpu().numpy())
         if getattr(self, "_doc_ids_arr_src", None) is not self.doc_ids or \
                 len(self._doc_ids_arr) != len(self.doc_ids):

@@ -13,18 +13,21 @@ Scores are f32 for either corpus dtype:
   value) and multiplied in full f32; each product of two bf16 values is
   exact in f32, so only the accumulation rounds.
 
-Not ported: the int8 (SQ8) programs, the filtered programs and the sharded
-ones (ROADMAP Queue 1 #5, #9).
+Given a bool ``mask``, ``mips_topk_packed`` restricts the search to the rows
+it allows (``index/filter.py``): excluded rows score -inf before the top-k.
+Not ported: the int8 (SQ8) programs, filtered or not, and the sharded ones
+(ROADMAP Queue 1 #5, #9).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from mllm_sparse_retrieval_tpu_torch.ops.packing import pack_topk
-from mllm_sparse_retrieval_tpu_torch.ops.score_programs import full_f32_matmul
+from mllm_sparse_retrieval_tpu_torch.ops.score_programs import (
+    _filtered, full_f32_matmul)
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -48,8 +51,14 @@ def mips_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int
                       min(k, corpus.shape[0]), dim=1)
 
 
-def mips_topk_packed(queries: torch.Tensor, corpus: torch.Tensor, k: int
-                     ) -> torch.Tensor:
+def mips_topk_packed(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``mips_topk`` as one ``[B, 2k']`` int32 tensor (score bits, then
-    indices; ``ops.packing.unpack_topk`` inverts): one copy to the host."""
-    return pack_topk(*mips_topk(queries, corpus, k))
+    indices; ``ops.packing.unpack_topk`` inverts): one copy to the host.
+    With ``mask`` (bool ``[N]``) only the rows it allows are searched;
+    where fewer than ``k`` are allowed the row ends in -inf entries, which
+    ``DenseFlatIndex.search_ids`` drops."""
+    scores = mips_scores(queries, corpus)
+    if mask is not None:
+        _filtered(scores, mask)
+    return pack_topk(*torch.topk(scores, min(k, corpus.shape[0]), dim=1))

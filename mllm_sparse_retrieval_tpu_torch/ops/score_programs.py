@@ -5,7 +5,10 @@
   matmul of a ``[B, T+1]`` query-weight table by the matrix;
 - ``_taat_scores``: the term-at-a-time backend (``ops/impact_kernel.py``);
 - ``_masked_topk``, ``_impact_topk``, ``_taat_topk``: top-k over the valid
-  doc columns, packed into one int32 result (``ops/packing.py``).
+  doc columns, packed into one int32 result (``ops/packing.py``). Given a
+  ``[N_pad]`` bool ``mask`` (``index/filter.py``), the top-k is restricted
+  to the doc columns it allows: the scorer runs unchanged, excluded columns
+  score -inf before the top-k (``_filtered``), and the resolve drops them.
 
 Both backends give exactly equal scores for integer weights: every product
 and partial sum is an integer below 2^24, exact in f32 in any order. That
@@ -88,22 +91,33 @@ def _taat_scores(matrix: torch.Tensor, q_idx: torch.Tensor,
                               safe_w.contiguous())
 
 
-def _masked_topk(scores: torch.Tensor, n_valid: int, k: int):
+def _filtered(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Excluded doc columns (or MIPS rows) -> -inf. In place on the
+    scorer's own fresh ``[B, N]`` tensor, so a filter adds no score-sized
+    tensor to a chunk's peak."""
+    return scores.masked_fill_(~mask[None, :], float("-inf"))
+
+
+def _masked_topk(scores: torch.Tensor, n_valid: int, k: int, mask=None):
     """Top-k over the first ``n_valid`` doc columns (padding columns score
-    -inf). Ties may come out in any order; callers compare (score, id)
-    sets."""
+    -inf), and over those ``mask`` allows when one is given. Ties may come
+    out in any order; callers compare (score, id) sets."""
+    if mask is not None:
+        _filtered(scores, mask)
     col = torch.arange(scores.shape[1], device=scores.device)
     scores = scores.masked_fill(col[None, :] >= n_valid, float("-inf"))
     return torch.topk(scores, k, dim=1)
 
 
-def _impact_topk(matrix, q_idx, q_w, n_valid: int, k: int) -> torch.Tensor:
+def _impact_topk(matrix, q_idx, q_w, n_valid: int, k: int,
+                 mask=None) -> torch.Tensor:
     """Matmul backend -> packed ``[B, 2k]`` int32 (scores bits, doc ids)."""
     return pack_topk(*_masked_topk(
-        _scores_from_matrix(matrix, q_idx, q_w), n_valid, k))
+        _scores_from_matrix(matrix, q_idx, q_w), n_valid, k, mask))
 
 
-def _taat_topk(matrix, q_idx, q_w, n_valid: int, k: int) -> torch.Tensor:
+def _taat_topk(matrix, q_idx, q_w, n_valid: int, k: int,
+               mask=None) -> torch.Tensor:
     """TAAT backend -> packed ``[B, 2k]`` int32 (scores bits, doc ids)."""
     return pack_topk(*_masked_topk(
-        _taat_scores(matrix, q_idx, q_w), n_valid, k))
+        _taat_scores(matrix, q_idx, q_w), n_valid, k, mask))

@@ -4,11 +4,13 @@ fuse, evaluate (the JAX package's ``search/engine.py``, one device).
 ``run_search`` encodes the queries with ``encode_examples``, searches the
 dense flat index and/or the impact index (the TAAT kernel on the card),
 builds lazy runs (``ArrayRun``), fuses them on the host (min-max or RRF)
-and computes recall@k and, on request, MRR/nDCG/MAP on the host.
+and computes recall@k and, on request, MRR/nDCG/MAP on the host. With
+``fusion_mode="device"`` the two engines' top-k are fused on the device
+(``search/device_fusion.py``); with ``eval_mode="device"`` the metrics come
+from target ranks computed on the device (``eval/device_eval.py``), and no
+run is copied to the host.
 
-Not ported: ``fusion_mode="device"`` and ``eval_mode="device"`` (ROADMAP
-Queue 1 #5: ``search/device_fusion.py``, ``eval/device_eval.py``), the
-``compact48`` wire (#4) and meshes (#9).
+Not ported: the ``compact48`` wire (ROADMAP Queue 1 #4) and meshes (#9).
 """
 
 from __future__ import annotations
@@ -20,12 +22,17 @@ from typing import Callable, Dict, Optional, Sequence
 from mllm_sparse_retrieval_tpu_torch.configs import (
     RepsLoc, SearchConfig, SparseConfig)
 from mllm_sparse_retrieval_tpu_torch.data.karpathy import Example
+from mllm_sparse_retrieval_tpu_torch.eval.device_eval import (
+    build_target_arrays, dense_doc_pos, dense_eval_ranks, impact_doc_pos,
+    impact_eval_ranks, metrics_from_ranks)
 from mllm_sparse_retrieval_tpu_torch.eval.metrics import ranking_metrics
 from mllm_sparse_retrieval_tpu_torch.eval.recall import (
     DEFAULT_KS, RecallResult, recall_at_k)
 from mllm_sparse_retrieval_tpu_torch.index.dense import DenseFlatIndex
 from mllm_sparse_retrieval_tpu_torch.index.impact import ImpactIndex
 from mllm_sparse_retrieval_tpu_torch.pipelines.encode import encode_examples
+from mllm_sparse_retrieval_tpu_torch.search.device_fusion import (
+    FusedHybridSearcher)
 from mllm_sparse_retrieval_tpu_torch.search.fusion import fuse, fuse_rrf
 from mllm_sparse_retrieval_tpu_torch.search.runs import ArrayRun, Run
 from mllm_sparse_retrieval_tpu_torch.sparse.term_selection import (
@@ -119,14 +126,19 @@ def run_search(
 ) -> SearchOutput:
     """Encode queries on ``device`` and search the given indexes.
 
-    With both indexes the runs are fused on the host: ``fusion_rule``
-    ``"minmax"`` (the reference's weighted min-max sum, weights
-    ``alpha`` / ``1 - alpha``) or ``"rrf"``. ``get_target`` (query id ->
-    relevant id or ids) enables recall@``ks`` and the ``metrics``
-    (``"mrr"``, ``"ndcg"``, ``"map"``); without it only the runs are made.
-    The device routes (``fusion_mode="device"``, ``eval_mode="device"``)
-    and ``impact_wire="compact48"`` are not ported: after the JAX
-    package's argument checks they raise ``NotImplementedError``.
+    With both indexes the runs are fused: ``fusion_mode="host"`` fuses the
+    dense and sparse runs in Python, ``fusion_rule`` ``"minmax"`` (the
+    reference's weighted min-max sum, weights ``alpha`` / ``1 - alpha``)
+    or ``"rrf"``; ``fusion_mode="device"`` fuses both engines' top-k on
+    the device under the min-max rule and fills only ``fusion_run`` and
+    ``fusion_recall`` (the top ``depth`` fused docs of each query, which
+    give the host route's recall@k for every k <= depth).
+    ``get_target`` (query id -> relevant id or ids) enables recall@``ks``
+    and the ``metrics`` (``"mrr"``, ``"ndcg"``, ``"map"``); without it only
+    the runs are made. ``eval_mode="device"`` computes them from target
+    ranks on the device and fills no run. ``impact_wire="compact48"`` is
+    not ported: after the JAX package's argument checks it raises
+    ``NotImplementedError``.
     """
     if fusion_mode not in ("host", "device"):
         raise ValueError(f"fusion_mode must be 'host' or 'device', "
@@ -158,14 +170,6 @@ def run_search(
     if impact_wire not in ("i32", "compact48"):
         raise ValueError(f"impact_wire must be 'i32' or 'compact48', "
                          f"got {impact_wire!r}")
-    if fusion_mode == "device":
-        raise NotImplementedError(
-            "fusion_mode='device' is not ported (ROADMAP Queue 1 #5: "
-            "search/device_fusion.py, ops/hybrid_fusion.py)")
-    if eval_mode == "device":
-        raise NotImplementedError(
-            "eval_mode='device' is not ported (ROADMAP Queue 1 #5: "
-            "ops/eval_ranks.py, eval/device_eval.py)")
     if impact_wire == "compact48":
         raise NotImplementedError(
             "impact_wire='compact48' is not ported (ROADMAP Queue 1 #4)")
@@ -176,6 +180,27 @@ def run_search(
         encode_type=query_type, sparse_cfg=sparse_cfg, reps_loc=reps_loc,
         batch_size=batch_size, is_query=True, lora=lora,
         pixel_loader=pixel_loader, device=device)
+
+    if eval_mode == "device":
+        return _device_eval(out, enc, tokenizer, sparse_cfg, search_cfg,
+                            dense_index, impact_index, get_target, ks,
+                            impact_backend, fusion_mode, metrics)
+
+    if fusion_mode == "device":
+        q_idx, q_w = _encode_sparse_queries(impact_index, enc, tokenizer,
+                                            sparse_cfg)
+        searcher = FusedHybridSearcher(dense_index, impact_index,
+                                       alpha=search_cfg.alpha,
+                                       backend=impact_backend)
+        out.fusion_run = searcher.search_run(
+            enc.dense, q_idx, q_w, enc.ids, search_cfg.depth,
+            remove_query=search_cfg.remove_query)
+        if get_target is not None:
+            out.fusion_recall = recall_at_k(out.fusion_run, get_target, ks)
+            if metrics:
+                out.extra_metrics["fusion"] = ranking_metrics(
+                    out.fusion_run, get_target, ks, which=tuple(metrics))
+        return out
 
     if dense_index is not None:
         scores, id_rows = dense_index.search_ids(
@@ -209,4 +234,56 @@ def run_search(
             if metrics:
                 out.extra_metrics[name] = ranking_metrics(
                     run, get_target, ks, which=tuple(metrics))
+    return out
+
+
+def _device_eval(out: SearchOutput, enc, tokenizer, sparse_cfg, search_cfg,
+                 dense_index, impact_index, get_target, ks, impact_backend,
+                 fusion_mode, metrics) -> SearchOutput:
+    """``eval_mode="device"``: recall (and the requested metrics) from
+    target ranks computed on the device. No run is copied to the host, so
+    the run dicts of ``SearchOutput`` stay empty; the values equal the host
+    consumers' on the same device output (``eval/device_eval.py``)."""
+    which = tuple(metrics)
+    if fusion_mode == "device":
+        q_idx, q_w = _encode_sparse_queries(impact_index, enc, tokenizer,
+                                            sparse_cfg)
+        tgt, ntg, _ = build_target_arrays(enc.ids, get_target,
+                                          dense_doc_pos(dense_index))
+        searcher = FusedHybridSearcher(dense_index, impact_index,
+                                       alpha=search_cfg.alpha,
+                                       backend=impact_backend)
+        ranks = searcher.eval_ranks(
+            enc.dense, q_idx, q_w, tgt, search_cfg.depth,
+            qids=enc.ids if search_cfg.remove_query else None)
+        out.fusion_recall, extras = metrics_from_ranks(enc.ids, ranks, ntg,
+                                                       ks, which)
+        if which:
+            out.extra_metrics["fusion"] = extras
+        return out
+
+    if dense_index is not None:
+        tgt, ntg, selfp = build_target_arrays(
+            enc.ids, get_target, dense_doc_pos(dense_index),
+            remove_query=search_cfg.remove_query)
+        ranks = dense_eval_ranks(dense_index, enc.dense, tgt, selfp,
+                                 search_cfg.depth,
+                                 batch_size=max(search_cfg.batch_size, 1))
+        out.dense_recall, extras = metrics_from_ranks(enc.ids, ranks, ntg,
+                                                      ks, which)
+        if which:
+            out.extra_metrics["dense"] = extras
+
+    if impact_index is not None:
+        q_idx, q_w = _encode_sparse_queries(impact_index, enc, tokenizer,
+                                            sparse_cfg)
+        tgt, ntg, selfp = build_target_arrays(
+            enc.ids, get_target, impact_doc_pos(impact_index),
+            remove_query=search_cfg.remove_query)
+        ranks = impact_eval_ranks(impact_index, q_idx, q_w, tgt, selfp,
+                                  search_cfg.depth, backend=impact_backend)
+        out.sparse_recall, extras = metrics_from_ranks(enc.ids, ranks, ntg,
+                                                       ks, which)
+        if which:
+            out.extra_metrics["sparse"] = extras
     return out

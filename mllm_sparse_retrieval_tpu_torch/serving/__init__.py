@@ -1,4 +1,5 @@
-"""Online serving: micro-batched sparse retrieval with live text encoding."""
+"""Online serving: micro-batched sparse, dense and hybrid retrieval with
+live text and image encoding."""
 
 from mllm_sparse_retrieval_tpu_torch.serving.batcher import MicroBatcher
 from mllm_sparse_retrieval_tpu_torch.serving.encoder import OnlineQueryEncoder

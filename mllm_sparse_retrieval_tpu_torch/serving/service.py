@@ -1,22 +1,39 @@
-"""Transport-free retrieval service, sparse mode: validated queries ->
-micro-batched device calls (the JAX package's ``serving/service.py``, the
-sparse engine with live text and image encoding).
+"""Transport-free retrieval service: validated queries -> micro-batched
+device calls (the JAX package's ``serving/service.py`` over static
+indexes).
+
+The mode is fixed by the indexes given:
+
+- ``sparse``: an :class:`ImpactIndex` (the TAAT kernel on the card);
+- ``dense``: a :class:`DenseFlatIndex` (f32 or bf16 MIPS);
+- ``hybrid``: both. Under the default min-max rule a micro-batch runs
+  through :class:`FusedHybridSearcher` (both engines' top-k fused on the
+  device, one copy to the host); requests with a doc filter, and every
+  request under ``fusion_rule="rrf"``, fuse the two engines' candidate rows
+  on the host with ``search.fusion``, the sparse engine on a side thread.
 
 Concurrent single queries coalesce in a :class:`MicroBatcher` into one
-encode + search per micro-batch. Depths are quantized up to fixed levels
-and each request's result is cut back to what it asked for. Dense and
-hybrid modes, live indexes, doc filters and reloads wait for later slices.
+encode + search per micro-batch; requests may carry ``terms`` / ``dense``
+or raw ``text`` / ``image`` (encoded live by a ``query_encoder``), and a
+registered doc filter (``register_filter``). Depths are quantized up to
+fixed levels and each request's result is cut back to what it asked for.
+Live indexes and reloads wait for a later slice (ROADMAP Queue 1 #7).
 """
 
 from __future__ import annotations
 
 import bisect
-from concurrent.futures import Future
+import operator
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, replace
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from mllm_sparse_retrieval_tpu_torch.index.filter import DocFilter
+from mllm_sparse_retrieval_tpu_torch.search.device_fusion import (
+    FusedHybridSearcher)
+from mllm_sparse_retrieval_tpu_torch.search.fusion import fuse, fuse_rrf
 from mllm_sparse_retrieval_tpu_torch.serving.batcher import MicroBatcher
 from mllm_sparse_retrieval_tpu_torch.sparse.term_selection import (
     canonical_id_map)
@@ -27,65 +44,105 @@ TermsLike = Union[Mapping[object, float], Sequence[Tuple[object, float]]]
 @dataclass(frozen=True)
 class QueryRequest:
     """One validated query: ``terms`` keyed by the impact index's key space,
-    or raw ``text`` or ``image`` (needs a ``query_encoder``), and the
-    requested ``depth``."""
+    ``dense`` a ``[d]`` float vector, or raw ``text`` or ``image`` (needs a
+    ``query_encoder``); the requested ``depth``, and the name of a
+    registered doc ``filter``."""
     terms: Optional[Dict[object, float]]
+    dense: Optional[np.ndarray]
     depth: int
     text: Optional[str] = None
     image: Optional[np.ndarray] = None   # raw [H, W, 3] float in [0, 1]
+    filter: Optional[str] = None
 
 
 class RetrievalService:
-    """Micro-batched sparse retrieval over a prebuilt :class:`ImpactIndex`.
+    """Micro-batched retrieval over prebuilt indexes.
 
     ``search`` / ``search_async`` are thread-safe; each call is one query.
-    Requests are validated on the caller's thread so malformed input never
-    poisons a batch. ``close()`` stops the dispatcher thread.
+    Requests must carry what the mode needs and are validated on the
+    caller's thread, so malformed input never poisons a batch. ``close()``
+    stops the dispatcher thread and the hybrid side thread.
     """
 
-    def __init__(self, impact_index, *,
+    def __init__(self, dense_index=None, impact_index=None, *,
+                 alpha: float = 0.5,
                  depth_levels: Sequence[int] = (10, 100, 1000),
-                 default_depth: int = 10, backend: str = "auto",
-                 max_batch: int = 256,
+                 default_depth: int = 10,
+                 candidate_depth: Optional[int] = None,
+                 backend: str = "auto", max_batch: int = 256,
                  max_wait_ms: float = 4.0,
-                 device_batch: Optional[int] = None, query_encoder=None):
-        if impact_index is None:
-            raise ValueError("need an impact_index")
+                 device_batch: Optional[int] = None, query_encoder=None,
+                 filters: Optional[Mapping] = None,
+                 fusion_rule: str = "minmax"):
+        if dense_index is None and impact_index is None:
+            raise ValueError("need at least one of dense_index/impact_index")
+        self.dense_index = dense_index
         self.impact_index = impact_index
-        self.mode = "sparse"
+        self.mode = ("hybrid" if dense_index is not None
+                     and impact_index is not None
+                     else "dense" if dense_index is not None else "sparse")
         self.depth_levels = tuple(sorted(set(int(d) for d in depth_levels)))
         if any(d < 1 for d in self.depth_levels):
             raise ValueError(f"depth_levels must be >= 1: {depth_levels}")
         self.default_depth = int(default_depth)
         if self.default_depth > self.depth_levels[-1]:
             raise ValueError("default_depth exceeds max depth level")
+        # hybrid: each engine's depth before fusion; the served depth stays
+        # the request's
+        self.candidate_depth = candidate_depth
         self.backend = backend
         # every micro-batch is padded to this fixed device batch, so the
-        # encoder and the search always see one shape
+        # encoder and the searches always see one shape
         self.device_batch = int(device_batch or max_batch)
         if self.device_batch < max_batch:
             raise ValueError("device_batch must be >= max_batch")
         self.query_encoder = query_encoder
         self._cmap = self._build_cmap(impact_index)
+        self.alpha = float(alpha)
+        if fusion_rule not in ("minmax", "rrf"):
+            raise ValueError(f"fusion_rule must be 'minmax' or 'rrf', "
+                             f"got {fusion_rule!r}")
+        # rrf routes hybrid through the host fusion (the device fusion
+        # implements the min-max rule)
+        self.fusion_rule = fusion_rule
+        self._fused = None
+        self._engine_pool = None
+        if self.mode == "hybrid":
+            if fusion_rule != "rrf":
+                self._fused = FusedHybridSearcher(
+                    dense_index, impact_index, alpha=alpha, backend=backend)
+            # host-fused hybrid (filtered requests, rrf) runs the sparse
+            # engine on this thread, so the two engines' work overlaps
+            self._engine_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="hybrid-sparse")
+        # named doc filters: one DocFilter per engine per name (the
+        # engines' doc orders differ)
+        self._filters: Dict[str, Dict[str, object]] = {}
+        for name, ids in (filters or {}).items():
+            self.register_filter(name, ids)
         self._batcher = MicroBatcher(self._run_batch, max_batch=max_batch,
                                      max_wait_ms=max_wait_ms,
                                      name="retrieval-batcher")
 
     # ---- public API ----------------------------------------------------------
-    def search_async(self, terms: Optional[TermsLike] = None,
-                     depth: Optional[int] = None,
-                     text: Optional[str] = None, image=None) -> Future:
-        return self._batcher.submit(self._validate(terms, depth, text,
-                                                   image))
+    def search_async(self, terms: Optional[TermsLike] = None, dense=None,
+                     depth: Optional[int] = None, text: Optional[str] = None,
+                     image=None, filter: Optional[str] = None) -> Future:
+        return self._batcher.submit(self._validate(terms, dense, depth, text,
+                                                   image, filter))
 
-    def search(self, terms: Optional[TermsLike] = None,
+    def search(self, terms: Optional[TermsLike] = None, dense=None,
                depth: Optional[int] = None, text: Optional[str] = None,
-               image=None, timeout: Optional[float] = 60.0):
+               image=None, filter: Optional[str] = None,
+               timeout: Optional[float] = 60.0):
         """Blocking single query -> list of ``(doc_id, score)``,
         score-descending, at most ``depth`` entries. Give ``text`` or
         ``image`` (a raw ``[H, W, 3]`` float array in [0, 1], any size;
-        encoded live, needs a ``query_encoder``) or explicit ``terms``."""
-        return self.search_async(terms, depth, text, image).result(timeout)
+        encoded live, needs a ``query_encoder``), or explicit ``terms``
+        and/or ``dense`` as the mode needs. ``filter`` names a registered
+        doc filter (``register_filter``)."""
+        return self.search_async(terms, dense, depth, text, image,
+                                 filter).result(timeout)
 
     def stats(self) -> Dict[str, float]:
         s = self._batcher.stats()
@@ -94,46 +151,84 @@ class RetrievalService:
 
     def close(self) -> None:
         self._batcher.close()
+        if self._engine_pool is not None:
+            self._engine_pool.shutdown(wait=False)
 
     def _build_cmap(self, impact_index):
         """The query canonical map: applied iff the index was BUILT with
         canonical id-collision merges (``query_canonical``)."""
-        if (self.query_encoder is None
+        if (self.query_encoder is None or impact_index is None
                 or not getattr(impact_index, "query_canonical", False)):
             return None
         return canonical_id_map(self.query_encoder.tokenizer.get_vocab(),
                                 self.query_encoder.sparse_cfg.is_filtered)
 
+    # ---- named doc filters ---------------------------------------------------
+    def register_filter(self, name: str, ids, mode: str = "allow") -> int:
+        """Register (or replace) a named doc filter; requests carrying
+        ``filter=name`` search only the docs it allows. Returns the allowed
+        doc count (of the dense engine where there is one)."""
+        ids = [str(i) for i in ids]
+        entry: Dict[str, object] = {"ids": ids, "mode": mode}
+        if self.dense_index is not None:
+            entry["dense"] = DocFilter.from_ids(self.dense_index.lookup, ids,
+                                                mode)
+        if self.impact_index is not None:
+            entry["sparse"] = DocFilter.from_ids(self.impact_index.doc_ids,
+                                                 ids, mode)
+        self._filters[str(name)] = entry
+        return entry["dense" if "dense" in entry else "sparse"].n_allowed
+
+    @property
+    def filter_names(self) -> List[str]:
+        return sorted(self._filters)
+
     # ---- validation (caller thread) ------------------------------------------
-    def _validate(self, terms, depth, text=None, image=None) -> QueryRequest:
+    def _validate(self, terms, dense, depth, text=None, image=None,
+                  filter=None) -> QueryRequest:
         depth = self.default_depth if depth is None else int(depth)
         if depth < 1 or depth > self.depth_levels[-1]:
             raise ValueError(f"depth must be in [1, {self.depth_levels[-1]}],"
                              f" got {depth}")
+        if filter is not None:
+            filter = str(filter)
+            if filter not in self._filters:
+                raise ValueError(f"unknown filter {filter!r}; registered: "
+                                 f"{self.filter_names}")
         if text is not None or image is not None:
             if self.query_encoder is None:
                 raise ValueError("text/image queries need a query_encoder")
-            if terms is not None:
-                raise ValueError("give text/image OR terms, not both")
+            if terms is not None or dense is not None:
+                raise ValueError("give text/image OR terms/dense, not both")
             if text is not None and image is not None:
                 raise ValueError("give text OR image, not both")
             if text is not None:
                 if not isinstance(text, str) or not text.strip():
                     raise ValueError("text must be a non-empty string")
-                return QueryRequest(None, depth, text)
+                return QueryRequest(None, None, depth, text, filter=filter)
             img = np.asarray(image, np.float32)
             if img.ndim != 3 or img.shape[2] != 3:
                 raise ValueError(f"image must be [H, W, 3], got {img.shape}")
-            return QueryRequest(None, depth, None, img)
-        if terms is None:
-            raise ValueError("mode='sparse' requires terms, text or image")
-        pairs = terms.items() if isinstance(terms, Mapping) else terms
-        t: Dict[object, float] = {}
-        for k, w in pairs:
-            w = float(w)
-            if w > 0:           # non-positive weights drop, as in add()
-                t[k] = t.get(k, 0.0) + w
-        return QueryRequest(t, depth)
+            return QueryRequest(None, None, depth, None, img, filter=filter)
+        t: Optional[Dict[object, float]] = None
+        d: Optional[np.ndarray] = None
+        if self.mode in ("sparse", "hybrid"):
+            if terms is None:
+                raise ValueError(f"mode={self.mode!r} requires terms")
+            pairs = terms.items() if isinstance(terms, Mapping) else terms
+            t = {}
+            for k, w in pairs:
+                w = float(w)
+                if w > 0:           # non-positive weights drop, as in add()
+                    t[k] = t.get(k, 0.0) + w
+        if self.mode in ("dense", "hybrid"):
+            if dense is None:
+                raise ValueError(f"mode={self.mode!r} requires dense")
+            d = np.asarray(dense, np.float32).reshape(-1)
+            dim = self.dense_index.dim
+            if dim is not None and d.shape[0] != dim:
+                raise ValueError(f"dense dim {d.shape[0]} != index dim {dim}")
+        return QueryRequest(t, d, depth, filter=filter)
 
     # ---- batch execution (dispatcher thread) ---------------------------------
     def _served_depth(self, reqs: Sequence[QueryRequest]) -> int:
@@ -143,8 +238,8 @@ class RetrievalService:
 
     def _encode_media_requests(self, reqs: List[QueryRequest]) -> None:
         """Replace text- and image-carrying requests with their encoded
-        terms — ONE fixed-shape encode call per modality for the whole
-        micro-batch."""
+        terms and dense vector (each kept where its engine is present) —
+        ONE fixed-shape encode call per modality for the micro-batch."""
         for sel, encode in (
             ([i for i, r in enumerate(reqs) if r.text is not None],
              lambda xs: self.query_encoder.encode_texts(
@@ -155,12 +250,16 @@ class RetrievalService:
         ):
             if not sel:
                 continue
-            _, terms_rows = encode(
+            dense_vecs, terms_rows = encode(
                 [reqs[i].text if reqs[i].text is not None else reqs[i].image
                  for i in sel])
             for j, i in enumerate(sel):
-                reqs[i] = replace(reqs[i], text=None, image=None,
-                                  terms=self._terms_dict(terms_rows[j]))
+                reqs[i] = replace(
+                    reqs[i], text=None, image=None,
+                    terms=(self._terms_dict(terms_rows[j])
+                           if self.impact_index is not None else None),
+                    dense=(dense_vecs[j]
+                           if self.dense_index is not None else None))
 
     def _terms_dict(self, st) -> Dict[object, float]:
         """SelectedTerms -> term dict in the index's id key space, folding
@@ -180,19 +279,95 @@ class RetrievalService:
 
     def _run_batch(self, reqs: List[QueryRequest]):
         self._encode_media_requests(reqs)
-        return self._run_uniform(reqs)
+        if any(r.filter is not None for r in reqs):
+            # one sub-batch per filter: the mask is one operand of a search,
+            # so each distinct filter of a micro-batch is one device call
+            groups: Dict[Optional[str], List[int]] = {}
+            for i, r in enumerate(reqs):
+                groups.setdefault(r.filter, []).append(i)
+            out: List = [None] * len(reqs)
+            for name, members in groups.items():
+                sub = [reqs[i] for i in members]
+                for i, row in zip(members, self._run_uniform(sub, name)):
+                    out[i] = row
+            return out
+        return self._run_uniform(reqs, None)
 
-    def _run_uniform(self, reqs: List[QueryRequest]):
+    def _run_uniform(self, reqs: List[QueryRequest],
+                     filter_name: Optional[str]):
+        flt = self._filters[filter_name] if filter_name is not None else None
         depth = self._served_depth(reqs)
         n = len(reqs)
-        scores, ids = self._sparse_rows(reqs, depth)
+        if self.mode == "dense":
+            scores, ids = self._dense_rows(reqs, depth, flt)
+        elif self.mode == "sparse":
+            scores, ids = self._sparse_rows(reqs, depth, flt)
+        elif flt is not None or self.fusion_rule == "rrf":
+            scores, ids = self._hybrid_rows_host(reqs, depth, flt)
+        else:
+            q_idx, q_w = self.impact_index.encode_queries(
+                self._padded_terms(reqs))
+            cand = self.candidate_depth or depth
+            scores, ids = self._fused.search_encoded(
+                self._padded_dense(reqs), q_idx, q_w, max(cand, depth),
+                out_depth=depth)
         return [list(zip(i_row[:r.depth], s_row[:r.depth]))
                 for r, s_row, i_row in zip(reqs, scores[:n], ids[:n])]
 
     def _padded_terms(self, reqs) -> List[Dict[object, float]]:
         return [r.terms for r in reqs] + [{}] * (self.device_batch - len(reqs))
 
-    def _sparse_rows(self, reqs, depth):
+    def _padded_dense(self, reqs) -> np.ndarray:
+        q = np.stack([r.dense for r in reqs])
+        pad = self.device_batch - len(reqs)
+        if pad:
+            q = np.concatenate([q, np.zeros((pad, q.shape[1]), q.dtype)])
+        return q
+
+    def _dense_rows(self, reqs, depth, flt=None):
+        scores, ids = self.dense_index.search_ids(
+            self._padded_dense(reqs), depth, batch_size=self.device_batch,
+            doc_filter=None if flt is None else flt["dense"])
+        if flt is not None:
+            return scores, ids          # already ragged lists
+        return scores.tolist(), ids
+
+    def _sparse_rows(self, reqs, depth, flt=None):
         q_idx, q_w = self.impact_index.encode_queries(self._padded_terms(reqs))
         return self.impact_index.search_encoded(
-            q_idx, q_w, depth, backend=self.backend)
+            q_idx, q_w, depth, backend=self.backend,
+            doc_filter=None if flt is None else flt["sparse"])
+
+    def _hybrid_rows_host(self, reqs, depth, flt=None):
+        """Host-fused hybrid: each engine's candidate rows at the candidate
+        depth, fused by ``search.fusion.fuse`` (or ``fuse_rrf``) itself. A
+        doc found by one engine only gets 0 from the other. The sparse
+        search runs on the side thread, so both engines' device work and
+        copies overlap."""
+        cand = max(self.candidate_depth or depth, depth)
+        sparse_fut = self._engine_pool.submit(
+            self._sparse_rows, reqs, cand, flt)
+        d_s, d_i = self._dense_rows(reqs, cand, flt)
+        s_s, s_i = sparse_fut.result()
+        runs = []
+        for rows_s, rows_i in ((d_s, d_i), (s_s, s_i)):
+            run = {}
+            for q in range(len(reqs)):
+                srow, irow = rows_s[q], rows_i[q]
+                if len(irow):
+                    # rows are score-descending
+                    run[str(q)] = {"docs": dict(zip(irow, map(float, srow))),
+                                   "max_score": float(srow[0]),
+                                   "min_score": float(srow[-1])}
+            runs.append(run)
+        fuse_fn = fuse_rrf if self.fusion_rule == "rrf" else fuse
+        fused = fuse_fn(runs, [self.alpha, 1.0 - self.alpha])
+        out_s: List[List[float]] = []
+        out_i: List[List[object]] = []
+        score_of = operator.itemgetter(1)
+        for q in range(len(reqs)):
+            ranked = sorted(fused.get(str(q), {}).items(), key=score_of,
+                            reverse=True)[:depth]
+            out_i.append([doc for doc, _ in ranked])
+            out_s.append([sc for _, sc in ranked])
+        return out_s, out_i

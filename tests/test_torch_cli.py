@@ -189,8 +189,9 @@ def test_search_cli_takes_bf16_dense_and_writes_a_trace(
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--fusion-mode", "device"], "Queue 1 #5"),
-    (["--eval-mode", "device"], "Queue 1 #5"),
+    (["--fusion-mode", "device"], "needs both --passage-reps"),
+    (["--eval-mode", "device", "--save-dir", "runs"],
+     "never materializes runs"),
     (["--impact-wire", "compact48"], "Queue 1 #4"),
     (["--dense-dtype", "int8"], "Queue 1 #5"),
     (["--ann-rank", "16"], "Queue 1 #5"),
@@ -203,6 +204,41 @@ def test_search_cli_rejects_what_is_not_ported(data_root, capsys, flags,
         cli_search.main(_common(data_root) + base + flags)
     assert e.value.code == 2
     assert match in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("eval_mode", ["host", "device"])
+def test_search_cli_device_fusion_matches_jax_library(
+        data_root, jax_model, jax_weights, tmp_path, capsys, eval_mode):
+    """``--fusion-mode device`` (and ``--eval-mode device``): the printed
+    fusion recall and MRR equal the JAX package's ``run_search`` on the
+    device routes over the same artifacts."""
+    out = tmp_path / "port"
+    cli_encode.main(_common(data_root) + [
+        "--encode-type", "image", "--dense-output-dir", str(out / "dense"),
+        "--sparse-output-dir", str(out / "sparse")])
+    capsys.readouterr()
+    dense_dir, sparse_dir = _leaf(out / "dense", "image"), \
+        _leaf(out / "sparse", "image")
+    cli_index.main(["--input", str(sparse_dir), "--index", str(out / "idx"),
+                    "--device", "cpu"])
+    capsys.readouterr()
+    cli_search.main(_common(data_root) + [
+        "--passage-reps", str(dense_dir), "--sparse-index",
+        str(out / "idx"), "--depth", "20", "--metrics", "mrr",
+        "--fusion-mode", "device", "--eval-mode", eval_mode])
+    summary = capsys.readouterr().out.strip()
+
+    params, arch, tok, tmpl = jax_model
+    corpus = JCorpus("flickr", "test", str(data_root))
+    jout = j_run_search(
+        corpus.examples("full"), params, arch, tok, tmpl, query_type="text",
+        sparse_cfg=JSparseConfig(), search_cfg=JSearchConfig(depth=20),
+        dense_index=JDenseFlatIndex.load(str(dense_dir)),
+        impact_index=JImpactIndex.load(str(out / "idx")), batch_size=4,
+        metrics=["mrr"], fusion_mode="device", eval_mode=eval_mode,
+        get_target=lambda q: corpus.get_target(q, "text"))
+    assert summary == jout.summary()
+    assert summary.startswith("fusion recall: r@1 ") and "mrr@1" in summary
 
 
 @pytest.mark.parametrize("flags,match", [

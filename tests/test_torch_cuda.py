@@ -1,8 +1,11 @@
 """PyTorch port on the card: the CUDA TAAT and flash-attention kernels
 (forward, and the dq and dkv backward kernels) against their plain PyTorch
-versions, and the tiny offline evaluation path on the card against the
-same path on the CPU (its tolerances are in its docstring). Marked ``cuda``; each test skips where no card is present (decided
-inside the test, so every pytest worker collects the same tests). This file
+versions, the filtered TAAT top-k against the plain one, the fused hybrid
+searcher against the host fuse, and the tiny offline evaluation path on
+the card against the same path on the CPU (the last three tests'
+tolerances are in their docstrings). Marked ``cuda``; each test skips
+where no card is present (decided inside the test, so every pytest worker
+collects the same tests). This file
 imports nothing of JAX, so it also runs where JAX is absent:
 
     pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -486,3 +489,88 @@ def test_offline_path_on_the_card_matches_the_cpu(tmp_path):
                     assert doc in b and abs(b[doc] - s) <= tol + 1e-12
     assert set(g_res.fusion_run) == set(c_res.fusion_run)
     assert g_res.summary().count("recall") == 3
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.float32])
+def test_filtered_taat_topk_equals_plain(dtype):
+    """The filtered TAAT top-k on the card (kernel scores, -inf for the
+    columns the mask excludes, top-k) against the same program on the
+    CPU (the plain scores): equal scores exactly (integer weights), equal
+    doc sets up to docs tied at the cut, no excluded or padding column."""
+    dev = _card()
+    from mllm_sparse_retrieval_tpu_torch.ops import score_programs as SP
+    from mllm_sparse_retrieval_tpu_torch.ops.packing import unpack_topk
+
+    rng = np.random.default_rng(11)
+    t, n_pad, n_valid, b, q, k = 300, 26624, 25010, 8, 64, 100
+    matrix = np.zeros((t + 1, n_pad), np.float32)
+    matrix[1:, :n_valid] = rng.integers(0, 350, size=(t, n_valid))
+    q_idx = rng.integers(0, t, size=(b, q)).astype(np.int32)
+    q_w = rng.integers(-5, 300, size=(b, q)).astype(np.float32)
+    mask = rng.random(n_pad) < 0.1
+    mask[n_valid:] = True                 # padding columns stay out anyway
+    out = []
+    for where in ("cpu", dev):
+        K.reset_launch_count()
+        packed = SP._taat_topk(
+            torch.from_numpy(matrix).to(dtype).to(where),
+            torch.from_numpy(q_idx).to(where),
+            torch.from_numpy(q_w).to(where), n_valid, k,
+            torch.from_numpy(mask).to(where))
+        out.append((unpack_topk(packed.cpu().numpy()), K.launch_count()))
+    ((cs, ci), c_n), ((gs, gi), g_n) = out
+    assert (c_n, g_n) == (0, 1)
+    np.testing.assert_array_equal(gs, cs)
+    for r in range(b):
+        assert mask[gi[r]].all() and (gi[r] < n_valid).all()
+        above = gs[r] > gs[r, -1]
+        assert set(gi[r][above]) == set(ci[r][above])
+
+
+def test_fused_searcher_on_the_card_equals_host_fuse():
+    """``FusedHybridSearcher`` on the card (TAAT kernel, f32 MIPS with TF32
+    off, fusion) against ``search.fusion.fuse`` (float64) of the two
+    engines' own runs on the card: the same doc sets over the whole union,
+    fused scores within 1e-5."""
+    dev = _card()
+    from mllm_sparse_retrieval_tpu_torch.index import (
+        DenseFlatIndex, ImpactIndex)
+    from mllm_sparse_retrieval_tpu_torch.search.device_fusion import (
+        FusedHybridSearcher)
+    from mllm_sparse_retrieval_tpu_torch.search.fusion import fuse
+    from mllm_sparse_retrieval_tpu_torch.search.runs import make_run
+
+    rng = np.random.default_rng(12)
+    n_docs, dim, n_terms, n_q, depth = 3000, 64, 500, 20, 50
+    doc_ids = [f"d{i}" for i in range(n_docs)]
+    impact = ImpactIndex(device=dev)
+    for d in doc_ids:
+        terms = rng.choice(n_terms, size=rng.integers(5, 30), replace=False)
+        impact.add(d, {int(x): int(rng.integers(1, 300)) for x in terms})
+    impact.finalize()
+    order = rng.permutation(n_docs)
+    reps = rng.normal(size=(n_docs, dim)).astype(np.float32)
+    dense = DenseFlatIndex(device=dev)
+    dense.add(reps[order], [doc_ids[i] for i in order])
+    q_reps = rng.normal(size=(n_q, dim)).astype(np.float32)
+    q_dicts = [{int(x): int(rng.integers(1, 10))
+                for x in rng.choice(n_terms, 20, replace=False)}
+               for _ in range(n_q)]
+    qids = [doc_ids[7 * i] for i in range(n_q)]
+    q_idx, q_w = impact.encode_queries(q_dicts)
+    K.reset_launch_count()
+    run = FusedHybridSearcher(dense, impact, alpha=0.4).search_run(
+        q_reps, q_idx, q_w, qids, depth, remove_query=True,
+        out_depth=2 * depth)
+    assert K.launch_count() == 1
+    d_s, d_i = dense.search_ids(q_reps, depth)
+    s_s, s_i = impact.search_encoded(q_idx, q_w, depth, backend="taat")
+    host = fuse([make_run(qids, d_s.tolist(), d_i, remove_query=True,
+                          scores_sorted=True),
+                 make_run(qids, s_s, s_i, remove_query=True,
+                          scores_sorted=True)], [0.4, 0.6])
+    assert set(run) == set(host)
+    for q in run:
+        assert set(run[q]) == set(host[q]) and q not in run[q]
+        for doc, s in host[q].items():
+            assert abs(run[q][doc] - s) <= 1e-5, (q, doc)

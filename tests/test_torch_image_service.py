@@ -183,8 +183,9 @@ def test_image_search_matches_jax_service(image_setup, backend):
 
 def test_image_query_validation(image_setup):
     _, enc, _, index = image_setup
-    svc = RetrievalService(index, query_encoder=enc, depth_levels=(DEPTH,),
-                           max_batch=2, max_wait_ms=1.0)
+    svc = RetrievalService(impact_index=index, query_encoder=enc,
+                           depth_levels=(DEPTH,), max_batch=2,
+                           max_wait_ms=1.0)
     try:
         with pytest.raises(ValueError, match=r"\[H, W, 3\]"):
             svc.search(image=np.zeros((8, 8), np.float32))
@@ -194,7 +195,8 @@ def test_image_query_validation(image_setup):
             svc.search(image=np.zeros((8, 8, 3)), terms={1: 1.0})
     finally:
         svc.close()
-    bare = RetrievalService(index, depth_levels=(DEPTH,), max_batch=2)
+    bare = RetrievalService(impact_index=index, depth_levels=(DEPTH,),
+                            max_batch=2)
     try:
         with pytest.raises(ValueError, match="query_encoder"):
             bare.search(image=np.zeros((8, 8, 3)))

@@ -1,8 +1,9 @@
 """The PyTorch port and ``chip_smoke.py`` import nothing of JAX and nothing
 of the JAX package (nor Pillow, which the card machine lacks), every port
 module (the offline evaluation path's ``cli``, ``eval``, ``search`` and
-``index/native`` included) imports with JAX blocked, and the smoke check
-refuses to report a result without a card."""
+``index/native``, and the hybrid path's fusion, rank, filter and service
+modules included) imports with JAX blocked, and the smoke check refuses to
+report a result without a card."""
 
 import os
 import re
@@ -38,6 +39,9 @@ OFFLINE = ("cli.common", "cli.encode", "cli.index", "cli.search",
            "data.karpathy", "eval.metrics", "eval.recall", "index.dense",
            "index.native", "ops.mips", "ops.stream", "pipelines.encode",
            "search.engine", "search.fusion", "search.runs")
+# the hybrid path's modules
+HYBRID = ("eval.device_eval", "index.filter", "ops.eval_ranks",
+          "ops.hybrid_fusion", "search.device_fusion", "serving.service")
 
 
 def _env():
@@ -53,7 +57,7 @@ def test_port_and_chip_smoke_import_without_jax():
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 20
     imported = set(proc.stdout.splitlines()[-2].split())
-    missing = {m for m in OFFLINE
+    missing = {m for m in OFFLINE + HYBRID
                if f"mllm_sparse_retrieval_tpu_torch.{m}" not in imported}
     assert missing == set()
 
@@ -67,7 +71,7 @@ def test_no_import_statement_names_jax_or_the_jax_package():
     assert len(files) > 20
     scanned = {str(f.relative_to(PORT)) for f in files
                if f.is_relative_to(PORT)}
-    assert {m.replace(".", "/") + ".py" for m in OFFLINE
+    assert {m.replace(".", "/") + ".py" for m in OFFLINE + HYBRID
             if m != "index.native"} | {"index/native/__init__.py"} <= scanned
     hits = [f"{f}: {m.group(0).strip()}" for f in files
             for m in pattern.finditer(f.read_text())]

@@ -467,9 +467,6 @@ def test_run_search_runs_only_without_targets(world):
     (dict(fusion_mode="device", fusion_rule="rrf"), ValueError,
      "host-path only"),
     (dict(fusion_mode="device", impact_index=None), ValueError, "BOTH a"),
-    (dict(fusion_mode="device"), NotImplementedError, "Queue 1 #5"),
-    (dict(fusion_mode="device", eval_mode="device"), NotImplementedError,
-     "Queue 1 #5"),
     (dict(impact_wire="compact48"), NotImplementedError, "Queue 1 #4"),
 ])
 def test_run_search_argument_checks(world, kw, err, match):
@@ -492,6 +489,76 @@ def test_run_search_argument_checks(world, kw, err, match):
         with pytest.raises(ValueError, match=match):
             jengine.run_search(world["jcorpus"].examples("full")[:2],
                                *world["model"]["j"], **jargs)
+
+
+def _device_run(world, qtype, corpus_kind, sparse_kind, **kw):
+    got, want, tgt = _run(world, qtype, corpus_kind, sparse_kind,
+                          metrics=("mrr", "ndcg", "map"), **kw)
+    for out in (got, want):
+        assert out.dense_run == out.sparse_run == {}
+    return got, want, tgt
+
+
+@pytest.mark.parametrize("qtype,corpus_kind,sparse_kind,remove_query", [
+    ("text", "image", "jsonl", False),
+    ("image", "text", "terms", False),
+    ("text", "text", "jsonl", True),
+])
+def test_run_search_device_fusion_matches_jax(world, qtype, corpus_kind,
+                                              sparse_kind, remove_query):
+    """``fusion_mode="device"``: the fused run and its recall and metrics
+    against the JAX package's device route, and the run against the host
+    route's fused run of the port cut to ``depth``."""
+    scfg = dict(depth=DEPTH, remove_query=remove_query)
+    got, want, tgt = _device_run(world, qtype, corpus_kind, sparse_kind,
+                                 fusion_mode="device", search_cfg=scfg)
+    assert got.dense_recall is got.sparse_recall is None
+    host, _, _ = _run(world, qtype, corpus_kind, sparse_kind,
+                      search_cfg=dict(scfg))
+    tol = _fusion_tol(host, 0.5)
+    # the device route keeps the top depth of the fused union: the host
+    # route's fused run cut there
+    cut = {q: dict(sorted(d.items(), key=lambda kv: -kv[1])[:DEPTH])
+           for q, d in host.fusion_run.items()}
+    _same_run(got.fusion_run, cut, tol)
+    worst = _same_run(got.fusion_run, want.fusion_run, tol)
+    _same_eval(got, want, tgt, dict(fusion=2 * worst + 1e-6))
+    if remove_query:
+        for q, rows in _rows_of(got.fusion_run).items():
+            assert q not in dict(rows)
+
+
+@pytest.mark.parametrize("fusion_mode,dense,sparse", [
+    ("device", True, True),
+    ("host", True, False),
+    ("host", False, True),
+])
+def test_run_search_device_eval_matches_jax(world, fusion_mode, dense,
+                                            sparse):
+    """``eval_mode="device"``: no run leaves the device; recall and the
+    metrics equal the JAX package's device evaluation and the port's host
+    evaluation of the same search."""
+    kw = dict(fusion_mode=fusion_mode, dense=dense, sparse=sparse)
+    got, want, tgt = _device_run(world, "text", "image", "jsonl",
+                                 eval_mode="device", **kw)
+    assert got.fusion_run == {}
+    host, _, _ = _run(world, "text", "image", "jsonl",
+                      metrics=("mrr", "ndcg", "map"), **kw)
+    for name in ("dense", "sparse", "fusion"):
+        g, w, h = (getattr(o, f"{name}_recall") for o in (got, want, host))
+        assert (g is None) == (w is None) == (h is None)
+        if g is None:
+            continue
+        run = getattr(host, f"{name}_run")
+        assert _no_target_tied_at_a_cut(run, tgt, KS, 2e-5)
+        for other in (w, h):
+            assert (g.recalls, g.hits, g.num_queries) == \
+                (other.recalls, other.hits, other.num_queries), name
+        for extras in (want.extra_metrics[name], host.extra_metrics[name]):
+            assert set(extras) == set(got.extra_metrics[name])
+            for m, r in extras.items():
+                assert got.extra_metrics[name][m].values == pytest.approx(
+                    r.values, abs=1e-12)
 
 
 def test_canonical_map_is_cached_per_tokenizer(world):

@@ -149,8 +149,9 @@ def test_text_search_matches_jax_service(slice_setup, backend):
 
 def test_terms_queries_and_depth_cut(slice_setup):
     _, enc, _, index, _ = slice_setup
-    svc = RetrievalService(index, query_encoder=enc, depth_levels=(5, 20),
-                           max_batch=4, max_wait_ms=1.0)
+    svc = RetrievalService(impact_index=index, query_encoder=enc,
+                           depth_levels=(5, 20), max_batch=4,
+                           max_wait_ms=1.0)
     try:
         key = next(iter(index.term_to_idx))
         rows = svc.search(terms={key: 3.0, -1: 2.0}, depth=3)
@@ -162,8 +163,8 @@ def test_terms_queries_and_depth_cut(slice_setup):
 
 def test_validation_and_close(slice_setup):
     _, enc, _, index, _ = slice_setup
-    svc = RetrievalService(index, depth_levels=(10,), max_batch=2,
-                           max_wait_ms=1.0)
+    svc = RetrievalService(impact_index=index, depth_levels=(10,),
+                           max_batch=2, max_wait_ms=1.0)
     thread = svc._batcher._thread
     assert thread.daemon
     try:
@@ -179,8 +180,9 @@ def test_validation_and_close(slice_setup):
     assert not thread.is_alive()
     with pytest.raises(RuntimeError, match="closed"):
         svc.search(terms={1: 1.0})
-    svc = RetrievalService(index, query_encoder=enc, depth_levels=(10,),
-                           max_batch=2, max_wait_ms=1.0)
+    svc = RetrievalService(impact_index=index, query_encoder=enc,
+                           depth_levels=(10,), max_batch=2,
+                           max_wait_ms=1.0)
     try:
         with pytest.raises(ValueError, match="not both"):
             svc.search(text="hello", terms={1: 1.0})
