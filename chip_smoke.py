@@ -38,7 +38,14 @@ the device, filtered text queries, RRF and dense mode, every result held
 to the host fuse (float64) of the two engines' own runs within 1e-5, with
 one TAAT launch per micro-batch and the flash kernel 32 times per image
 micro-batch, and the text queries served through a sparse and a hybrid
-service in turns; and contrastive LoRA
+service in turns; the rest of search beside those indexes: the compact48
+wire (served text, filtered, the 2^24 refusal; equal to the i32 wire),
+``explain`` of served tops, pipelined streams on both wires (equal to
+``search_encoded``, one TAAT launch per chunk), SQ8 int8 and ANN dense
+indexes in dense and device-fused hybrid modes (exact int32 products,
+scores within 1e-5 relative of float64, ANN with every candidate equal to
+the exact index, candidate recall on low-rank rows), and the bf16 search's
+memory bound; and contrastive LoRA
 training, a few ``ContrastiveTrainer.train_on_batch`` steps on seeded
 image-caption pairs whose 3,072-token image prompts take the flash kernels
 forward and backward. The whole tower is also run, and differentiated,
@@ -141,6 +148,20 @@ HYB_CAND, HYB_ALPHA, HYB_TOL, HYB_PLANT, HYB_ALLOW_MOD = 100, 0.5, 1e-5, 3, 10
 HYB_RRF_QUERIES = 8
 HYB_AB_ROUNDS = 3               # text serving rounds per side, in turns
 HYB_STAGES = ("impact_search", "dense_search", "fusion")
+# search tiers, beside the hybrid phase's dense rows and impact index: the
+# compact48 wire (sparse, filtered), streams of TIER_STREAMS batches of
+# TIER_STREAM_B queries, an SQ8 int8 and an ANN dense index (rank, rescored
+# candidates), explain on TIER_EXPLAIN queries. Served and returned dense
+# scores must lie within TIER_REL relative of their float64 (SQ8: the
+# dequantized formula) or exact-f32 counterparts, plus one f32 rounding of
+# the magnitude sum_i |q_i c_i|. ANN candidate recall@DEPTH against the
+# exact index on rows near a TIER_LOW_RANK-dim subspace (noise
+# TIER_LOW_NOISE per element, the JAX package's ANN test construction) must
+# reach TIER_RECALL_FLOOR
+TIER_STREAMS, TIER_STREAM_B, TIER_EXPLAIN = 4, 64, 8
+TIER_ANN_RANK, TIER_ANN_CAND, TIER_REL = 64, 1024, 1e-5
+TIER_LOW_RANK, TIER_LOW_NOISE, TIER_RECALL_FLOOR = 48, 0.02, 0.95
+TIER_PROFILE_ITERS = 20         # host-clock calls of each dense search
 
 
 def progress(phase: str, msg: str) -> None:
@@ -1944,10 +1965,402 @@ def phase_hybrid(params, arch, arch_img, tok, tmpl, index, cmap, texts,
     progress("hybrid", f"all {len(images)} image results equal the host "
              f"fuse ({n_b} batches, each with a doc found by both runs); "
              f"phase {time.monotonic() - t_phase:.2f} s")
+    rows, lookup = dense._host_corpus(), list(dense.lookup)
     del dense, dense_bf16
     torch.cuda.empty_cache()
-    return taat_total, flash_total
+    return taat_total, flash_total, (rows, lookup, text_vecs)
 
+
+def dense_scores_ok(q, rows, got, ref_fn, label):
+    """Every returned (doc positions, scores) row of each query within
+    TIER_REL relative of ``ref_fn(query, positions)`` (float64), plus one
+    f32 rounding of the magnitude sum_i |q_i c_i|."""
+    import numpy as np
+
+    for r, (pos, scores) in enumerate(got):
+        pos = np.asarray(pos, np.int64)
+        ref = ref_fn(r, pos)
+        mag = np.abs(rows[pos].astype(np.float64)) @ np.abs(
+            q[r].astype(np.float64))
+        err = np.abs(np.asarray(scores, np.float64) - ref)
+        if not (err <= TIER_REL * np.abs(ref) + 2.0 ** -24 * mag).all():
+            raise AssertionError(f"{label}: query {r} scores off by "
+                                 f"{err.max():.3e} (scores {scores})")
+
+
+def low_rank_rows(rng, n, d):
+    """Rows near a TIER_LOW_RANK-dim subspace (the JAX package's ANN test
+    construction, at the model's dense width)."""
+    import numpy as np
+
+    basis = np.linalg.qr(rng.standard_normal((d, TIER_LOW_RANK)))[0]
+    u = rng.standard_normal((n, TIER_LOW_RANK))
+    return (u @ basis.T + TIER_LOW_NOISE * rng.standard_normal((n, d))
+            ).astype(np.float32)
+
+
+def phase_tiers(params, arch, tok, tmpl, lexicon, index, cmap, texts, host,
+                card):
+    """The rest of search on the full-width text tower, beside the hybrid
+    phase's dense rows and impact index: the compact48 wire (served text,
+    filtered, and its 2^24 refusal), ``explain`` on served tops, pipelined
+    streams on both wires, SQ8 and ANN dense tiers in dense and
+    device-fused hybrid modes, and the bf16 search's memory bound; every
+    result held to its exact counterpart. Returns the TAAT launches of the
+    served and streamed runs."""
+    import numpy as np
+    import torch
+
+    from mllm_sparse_retrieval_tpu_torch.configs import SparseConfig
+    from mllm_sparse_retrieval_tpu_torch.index import (
+        DenseANNIndex, DenseFlatIndex)
+    from mllm_sparse_retrieval_tpu_torch.ops import impact_kernel as K
+    from mllm_sparse_retrieval_tpu_torch.ops import mips
+    from mllm_sparse_retrieval_tpu_torch.ops.ann import (
+        ann_topk_packed, ip_projection)
+    from mllm_sparse_retrieval_tpu_torch.ops.packing import pack_topk
+    from mllm_sparse_retrieval_tpu_torch.ops.score_programs import (
+        full_f32_matmul)
+    from mllm_sparse_retrieval_tpu_torch.serving import (
+        OnlineQueryEncoder, RetrievalService)
+
+    t_phase = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    rows, lookup, text_vecs = host
+    n, dim = rows.shape
+    pos = {d: i for i, d in enumerate(lookup)}
+    txt_enc = RecordingEncoder(OnlineQueryEncoder(
+        params, arch, tok, tmpl, SparseConfig(), max_text_len=64,
+        device=DEVICE))
+    allow_ids = index.doc_ids[::HYB_ALLOW_MOD]
+    lines, taat_total = {}, 0
+
+    def served(label, make, kind, queries, taat_per_batch, **extra):
+        """``queries`` through a fresh service, warmed up once: the
+        results; holds the TAAT launches to ``taat_per_batch`` per
+        micro-batch and keeps the latency line."""
+        nonlocal taat_total
+        svc = make()
+        try:
+            svc.search(**{kind: queries[0]}, **extra,
+                       timeout=WARMUP_TIMEOUT_S)
+            torch.cuda.synchronize()
+            txt_enc.calls.clear()
+            K.reset_launch_count()
+            b0 = svc.stats()["batches"]
+            res, lat, wall = serve(svc, kind, queries, N_THREADS,
+                                   REQUEST_TIMEOUT_S, SERVE_DEADLINE_S,
+                                   **extra)
+            taat, batches = K.launch_count(), svc.stats()["batches"] - b0
+        finally:
+            svc.close()
+        if taat != taat_per_batch * batches:
+            raise AssertionError(f"{label}: {taat} TAAT launches in "
+                                 f"{batches} micro-batches")
+        taat_total += taat
+        lines[label] = latency_line(lat, len(queries), wall)
+        return res
+
+    def sparse_service(wire):
+        return lambda: RetrievalService(
+            impact_index=index, query_encoder=txt_enc, backend="taat",
+            wire=wire, max_batch=MAX_BATCH, device_batch=MAX_BATCH,
+            depth_levels=(DEPTH,), max_wait_ms=10.0,
+            filters={"tenth": allow_ids})
+
+    # ---- compact48 wire: served text, then a filtered share ----------------
+    results, terms = {}, {}
+    for wire in ("i32", "compact48"):
+        for flt in (None, "tenth"):
+            label = f"sparse {wire}" + (" filtered" if flt else "")
+            extra = {} if flt is None else {"filter": flt}
+            results[label] = served(label, sparse_service(wire), "text",
+                                    texts, 1, **extra)
+            terms[label] = {q: txt_enc.terms[q] for q in texts}
+    allowed = set(allow_ids)
+    for flt in ("", " filtered"):
+        i32, c48 = f"sparse i32{flt}", f"sparse compact48{flt}"
+        for q, a, b in zip(texts, results[i32], results[c48]):
+            ta, tb = terms[i32][q], terms[c48][q]
+            if not (np.array_equal(ta.token_ids, tb.token_ids)
+                    and np.array_equal(ta.weights, tb.weights)):
+                raise AssertionError(f"{c48}: the encoder selected other "
+                                     f"terms for {q!r} than in the i32 run")
+            if not (sorted(s for _, s in a) == sorted(s for _, s in b)
+                    and same_up_to_ties(b, a)):
+                raise AssertionError(f"{c48}: {q!r} got {b}, the i32 wire "
+                                     f"{a}")
+            if flt and not {d for d, _ in b} <= allowed:
+                raise AssertionError(f"{c48}: a doc the filter excludes")
+    check_results(index, cmap, [repr(q) for q in texts],
+                  [terms["sparse compact48"][q] for q in texts],
+                  results["sparse compact48"])
+    q_idx, q_w = index.encode_query_terms(
+        [terms["sparse compact48"][q] for q in texts[:MAX_BATCH]], cmap)
+    top_w = float(index.doc_weights.max())
+    live = max(int((q_w > 0).sum(axis=1).min()), 1)
+    big = np.where(q_w > 0, np.ceil(2.0 ** 24 / top_w / live) + 1,
+                   0).astype(np.float32)
+    try:
+        index.search_encoded(q_idx, big, DEPTH, backend="taat",
+                             wire="compact48")
+    except ValueError as e:
+        if "2^24" not in str(e):
+            raise
+    else:
+        raise AssertionError("compact48 served a batch whose score bound "
+                             "reaches 2^24")
+    progress("tiers", f"compact48: {len(texts)} text queries and "
+             f"{len(texts)} filtered ones served on each wire, one TAAT "
+             f"launch per micro-batch, results equal to the i32 wire's "
+             f"(scores exactly, ties at the cut apart) and to the matmul "
+             f"backend; a batch bounded at "
+             f"{float(big.sum(axis=1).max()) * top_w:.4g} >= 2^24 refused; "
+             + "; ".join(f"{k} {v}" for k, v in lines.items())
+             + f"; card {card}")
+
+    # ---- explain on the served tops ----------------------------------------
+    for q, row in list(zip(texts, results["sparse compact48"]))[
+            :TIER_EXPLAIN]:
+        doc, score = row[0]
+        ex = index.explain(terms_dict(terms["sparse compact48"][q], cmap),
+                           doc)
+        if ex["score"] != score:
+            raise AssertionError(f"explain {q!r}: {ex['score']} != served "
+                                 f"{score}")
+
+    # ---- streams: TIER_STREAMS batches of TIER_STREAM_B queries ------------
+    stream_texts = captions(np.random.default_rng(SEED + 5), lexicon,
+                            TIER_STREAMS * TIER_STREAM_B, 10, 15)
+    batches = []
+    for i in range(TIER_STREAMS):
+        chunk = stream_texts[i * TIER_STREAM_B:(i + 1) * TIER_STREAM_B]
+        _, st = txt_enc._enc.encode_texts(chunk, pad_to=TIER_STREAM_B)
+        batches.append(index.encode_query_terms(st, cmap))
+    chunks = TIER_STREAMS * -(-TIER_STREAM_B // index._search_plan(
+        "taat", DEPTH)["max_b"])
+    stream_ms = {}
+    for wire in ("i32", "compact48"):
+        want = [index.search_encoded(qi, qw, DEPTH, backend="taat",
+                                     wire=wire) for qi, qw in batches]
+        torch.cuda.synchronize()
+        K.reset_launch_count()
+        t0 = time.monotonic()
+        got = list(index.search_encoded_stream(iter(batches), DEPTH,
+                                               backend="taat", wire=wire))
+        stream_ms[wire] = (time.monotonic() - t0) * 1e3
+        launches = K.launch_count()
+        if launches != chunks or len(got) != TIER_STREAMS:
+            raise AssertionError(f"stream {wire}: {launches} TAAT launches "
+                                 f"for {chunks} chunks, {len(got)} results")
+        taat_total += launches
+        for (gs, gi), (ws, wi) in zip(got, want):
+            if gs != ws or not all(
+                    same_up_to_ties(list(zip(a, x)), list(zip(b, x)))
+                    for x, a, b in zip(gs, gi, wi)):
+                raise AssertionError(f"stream {wire}: a batch differs from "
+                                     f"search_encoded")
+    progress("tiers", f"streams: {TIER_STREAMS} batches of {TIER_STREAM_B} "
+             f"queries on each wire equal search_encoded batch by batch, "
+             f"{chunks} TAAT launches each ({chunks} chunks); stream host "
+             f"clock " + ", ".join(f"{w} {v:.2f} ms"
+                                   for w, v in stream_ms.items())
+             + f"; explain of {TIER_EXPLAIN} served tops equals the served "
+             f"score")
+
+    # ---- dense tiers --------------------------------------------------------
+    flat = DenseFlatIndex(dim=dim, device=DEVICE)
+    flat.add(rows, lookup)
+    dense8 = DenseFlatIndex(dim=dim, dtype=torch.int8, device=DEVICE)
+    dense8.add(rows, lookup)
+    t0 = time.monotonic()
+    proj = ip_projection(rows, TIER_ANN_RANK)
+    proj_s = time.monotonic() - t0
+    ann = DenseANNIndex.from_flat(flat, rank=TIER_ANN_RANK,
+                                  candidates=TIER_ANN_CAND)
+    ann_all = DenseANNIndex.from_flat(flat, rank=TIER_ANN_RANK,
+                                      candidates=n)
+    ann._proj = ann_all._proj = proj
+    for d in (flat, dense8, ann, ann_all):
+        d._materialize()
+    torch.cuda.synchronize()
+    q_text = np.stack(text_vecs)
+
+    # SQ8: int32 accumulators exact, scores = the dequantized formula
+    c8 = dense8._corpus_dev[:n, :dim].cpu().numpy()
+    row_scale = dense8._row_scale_dev[:n].cpu().numpy().astype(np.float64)
+    q8_all, qs_all = dense8._quantize_rows(q_text)
+    sample = q8_all[:MAX_BATCH // 2]
+    q8p = np.zeros((sample.shape[0], dense8._corpus_dev.shape[1]), np.int8)
+    q8p[:, :dim] = sample
+    acc = mips._int8_matmul(torch.from_numpy(q8p).to(DEVICE),
+                            dense8._corpus_dev)[:, :n].cpu().numpy()
+    if not np.array_equal(acc, sample.astype(np.int64)
+                          @ c8.astype(np.int64).T):
+        raise AssertionError("SQ8: int32 accumulators differ from an int64 "
+                             "numpy product")
+    s8, i8 = dense8.search_ids(q_text, DEPTH, batch_size=MAX_BATCH)
+    dense_scores_ok(
+        q_text, rows, [([pos[d] for d in r], s) for r, s in zip(i8, s8)],
+        lambda r, p: (c8[p].astype(np.int64) @ q8_all[r].astype(np.int64))
+        * (float(qs_all[r]) * row_scale[p]),
+        "SQ8 scores against the float64 dequantized formula")
+    sf, i_f = flat.search_ids(q_text, DEPTH, batch_size=MAX_BATCH)
+    overlap8 = np.mean([len(set(a) & set(b)) / DEPTH
+                        for a, b in zip(i8, i_f)])
+
+    # ANN: exact scores, complete candidates = exact results, recall
+    sa, ia = ann.search_ids(q_text, DEPTH, batch_size=MAX_BATCH)
+    dense_scores_ok(
+        q_text, rows, [([pos[d] for d in r], s) for r, s in zip(ia, sa)],
+        lambda r, p: rows[p].astype(np.float64) @ q_text[r].astype(
+            np.float64), "ANN scores against float64")
+    sx, ix = ann_all.search_ids(q_text, DEPTH, batch_size=MAX_BATCH)
+    for r in range(len(q_text)):
+        if not close_up_to_ties(list(zip(ix[r], sx[r])),
+                                list(zip(i_f[r], sf[r])), HYB_TOL):
+            raise AssertionError(f"ANN with candidates >= N: query {r} "
+                                 f"differs from the exact index")
+    overlap_ann = np.mean([len(set(a) & set(b)) / DEPTH
+                           for a, b in zip(ia, i_f)])
+    del ann_all
+    torch.cuda.empty_cache()
+    low = low_rank_rows(np.random.default_rng(SEED + 6), n + 32, dim)
+    low_q, low = low[:32], low[32:]
+    low_exact = DenseFlatIndex(dim=dim, device=DEVICE)
+    low_exact.add(low, lookup)
+    low_ann = DenseANNIndex(dim=dim, device=DEVICE, rank=TIER_ANN_RANK,
+                            candidates=TIER_ANN_CAND)
+    low_ann.add(low, lookup)
+    _, le = low_exact.search_ids(low_q, DEPTH, batch_size=MAX_BATCH)
+    _, la = low_ann.search_ids(low_q, DEPTH, batch_size=MAX_BATCH)
+    recall = np.mean([len(set(a) & set(b)) / DEPTH for a, b in zip(la, le)])
+    if recall < TIER_RECALL_FLOOR:
+        raise AssertionError(f"ANN candidate recall@{DEPTH} {recall:.4f} on "
+                             f"low-rank rows < {TIER_RECALL_FLOOR}")
+    del low_exact, low_ann, low
+    torch.cuda.empty_cache()
+    progress("tiers", f"SQ8 [{n} x {dim}] int8 (padded to "
+             f"{tuple(dense8._corpus_dev.shape)}): int32 accumulators of "
+             f"{sample.shape[0]} queries equal an int64 numpy product; "
+             f"{len(q_text)} queries' scores within {TIER_REL} relative of "
+             f"the float64 dequantized formula; top-{DEPTH} overlap with "
+             f"the f32 index {overlap8:.4f}. ANN rank {TIER_ANN_RANK}, "
+             f"{TIER_ANN_CAND} candidates: ip_projection {proj_s:.2f} s at "
+             f"{n} x {dim}; every score within {TIER_REL} relative of "
+             f"float64; with {n} candidates equal to the exact index; "
+             f"top-{DEPTH} overlap with the f32 index {overlap_ann:.4f}; "
+             f"candidate recall@{DEPTH} on rank-{TIER_LOW_RANK} rows "
+             f"{recall:.4f} (floor {TIER_RECALL_FLOOR})")
+
+    # ---- dense tiers served: dense mode, then device-fused hybrid ---------
+    def dense_service(d):
+        return lambda: RetrievalService(
+            dense_index=d, max_batch=MAX_BATCH, device_batch=MAX_BATCH,
+            depth_levels=(DEPTH,), max_wait_ms=10.0)
+
+    def hybrid_service(d):
+        return lambda: RetrievalService(
+            d, index, query_encoder=txt_enc, backend="taat",
+            alpha=HYB_ALPHA, candidate_depth=HYB_CAND, max_batch=MAX_BATCH,
+            device_batch=MAX_BATCH, depth_levels=(DEPTH,), max_wait_ms=10.0)
+
+    n_b = {}
+    for name, d in (("f32", flat), ("int8", dense8), ("ann", ann)):
+        res = served(f"dense {name}", dense_service(d), "dense", text_vecs, 0)
+        ref_s, ref_i = d.search_ids(q_text, DEPTH, batch_size=MAX_BATCH)
+        for r, got in enumerate(res):
+            if not close_up_to_ties(got, list(zip(ref_i[r], ref_s[r])),
+                                    HYB_TOL):
+                raise AssertionError(f"dense {name}: query {r} differs "
+                                     f"from search_ids")
+        if name == "f32":
+            continue
+        res = served(f"hybrid {name}", hybrid_service(d), "text", texts, 1)
+        n_b[name] = check_hybrid(f"hybrid text, {name} dense index", txt_enc,
+                                 texts, res, d, index, cmap)
+    progress("tiers", f"dense mode (f32, int8, ANN) equals search_ids; "
+             f"device-fused hybrid with the int8 and the ANN index equals "
+             f"the host fuse of the two engines' runs within {HYB_TOL} "
+             f"({n_b['int8']} and {n_b['ann']} batches, each with a doc "
+             f"found by both runs), one TAAT launch per micro-batch; "
+             + "; ".join(f"{k} {v}" for k, v in lines.items()
+                         if k.startswith(("dense", "hybrid"))))
+
+    # ---- one dense search in each tier: device and host time ---------------
+    bf16 = DenseFlatIndex(dim=dim, dtype=torch.bfloat16, device=DEVICE)
+    bf16.add(rows, lookup)
+    bf16._materialize()
+    chunk = np.ascontiguousarray(q_text[:MAX_BATCH])
+    tier_ms = {}
+    for name, d in (("f32", flat), ("bf16", bf16), ("int8", dense8),
+                    ("ann", ann)):
+        def one(d=d):
+            d._dispatch_chunk(chunk, DEPTH).cpu()
+        busy, kernels, _, _ = profiled_again(one, stages=())
+        if busy <= 0.0:
+            raise AssertionError(f"the profiler saw no device time in the "
+                                 f"{name} dense search")
+        tier_ms[name] = (busy, kernels, host_ms(one, TIER_PROFILE_ITERS))
+    # the same programs on device tensors, replayed in a CUDA graph, beside
+    # the bytes each must read once (the corpus, or ANN's projected rows
+    # and its gathered candidate rows) at the card's memory rate
+    q_dev = torch.from_numpy(chunk).to(DEVICE)
+    q8c, qsc = dense8._quantize_rows(chunk)
+    q8_dev = torch.zeros((MAX_BATCH, dense8._corpus_dev.shape[1]),
+                         dtype=torch.int8, device=DEVICE)
+    q8_dev[:, :dim] = torch.from_numpy(q8c).to(DEVICE)
+    qs_dev = torch.from_numpy(qsc).to(DEVICE)
+    ann_k = min(TIER_ANN_CAND, n)
+
+    def bf16_whole_copy():
+        """The bf16 search before the fix: an f32 copy of the corpus."""
+        with full_f32_matmul():
+            scores = q_dev.bfloat16().float() @ bf16._corpus_dev.float().T
+        return pack_topk(*torch.topk(scores, DEPTH, dim=1))
+
+    programs = {
+        "f32": (lambda: mips.mips_topk_packed(q_dev, flat._corpus_dev,
+                                              DEPTH), n * dim * 4),
+        "bf16": (lambda: mips.mips_topk_packed(q_dev, bf16._corpus_dev,
+                                               DEPTH), n * dim * 2),
+        "bf16 with an f32 copy (PR 10)": (bf16_whole_copy, n * dim * 2),
+        "int8": (lambda: mips.mips_topk_packed_q8(
+            q8_dev, qs_dev, dense8._corpus_dev, dense8._row_scale_dev,
+            DEPTH, n), n * (dim + 4)),
+        "ann": (lambda: ann_topk_packed(
+            q_dev, ann._corpus_dev, ann._corpus_r_dev, ann._proj_dev, DEPTH,
+            ann_k), n * TIER_ANN_RANK * 4 + MAX_BATCH * ann_k * dim * 4),
+    }
+    graph_ms = {k: (device_ms(fn, TIER_PROFILE_ITERS),
+                    nbytes / HBM_BYTES_PER_S * 1e3)
+                for k, (fn, nbytes) in programs.items()}
+    # the bf16 search's peak: its allocation + scores + slack, no f32 copy
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    bf16.search(chunk, DEPTH)
+    torch.cuda.synchronize()
+    over = torch.cuda.max_memory_allocated() - before
+    slack = 2 * mips._WIDEN_BYTES + 8 * 2 ** 20
+    if over > MAX_BATCH * n * 4 + slack:
+        raise AssertionError(f"bf16 search peaked {over / 2 ** 20:.1f} MiB "
+                             f"over its allocation")
+    progress("tiers", f"one {MAX_BATCH}-query dense search at depth "
+             f"{DEPTH} (device ms in kernels and copies, host clock): "
+             + "; ".join(f"{k} {b:.4f} ms in {c}, {h:.3f} ms"
+                         for k, (b, c, h) in tier_ms.items())
+             + "; its program replayed in a CUDA graph (bytes bound): "
+             + "; ".join(f"{k} {g:.4f} ms ({b:.4f} ms)"
+                         for k, (g, b) in graph_ms.items())
+             + f"; bf16 search {over / 2 ** 20:.2f} MiB over its "
+             f"allocation (bound {(MAX_BATCH * n * 4 + slack) / 2 ** 20:.2f}"
+             f" MiB); peak {peak_gb:.2f} GB; phase "
+             f"{time.monotonic() - t_phase:.2f} s; card {card}")
+    del flat, dense8, ann, bf16
+    torch.cuda.empty_cache()
+    return taat_total
 
 def same_up_to_ties(got, want, depth=DEPTH):
     """Equal (doc, score) sets, except for docs tied at the depth cut."""
@@ -2183,16 +2596,21 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 9. hybrid dense + sparse serving ------------------------------------
-    hyb_taat, hyb_flash = phase_hybrid(params, spec.arch, arch_img, tok, tmpl,
-                                       index, cmap, texts, images,
-                                       sparse_lines, card)
+    hyb_taat, hyb_flash, dense_host = phase_hybrid(
+        params, spec.arch, arch_img, tok, tmpl, index, cmap, texts, images,
+        sparse_lines, card)
 
-    # ---- 10. offline evaluation: corpus -> encode -> indexes -> search -----
+    # ---- 10. search tiers: compact48, streams, SQ8, ANN, explain ----------
+    tier_taat = phase_tiers(params, spec.arch, tok, tmpl, lexicon, index,
+                            cmap, texts, dense_host, card)
+    del dense_host
+
+    # ---- 11. offline evaluation: corpus -> encode -> indexes -> search -----
     off_taat, off_flash = phase_offline(params, arch_img, tok, tmpl, lexicon,
                                         card)
     torch.cuda.empty_cache()
 
-    # ---- 11. contrastive LoRA training; flash against plain gradients --------
+    # ---- 12. contrastive LoRA training; flash against plain gradients --------
     trainer, batches, train_launches = phase_train(
         params, arch_img, tok, tmpl, lexicon, rng, seq)
     grad_check(trainer, batches[0])
@@ -2203,7 +2621,8 @@ def main() -> int:
         dict(name="taat_impact", route="cuda",
              source="mllm_sparse_retrieval_tpu_torch/csrc/taat.cu",
              replaces="mllm_sparse_retrieval_tpu/ops/impact_kernel.py:115",
-             launches=text_taat + img_taat + hyb_taat + off_taat,
+             launches=text_taat + img_taat + hyb_taat + tier_taat
+             + off_taat,
              max_abs_err=max_err,
              ms=served["ms"], plain_ms=served["plain_ms"],
              bound_ms=served["bound_ms"], bound_by=served["bound_by"],

@@ -4,7 +4,10 @@ Dense only (``--passage-reps``), sparse only (``--sparse-index``), or
 hybrid (both, fused with ``--alpha``: on the host, or on the device with
 ``--fusion-mode device``). Prints the recall summary (and ``--metrics``) of
 each run; ``--eval-mode device`` computes them from target ranks on the
-device and writes no run.
+device and writes no run. The dense tier is the exact flat index in f32,
+bf16 or int8 (``--dense-dtype``), or the ANN tier (``--ann-rank``); the
+sparse results come back on the i32 or the compact48 wire
+(``--impact-wire``).
 """
 
 from __future__ import annotations
@@ -18,17 +21,11 @@ from mllm_sparse_retrieval_tpu_torch.cli.common import (
     Profiler, StepTimer, add_common_args, build_everything, get_logger,
     sparse_config_from_args)
 from mllm_sparse_retrieval_tpu_torch.configs import RepsLoc, SearchConfig
+from mllm_sparse_retrieval_tpu_torch.index.ann import DenseANNIndex
 from mllm_sparse_retrieval_tpu_torch.index.dense import DenseFlatIndex
 from mllm_sparse_retrieval_tpu_torch.index.impact import ImpactIndex
 from mllm_sparse_retrieval_tpu_torch.search.engine import run_search
 from mllm_sparse_retrieval_tpu_torch.search.fusion import write_trec_run
-
-# values of the JAX package's flags that the port does not have yet, and
-# where ROADMAP.md queues them
-_NOT_PORTED = {
-    ("impact_wire", "compact48"): "the compact48 wire (ROADMAP Queue 1 #4)",
-    ("dense_dtype", "int8"): "the int8 SQ8 dense tier (ROADMAP Queue 1 #5)",
-}
 
 
 def main(argv=None):
@@ -49,8 +46,9 @@ def main(argv=None):
                              "kernel on the card, the f32 matmul elsewhere)")
     parser.add_argument("--impact-wire", default="i32",
                         choices=["i32", "compact48"],
-                        help="sparse result format; only i32 is ported "
-                             "(compact48: ROADMAP Queue 1 #4)")
+                        help="sparse result format: 'compact48' copies 6 "
+                             "bytes per (score, id) pair instead of 8 "
+                             "(integer weights only)")
     parser.add_argument("--fusion-mode", default="host",
                         choices=["host", "device"],
                         help="hybrid fusion route: 'host' = the "
@@ -63,8 +61,13 @@ def main(argv=None):
                              "reference's weighted min-max sum; rrf = "
                              "Reciprocal Rank Fusion (host route only)")
     parser.add_argument("--ann-rank", type=int, default=0,
-                        help="not ported: the ANN dense tier is ROADMAP "
-                             "Queue 1 #5; 0 = exact flat search")
+                        help="the ANN dense tier: width of the low-rank "
+                             "prefilter (0 = exact flat search; final "
+                             "scores stay exact, only the candidates are "
+                             "approximate)")
+    parser.add_argument("--ann-candidates", type=int, default=1024,
+                        help="rescored candidates per query when "
+                             "--ann-rank is set")
     parser.add_argument("--eval-mode", default="host",
                         choices=["host", "device"],
                         help="device: recall (and --metrics) from target "
@@ -78,20 +81,18 @@ def main(argv=None):
                         choices=["float32", "bfloat16", "int8"],
                         help="device dtype of the dense corpus matrix: "
                              "float32 (FAISS-flat parity) or bfloat16 (half "
-                             "the bytes, f32 accumulation and scores); int8 "
-                             "is not ported (ROADMAP Queue 1 #5)")
+                             "the bytes, f32 accumulation and scores) or "
+                             "int8 (SQ8 scalar quantization: a quarter of "
+                             "the bytes, exact int32 products, per-row and "
+                             "per-query scales)")
     parser.add_argument("--save-dir", default=None,
                         help="write TREC run files here")
     parser.add_argument("--limit", type=int, default=0)
     args = parser.parse_args(argv)
 
-    for (flag, value), what in _NOT_PORTED.items():
-        if getattr(args, flag) == value:
-            parser.error(f"--{flag.replace('_', '-')} {value}: {what} is "
-                         f"not ported")
-    if args.ann_rank:
-        parser.error("--ann-rank: the ANN dense tier is not ported (ROADMAP "
-                     "Queue 1 #5)")
+    if args.ann_rank and args.dense_dtype == "int8":
+        parser.error("--ann-rank is incompatible with --dense-dtype int8 "
+                     "(pick ONE approximation; bf16 composes with ANN)")
     if args.fusion_rule == "rrf" and args.fusion_mode == "device":
         parser.error("--fusion-rule rrf is host-path only (the device-"
                      "fused program implements the min-max rule)")
@@ -126,8 +127,14 @@ def main(argv=None):
         timer.phase("load dense index")
         dense_index = DenseFlatIndex.load(
             args.passage_reps, device=args.device,
-            dtype={"bfloat16": torch.bfloat16}.get(args.dense_dtype,
-                                                   torch.float32))
+            dtype={"bfloat16": torch.bfloat16, "int8": torch.int8}.get(
+                args.dense_dtype, torch.float32))
+        if args.ann_rank:
+            dense_index = DenseANNIndex.from_flat(
+                dense_index, rank=args.ann_rank,
+                candidates=args.ann_candidates)
+            logger.info("ANN tier: rank=%d candidates=%d (exact rescore)",
+                        args.ann_rank, args.ann_candidates)
         logger.info("dense index: %d vectors", dense_index.size)
     if args.sparse_index:
         timer.phase("load sparse index")
@@ -151,6 +158,7 @@ def main(argv=None):
             impact_index=impact_index, reps_loc=RepsLoc(args.reps_loc),
             batch_size=args.batch_size, lora=lora,
             impact_backend=args.impact_backend,
+            impact_wire=args.impact_wire,
             fusion_mode=args.fusion_mode, fusion_rule=args.fusion_rule,
             eval_mode=args.eval_mode,
             metrics=[m for m in args.metrics.split(",") if m],

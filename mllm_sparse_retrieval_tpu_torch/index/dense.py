@@ -1,14 +1,13 @@
 """Dense flat MIPS index on one device (the JAX package's
 ``index/dense.py::DenseFlatIndex``; FAISS-flat equivalent).
 
-The corpus matrix lives on ``device`` in f32 or bf16 and is scored by
-``ops/mips.py``; queries go in fixed-size chunks, two in flight
-(``ops/stream.py``). Artifacts are the reference's pickles:
+The corpus matrix lives on ``device`` in f32, bf16 or int8 (SQ8) and is
+scored by ``ops/mips.py``; queries go in fixed-size chunks, up to three in
+flight (``ops/stream.py``). Artifacts are the reference's pickles:
 ``corpus_{shard}.pkl`` holds ``(np.ndarray [N, d] float32, ids list)``, so
 either package loads the other's. ``doc_filter`` (an
 ``index.filter.DocFilter`` built against ``lookup``) scopes a search to the
-docs it allows. Not ported: the int8 (SQ8) tier and meshes (ROADMAP Queue
-1 #5, #9).
+docs it allows. Not ported: meshes (ROADMAP Queue 1 #9).
 """
 
 from __future__ import annotations
@@ -23,7 +22,7 @@ import numpy as np
 import torch
 
 from mllm_sparse_retrieval_tpu_torch.ops.mips import (
-    DTYPES, mips_topk_packed)
+    DTYPES, Q8_ALIGN, mips_topk_packed, mips_topk_packed_q8)
 from mllm_sparse_retrieval_tpu_torch.ops.packing import unpack_topk
 from mllm_sparse_retrieval_tpu_torch.ops.stream import pipeline_dispatch
 
@@ -33,22 +32,34 @@ class DenseFlatIndex:
 
     ``dtype=torch.bfloat16`` keeps the device corpus (and the queries) in
     bf16, half the device bytes, with f32 accumulation and f32 scores, so
-    near-ties can rank differently from the f32 index; saved pickles stay
-    f32 either way.
+    near-ties can rank differently from the f32 index.
+
+    ``dtype=torch.int8`` (or ``"int8"``) is scalar quantization (SQ8):
+    symmetric per-row int8 corpus values with f32 row scales, queries
+    quantized per row on the host, an exact int8 x int8 -> int32 product,
+    and f32 scores dequantized by the scale outer product before the top-k:
+    a quarter of the f32 device bytes. A positive per-query scale cannot
+    change that query's ranking, so the only error is the int8 rounding of
+    the inputs. The device corpus is padded with zero rows and columns to
+    multiples of ``Q8_ALIGN`` (the card's int8 product needs them), and the
+    padding rows never rank. Saved pickles stay f32 for every dtype.
     """
 
     def __init__(self, dim: Optional[int] = None, dtype=torch.float32,
                  device="cuda"):
-        if dtype not in DTYPES:
-            raise NotImplementedError(
-                f"dense dtype {dtype}: the port has float32 and bfloat16 "
-                f"(the int8 SQ8 tier is ROADMAP Queue 1 #5)")
+        self.q8 = dtype == "int8" or dtype == torch.int8
+        if self.q8:
+            dtype = torch.int8
+        elif dtype not in DTYPES:
+            raise TypeError(f"dense dtype {dtype}: float32, bfloat16 or "
+                            f"int8")
         self.dim = dim
         self.dtype = dtype
         self.device = torch.device(device)
         self._chunks: List[np.ndarray] = []
         self.lookup: List[str] = []
         self._corpus_dev: Optional[torch.Tensor] = None
+        self._row_scale_dev: Optional[torch.Tensor] = None
         self._n_valid = 0
         self._lookup_arr_src = None
 
@@ -66,30 +77,66 @@ class DenseFlatIndex:
         self._chunks.append(reps)
         self.lookup.extend(str(i) for i in ids)
         self._corpus_dev = None
+        self._row_scale_dev = None
         self._lookup_arr_src = None
 
     @property
     def size(self) -> int:
         return len(self.lookup)
 
+    @staticmethod
+    def _quantize_rows(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Symmetric per-row int8 quantization: (int8 values, f32 scales)
+        with ``values * scale[:, None] ~= x``. An all-zero row gets scale 1
+        (its values are zero either way)."""
+        scale = np.abs(x).max(axis=1) / 127.0 if x.size else \
+            np.zeros(x.shape[0], np.float32)
+        scale = np.where(scale > 0, scale, 1.0).astype(np.float32)
+        q = np.clip(np.rint(x / scale[:, None]), -127, 127).astype(np.int8)
+        return q, scale
+
+    def _host_corpus(self) -> np.ndarray:
+        return np.concatenate(self._chunks) if len(self._chunks) != 1 \
+            else self._chunks[0]
+
     def _materialize(self) -> None:
         if self._corpus_dev is not None:
             return
-        corpus = np.concatenate(self._chunks) if len(self._chunks) != 1 \
-            else self._chunks[0]
+        corpus = self._host_corpus()
         self._n_valid = corpus.shape[0]
-        self._corpus_dev = torch.from_numpy(corpus).to(self.device).to(
-            self.dtype)
+        if not self.q8:
+            self._corpus_dev = torch.from_numpy(corpus).to(self.device).to(
+                self.dtype)
+            return
+        q8, scale = self._quantize_rows(corpus)
+        n, d = q8.shape
+        padded = np.zeros((-(-max(n, 1) // Q8_ALIGN) * Q8_ALIGN,
+                           -(-max(d, 1) // Q8_ALIGN) * Q8_ALIGN), np.int8)
+        padded[:n, :d] = q8
+        scales = np.ones(padded.shape[0], np.float32)
+        scales[:n] = scale
+        self._corpus_dev = torch.from_numpy(padded).to(self.device)
+        self._row_scale_dev = torch.from_numpy(scales).to(self.device)
 
     # ---- search --------------------------------------------------------------
     def _dispatch_chunk(self, chunk: np.ndarray, depth: int,
                         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Enqueue one chunk's scoring and return the packed ``[B, 2k]``
         int32 device tensor, with no host sync. Queries travel in the
-        corpus dtype (half the bytes for bf16). ``mask`` (a device bool
-        ``[N]`` from ``DocFilter.device_mask``) scores excluded rows -inf."""
-        q = torch.from_numpy(np.ascontiguousarray(chunk, np.float32)).to(
-            self.device).to(self.dtype)
+        corpus dtype (half the bytes for bf16; SQ8 queries are quantized
+        per row on the host, a quarter). ``mask`` (a device bool ``[N]``
+        from ``DocFilter.device_mask``) scores excluded rows -inf."""
+        chunk = np.ascontiguousarray(chunk, np.float32)
+        if self.q8:
+            q8, q_scale = self._quantize_rows(chunk)
+            width = self._corpus_dev.shape[1]
+            if q8.shape[1] < width:
+                q8 = np.pad(q8, ((0, 0), (0, width - q8.shape[1])))
+            return mips_topk_packed_q8(
+                torch.from_numpy(np.ascontiguousarray(q8)).to(self.device),
+                torch.from_numpy(q_scale).to(self.device), self._corpus_dev,
+                self._row_scale_dev, depth, self._n_valid, mask)
+        q = torch.from_numpy(chunk).to(self.device).to(self.dtype)
         return mips_topk_packed(q, self._corpus_dev, depth, mask)
 
     def _mask(self, doc_filter) -> Optional[torch.Tensor]:
@@ -157,6 +204,9 @@ class DenseFlatIndex:
                 len(self._lookup_arr) != len(self.lookup):
             self._lookup_arr = np.asarray(self.lookup)
             self._lookup_arr_src = self.lookup
+        # a -inf fill entry (a filter allowing fewer than depth docs) may
+        # carry an SQ8 padding row; the keep mask below drops it
+        idx = np.minimum(idx, len(self._lookup_arr) - 1)
         ids = self._lookup_arr[idx].tolist()
         if doc_filter is None:
             return scores, ids
@@ -168,7 +218,7 @@ class DenseFlatIndex:
     # ---- persistence -----------------------------------------------------------
     def save_shard(self, path: str) -> None:
         """Write the reference's ``(embeddings, lookup_ids)`` pickle."""
-        corpus = np.concatenate(self._chunks) if self._chunks else \
+        corpus = self._host_corpus() if self._chunks else \
             np.zeros((0, self.dim or 0), np.float32)
         with open(path, "wb") as f:
             pickle.dump((corpus, list(self.lookup)), f)

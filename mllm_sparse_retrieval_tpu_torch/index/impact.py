@@ -23,8 +23,15 @@ from the encode pipeline's corpus jsonl, with the native C++ builder
 ``search_encoded(doc_filter=...)`` scopes a search to the docs of an
 ``index.filter.DocFilter``: the scorer runs unchanged, excluded columns
 score -inf before the top-k, and the resolve drops them with the zero
-scores, so rows become ragged. Not ported yet: the ``compact48`` wire, the
-stream entry points, ``explain``, arena capacity and sharding.
+scores, so rows become ragged.
+
+``wire='compact48'`` brings results back as ``packing.pack_topk48`` lanes,
+6 bytes a result instead of 8, for integer doc and query weights whose
+scores provably stay below 2^24 (``_search_plan`` and ``_check_wire``
+check both). ``search_encoded_stream`` / ``search_terms_stream`` keep up to
+``lookahead`` chunks in flight across a stream of batches, and ``explain``
+breaks one doc's score down by term on the host. Not ported: arena capacity
+(ROADMAP Queue 1 #7) and sharding (#9).
 """
 
 from __future__ import annotations
@@ -36,9 +43,11 @@ from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Tuple, Uni
 import numpy as np
 import torch
 
-from mllm_sparse_retrieval_tpu_torch.ops.packing import unpack_topk
+from mllm_sparse_retrieval_tpu_torch.ops.packing import (
+    unpack_topk, unpack_topk48)
 from mllm_sparse_retrieval_tpu_torch.ops.score_programs import (
-    _impact_topk, _scatter_block, _taat_topk)
+    _impact_topk, _impact_topk48, _scatter_block, _taat_topk, _taat_topk48)
+from mllm_sparse_retrieval_tpu_torch.ops.stream import pipeline_dispatch
 
 TermKey = Union[str, int]
 SparseVector = Mapping[TermKey, int]
@@ -46,6 +55,7 @@ SparseVector = Mapping[TermKey, int]
 _DOC_TILE = 2048       # doc-column padding granularity
 _PLACE_BLOCK = 4_000_000  # CSR triples per device scatter block
 _QUERY_WIDTH_PAD = 64  # query term-count padding granularity
+_WIRES = ("i32", "compact48")
 # Peak device bytes of one chunk's search per byte of its [B, N_pad] f32
 # score tensor (the scores and their masked copy for top-k). chip_smoke.py
 # measured 2.01 for both backends on an H100 (B=256, 26,624 doc columns,
@@ -456,58 +466,173 @@ class ImpactIndex:
     # ---- search --------------------------------------------------------------
     def search_terms(self, terms_list: Sequence, depth: int,
                      canonical_map: Optional[np.ndarray] = None,
-                     backend: str = "auto"
+                     backend: str = "auto", wire: str = "i32"
                      ) -> Tuple[List[List[float]], List[List[str]]]:
         """Batch impact search straight from SelectedTerms (same result
         contract as ``search``)."""
         q_idx, q_w = self.encode_query_terms(terms_list, canonical_map)
-        return self.search_encoded(q_idx, q_w, depth, backend=backend)
+        return self.search_encoded(q_idx, q_w, depth, backend=backend,
+                                   wire=wire)
+
+    def search_terms_stream(self, term_batches, depth: int,
+                            canonical_map: Optional[np.ndarray] = None,
+                            backend: str = "auto", lookahead: int = 3,
+                            wire: str = "i32"):
+        """Pipelined search over a stream of SelectedTerms batches: one
+        ``(scores, ids)`` pair per batch, the numpy encode of batch r+1
+        overlapping batch r's device work (``search_encoded_stream``).
+
+        The encode runs inline, not on a prefetch thread: it is Python and
+        numpy work that holds the interpreter lock, so a worker thread
+        would take the lock from the dispatch path rather than overlap
+        with it."""
+        encoded = (self.encode_query_terms(batch, canonical_map)
+                   for batch in term_batches)
+        yield from self.search_encoded_stream(encoded, depth, backend=backend,
+                                              lookahead=lookahead, wire=wire)
 
     def search(self, query_vectors: Sequence[SparseVector], depth: int,
-               backend: str = "auto", doc_filter=None
+               backend: str = "auto", wire: str = "i32", doc_filter=None
                ) -> Tuple[List[List[float]], List[List[str]]]:
         """Batch impact search: (score lists, ranked doc-id lists), one row
         per query; docs with zero score (and docs ``doc_filter`` excludes)
         are never returned, so rows may be shorter than ``depth``."""
         q_idx, q_w = self.encode_queries(query_vectors)
         return self.search_encoded(q_idx, q_w, depth, backend=backend,
-                                   doc_filter=doc_filter)
+                                   wire=wire, doc_filter=doc_filter)
+
+    def explain(self, terms: SparseVector, doc_id: str) -> Dict:
+        """Score breakdown of one (query, doc) pair, on the host, by the
+        rules ``search`` scores with: query weights truncated by
+        ``int(w)``, non-positive and out-of-vocabulary terms dropped, each
+        contribution ``query_weight * doc_weight``.
+
+        Returns ``{"doc_id", "score", "terms": [{"term", "query_weight",
+        "doc_weight", "contribution"}, ...] (contribution descending),
+        "dropped": [terms that contribute nothing]}``; ``score`` equals the
+        engine's score of this doc."""
+        self._ensure_finalized()
+        if getattr(self, "_doc_pos_src", None) is not self.doc_ids:
+            self._doc_pos = {d: i for i, d in enumerate(self.doc_ids)}
+            self._doc_pos_src = self.doc_ids
+        pos = self._doc_pos.get(str(doc_id))
+        if pos is None:
+            raise KeyError(f"unknown doc id {doc_id!r}")
+        doc_w: Dict[int, float] = {}
+        for t, w in zip(self.doc_terms[pos].tolist(),
+                        self.doc_weights[pos].tolist()):
+            if w > 0:
+                doc_w[int(t)] = doc_w.get(int(t), 0.0) + float(w)
+        rows = []
+        dropped = []
+        total = 0.0
+        for k, qw in terms.items():
+            qw = float(int(qw))
+            idx = self.term_to_idx.get(k)
+            if qw <= 0 or idx is None or idx not in doc_w:
+                dropped.append(k)
+                continue
+            contribution = qw * doc_w[idx]
+            total += contribution
+            rows.append({"term": k, "query_weight": qw,
+                         "doc_weight": doc_w[idx],
+                         "contribution": contribution})
+        rows.sort(key=lambda r: -r["contribution"])
+        return {"doc_id": str(doc_id), "score": total, "terms": rows,
+                "dropped": dropped}
 
     def search_encoded(self, q_idx: np.ndarray, q_w: np.ndarray, depth: int,
-                       backend: str = "auto", doc_filter=None
+                       backend: str = "auto", wire: str = "i32",
+                       doc_filter=None
                        ) -> Tuple[List[List[float]], List[List[str]]]:
         """Search pre-encoded padded query arrays (see ``encode_queries``):
         term ids are this index's compact ids, padding has weight 0.
         ``doc_filter`` (a ``DocFilter`` built against ``doc_ids``) keeps
-        only the docs it allows."""
-        plan = self._search_plan(backend, depth, doc_filter)
-        self._check_wire(q_idx, q_w)
+        only the docs it allows. ``wire='compact48'`` brings the results
+        back in 6 bytes each instead of 8 (integer weights only). A batch
+        wider than the chunk budget runs in chunks, up to three in
+        flight."""
+        return next(self.search_encoded_stream(
+            [(q_idx, q_w)], depth, backend=backend, wire=wire,
+            doc_filter=doc_filter))
+
+    def search_encoded_stream(self, batches, depth: int,
+                              backend: str = "auto", lookahead: int = 3,
+                              wire: str = "i32", doc_filter=None):
+        """Pipelined search: one ``(scores, ids)`` pair per input batch of
+        ``(q_idx, q_w)`` arrays (``search_encoded``'s semantics, either
+        wire), up to ``lookahead`` chunks in flight ahead of the consumer,
+        so batch r+1's upload and scoring overlap batch r's copy back and
+        resolve. A batch wider than the chunk budget goes through the same
+        pipeline in chunks."""
+        plan = self._search_plan(backend, depth, wire, doc_filter)
+
+        def submit():
+            seq = 0
+            for q_idx, q_w in batches:
+                self._check_query_arrays(q_idx, q_w)
+                self._check_wire(plan, q_w)
+                chunks = list(self._chunk_queries(plan, q_idx, q_w))
+                for ci, (chunk_i, chunk_w, take) in enumerate(chunks):
+                    yield (chunk_i, chunk_w, take, ci == len(chunks) - 1,
+                           seq)
+                    seq += 1
+
         out_s: List[List[float]] = []
         out_i: List[List[str]] = []
-        # dispatch every chunk before reading any back: the device runs
-        # chunk r+1 while the host resolves chunk r
-        handles = [(self._dispatch_encoded(plan, ci, cw), take)
-                   for ci, cw, take in self._chunk_queries(plan, q_idx, q_w)]
-        for packed, take in handles:
-            s_c, i_c = self._resolve_encoded(packed, take)
+        expect_seq = 0
+
+        def dispatch(item):
+            chunk_i, chunk_w, take, last, seq = item
+            return (self._dispatch_encoded(plan, chunk_i, chunk_w), take,
+                    last, seq)
+
+        def resolve(handle):
+            nonlocal out_s, out_i, expect_seq
+            packed, take, last, seq = handle
+            # the rows between two 'last' flags are one batch's only
+            # because pipeline_dispatch resolves in submit order
+            assert seq == expect_seq, (
+                f"stream resolved chunk {seq} out of order "
+                f"(expected {expect_seq})")
+            expect_seq += 1
+            s_c, i_c = self._resolve_encoded(packed, take, plan["wire"])
             out_s.extend(s_c)
             out_i.extend(i_c)
-        return out_s, out_i
+            if last:
+                done_s, done_i = out_s, out_i
+                out_s, out_i = [], []
+                return done_s, done_i
+            return None
+
+        yield from pipeline_dispatch(submit(), dispatch, resolve, lookahead)
 
     # ---- search internals (plan / dispatch / resolve) ------------------------
-    def _search_plan(self, backend: str, depth: int, doc_filter=None) -> dict:
-        """Resolve backend + device matrix + chunk budget (+ the filter's
-        padded device mask) once per search."""
+    def _search_plan(self, backend: str, depth: int, wire: str = "i32",
+                     doc_filter=None) -> dict:
+        """Resolve backend + wire + device matrix + chunk budget (+ the
+        filter's padded device mask) once per search."""
         if backend == "auto":
             backend = "taat" if self.device.type == "cuda" else "matmul"
         if backend not in ("taat", "matmul"):
             raise ValueError(
                 f"unknown impact backend {backend!r}: expected 'auto', "
                 f"'taat', or 'matmul'")
+        if wire not in _WIRES:
+            raise ValueError(f"unknown wire {wire!r}: 'i32' or 'compact48'")
+        if wire == "compact48" and not self._int16_exact():
+            raise ValueError(
+                "wire='compact48' needs integer doc weights < 2^15 "
+                "(scores must be integers for the 24-bit lane)")
         use_taat = backend == "taat"
         dtype = "i16" if use_taat and self._int16_exact() else "f32"
         dev = self._materialize(dtype)
         n_pad = dev.shape[1]
+        if wire == "compact48" and n_pad >= 2 ** 23:
+            # the wire's doc-position lane has 23 bits
+            raise ValueError(
+                f"wire='compact48' supports < 2^23 doc columns (padded "
+                f"corpus has {n_pad}); use the i32 wire")
         # the [B, N_pad] f32 score tensor and its top-k working set must fit
         # beside every cached matrix; wide batches chunk
         resident = sum(d.numel() * d.element_size()
@@ -518,12 +643,35 @@ class ImpactIndex:
         mask = None if doc_filter is None else \
             doc_filter.device_mask(n_pad, dev.device)
         return dict(backend=backend, dev=dev, max_b=max_b,
-                    k=min(depth, self._n_valid), mask=mask)
+                    k=min(depth, self._n_valid), wire=wire, mask=mask)
 
-    def _check_wire(self, q_idx, q_w) -> None:
-        """Results come back on the i32 wire (f32 score bits and int32 doc
-        ids, the only wire ported); the query arrays must be one [B, Q]
-        shape (term ids int, weights float)."""
+    def _check_wire(self, plan, q_w) -> None:
+        """The compact48 wire's query-side proof: integer query weights
+        (integer products land on the 24-bit score lane exactly) and a
+        bound below 2^24 on every score, or the pack would clamp and
+        collapse the top of a ranking into tie order. The bound is the
+        largest doc weight times the largest per-query weight sum:
+        conservative, exact and O(batch)."""
+        if plan["wire"] != "compact48" or q_w.size == 0:
+            return
+        if not np.all(q_w == np.rint(q_w)):
+            raise ValueError("wire='compact48' needs integer query weights "
+                             "(got fractional values)")
+        if getattr(self, "_max_doc_w_src", None) is not self.doc_weights:
+            self._max_doc_w = float(self.doc_weights.max()) \
+                if self.doc_weights.size else 0.0
+            self._max_doc_w_src = self.doc_weights
+        bound = float(np.maximum(q_w, 0).sum(axis=1).max()) * self._max_doc_w
+        if bound >= 2 ** 24:
+            raise ValueError(
+                f"wire='compact48' cannot prove scores < 2^24 for this "
+                f"batch (worst-case bound {bound:.4g}); use the i32 wire — "
+                f"scores that large are also outside the f32 integer-"
+                f"exactness envelope")
+
+    def _check_query_arrays(self, q_idx, q_w) -> None:
+        """The query arrays must be one [B, Q] shape (term ids int, weights
+        float) holding only this index's term ids."""
         if q_idx.ndim != 2 or q_idx.shape != q_w.shape:
             raise ValueError(f"q_idx {q_idx.shape} and q_w {q_w.shape} must "
                              f"be one [B, Q] shape")
@@ -555,23 +703,41 @@ class ImpactIndex:
                                        chunk_w.dtype)])
             yield chunk_i, chunk_w, min(max_b, b - start)
 
+    def _compact_queries(self, q_idx, q_w):
+        """The int16 upload form of a chunk when it is exact (term ids and
+        integer weights below 2^15), half the bytes of int32 / f32; the
+        score programs widen it on the device. ``None`` otherwise."""
+        if len(self.term_to_idx) >= 32767 or q_idx.size == 0:
+            return None
+        if np.abs(q_w).max() >= 32767 or not np.all(q_w == np.rint(q_w)):
+            return None
+        return q_idx.astype(np.int16), q_w.astype(np.int16)
+
     def _dispatch_encoded(self, plan, q_idx, q_w) -> torch.Tensor:
-        """Enqueue one chunk's scoring + top-k; returns the packed
-        ``[B, 2k]`` int32 device tensor without waiting for it."""
-        d_idx = torch.from_numpy(np.ascontiguousarray(q_idx, np.int32)).to(
-            self.device)
-        d_w = torch.from_numpy(np.ascontiguousarray(q_w, np.float32)).to(
-            self.device)
+        """Enqueue one chunk's scoring + top-k; returns the packed device
+        tensor (``[B, 2k]`` int32 on the i32 wire, ``[B, 3k]`` int16 lanes
+        on compact48) without waiting for it."""
+        compact = self._compact_queries(q_idx, q_w)
+        if compact is None:
+            compact = (np.ascontiguousarray(q_idx, np.int32),
+                       np.ascontiguousarray(q_w, np.float32))
+        d_idx, d_w = (torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device) for a in compact)
         taat = plan["backend"] == "taat"
-        fn = _taat_topk if taat else _impact_topk
+        if plan["wire"] == "compact48":
+            fn = _taat_topk48 if taat else _impact_topk48
+        else:
+            fn = _taat_topk if taat else _impact_topk
         return fn(plan["dev"], d_idx, d_w, self._n_valid, plan["k"],
                   plan["mask"])
 
-    def _resolve_encoded(self, packed_dev: torch.Tensor, b: int
+    def _resolve_encoded(self, packed_dev: torch.Tensor, b: int,
+                         wire: str = "i32"
                          ) -> Tuple[List[List[float]], List[List[str]]]:
         """Copy one packed result to the host and convert it to ragged
         rows (zero-score docs and filtered-out -inf entries dropped)."""
-        scores, idx = unpack_topk(packed_dev[:b].cpu().numpy())
+        unpack = unpack_topk48 if wire == "compact48" else unpack_topk
+        scores, idx = unpack(packed_dev[:b].cpu().numpy())
         if getattr(self, "_doc_ids_arr_src", None) is not self.doc_ids or \
                 len(self._doc_ids_arr) != len(self.doc_ids):
             self._doc_ids_arr = np.asarray(self.doc_ids)

@@ -5,7 +5,12 @@ synchronisation; packing a batch's outputs into one ``[B, W]`` int32 tensor
 makes it one. Float blocks travel as their f32 bits in int32 lanes, the same
 bit layouts as the JAX package's ``ops/packing.py`` (``pack_topk`` /
 ``pack_blocks``), so either package's unpackers read the other's output.
-Only the i32 wire is ported; the 48-bit ``compact48`` wire waits.
+
+``pack_topk48`` is the ``compact48`` wire of integer-scored (impact)
+searches: 6 bytes a result instead of 8. torch has no arithmetic on
+``uint16``, so the lanes are computed in int32 and stored as int16 bits;
+``unpack_topk48`` reads them as uint16, and the bytes on the host equal the
+JAX package's ``uint16`` array bit for bit.
 """
 
 from __future__ import annotations
@@ -30,6 +35,38 @@ def unpack_topk(packed: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     k = packed.shape[1] // 2
     scores = np.ascontiguousarray(packed[:, :k]).view(np.float32)
     return scores, packed[:, k:]
+
+
+_SCORE24_MAX = 2 ** 24 - 1
+
+
+def pack_topk48(scores: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(scores [B, k], idx [B, k]) -> [B, 3k] int16 holding three uint16
+    lanes: ``(score_hi8 << 8) | idx_hi7``, ``score_lo16``, ``idx_lo16``.
+
+    For integer scores only: scores are clamped to ``[0, 2^24 - 1]`` (a
+    -inf fill entry becomes 0, which the resolve drops as it drops a zero
+    score) and doc positions must be below ``2^23``."""
+    s = scores.float().clamp(0.0, float(_SCORE24_MAX)).to(torch.int32)
+    i = idx.to(torch.int32)
+    lanes = torch.cat([((s >> 16) << 8) | (i >> 16), s & 0xFFFF,
+                       i & 0xFFFF], dim=1)
+    # uint16 bits in int16: values >= 2^15 wrap by 2^16, exactly
+    return torch.where(lanes >= 1 << 15, lanes - (1 << 16),
+                       lanes).to(torch.int16)
+
+
+def unpack_topk48(packed: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side inverse of ``pack_topk48`` (int16 or uint16 lanes) ->
+    (scores f32, idx int32)."""
+    a = np.asarray(packed)
+    if a.dtype == np.int16:
+        a = a.view(np.uint16)
+    a = a.astype(np.int32)
+    k = a.shape[1] // 3
+    l0, l1, l2 = a[:, :k], a[:, k:2 * k], a[:, 2 * k:]
+    scores = (((l0 >> 8) << 16) | l1).astype(np.float32)
+    return scores, ((l0 & 0xFF) << 16) | l2
 
 
 def pack_blocks(blocks: Sequence[Tuple[torch.Tensor, bool]]) -> torch.Tensor:

@@ -9,6 +9,14 @@
   ``[N_pad]`` bool ``mask`` (``index/filter.py``), the top-k is restricted
   to the doc columns it allows: the scorer runs unchanged, excluded columns
   score -inf before the top-k (``_filtered``), and the resolve drops them.
+- ``_impact_topk48``, ``_taat_topk48``: the same top-k on the ``compact48``
+  wire (``packing.pack_topk48``, 6 bytes a result). Filtered, the -inf of
+  an excluded column clamps to score 0 in the pack, and the resolve drops
+  it with the zero scores: impact scores are non-negative integers, so a
+  masked doc can never outrank a matching one.
+
+Query arrays may arrive as int16 (``ImpactIndex._compact_queries``, half
+the upload bytes); ``_safe_query`` widens them on the device.
 
 Both backends give exactly equal scores for integer weights: every product
 and partial sum is an integer below 2^24, exact in f32 in any order. That
@@ -27,7 +35,8 @@ import torch
 
 from mllm_sparse_retrieval_tpu_torch.ops.impact_kernel import (
     impact_scores_taat)
-from mllm_sparse_retrieval_tpu_torch.ops.packing import pack_topk
+from mllm_sparse_retrieval_tpu_torch.ops.packing import (
+    pack_topk, pack_topk48)
 
 
 _TF32_LOCK = threading.RLock()
@@ -120,4 +129,18 @@ def _taat_topk(matrix, q_idx, q_w, n_valid: int, k: int,
                mask=None) -> torch.Tensor:
     """TAAT backend -> packed ``[B, 2k]`` int32 (scores bits, doc ids)."""
     return pack_topk(*_masked_topk(
+        _taat_scores(matrix, q_idx, q_w), n_valid, k, mask))
+
+
+def _impact_topk48(matrix, q_idx, q_w, n_valid: int, k: int,
+                   mask=None) -> torch.Tensor:
+    """Matmul backend -> ``[B, 3k]`` compact48 lanes (integer scores)."""
+    return pack_topk48(*_masked_topk(
+        _scores_from_matrix(matrix, q_idx, q_w), n_valid, k, mask))
+
+
+def _taat_topk48(matrix, q_idx, q_w, n_valid: int, k: int,
+                 mask=None) -> torch.Tensor:
+    """TAAT backend -> ``[B, 3k]`` compact48 lanes (integer scores)."""
+    return pack_topk48(*_masked_topk(
         _taat_scores(matrix, q_idx, q_w), n_valid, k, mask))

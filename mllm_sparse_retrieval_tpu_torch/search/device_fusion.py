@@ -28,6 +28,17 @@ from mllm_sparse_retrieval_tpu_torch.ops.stream import pipeline_dispatch
 from mllm_sparse_retrieval_tpu_torch.search.runs import Run
 
 
+def _canonical(device) -> torch.device:
+    """One spelling per device: ``cpu:0`` is ``cpu``, and a CUDA device
+    with no index is the current one (``cuda`` is ``cuda:0`` there)."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return torch.device("cpu")
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 class FusedHybridSearcher:
     """Hybrid dense + sparse retrieval with the runs fused on the device.
 
@@ -44,7 +55,7 @@ class FusedHybridSearcher:
             raise NotImplementedError(
                 "the port's hybrid search runs on one device: meshes wait "
                 "for sharding (ROADMAP Queue 1 #9)")
-        if dense_index.device != impact_index.device:
+        if _canonical(dense_index.device) != _canonical(impact_index.device):
             raise ValueError(f"the dense index is on {dense_index.device}, "
                              f"the impact index on {impact_index.device}; "
                              f"hybrid fusion needs one device")

@@ -8,9 +8,11 @@ and computes recall@k and, on request, MRR/nDCG/MAP on the host. With
 ``fusion_mode="device"`` the two engines' top-k are fused on the device
 (``search/device_fusion.py``); with ``eval_mode="device"`` the metrics come
 from target ranks computed on the device (``eval/device_eval.py``), and no
-run is copied to the host.
+run is copied to the host. ``impact_wire="compact48"`` brings the sparse
+leg's results back in 6 bytes each instead of 8; the device-fused route
+keeps the i32 wire inside the device.
 
-Not ported: the ``compact48`` wire (ROADMAP Queue 1 #4) and meshes (#9).
+Not ported: meshes (ROADMAP Queue 1 #9).
 """
 
 from __future__ import annotations
@@ -136,9 +138,10 @@ def run_search(
     ``get_target`` (query id -> relevant id or ids) enables recall@``ks``
     and the ``metrics`` (``"mrr"``, ``"ndcg"``, ``"map"``); without it only
     the runs are made. ``eval_mode="device"`` computes them from target
-    ranks on the device and fills no run. ``impact_wire="compact48"`` is
-    not ported: after the JAX package's argument checks it raises
-    ``NotImplementedError``.
+    ranks on the device and fills no run. ``impact_wire="compact48"``
+    brings the host routes' sparse results back on the 6-byte wire
+    (integer weights only); the device routes never copy the sparse run,
+    so they keep the i32 wire.
     """
     if fusion_mode not in ("host", "device"):
         raise ValueError(f"fusion_mode must be 'host' or 'device', "
@@ -170,9 +173,6 @@ def run_search(
     if impact_wire not in ("i32", "compact48"):
         raise ValueError(f"impact_wire must be 'i32' or 'compact48', "
                          f"got {impact_wire!r}")
-    if impact_wire == "compact48":
-        raise NotImplementedError(
-            "impact_wire='compact48' is not ported (ROADMAP Queue 1 #4)")
     out = SearchOutput()
 
     enc = encode_examples(
@@ -214,7 +214,8 @@ def run_search(
         q_idx, q_w = _encode_sparse_queries(impact_index, enc, tokenizer,
                                             sparse_cfg)
         s_scores, s_ids = impact_index.search_encoded(
-            q_idx, q_w, search_cfg.depth, backend=impact_backend)
+            q_idx, q_w, search_cfg.depth, backend=impact_backend,
+            wire=impact_wire)
         out.sparse_run = ArrayRun(enc.ids, s_scores, s_ids,
                                   remove_query=search_cfg.remove_query,
                                   scores_sorted=True)

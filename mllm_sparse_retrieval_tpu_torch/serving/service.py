@@ -4,8 +4,11 @@ indexes).
 
 The mode is fixed by the indexes given:
 
-- ``sparse``: an :class:`ImpactIndex` (the TAAT kernel on the card);
-- ``dense``: a :class:`DenseFlatIndex` (f32 or bf16 MIPS);
+- ``sparse``: an :class:`ImpactIndex` (the TAAT kernel on the card), its
+  results copied back on the i32 wire or, with ``wire="compact48"``, in 6
+  bytes each (integer weights only; filtered requests too);
+- ``dense``: a :class:`DenseFlatIndex` (f32, bf16 or SQ8 int8 MIPS) or a
+  :class:`DenseANNIndex` (low-rank prefilter, exact rescore);
 - ``hybrid``: both. Under the default min-max rule a micro-batch runs
   through :class:`FusedHybridSearcher` (both engines' top-k fused on the
   device, one copy to the host); requests with a doc filter, and every
@@ -69,7 +72,8 @@ class RetrievalService:
                  depth_levels: Sequence[int] = (10, 100, 1000),
                  default_depth: int = 10,
                  candidate_depth: Optional[int] = None,
-                 backend: str = "auto", max_batch: int = 256,
+                 backend: str = "auto", wire: str = "i32",
+                 max_batch: int = 256,
                  max_wait_ms: float = 4.0,
                  device_batch: Optional[int] = None, query_encoder=None,
                  filters: Optional[Mapping] = None,
@@ -91,6 +95,9 @@ class RetrievalService:
         # the request's
         self.candidate_depth = candidate_depth
         self.backend = backend
+        if wire not in ("i32", "compact48"):
+            raise ValueError(f"unknown wire {wire!r}: 'i32' or 'compact48'")
+        self.wire = wire
         # every micro-batch is padded to this fixed device batch, so the
         # encoder and the searches always see one shape
         self.device_batch = int(device_batch or max_batch)
@@ -334,8 +341,10 @@ class RetrievalService:
 
     def _sparse_rows(self, reqs, depth, flt=None):
         q_idx, q_w = self.impact_index.encode_queries(self._padded_terms(reqs))
+        # the wire holds under filters too: on compact48 an excluded doc's
+        # -inf clamps to score 0, which the resolve drops
         return self.impact_index.search_encoded(
-            q_idx, q_w, depth, backend=self.backend,
+            q_idx, q_w, depth, backend=self.backend, wire=self.wire,
             doc_filter=None if flt is None else flt["sparse"])
 
     def _hybrid_rows_host(self, reqs, depth, flt=None):

@@ -192,9 +192,8 @@ def test_search_cli_takes_bf16_dense_and_writes_a_trace(
     (["--fusion-mode", "device"], "needs both --passage-reps"),
     (["--eval-mode", "device", "--save-dir", "runs"],
      "never materializes runs"),
-    (["--impact-wire", "compact48"], "Queue 1 #4"),
-    (["--dense-dtype", "int8"], "Queue 1 #5"),
-    (["--ann-rank", "16"], "Queue 1 #5"),
+    (["--ann-rank", "16", "--dense-dtype", "int8"],
+     "incompatible with --dense-dtype int8"),
     ([], "--passage-reps and/or --sparse-index"),
 ])
 def test_search_cli_rejects_what_is_not_ported(data_root, capsys, flags,
@@ -204,6 +203,51 @@ def test_search_cli_rejects_what_is_not_ported(data_root, capsys, flags,
         cli_search.main(_common(data_root) + base + flags)
     assert e.value.code == 2
     assert match in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [
+    ["--impact-wire", "compact48"],
+    ["--dense-dtype", "int8"],
+    ["--ann-rank", "8", "--ann-candidates", "12"],
+])
+def test_search_cli_tiers_and_wire_match_jax_library(
+        data_root, jax_model, jax_weights, tmp_path, capsys, flags):
+    """``--impact-wire compact48``, ``--dense-dtype int8`` and ``--ann-rank``
+    (hybrid, host fusion): the printed recall summary equals the JAX
+    package's ``run_search`` with the same tier and wire over the same
+    artifacts."""
+    import jax.numpy as jnp
+
+    from mllm_sparse_retrieval_tpu.index.ann import DenseANNIndex as JANN
+
+    out = tmp_path / "port"
+    cli_encode.main(_common(data_root) + [
+        "--encode-type", "image", "--dense-output-dir", str(out / "dense"),
+        "--sparse-output-dir", str(out / "sparse")])
+    capsys.readouterr()
+    dense_dir = _leaf(out / "dense", "image")
+    cli_index.main(["--input", str(_leaf(out / "sparse", "image")),
+                    "--index", str(out / "idx"), "--device", "cpu"])
+    capsys.readouterr()
+    cli_search.main(_common(data_root) + [
+        "--passage-reps", str(dense_dir), "--sparse-index",
+        str(out / "idx"), "--depth", "20"] + flags)
+    summary = capsys.readouterr().out.strip()
+
+    params, arch, tok, tmpl = jax_model
+    corpus = JCorpus("flickr", "test", str(data_root))
+    dense = JDenseFlatIndex.load(
+        str(dense_dir), dtype=jnp.int8 if "int8" in flags else jnp.float32)
+    if "--ann-rank" in flags:
+        dense = JANN.from_flat(dense, rank=8, candidates=12)
+    jout = j_run_search(
+        corpus.examples("full"), params, arch, tok, tmpl, query_type="text",
+        sparse_cfg=JSparseConfig(), search_cfg=JSearchConfig(depth=20),
+        dense_index=dense, impact_index=JImpactIndex.load(str(out / "idx")),
+        batch_size=4, impact_wire="compact48" if "compact48" in flags
+        else "i32", get_target=lambda q: corpus.get_target(q, "text"))
+    assert summary == jout.summary()
+    assert summary.count("recall: r@1 ") == 3
 
 
 @pytest.mark.parametrize("eval_mode", ["host", "device"])
@@ -258,3 +302,6 @@ def test_dense_dtype_help_names_the_dtypes(capsys):
     text = " ".join(capsys.readouterr().out.split())
     assert "--device" in text
     assert "float32 (FAISS-flat parity) or bfloat16" in text
+    assert "int8 (SQ8 scalar quantization" in text
+    for flag in ("--impact-wire", "--ann-rank", "--ann-candidates"):
+        assert flag in text

@@ -1,9 +1,11 @@
 """PyTorch port on the card: the CUDA TAAT and flash-attention kernels
 (forward, and the dq and dkv backward kernels) against their plain PyTorch
 versions, the filtered TAAT top-k against the plain one, the fused hybrid
-searcher against the host fuse, and the tiny offline evaluation path on
-the card against the same path on the CPU (the last three tests'
-tolerances are in their docstrings). Marked ``cuda``; each test skips
+searcher against the host fuse, the tiny offline evaluation path on the
+card against the same path on the CPU, and the search tiers: the bf16
+dense search's peak memory, the SQ8 int8 product's padding, the compact48
+wire through the TAAT kernel and the ANN tier (the tolerances of all but
+the kernels are in their docstrings). Marked ``cuda``; each test skips
 where no card is present (decided inside the test, so every pytest worker
 collects the same tests). This file
 imports nothing of JAX, so it also runs where JAX is absent:
@@ -574,3 +576,145 @@ def test_fused_searcher_on_the_card_equals_host_fuse():
         assert set(run[q]) == set(host[q]) and q not in run[q]
         for doc, s in host[q].items():
             assert abs(run[q][doc] - s) <= 1e-5, (q, doc)
+
+
+def test_bf16_search_holds_no_f32_copy_of_the_corpus():
+    """A bf16 dense search on the card is one bf16 GEMM with f32 output:
+    its peak device memory stays within the memory allocated before it (the
+    bf16 corpus included) plus the ``[B, N]`` f32 score tensor plus a slack
+    of two of the CPU route's widening chunks (``mips._WIDEN_BYTES`` each)
+    and 8 MiB. An f32 copy of the whole corpus (328 MB here) would break
+    it. Each score lies within ``d * 2^-24 * sum |q c|`` of the float64
+    product of the same bf16 values (exact products, f32 sums)."""
+    dev = _card()
+    from mllm_sparse_retrieval_tpu_torch.index import DenseFlatIndex
+    from mllm_sparse_retrieval_tpu_torch.ops import mips
+
+    rng = np.random.default_rng(13)
+    n, d, b = 20_000, 4096, 8
+    index = DenseFlatIndex(dtype=torch.bfloat16, device=dev)
+    corpus = rng.standard_normal((n, d), dtype=np.float32)
+    corpus /= np.linalg.norm(corpus, axis=1, keepdims=True)
+    index.add(corpus, [str(i) for i in range(n)])
+    q = corpus[:b] + 0.01
+    index.search(q, 10)                     # warm-up: cuBLAS workspace
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    scores, _ = index.search(q, 10)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    slack = 2 * mips._WIDEN_BYTES + 8 * 2 ** 20
+    assert peak - before <= b * n * 4 + slack, (peak - before) / 2 ** 20
+    assert index._corpus_dev.dtype == torch.bfloat16
+    qd = torch.from_numpy(q).to(dev).bfloat16().double()
+    ref = qd @ index._corpus_dev.double().T
+    bound = d * 2.0 ** -24 * (qd.abs() @ index._corpus_dev.double().abs().T)
+    got = mips.mips_scores(torch.from_numpy(q).to(dev), index._corpus_dev)
+    assert got.dtype == torch.float32
+    assert bool(((got.double() - ref).abs() <= bound).all())
+    top = torch.topk(ref, 10, dim=1).values.cpu().numpy()
+    np.testing.assert_allclose(scores, top, rtol=0,
+                               atol=float(bound.max()))
+
+
+@pytest.mark.parametrize("b", [1, 8, 17, 40])
+def test_int8_product_pads_for_the_card(b):
+    """``_int_mm`` on the card takes more than 16 rows and widths that are
+    multiples of 8: the query rows pad to 32 and the SQ8 index pads its
+    corpus once. The int32 products equal an int64 numpy product exactly,
+    and the SQ8 index on the card equals the same index on the CPU bit for
+    bit (integer products, one f32 dequantization)."""
+    dev = _card()
+    from mllm_sparse_retrieval_tpu_torch.index import DenseFlatIndex
+    from mllm_sparse_retrieval_tpu_torch.ops import mips
+
+    rng = np.random.default_rng(14)
+    q8 = rng.integers(-127, 128, size=(b, 104)).astype(np.int8)
+    c8 = rng.integers(-127, 128, size=(1008, 104)).astype(np.int8)
+    acc = mips._int8_matmul(torch.from_numpy(q8).to(dev),
+                            torch.from_numpy(c8).to(dev))
+    assert acc.shape == (b, 1008) and acc.dtype == torch.int32
+    np.testing.assert_array_equal(
+        acc.cpu().numpy(), q8.astype(np.int64) @ c8.astype(np.int64).T)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        mips._int8_matmul(torch.from_numpy(q8).to(dev),
+                          torch.from_numpy(c8[:1001]).to(dev))
+    corpus = rng.standard_normal((1001, 100), dtype=np.float32)
+    ids = [str(i) for i in range(1001)]
+    out = []
+    for where in ("cpu", dev):
+        index = DenseFlatIndex(dtype=torch.int8, device=where)
+        index.add(corpus, ids)
+        out.append(index.search_ids(corpus[:b] + 0.1, 20, batch_size=b))
+    (cs, ci), (gs, gi) = out
+    np.testing.assert_array_equal(gs, cs)
+    for r in range(b):
+        above = gs[r] > gs[r, -1]
+        assert {d for d, a in zip(gi[r], above) if a} == \
+            {d for d, a in zip(ci[r], above) if a}
+
+
+def test_compact48_on_the_kernel_equals_i32_and_the_cpu():
+    """``wire="compact48"`` through the TAAT kernel, filtered and not:
+    the same (score, id) sets as the i32 wire on the card and as the
+    matmul backend on the CPU, one kernel launch per search chunk."""
+    dev = _card()
+    from mllm_sparse_retrieval_tpu_torch.index import DocFilter, ImpactIndex
+
+    rng = np.random.default_rng(15)
+    n_docs, n_terms = 25_010, 2000
+    doc_t = np.stack([rng.choice(n_terms, 40, replace=False)
+                      for _ in range(n_docs)]).astype(np.int32)
+    doc_w = rng.integers(1, 350, size=(n_docs, 40)).astype(np.float32)
+    ids = [f"d{i}" for i in range(n_docs)]
+    gpu = ImpactIndex.from_packed_arrays(doc_t, doc_w, ids, range(n_terms),
+                                         device=dev)
+    cpu = ImpactIndex.from_packed_arrays(doc_t, doc_w, ids, range(n_terms),
+                                         device="cpu")
+    q_i = rng.integers(0, n_terms, size=(8, 64)).astype(np.int32)
+    q_w = rng.integers(1, 300, size=(8, 64)).astype(np.float32)
+    keep = ids[::10]
+
+    def sets(res):
+        return [{(s, d) for s, d in zip(sr, ir)} for sr, ir in zip(*res)]
+
+    for flt in (None, keep):
+        g_f = None if flt is None else DocFilter.from_ids(ids, flt)
+        c_f = None if flt is None else DocFilter.from_ids(ids, flt)
+        K.reset_launch_count()
+        got = gpu.search_encoded(q_i, q_w, n_docs, backend="taat",
+                                 wire="compact48", doc_filter=g_f)
+        assert K.launch_count() == 1
+        i32 = gpu.search_encoded(q_i, q_w, n_docs, backend="taat",
+                                 doc_filter=g_f)
+        ref = cpu.search_encoded(q_i, q_w, n_docs, backend="matmul",
+                                 wire="compact48", doc_filter=c_f)
+        assert sets(got) == sets(i32) == sets(ref)
+        assert max(max(r) for r in got[0]) > 65536
+
+
+def test_ann_on_the_card_matches_the_cpu():
+    """``DenseANNIndex`` on the card (stage 1 and the rescore in full f32,
+    TF32 off) against the same index on the CPU: the same ids up to docs
+    tied within 1e-5 at the cut, scores within 1e-5."""
+    dev = _card()
+    from mllm_sparse_retrieval_tpu_torch.index import DenseANNIndex
+
+    rng = np.random.default_rng(16)
+    u = rng.normal(size=(5000, 16))
+    basis = np.linalg.qr(rng.normal(size=(256, 16)))[0]
+    corpus = (u @ basis.T + 0.02 * rng.normal(size=(5000, 256))).astype(
+        np.float32)
+    q = corpus[:8] + 0.01
+    ids = [str(i) for i in range(5000)]
+    out = []
+    for where in ("cpu", dev):
+        index = DenseANNIndex(device=where, rank=32, candidates=256)
+        index.add(corpus, ids)
+        out.append(index.search_ids(q, 10, batch_size=8))
+    (cs, ci), (gs, gi) = out
+    np.testing.assert_allclose(gs, cs, rtol=0, atol=1e-5)
+    for r in range(8):
+        cut = gs[r, -1] + 2e-5
+        assert {d for d, s in zip(gi[r], gs[r]) if s > cut} <= set(ci[r])

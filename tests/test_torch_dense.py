@@ -198,8 +198,8 @@ def test_pickles_cross_load(data, tmp_path):
 
 def test_dense_rejects_what_it_does_not_take(data):
     queries, corpus = data
-    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
-        DenseFlatIndex(dtype=torch.int8, device="cpu")
+    with pytest.raises(TypeError, match="float32, bfloat16 or int8"):
+        DenseFlatIndex(dtype=torch.float16, device="cpu")
     with pytest.raises(TypeError, match="int8"):
         mips.mips_scores(torch.from_numpy(queries),
                          torch.zeros((4, D), dtype=torch.int8))

@@ -2,8 +2,9 @@
 of the JAX package (nor Pillow, which the card machine lacks), every port
 module (the offline evaluation path's ``cli``, ``eval``, ``search`` and
 ``index/native``, and the hybrid path's fusion, rank, filter and service
-modules included) imports with JAX blocked, and the smoke check refuses to
-report a result without a card."""
+modules, and the search tiers' SQ8, ANN, compact48 and stream modules
+included) imports with JAX blocked, and the smoke check refuses to report a
+result without a card."""
 
 import os
 import re
@@ -42,6 +43,9 @@ OFFLINE = ("cli.common", "cli.encode", "cli.index", "cli.search",
 # the hybrid path's modules
 HYBRID = ("eval.device_eval", "index.filter", "ops.eval_ranks",
           "ops.hybrid_fusion", "search.device_fusion", "serving.service")
+# the search tiers' modules: the ANN tier, SQ8, the compact48 wire, streams
+TIERS = ("index.ann", "index.impact", "index", "ops.ann", "ops.mips",
+         "ops.packing", "ops.score_programs")
 
 
 def _env():
@@ -57,7 +61,7 @@ def test_port_and_chip_smoke_import_without_jax():
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 20
     imported = set(proc.stdout.splitlines()[-2].split())
-    missing = {m for m in OFFLINE + HYBRID
+    missing = {m for m in OFFLINE + HYBRID + TIERS
                if f"mllm_sparse_retrieval_tpu_torch.{m}" not in imported}
     assert missing == set()
 
@@ -71,8 +75,9 @@ def test_no_import_statement_names_jax_or_the_jax_package():
     assert len(files) > 20
     scanned = {str(f.relative_to(PORT)) for f in files
                if f.is_relative_to(PORT)}
-    assert {m.replace(".", "/") + ".py" for m in OFFLINE + HYBRID
-            if m != "index.native"} | {"index/native/__init__.py"} <= scanned
+    assert {m.replace(".", "/") + ".py" for m in OFFLINE + HYBRID + TIERS
+            if m not in ("index.native", "index")} | {
+                "index/native/__init__.py", "index/__init__.py"} <= scanned
     hits = [f"{f}: {m.group(0).strip()}" for f in files
             for m in pattern.finditer(f.read_text())]
     assert hits == []

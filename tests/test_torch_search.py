@@ -467,7 +467,7 @@ def test_run_search_runs_only_without_targets(world):
     (dict(fusion_mode="device", fusion_rule="rrf"), ValueError,
      "host-path only"),
     (dict(fusion_mode="device", impact_index=None), ValueError, "BOTH a"),
-    (dict(impact_wire="compact48"), NotImplementedError, "Queue 1 #4"),
+    (dict(impact_wire="zstd"), ValueError, "wire"),
 ])
 def test_run_search_argument_checks(world, kw, err, match):
     args = dict(query_type="text", sparse_cfg=SparseConfig(),
@@ -526,6 +526,50 @@ def test_run_search_device_fusion_matches_jax(world, qtype, corpus_kind,
     if remove_query:
         for q, rows in _rows_of(got.fusion_run).items():
             assert q not in dict(rows)
+
+
+@pytest.mark.parametrize("sparse_kind,fusion_mode", [
+    ("jsonl", "host"), ("terms", "host"), ("jsonl", "device")])
+def test_run_search_compact48_matches_jax(world, sparse_kind, fusion_mode):
+    """``impact_wire="compact48"``: the sparse run equals the i32 wire's
+    exactly and the JAX package's compact48 run; the device-fused route
+    keeps the i32 wire inside the device, as the JAX searcher does."""
+    kw = dict(impact_wire="compact48", search_cfg=dict(depth=DEPTH))
+    if fusion_mode == "device":
+        got, want, tgt = _device_run(world, "text", "image", sparse_kind,
+                                     fusion_mode="device", **kw)
+        i32, _, _ = _device_run(world, "text", "image", sparse_kind,
+                                fusion_mode="device")
+        assert got.fusion_run == i32.fusion_run
+        host, _, _ = _run(world, "text", "image", sparse_kind)
+        _same_eval(got, want, tgt, dict(fusion=2 * _same_run(
+            got.fusion_run, want.fusion_run, _fusion_tol(host, 0.5)) + 1e-6))
+        return
+    got, want, tgt = _run(world, "text", "image", sparse_kind, **kw)
+    i32, _, _ = _run(world, "text", "image", sparse_kind,
+                     search_cfg=dict(depth=DEPTH))
+    assert _rows_of(got.sparse_run) == _rows_of(i32.sparse_run)
+    assert got.sparse_run.materialize() == i32.sparse_run.materialize()
+    _compare_hybrid(got, want, tgt)
+
+
+def test_run_search_device_fusion_takes_two_device_spellings(world,
+                                                             tmp_path):
+    """A dense index on ``cpu`` beside an impact index on ``cpu:0`` is one
+    device: the device-fused route builds and gives the same run."""
+    impact = world["idx"]["image"]["jsonl"][0]
+    impact.save(str(tmp_path / "idx"))
+    spelled = ImpactIndex.load(str(tmp_path / "idx"), device="cpu:0")
+    args = dict(query_type="text", sparse_cfg=SparseConfig(),
+                search_cfg=SearchConfig(depth=10),
+                dense_index=world["idx"]["image"]["dense"][0],
+                fusion_mode="device", device="cpu")
+    queries = world["corpus"].examples("full")[:6]
+    got = engine.run_search(queries, *world["model"]["p"],
+                            impact_index=spelled, **args)
+    want = engine.run_search(queries, *world["model"]["p"],
+                             impact_index=impact, **args)
+    assert got.fusion_run == want.fusion_run and len(got.fusion_run) == 6
 
 
 @pytest.mark.parametrize("fusion_mode,dense,sparse", [
