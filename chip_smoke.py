@@ -12,9 +12,15 @@ version at the shapes the port's paths give it: the TAAT kernel at the
 served and the benchmark shapes; the flash-attention forward and the dq and
 dkv backward kernels on synthetic 3,072-token rows with an all-pad row
 (what the kernels line reports) and on the rows of the profiled training
-step; each with its bound and its share of the bf16 peak. Then
-it drives the port's five paths end to end on the full-width, full-depth
-LLaVA-NeXT-Llama3-8B (bf16 weights drawn on the card from a seed): text
+step, and the forward again at LLaVA-1.6-Vicuna's 32 KV heads (G = 1);
+each with its bound and its share of the bf16 peak. Then it makes the
+main path's model from a checkpoint: the full-width, full-depth
+LLaVA-NeXT-Llama3-8B, bf16 weights drawn on the card from a seed, is
+written as a Hugging Face llava_next checkpoint (bf16 safetensors shards
+in the hub's key layout, kept in RAM, an index and ``config.json``),
+converted by ``models.convert.convert_hf_dir`` and loaded by
+``build_model``, every tensor bit-equal to the drawn one. It drives the
+port's five paths end to end on that loaded model: text
 queries through ``RetrievalService`` and the 32-layer text tower; image
 queries through anyres preprocessing, the 24-layer ViT-L/14-336 on five
 336 px tiles, the projector and the 3,072-token decoder, whose attention is
@@ -50,6 +56,10 @@ training, a few ``ContrastiveTrainer.train_on_batch`` steps on seeded
 image-caption pairs whose 3,072-token image prompts take the flash kernels
 forward and backward. The whole tower is also run, and differentiated,
 with the flash kernels and with plain attention, and the two compared.
+Last, LLaVA-1.6-Vicuna-7B (anyres, the flash kernel at G = 1) and
+LLaVA-1.5-7B (fixed 336 px grid, prompts short enough for plain
+attention) are drawn at full width, one after the other, and serve 8 text
+and 8 image queries each, every result equal to the matmul backend's.
 
 Each phase prints one progress line with the seconds since start. The last
 lines are a JSON object describing the kernels, the card's name and power
@@ -60,6 +70,7 @@ script fails before printing any result. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -162,6 +173,24 @@ TIER_STREAMS, TIER_STREAM_B, TIER_EXPLAIN = 4, 64, 8
 TIER_ANN_RANK, TIER_ANN_CAND, TIER_REL = 64, 1024, 1e-5
 TIER_LOW_RANK, TIER_LOW_NOISE, TIER_RECALL_FLOOR = 48, 0.02, 0.95
 TIER_PROFILE_ITERS = 20         # host-clock calls of each dense search
+# checkpoint: the drawn LLaVA-NeXT-Llama3-8B (full width and depth) is
+# written as an HF llava_next checkpoint (the hub's legacy key layout, bf16
+# safetensors in shards of at most CKPT_SHARD_BYTES, with an index),
+# converted by convert_hf_dir (an f32 params.pkl) and loaded by
+# build_model; every loaded tensor must equal its drawn one bit for bit
+# (two int64 sums of its bf16 bit patterns, the second weighted by position
+# mod CHECKSUM_MOD, CHECKSUM_CHUNK elements at a time)
+CKPT_SHARD_BYTES = 5 * 10 ** 9
+# the converter's pickling rate apart from its disk: the f32 tree of the
+# first PICKLE_SPLIT_LAYERS decoder blocks, pickled as convert_hf_dir
+# pickles params.pkl, to /dev/null, to a RAM file and to a disk file
+PICKLE_SPLIT_LAYERS = 4
+CHECKSUM_CHUNK, CHECKSUM_MOD = 1 << 26, 8191
+# families: LLaVA-1.6-Vicuna-7B (anyres, 32 KV heads: the flash forward at
+# G = 1) and LLaVA-1.5-7B (fixed grid, prompts under FLASH_MIN_SEQ: plain
+# attention) drawn at full width, FAM_QUERIES text and image queries each;
+# the flash kernel at the Vicuna image shape has VICUNA_HEADS q / kv heads
+FAM_QUERIES, VICUNA_HEADS = 8, 32
 
 
 def progress(phase: str, msg: str) -> None:
@@ -449,7 +478,10 @@ def flash_errors(got, ref, ref_abs, mask):
     zeros = bool((got[~rows] == 0).all()) and bool((ref[~rows] == 0).all())
     diff = (got.float() - ref.float()).abs()[rows]
     ref, ref_abs = ref.float().abs()[rows], ref_abs.float()[rows]
-    used = float((diff / (FLASH_RTOL * (ref + ref_abs))).max())
+    # 0 / 0 where the plain output and its magnitude are both exactly 0 (a
+    # query whose only key has a 0 element in v) is an exact element
+    used = float((diff / (FLASH_RTOL * (ref + ref_abs))).nan_to_num_(
+        nan=0.0).max())
     mean_used = float(diff.mean() / (FLASH_RTOL * ref.mean()))
     err, mean_err = float(diff.max()), float(diff.mean())
     if not finite or not zeros or used > 1 or mean_used > 1:
@@ -504,18 +536,19 @@ def allowed_mask(mask):
             & mask.bool()[:, None, :])[:, None]
 
 
-def phase_flash(lengths, seq):
+def phase_flash(lengths, seq, hq=FLASH_HQ, hkv=FLASH_HKV):
     """The flash forward kernel on one prompt a row, of ``lengths`` real
-    tokens each (the served image shape, or the training step's), against
-    its plain version (compared at every query with a real key at or before
-    it), its log-sum-exp, its time, the plain version's and that of
-    ``scaled_dot_product_attention`` with the same boolean mask."""
+    tokens each (the served image shape, or the training step's), with
+    ``hq`` query and ``hkv`` KV heads, against its plain version (compared
+    at every query with a real key at or before it), its log-sum-exp, its
+    time, the plain version's and that of ``scaled_dot_product_attention``
+    with the same boolean mask."""
     import torch
     import torch.nn.functional as F
 
     from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
 
-    b, hq, hkv, dh = len(lengths), FLASH_HQ, FLASH_HKV, FLASH_DH
+    b, dh = len(lengths), FLASH_DH
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
     q, k, v = (torch.randn((b, seq, h, dh), generator=gen, device=DEVICE,
                            dtype=torch.bfloat16) for h in (hq, hkv, hkv))
@@ -2362,6 +2395,427 @@ def phase_tiers(params, arch, tok, tmpl, lexicon, index, cmap, texts, host,
     torch.cuda.empty_cache()
     return taat_total
 
+def tree_leaves(tree, path=()):
+    """``(path, tensor)`` of every leaf of a parameter tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_leaves(v, path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def checksums(params):
+    """``{path: (shape, s1, s2)}``: per bf16 tensor, the int64 sums of its
+    16-bit patterns and of those weighted by position mod CHECKSUM_MOD."""
+    import torch
+
+    sums, shapes = [], {}
+    for path, t in tree_leaves(params):
+        bits = t.detach().contiguous().view(-1).view(torch.int16)
+        s1 = torch.zeros((), dtype=torch.int64, device=t.device)
+        s2 = torch.zeros_like(s1)
+        for lo in range(0, bits.numel(), CHECKSUM_CHUNK):
+            x = bits[lo:lo + CHECKSUM_CHUNK].to(torch.int64)
+            w = torch.arange(lo, lo + x.numel(), device=t.device) \
+                % CHECKSUM_MOD + 1
+            s1 += x.sum()
+            s2 += (x * w).sum()
+        sums.append(torch.stack([s1, s2]))
+        shapes[path] = tuple(t.shape)
+    host = torch.stack(sums).cpu().tolist()
+    return {p: (shapes[p],) + tuple(h) for p, h in zip(shapes, host)}
+
+
+def hf_checkpoint_tensors(params, arch):
+    """``(HF name, tensor view on the card)`` of every weight of the port's
+    tree in the hub's legacy llava / llava_next key layout: ``[out, in]``
+    linear weights, CLIP q/k/v split, the conv patch embedding
+    ``[H, 3, P, P]`` (the inverse of ``convert_llava_state_dict``)."""
+    vt, lm = "vision_tower.vision_model", "language_model.model"
+    vis, text = params["vision"], params["text"]
+    p, h = arch.vision.patch_size, arch.vision.hidden_size
+
+    def linear(name, d):
+        out = [(f"{name}.weight", d["w"].T)]
+        if "b" in d:
+            out.append((f"{name}.bias", d["b"]))
+        return out
+
+    def norm(name, d):
+        out = [(f"{name}.weight", d["scale"])]
+        if "bias" in d:
+            out.append((f"{name}.bias", d["bias"]))
+        return out
+
+    out = [(f"{vt}.embeddings.patch_embedding.weight",
+            vis["patch_embed"]["w"].reshape(p, p, 3, h).permute(3, 2, 0, 1)),
+           (f"{vt}.embeddings.class_embedding", vis["cls_token"]),
+           (f"{vt}.embeddings.position_embedding.weight", vis["pos_embed"])]
+    out += norm(f"{vt}.pre_layrnorm", vis["pre_ln"])
+    for i, blk in enumerate(vis["blocks"]):
+        pre = f"{vt}.encoder.layers.{i}"
+        for j, part in enumerate("qkv"):
+            one = {"w": blk["qkv"]["w"][:, j * h:(j + 1) * h]}
+            if "b" in blk["qkv"]:
+                one["b"] = blk["qkv"]["b"][j * h:(j + 1) * h]
+            out += linear(f"{pre}.self_attn.{part}_proj", one)
+        out += linear(f"{pre}.self_attn.out_proj", blk["out"])
+        out += norm(f"{pre}.layer_norm1", blk["ln1"])
+        out += norm(f"{pre}.layer_norm2", blk["ln2"])
+        out += linear(f"{pre}.mlp.fc1", blk["fc1"])
+        out += linear(f"{pre}.mlp.fc2", blk["fc2"])
+    for j in (1, 2):
+        out += linear(f"multi_modal_projector.linear_{j}",
+                      params["projector"][f"fc{j}"])
+    out.append((f"{lm}.embed_tokens.weight", text["embed"]))
+    for i, blk in enumerate(text["blocks"]):
+        pre = f"{lm}.layers.{i}"
+        out += norm(f"{pre}.input_layernorm", blk["attn_norm"])
+        for part in "qkvo":
+            out += linear(f"{pre}.self_attn.{part}_proj", blk[part])
+        out += norm(f"{pre}.post_attention_layernorm", blk["mlp_norm"])
+        for part in ("gate", "up", "down"):
+            out += linear(f"{pre}.mlp.{part}_proj", blk[part])
+    out += norm(f"{lm}.norm", text["final_norm"])
+    if "lm_head" in text:
+        out += linear("language_model.lm_head", text["lm_head"])
+    if "image_newline" in params:
+        out.append(("image_newline", params["image_newline"]))
+    return out
+
+
+def hf_config(arch):
+    """The ``config.json`` of an HF llava_next checkpoint of ``arch``."""
+    t, v = arch.text, arch.vision
+    return {
+        "architectures": ["LlavaNextForConditionalGeneration"],
+        "model_type": "llava_next", "torch_dtype": "bfloat16",
+        "image_token_index": arch.image_token_id,
+        "image_grid_pinpoints": [list(x) for x in arch.grid_pinpoints],
+        "vision_feature_layer": v.feature_layer,
+        "vision_feature_select_strategy": "default",
+        "projector_hidden_act": "gelu", "tie_word_embeddings": False,
+        "text_config": {
+            "model_type": "llama", "vocab_size": t.vocab_size,
+            "hidden_size": t.hidden_size, "num_hidden_layers": t.num_layers,
+            "num_attention_heads": t.num_heads,
+            "num_key_value_heads": t.num_kv_heads,
+            "intermediate_size": t.intermediate_size,
+            "max_position_embeddings": t.max_seq_len,
+            "rope_theta": t.rope_theta, "rms_norm_eps": t.rms_eps,
+            "attention_bias": t.qkv_bias,
+            "tie_word_embeddings": t.tie_lm_head},
+        "vision_config": {
+            "model_type": "clip_vision_model", "image_size": v.image_size,
+            "patch_size": v.patch_size, "hidden_size": v.hidden_size,
+            "num_hidden_layers": v.num_layers,
+            "num_attention_heads": v.num_heads,
+            "intermediate_size": v.hidden_size * v.mlp_ratio,
+            "hidden_act": v.act},
+    }
+
+
+def ram_file(directory, name):
+    """An open file ``directory/name`` whose bytes live in RAM: a memfd,
+    linked into the directory by name through ``/proc``. Closing it frees
+    them. The converter's f32 ``params.pkl`` alone is 33.4 GB; keeping the
+    16.7 GB of bf16 shards it reads in RAM holds the script's disk writes
+    under 45 GiB, a per-run cap some card hosts set."""
+    fd = os.memfd_create(name)
+    os.symlink(f"/proc/{os.getpid()}/fd/{fd}", os.path.join(directory, name))
+    return os.fdopen(fd, "w+b")
+
+
+def write_hf_checkpoint(tensors, config, out_dir, shard_file):
+    """bf16 safetensors shards of at most ``CKPT_SHARD_BYTES`` (each an
+    8-byte little-endian header length, the JSON header, the raw tensors),
+    each written into ``shard_file(out_dir, name)``, which stays open;
+    ``model.safetensors.index.json`` and ``config.json``. Each tensor goes
+    from the card into its shard at its header offset, one at a time.
+    Returns ``(bytes written, the open shard files)``."""
+    import struct
+
+    import torch
+
+    shards, size = [[]], 0
+    for name, t in tensors:
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name} is {t.dtype}, not bf16")
+        if shards[-1] and size + 2 * t.numel() > CKPT_SHARD_BYTES:
+            shards.append([])
+            size = 0
+        shards[-1].append((name, t))
+        size += 2 * t.numel()
+    weight_map, written, tensor_bytes, files = {}, 0, 0, []
+    for s, shard in enumerate(shards):
+        fname = f"model-{s + 1:05d}-of-{len(shards):05d}.safetensors"
+        header, offset = {"__metadata__": {"format": "pt"}}, 0
+        for name, t in shard:
+            header[name] = {"dtype": "BF16", "shape": list(t.shape),
+                            "data_offsets": [offset, offset + 2 * t.numel()]}
+            offset += 2 * t.numel()
+            weight_map[name] = fname
+        blob = json.dumps(header).encode()
+        blob += b" " * (-len(blob) % 8)
+        f = shard_file(out_dir, fname)
+        files.append(f)
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for _, t in shard:
+            t.contiguous().view(torch.int16).cpu().numpy().tofile(f)
+        f.flush()
+        if f.tell() != 8 + len(blob) + offset:
+            raise AssertionError(f"{fname}: wrote {f.tell()} bytes")
+        written += 8 + len(blob) + offset
+        tensor_bytes += offset
+    with open(os.path.join(out_dir, "model.safetensors.index.json"),
+              "w") as f:
+        json.dump({"metadata": {"total_size": tensor_bytes},
+                   "weight_map": weight_map}, f, indent=1)
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(config, f, indent=1)
+    return written, files
+
+
+def pickle_split(hf_dir, tmp):
+    """Seconds to pickle the f32 ``[in, out]`` views of the first
+    PICKLE_SPLIT_LAYERS decoder blocks' weights (as ``convert_hf_dir``
+    holds them) with its ``_TreePickler`` to /dev/null, to a RAM file and
+    to a disk file (flushed by ``fsync``), and with the C pickler
+    (``pickle.dump``) to /dev/null. Returns ``(GB, {target: s})``."""
+    import pickle
+
+    from mllm_sparse_retrieval_tpu_torch.models.convert import (
+        SafetensorsStateDict, _TreePickler)
+
+    sd = SafetensorsStateDict(hf_dir)
+    prefix = "language_model.model.layers."
+    tree = {k: (a.T if a.ndim == 2 else a) for k in sorted(sd)
+            if k.startswith(prefix)
+            and int(k[len(prefix):].split(".")[0]) < PICKLE_SPLIT_LAYERS
+            for a in (sd[k],)}
+    gb = sum(a.nbytes for a in tree.values()) / 1e9
+    times = {}
+
+    def timed(label, f, dump):
+        t0 = time.monotonic()
+        dump(f)
+        f.flush()
+        if label == "disk":
+            os.fsync(f.fileno())
+        times[label] = time.monotonic() - t0
+        f.close()
+
+    def tree_pickler(f):
+        _TreePickler(f, protocol=4).dump(tree)
+
+    timed("null", open(os.devnull, "wb"), tree_pickler)
+    timed("ram", os.fdopen(os.memfd_create("split"), "w+b"), tree_pickler)
+    disk = os.path.join(tmp, "split.pkl")
+    timed("disk", open(disk, "wb"), tree_pickler)
+    os.remove(disk)
+    timed("c_null", open(os.devnull, "wb"),
+          lambda f: pickle.dump(tree, f, protocol=4))
+    return gb, times
+
+
+def phase_checkpoint(spec, card):
+    """The main path's model from a checkpoint: LLaVA-NeXT-Llama3-8B drawn
+    at full width and depth on the card (bf16), written as an HF llava_next
+    checkpoint (its shards in RAM, ``ram_file``; the f32 ``params.pkl`` on
+    disk), converted by ``convert_hf_dir`` and loaded by
+    ``build_model``; every loaded tensor equal to its drawn one bit for
+    bit and the manifest's arch equal to the registry's. Returns
+    ``(params, arch)``, the loaded tree."""
+    import resource
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mllm_sparse_retrieval_tpu_torch.configs import ModelConfig
+    from mllm_sparse_retrieval_tpu_torch.models import build_model, mllm
+    from mllm_sparse_retrieval_tpu_torch.models.convert import (
+        arch_from_hf_config, convert_hf_dir)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    drawn = mllm.init_params(spec.arch, gen, DEVICE, torch.bfloat16)
+    want = checksums(drawn)
+    config = hf_config(spec.arch)
+    if arch_from_hf_config(config) != spec.arch:
+        raise AssertionError("the written config.json does not give the "
+                             "registry's arch")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    shards = []
+    try:
+        hf_dir, out_dir = os.path.join(tmp, "hf"), os.path.join(tmp, "conv")
+        os.makedirs(hf_dir)
+        t0 = time.monotonic()
+        tensors = hf_checkpoint_tensors(drawn, spec.arch)
+        n_tensors = len(tensors)
+        written, shards = write_hf_checkpoint(tensors, config, hf_dir,
+                                              ram_file)
+        write_s = time.monotonic() - t0
+        del tensors, drawn
+        torch.cuda.empty_cache()
+        progress("checkpoint", f"{spec.arch.text.num_layers}-layer "
+                 f"{spec.hf_repo} at full width: {n_tensors} bf16 tensors "
+                 f"written from the card as {len(shards)} safetensors "
+                 f"shards (in RAM, linked by name), {written / 1e9:.3f} GB "
+                 f"in {write_s:.2f} s")
+        t0 = time.monotonic()
+        convert_hf_dir(hf_dir, out_dir)
+        convert_s = time.monotonic() - t0
+        pkl_bytes = os.path.getsize(os.path.join(out_dir, "params.pkl"))
+        progress("checkpoint", f"convert_hf_dir {convert_s:.2f} s: "
+                 f"params.pkl {pkl_bytes / 1e9:.3f} GB f32 on disk")
+        split_gb, split = pickle_split(hf_dir, tmp)
+        progress("checkpoint", f"pickling {split_gb:.3f} GB of f32 ("
+                 f"{PICKLE_SPLIT_LAYERS} decoder blocks): _TreePickler to "
+                 + ", to ".join(f"{k} {v:.2f} s ({split_gb / v:.3f} GB/s)"
+                                for k, v in split.items() if k != "c_null")
+                 + f"; pickle.dump to null {split['c_null']:.2f} s "
+                 f"({split_gb / split['c_null']:.3f} GB/s); card {card}")
+        t0 = time.monotonic()
+        for f in shards:
+            f.close()
+        params, arch, tok, _ = build_model(ModelConfig(
+            family=spec.family, checkpoint_path=out_dir, dtype="bfloat16"),
+            device=DEVICE)
+        torch.cuda.synchronize()
+        load_s = time.monotonic() - t0
+    finally:
+        for f in shards:
+            f.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+    got = checksums(params)
+    bad = sorted(str(p) for p in set(want) | set(got)
+                 if want.get(p) != got.get(p))
+    if bad or arch != spec.arch or tok is not None:
+        raise AssertionError(f"loaded checkpoint: {len(bad)} tensors differ "
+                             f"from the drawn ones ({bad[:4]}), arch equal "
+                             f"{arch == spec.arch}, tokenizer {tok}")
+    progress("checkpoint", f"write {write_s:.2f} s, convert_hf_dir "
+             f"{convert_s:.2f} s; build_model / load_converted {load_s:.2f} s "
+             f"({pkl_bytes / 1e9 / load_s:.3f} GB/s of params.pkl); host "
+             f"peak RSS {rss_gb:.2f} GB; device memory after load "
+             f"{torch.cuda.memory_allocated() / 1e9:.2f} GB; all "
+             f"{len(got)} loaded tensors equal the drawn ones bit for bit, "
+             f"arch equal to the registry's; card {card}")
+    return params, arch
+
+
+def phase_families(tok, tmpl, lexicon, index, cmap, card):
+    """LLaVA-1.6-Vicuna-7B (anyres, 32 KV heads: the flash forward at
+    G = 1) and then LLaVA-1.5-7B (fixed 336 px grid, 576 image tokens:
+    prompts under FLASH_MIN_SEQ take plain attention), each drawn at full
+    width on the card and freed after use: FAM_QUERIES text and image
+    queries through ``RetrievalService``, every result equal to the matmul
+    backend's; one TAAT launch per micro-batch; Vicuna takes exactly one
+    flash launch per layer and image micro-batch, LLaVA-1.5 none. Returns
+    the TAAT and flash launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mllm_sparse_retrieval_tpu_torch.configs import (
+        ModelFamily, SparseConfig)
+    from mllm_sparse_retrieval_tpu_torch.models import mllm
+    from mllm_sparse_retrieval_tpu_torch.models.llama import param_count
+    from mllm_sparse_retrieval_tpu_torch.models.registry import (
+        get_family_spec)
+    from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
+    from mllm_sparse_retrieval_tpu_torch.ops import impact_kernel as K
+    from mllm_sparse_retrieval_tpu_torch.serving import (
+        OnlineQueryEncoder, RetrievalService)
+
+    rng = np.random.default_rng(SEED + 6)
+    taat = flash = 0
+    for family in (ModelFamily.LLAVA_1_6_VICUNA, ModelFamily.LLAVA_1_5):
+        spec = get_family_spec(family)
+        arch = dataclasses.replace(spec.arch,
+                                   image_token_id=tok.image_token_id)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+        params = mllm.init_params(arch, gen, DEVICE, torch.bfloat16)
+        texts = captions(rng, lexicon, FAM_QUERIES, 10, 15)
+        images = [rng.integers(0, 256, size=hw + (3,), dtype=np.uint8)
+                  .astype(np.float32) / 255.0
+                  for hw in IMAGE_SIZES[:FAM_QUERIES]]
+        enc = RecordingEncoder(OnlineQueryEncoder(
+            params, arch, tok, tmpl, SparseConfig(), max_text_len=64,
+            device=DEVICE))
+        svc = RetrievalService(impact_index=index, query_encoder=enc,
+                               backend="taat", max_batch=MAX_BATCH,
+                               depth_levels=(DEPTH,), max_wait_ms=10.0)
+        runs = {}
+        try:
+            svc.search(text=texts[0], timeout=WARMUP_TIMEOUT_S)
+            svc.search(image=images[0], timeout=IMAGE_REQUEST_TIMEOUT_S)
+            torch.cuda.reset_peak_memory_stats()
+            for kind, queries, threads, timeout, deadline in (
+                    ("text", texts, N_THREADS, REQUEST_TIMEOUT_S,
+                     SERVE_DEADLINE_S),
+                    ("image", images, IMAGE_THREADS, IMAGE_REQUEST_TIMEOUT_S,
+                     IMAGE_DEADLINE_S)):
+                torch.cuda.synchronize()
+                batches0 = svc.stats()["batches"]
+                enc.tower_s.clear()
+                K.reset_launch_count()
+                FA.reset_launch_count()
+                results, latency, wall = serve(svc, kind, queries, threads,
+                                               timeout, deadline)
+                runs[kind] = (K.launch_count(), FA.launch_count(),
+                              svc.stats()["batches"] - batches0, results,
+                              latency, wall, np.mean(enc.tower_s))
+        finally:
+            svc.close()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        prompt = enc._image_state()
+        img_len = -(-prompt.get("fixed_len", len(prompt.get("row", ())))
+                    // 16) * 16         # the encoder pads to 16s
+        per_batch = arch.text.num_layers if arch.anyres else 0
+        lines = []
+        for kind, run in runs.items():
+            k_n, f_n, n_batches, results, latency, wall, enc_s = run
+            want_flash = per_batch * n_batches if kind == "image" else 0
+            if k_n != n_batches or f_n != want_flash:
+                raise AssertionError(
+                    f"{spec.hf_repo} {kind}: {k_n} TAAT and {f_n} flash "
+                    f"launches in {n_batches} micro-batches, want "
+                    f"{n_batches} and {want_flash}")
+            keys = texts if kind == "text" else [image_key(im)
+                                                 for im in images]
+            check_results(index, cmap, [f"{kind} {i}" for i in
+                                        range(len(keys))],
+                          [enc.terms[q] for q in keys], results)
+            taat += k_n
+            flash += f_n
+            lat = np.array(latency) * 1e3
+            lines.append(f"{kind}: {n_batches} micro-batches, TAAT "
+                         f"launches {k_n}, flash launches {f_n}, p50 "
+                         f"{np.percentile(lat, 50):.2f} ms, "
+                         f"{len(keys) / wall:.2f} QPS, encode "
+                         f"{enc_s * 1e3:.2f} ms per batch")
+        t = arch.text
+        progress("families", f"{spec.hf_repo}: {param_count(params):,} bf16"
+                 f" weights drawn on the card ({t.num_layers} layers, "
+                 f"{t.num_heads}/{t.num_kv_heads} heads, FFN "
+                 f"{t.intermediate_size}, vocab {t.vocab_size}, "
+                 f"{'anyres' if arch.anyres else 'fixed grid'}), image "
+                 f"prompts of {img_len} tokens; " + "; ".join(lines)
+                 + f"; all {2 * FAM_QUERIES} results equal the matmul "
+                 f"backend's; peak {peak_gb:.2f} GB; card {card}")
+        del enc, svc, params
+        gc.collect()            # a closed service and its encoder form a
+        torch.cuda.empty_cache()  # cycle: free the weights before the next
+    return taat, flash
+
+
 def same_up_to_ties(got, want, depth=DEPTH):
     """Equal (doc, score) sets, except for docs tied at the depth cut."""
     g, w = set(got), set(want)
@@ -2386,7 +2840,7 @@ def main() -> int:
     from mllm_sparse_retrieval_tpu_torch.configs import (
         ModelFamily, SparseConfig)
     from mllm_sparse_retrieval_tpu_torch.index import ImpactIndex
-    from mllm_sparse_retrieval_tpu_torch.models import anyres, mllm, templates
+    from mllm_sparse_retrieval_tpu_torch.models import anyres, templates
     from mllm_sparse_retrieval_tpu_torch.models.layers import FLASH_MIN_SEQ
     from mllm_sparse_retrieval_tpu_torch.models.llama import param_count
     from mllm_sparse_retrieval_tpu_torch.models.registry import (
@@ -2448,15 +2902,16 @@ def main() -> int:
                                     TRAIN_STEPS * TRAIN_B)]
     flash = phase_flash(image_prompt_len[:FLASH_B - 1] + [0], seq)
     phase_flash(train_lengths, seq)
+    # LLaVA-1.6-Vicuna's image shape: its 32 KV heads give G = 1
+    phase_flash(image_prompt_len[:FLASH_B - 1] + [0], seq, VICUNA_HEADS,
+                VICUNA_HEADS)
     dq_kernel, dkv_kernel = phase_flash_bwd(
         image_prompt_len[:TRAIN_B - 1] + [0], seq)
     phase_flash_bwd(train_lengths, seq)
 
-    # ---- 4. the model and the index -------------------------------------------
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    params = mllm.init_params(spec.arch, gen, DEVICE, torch.bfloat16)
-    torch.cuda.synchronize()
-    t, v = spec.arch.text, spec.arch.vision
+    # ---- 4. the model, from a checkpoint, and the index -----------------------
+    params, arch = phase_checkpoint(spec, card)
+    t, v = arch.text, arch.vision
     vis = param_count(params) - param_count(params["text"])
     progress("slice", f"LLaVA-NeXT-Llama3-8B: {param_count(params['text']):,}"
              f" bf16 text-tower weights ({t.num_layers} layers, hidden "
@@ -2464,8 +2919,9 @@ def main() -> int:
              f"{t.intermediate_size}, vocab {t.vocab_size}) and {vis:,} of "
              f"ViT ({v.num_layers} layers, hidden {v.hidden_size}, "
              f"{v.num_heads} heads, {v.image_size} px / {v.patch_size}), "
-             f"projector and image_newline, drawn on the card; "
-             f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+             f"projector and image_newline, loaded from the converted "
+             f"checkpoint; {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+             f"allocated")
 
     p = zipf_p(word_ids.size)
     doc_tok = rng.choice(word_ids, size=(N_DOCS, DOC_K), p=p)
@@ -2483,7 +2939,7 @@ def main() -> int:
     # ---- 5. text queries through the service ----------------------------------
     sparse_cfg = SparseConfig()
     encoder = RecordingEncoder(OnlineQueryEncoder(
-        params, spec.arch, tok, tmpl, sparse_cfg, max_text_len=64,
+        params, arch, tok, tmpl, sparse_cfg, max_text_len=64,
         device=DEVICE))
     svc = RetrievalService(impact_index=index, query_encoder=encoder,
                            backend="taat", max_batch=MAX_BATCH,
@@ -2597,11 +3053,11 @@ def main() -> int:
 
     # ---- 9. hybrid dense + sparse serving ------------------------------------
     hyb_taat, hyb_flash, dense_host = phase_hybrid(
-        params, spec.arch, arch_img, tok, tmpl, index, cmap, texts, images,
+        params, arch, arch_img, tok, tmpl, index, cmap, texts, images,
         sparse_lines, card)
 
     # ---- 10. search tiers: compact48, streams, SQ8, ANN, explain ----------
-    tier_taat = phase_tiers(params, spec.arch, tok, tmpl, lexicon, index,
+    tier_taat = phase_tiers(params, arch, tok, tmpl, lexicon, index,
                             cmap, texts, dense_host, card)
     del dense_host
 
@@ -2614,6 +3070,13 @@ def main() -> int:
     trainer, batches, train_launches = phase_train(
         params, arch_img, tok, tmpl, lexicon, rng, seq)
     grad_check(trainer, batches[0])
+    del trainer, batches, params, svc
+    gc.collect()                # the closed services still hold the weights
+    torch.cuda.empty_cache()
+
+    # ---- 13. LLaVA-1.6-Vicuna-7B and LLaVA-1.5-7B at full width ------------
+    fam_taat, fam_flash = phase_families(tok, tmpl, lexicon, index, cmap,
+                                         card)
 
     max_err = max(bench["i16"]["max_abs_err"], bench["f32"]["max_abs_err"],
                   served["max_abs_err"])
@@ -2622,7 +3085,7 @@ def main() -> int:
              source="mllm_sparse_retrieval_tpu_torch/csrc/taat.cu",
              replaces="mllm_sparse_retrieval_tpu/ops/impact_kernel.py:115",
              launches=text_taat + img_taat + hyb_taat + tier_taat
-             + off_taat,
+             + off_taat + fam_taat,
              max_abs_err=max_err,
              ms=served["ms"], plain_ms=served["plain_ms"],
              bound_ms=served["bound_ms"], bound_by=served["bound_by"],
@@ -2631,7 +3094,7 @@ def main() -> int:
              source="mllm_sparse_retrieval_tpu_torch/csrc/flash_attn.cu",
              replaces="mllm_sparse_retrieval_tpu/models/layers.py:199",
              launches=text_flash + img_flash + hyb_flash + off_flash
-             + train_launches["fwd"],
+             + train_launches["fwd"] + fam_flash,
              **flash),
         dict(name="flash_attention_bwd_dkv", route="cuda",
              source="mllm_sparse_retrieval_tpu_torch/csrc/flash_attn_bwd.cu",

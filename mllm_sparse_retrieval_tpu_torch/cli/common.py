@@ -60,8 +60,8 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--family", default="tiny_debug",
                    choices=[f.value for f in ModelFamily])
     p.add_argument("--checkpoint-path", default=None,
-                   help="not ported: checkpoint loading is ROADMAP Queue 1 "
-                        "#8 (models/convert.py)")
+                   help="converted checkpoint directory (models/convert.py) "
+                        "of a real family")
     p.add_argument("--lora-path", default=None)
     p.add_argument("--reps-loc", default="before_pad",
                    choices=["before_pad", "after_pad"])
@@ -95,24 +95,26 @@ def sparse_config_from_args(args) -> SparseConfig:
 
 
 def model_config_from_args(args) -> ModelConfig:
-    return ModelConfig(family=ModelFamily(args.family), dtype=args.dtype)
+    return ModelConfig(family=ModelFamily(args.family),
+                       checkpoint_path=args.checkpoint_path, dtype=args.dtype)
 
 
 def build_everything(args):
     """``(corpus, params, arch, tokenizer, template, lora)`` on
-    ``args.device``. Raises ``NotImplementedError`` for ``--mesh`` and
-    ``--checkpoint-path``."""
+    ``args.device``. Raises ``NotImplementedError`` for ``--mesh`` and for
+    a checkpoint whose tokenizer cannot be loaded here."""
     if args.mesh:
         raise NotImplementedError(
             "--mesh: sharding is not ported (ROADMAP Queue 1 #9)")
-    if args.checkpoint_path:
-        raise NotImplementedError(
-            "--checkpoint-path: checkpoint loading is not ported (ROADMAP "
-            "Queue 1 #8, models/convert.py)")
     corpus = CrossModalCorpus(args.dataset, args.split, args.data_root)
     params, arch, tok, template = build_model(
         model_config_from_args(args),
         captions=list(corpus.text_dict.values()), device=args.device)
+    if tok is None:
+        raise NotImplementedError(
+            f"{args.checkpoint_path} has no tokenizer the port can load: it "
+            f"needs the checkpoint's tokenizer files and transformers (a "
+            f"tokenizer.json reader of its own is ROADMAP Queue 1 #8b)")
     lora = load_lora(args.lora_path, args.device) if args.lora_path \
         else None
     return corpus, params, arch, tok, template, lora

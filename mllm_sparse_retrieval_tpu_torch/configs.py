@@ -9,8 +9,8 @@ from typing import Optional
 
 
 class ModelFamily(str, enum.Enum):
-    """Supported MLLM families; the port builds ``LLAVA_NEXT_LLAMA3`` and
-    ``TINY_DEBUG``."""
+    """Supported MLLM families; the port builds the four LLaVA families
+    (from converted checkpoints) and ``TINY_DEBUG``."""
 
     LLAVA_NEXT_LLAMA3 = "llava_next_llama3"   # llava-hf/llama3-llava-next-8b
     LLAVA_1_5 = "llava_1_5"                    # llava-hf/llava-1.5-7b
@@ -58,6 +58,7 @@ class ModelConfig:
     """Model identity + representation extraction."""
 
     family: ModelFamily = ModelFamily.TINY_DEBUG
+    checkpoint_path: Optional[str] = None  # converted checkpoint to load
     dtype: str = "bfloat16"                # compute dtype on the card
     # tiny-debug architecture knobs (real families carry their own
     # architecture in models/registry.py)

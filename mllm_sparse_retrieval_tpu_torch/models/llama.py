@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +35,17 @@ class LlamaConfig:
     rms_eps: float = 1e-5
     qkv_bias: bool = False       # True for Qwen2-style backbones
     tie_lm_head: bool = False
+    # the JAX package's M-RoPE (Qwen2.5-VL) and mixture-of-experts FFN
+    # fields, kept so that an ``arch.json`` manifest has the same keys in
+    # both packages; neither is ported, so only None is accepted
+    mrope_section: Optional[Tuple[int, ...]] = None
+    moe: None = None
+
+    def __post_init__(self):
+        if self.mrope_section is not None or self.moe is not None:
+            raise NotImplementedError(
+                "M-RoPE and mixture-of-experts backbones are not ported "
+                "(ROADMAP Queue 1 #6)")
 
     @property
     def head_dim(self) -> int:

@@ -1,5 +1,5 @@
 """Prompt templates (a copy of the JAX package's ``models/templates.py``, cut
-to the string-wrapper families the port builds).
+to the string-wrapper families the port builds: Llama-3 and LLaVA-1.5).
 
 Every family prompts the MLLM to summarize the sentence or image "in one
 word", wrapped in its chat format, and reads representations at the
@@ -53,6 +53,9 @@ class PromptTemplate:
 LLAMA3 = PromptTemplate(
     "<|start_header_id|>user<|end_header_id|>\n\n{}<|eot_id|>"
     "<|start_header_id|>assistant<|end_header_id|>\n\n \n")
+
+# Vicuna-ish wrapper for LLaVA-1.5 / 1.6-Vicuna ("no_special" variant).
+LLAVA_V1_5 = PromptTemplate("<s>user\n\n{}</s><s>assistant\n\n \n")
 
 # Self-contained wrapper for the tiny debug family (WordPieceLite tokenizer —
 # plain text, no chat specials; tokens need whitespace separation).

@@ -1,5 +1,4 @@
-"""Tokenizer (a copy of the JAX package's ``models/tokenizer.py`` without
-the HuggingFace adapter, which comes with checkpoint loading).
+"""Tokenizers (a copy of the JAX package's ``models/tokenizer.py``).
 
 ``WordPieceLiteTokenizer`` is a deterministic greedy longest-match subword
 tokenizer over a vocabulary built from a caption corpus, using the
@@ -7,6 +6,8 @@ SentencePiece ``▁`` word-boundary convention so that the filtered-id and
 term-string logic (sparse/term_selection.py) behaves as with a real Llama
 vocabulary. The pipeline needs of a tokenizer: ``get_vocab()``,
 ``encode(text, add_special_tokens)``, ``pad_batch`` and ``vocab_size``.
+``HFTokenizerAdapter`` gives a HuggingFace tokenizer, which a converted
+checkpoint may ship, that interface; it imports nothing itself.
 """
 
 from __future__ import annotations
@@ -140,4 +141,26 @@ class WordPieceLiteTokenizer:
 
     def pad_batch(self, batch: Sequence[Sequence[int]], max_len: Optional[int] = None,
                   pad_to_multiple: int = 8):
+        return pad_id_batch(batch, self.pad_id, max_len, pad_to_multiple)
+
+
+class HFTokenizerAdapter:
+    """Adapter over a locally available HuggingFace tokenizer."""
+
+    def __init__(self, hf_tokenizer):
+        self._tok = hf_tokenizer
+        self.pad_id = hf_tokenizer.pad_token_id or 0
+
+    def get_vocab(self) -> Dict[str, int]:
+        return self._tok.get_vocab()
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self._tok)
+
+    def encode(self, text: str, add_special_tokens: bool = True) -> List[int]:
+        return self._tok.encode(text, add_special_tokens=add_special_tokens)
+
+    def pad_batch(self, batch: Sequence[Sequence[int]],
+                  max_len: Optional[int] = None, pad_to_multiple: int = 8):
         return pad_id_batch(batch, self.pad_id, max_len, pad_to_multiple)

@@ -7,10 +7,10 @@ hidden states of ``feature_layer`` with the CLS token dropped, LLaVA's
 ``vision_feature_layer=-2`` / ``'default'`` select. Attention is the plain
 ``layers.attention`` with an all-true mask (T = 577 at 336 px: no kernel).
 
-Only the CLIP tower is built: a CLS token, an MLP 4x wide and ``quick_gelu``
-are fixed. The JAX package's ``act``, ``use_cls_token`` and ``mlp_ratio``
-options take other values only in its Hugging Face converter, which is not
-ported.
+Only the CLIP tower is built: a CLS token and ``quick_gelu`` are fixed.
+``ViTConfig`` carries the JAX package's ``use_cls_token`` and ``act`` fields,
+so that architecture manifests stay the same across packages, and refuses
+any other value; ``mlp_ratio`` comes from a checkpoint's ``config.json``.
 """
 
 from __future__ import annotations
@@ -31,7 +31,17 @@ class ViTConfig:
     hidden_size: int = 1024
     num_layers: int = 24
     num_heads: int = 16
+    mlp_ratio: int = 4
     feature_layer: int = -2       # hidden layer used as image features
+    use_cls_token: bool = True    # only CLIP's values are built
+    act: str = "quick_gelu"
+
+    def __post_init__(self):
+        if not self.use_cls_token or self.act != "quick_gelu":
+            raise NotImplementedError(
+                f"only CLIP's vision tower is ported (a CLS token and "
+                f"quick_gelu), not use_cls_token={self.use_cls_token}, "
+                f"act={self.act!r}")
 
     @property
     def num_patches(self) -> int:
@@ -61,7 +71,7 @@ def init_params(cfg: ViTConfig, generator: torch.Generator, device="cuda",
         return {"scale": torch.ones(dim, device=device, dtype=dtype),
                 "bias": torch.zeros(dim, device=device, dtype=dtype)}
 
-    h, m = cfg.hidden_size, cfg.hidden_size * 4
+    h, m = cfg.hidden_size, cfg.hidden_size * cfg.mlp_ratio
     params = {
         "patch_embed": dense_init(cfg.patch_size * cfg.patch_size * 3, h),
         "pos_embed": normal((cfg.seq_len, h), 0.02),

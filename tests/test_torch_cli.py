@@ -16,10 +16,12 @@ pickled dense vectors agree to f32 ``atol=rtol=1e-5``.
 """
 
 import json
+import pickle
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from mllm_sparse_retrieval_tpu.configs import ModelConfig as JModelConfig
 from mllm_sparse_retrieval_tpu.configs import ModelFamily as JFamily
@@ -37,6 +39,9 @@ from mllm_sparse_retrieval_tpu_torch.cli import common
 from mllm_sparse_retrieval_tpu_torch.cli import encode as cli_encode
 from mllm_sparse_retrieval_tpu_torch.cli import index as cli_index
 from mllm_sparse_retrieval_tpu_torch.cli import search as cli_search
+from mllm_sparse_retrieval_tpu_torch.configs import ModelConfig
+from mllm_sparse_retrieval_tpu_torch.models import mllm
+from mllm_sparse_retrieval_tpu_torch.models.convert import arch_to_manifest
 from mllm_sparse_retrieval_tpu_torch.models.convert_jax import from_jax_params
 
 WORDS = ["dog", "cat", "red", "bus", "man", "kite", "boat", "lake", "snow",
@@ -287,9 +292,25 @@ def test_search_cli_device_fusion_matches_jax_library(
 
 @pytest.mark.parametrize("flags,match", [
     (["--mesh"], "Queue 1 #9"),
-    (["--checkpoint-path", "/ckpt"], "Queue 1 #8"),
+    # a checkpoint that ships no tokenizer: the port cannot read one
+    # without transformers' tokenizer files (#8b)
+    (["--family", "llava_next_llama3", "--checkpoint-path", "CKPT"],
+     "Queue 1 #8"),
 ])
 def test_cli_refuses_mesh_and_checkpoints(data_root, tmp_path, flags, match):
+    if "CKPT" in flags:
+        ckpt = tmp_path / "ckpt"
+        ckpt.mkdir()
+        arch = common.build_model(ModelConfig(dtype="float32"),
+                                  device="cpu")[1]
+        gen = torch.Generator(device="cpu").manual_seed(0)
+        host = jax.tree_util.tree_map(
+            lambda t: t.numpy(), mllm.init_params(arch, gen, "cpu",
+                                                  torch.float32))
+        with open(ckpt / "params.pkl", "wb") as f:
+            pickle.dump(host, f)
+        (ckpt / "arch.json").write_text(json.dumps(arch_to_manifest(arch)))
+        flags = [str(ckpt) if f == "CKPT" else f for f in flags]
     with pytest.raises(NotImplementedError, match=match):
         cli_encode.main(_common(data_root) + flags + [
             "--dense-output-dir", str(tmp_path / "d"),

@@ -4,8 +4,9 @@ versions, the filtered TAAT top-k against the plain one, the fused hybrid
 searcher against the host fuse, the tiny offline evaluation path on the
 card against the same path on the CPU, and the search tiers: the bf16
 dense search's peak memory, the SQ8 int8 product's padding, the compact48
-wire through the TAAT kernel and the ANN tier (the tolerances of all but
-the kernels are in their docstrings). Marked ``cuda``; each test skips
+wire through the TAAT kernel and the ANN tier, and a converted checkpoint
+loaded onto the card (the tolerances of all but the kernels are in their
+docstrings). Marked ``cuda``; each test skips
 where no card is present (decided inside the test, so every pytest worker
 collects the same tests). This file
 imports nothing of JAX, so it also runs where JAX is absent:
@@ -410,6 +411,71 @@ def test_hopper_forward_takes_any_scale(scale):
     diff = (got.float() - ref).abs()[rows]
     assert bool((diff <= FLASH_RTOL * (ref.abs()[rows] + ref_abs[rows]))
                 .all())
+
+
+def test_flash_forward_at_the_vicuna_width_g1():
+    """LLaVA-1.6-Vicuna's image prompts: 32 query heads on 32 KV heads
+    (G = 1) at 3,072 tokens, one all-pad row."""
+    dev = _card()
+    q, k, v, mask = _flash_inputs(17, 2, 3072, 32, 32, (2911, 0), dev)
+    before = FA.launch_count()
+    got = FA.flash_causal_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert FA.launch_count() == before + 1
+    _assert_flash_close(got, q, k, v, mask)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_load_converted_onto_the_card_equals_the_cpu_load(tmp_path, dtype):
+    """A converted checkpoint (``params.pkl`` + ``arch.json``) loads onto the
+    card bit for bit as onto the CPU, every tensor contiguous there."""
+    dev = _card()
+    import json
+    import pickle
+
+    from mllm_sparse_retrieval_tpu_torch.configs import ModelConfig
+    from mllm_sparse_retrieval_tpu_torch.models import convert, mllm
+    from mllm_sparse_retrieval_tpu_torch.models.registry import (
+        tiny_debug_arch)
+
+    arch = tiny_debug_arch(ModelConfig())
+    drawn = mllm.init_params(arch, torch.Generator().manual_seed(0), "cpu",
+                             torch.float32)
+
+    def host(tree):
+        if isinstance(tree, dict):
+            return {k: host(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [host(v) for v in tree]
+        return tree.numpy().T.copy().T if tree.ndim == 2 else tree.numpy()
+
+    with open(tmp_path / "params.pkl", "wb") as f:
+        pickle.dump(host(drawn), f)  # 2-D leaves column-major, as converted
+    (tmp_path / "arch.json").write_text(json.dumps(
+        convert.arch_to_manifest(arch)))
+    cpu, _, cpu_arch = convert.load_converted(str(tmp_path), None, dtype,
+                                              "cpu")
+    card, tok, card_arch = convert.load_converted(str(tmp_path), None, dtype,
+                                                  dev)
+    assert cpu_arch == card_arch == arch and tok is None
+
+    def pairs(a, b):
+        if isinstance(a, dict):
+            for key in a:
+                yield from pairs(a[key], b[key])
+        elif isinstance(a, list):
+            for x, y in zip(a, b):
+                yield from pairs(x, y)
+        else:
+            yield a, b
+
+    n = 0
+    for c, g in pairs(cpu, card):
+        assert g.device.type == "cuda" and g.dtype == dtype
+        assert g.is_contiguous() and g.shape == c.shape
+        assert torch.equal(g.cpu(), c)
+        n += 1
+    assert n > 20
 
 
 def _to_device(tree, dev):

@@ -3,8 +3,9 @@ of the JAX package (nor Pillow, which the card machine lacks), every port
 module (the offline evaluation path's ``cli``, ``eval``, ``search`` and
 ``index/native``, and the hybrid path's fusion, rank, filter and service
 modules, and the search tiers' SQ8, ANN, compact48 and stream modules
-included) imports with JAX blocked, and the smoke check refuses to report a
-result without a card."""
+included) imports with JAX blocked, checkpoints convert and load with
+``transformers`` and ``safetensors`` blocked too, and the smoke check
+refuses to report a result without a card."""
 
 import os
 import re
@@ -95,6 +96,52 @@ def test_port_imports_no_pillow():
     pattern = re.compile(r"^\s*(import|from)\s+PIL\b", re.MULTILINE)
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert [f for f in files if pattern.search(f.read_text())] == []
+
+
+_CONVERT_BLOCKED = """
+import sys
+for name in list(sys.modules):
+    if name.split('.')[0] in BLOCKED:
+        del sys.modules[name]
+for name in BLOCKED:
+    sys.modules[name] = None          # any import of these now fails
+from mllm_sparse_retrieval_tpu_torch.models import convert
+convert.convert_hf_dir(sys.argv[1], sys.argv[2])
+params, tok, arch = convert.load_converted(sys.argv[2], None, device="cpu")
+print(tok, arch.text.num_kv_heads, len(params["text"]["blocks"]),
+      sorted(params))
+"""
+
+
+def test_checkpoints_convert_and_load_without_jax_transformers_safetensors(
+        tmp_path):
+    transformers = pytest.importorskip("transformers")
+    import torch
+
+    cfg = transformers.LlavaNextConfig(
+        vision_config=transformers.CLIPVisionConfig(
+            hidden_size=32, intermediate_size=128, num_hidden_layers=2,
+            num_attention_heads=4, image_size=28, patch_size=14),
+        text_config=transformers.LlamaConfig(
+            vocab_size=64, hidden_size=32, intermediate_size=64,
+            num_hidden_layers=3, num_attention_heads=4,
+            num_key_value_heads=1),
+        image_token_index=60, image_grid_pinpoints=[[28, 56], [56, 28]])
+    torch.manual_seed(0)
+    transformers.LlavaNextForConditionalGeneration(cfg).save_pretrained(
+        str(tmp_path / "hf"))
+    (tmp_path / "hf" / "tokenizer.json").write_text("{}")
+    blocked = ("jax", "jaxlib", "mllm_sparse_retrieval_tpu", "transformers",
+               "safetensors")
+    script = f"BLOCKED = {blocked!r}\n" + _CONVERT_BLOCKED
+    proc = subprocess.run(
+        [sys.executable, "-c", script, str(tmp_path / "hf"),
+         str(tmp_path / "out")], cwd=REPO, env=_env(), capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split("\n")[0] == (
+        "None 1 3 ['image_newline', 'projector', 'text', 'vision']")
+    assert (tmp_path / "out" / "tokenizer.json").read_text() == "{}"
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
