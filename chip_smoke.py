@@ -51,7 +51,15 @@ wire (served text, filtered, the 2^24 refusal; equal to the i32 wire),
 indexes in dense and device-fused hybrid modes (exact int32 products,
 scores within 1e-5 relative of float64, ANN with every candidate equal to
 the exact index, candidate recall on low-rank rows), and the bf16 search's
-memory bound; and contrastive LoRA
+memory bound; live indexes and the HTTP front end: arena copies of the
+impact index and the dense rows served by ``cli.serve``'s boot behind the
+aio server, text queries over HTTP before and after adds, replaces and
+deletes over HTTP (the int16 matrix keeps its storage; the TAAT kernel on
+it equals its plain version), an add past the headroom, the int16 drop,
+``/compact``, ``/save`` and ``load_live_state``, the segment classes, image
+documents posted by ``cli.ingest``'s helpers and ``cli.serve --live`` as a
+child process, every result held to the host fuse of a static rebuild of
+the live documents; and contrastive LoRA
 training, a few ``ContrastiveTrainer.train_on_batch`` steps on seeded
 image-caption pairs whose 3,072-token image prompts take the flash kernels
 forward and backward. The whole tower is also run, and differentiated,
@@ -191,6 +199,24 @@ CHECKSUM_CHUNK, CHECKSUM_MOD = 1 << 26, 8191
 # attention) drawn at full width, FAM_QUERIES text and image queries each;
 # the flash kernel at the Vicuna image shape has VICUNA_HEADS q / kv heads
 FAM_QUERIES, VICUNA_HEADS = 8, 32
+# live indexes and the HTTP front end: arena copies of the impact index and
+# the hybrid phase's dense rows with the default LIVE_HEADROOM reserved
+# columns and rows; LIVE_POSTS adds of LIVE_POST_DOCS new docs over HTTP
+# (LIVE_PLANT of them planted on the first text queries), LIVE_REPLACE
+# replaces and LIVE_DELETE deletes; one in-process add of LIVE_GROW_DOCS
+# past the headroom (_grow); one add of a LIVE_BIG_WEIGHT weight (the int16
+# drop); LIVE_INGEST images posted by cli.ingest's helpers. Planted docs
+# carry their query's terms at LIVE_PLANT_WEIGHT. Served fused
+# scores must lie within LIVE_TOL of the host fuse of a static rebuild,
+# whose runs are fetched LIVE_FETCH deep to see ties at a cut. The phase
+# writes its artifacts and saves (about 1.6 GB) to /dev/shm when it has
+# LIVE_SCRATCH_BYTES free; the cli.serve child must be up within
+# LIVE_BOOT_TIMEOUT_S
+LIVE_HEADROOM, LIVE_POSTS, LIVE_POST_DOCS, LIVE_PLANT = 8192, 4, 256, 8
+LIVE_REPLACE, LIVE_DELETE, LIVE_GROW_DOCS = 64, 256, 9000
+LIVE_BIG_WEIGHT, LIVE_INGEST, LIVE_TOL, LIVE_FETCH = 40_000, 16, 1e-5, 64
+LIVE_SCRATCH_BYTES, LIVE_BOOT_TIMEOUT_S = 4 * 10 ** 9, 300
+LIVE_PLANT_WEIGHT = 1000        # above every corpus weight (1..349)
 
 
 def progress(phase: str, msg: str) -> None:
@@ -2395,6 +2421,799 @@ def phase_tiers(params, arch, tok, tmpl, lexicon, index, cmap, texts, host,
     torch.cuda.empty_cache()
     return taat_total
 
+class LiveCorpus:
+    """The live document set as the phase's own host model, apart from the
+    indexes under test: per doc its term keys and integer weights (the
+    arena's ``int`` truncation, non-positive weights dropped) and its dense
+    row. ``reference()`` rebuilds a static ``ImpactIndex`` and
+    ``DenseFlatIndex`` of it, cached until the next change."""
+
+    def __init__(self, index, rows, lookup):
+        import numpy as np
+
+        self.keys = list(index.term_to_idx)             # term id order
+        self.col = {k: i for i, k in enumerate(self.keys)}
+        self.sparse, self.dense = {}, {}
+        for i, d in enumerate(index.doc_ids):
+            w = index.doc_weights[i]
+            live = w > 0
+            self.sparse[d] = (index.doc_terms[i][live].astype(np.int32),
+                              w[live].astype(np.float32))
+        for i, d in enumerate(lookup):
+            self.dense[d] = rows[i]
+        self._ref = None
+
+    def copy(self):
+        out = LiveCorpus.__new__(LiveCorpus)
+        out.keys, out.col = list(self.keys), dict(self.col)
+        out.sparse, out.dense = dict(self.sparse), dict(self.dense)
+        out._ref = None
+        return out
+
+    def add(self, docs):
+        """``docs``: ``/documents`` entries with ``terms`` keyed by the
+        index's keys and a ``dense`` row; the latest copy of an id wins."""
+        import numpy as np
+
+        for doc in docs:
+            cols, ws = [], []
+            for k, w in doc["terms"].items():
+                k = int(k)
+                if int(w) <= 0:
+                    continue
+                if k not in self.col:
+                    self.col[k] = len(self.keys)
+                    self.keys.append(k)
+                cols.append(self.col[k])
+                ws.append(int(w))
+            self.sparse[doc["id"]] = (np.asarray(cols, np.int32),
+                                      np.asarray(ws, np.float32))
+            self.dense[doc["id"]] = np.asarray(doc["dense"], np.float32)
+        self._ref = None
+
+    def delete(self, ids):
+        for d in ids:
+            self.sparse.pop(d, None)
+            self.dense.pop(d, None)
+        self._ref = None
+
+    def reference(self):
+        """(static impact index, static dense index) of the live docs on
+        the card, searched with the matmul backend and full f32."""
+        import numpy as np
+
+        from mllm_sparse_retrieval_tpu_torch.index import (
+            DenseFlatIndex, ImpactIndex)
+
+        if self._ref is None:
+            ids = list(self.sparse)
+            k = max(len(c) for c, _ in self.sparse.values())
+            terms = np.zeros((len(ids), k), np.int32)
+            weights = np.zeros((len(ids), k), np.float32)
+            for r, (c, w) in enumerate(self.sparse.values()):
+                terms[r, :c.size] = c
+                weights[r, :c.size] = w
+            imp = ImpactIndex.from_packed_arrays(
+                terms, weights, doc_ids=ids, term_keys=self.keys,
+                device=DEVICE)
+            dense = DenseFlatIndex(device=DEVICE)
+            dense.add(np.stack([self.dense[d] for d in ids]), ids)
+            self._ref = (imp, dense)
+        return self._ref
+
+
+def live_check(label, corpus, terms_list, dense_q, served, deleted=()):
+    """Each served row against the host fuse (``search.fusion.fuse``,
+    weight HYB_ALPHA on the dense run) of the two engines' top-DEPTH runs
+    on a static rebuild of the live documents (``LiveCorpus.reference``,
+    matmul backend, f32), within LIVE_TOL, up to ties at a cut: where a
+    doc below an engine's cut scores what its DEPTH-th doc scores (within
+    LIVE_TOL), the docs at that score may enter that run either way, so
+    they are left out of the comparison. No id of ``deleted`` may be
+    served. Returns the number of queries with such a tie."""
+    import numpy as np
+
+    from mllm_sparse_retrieval_tpu_torch.search.fusion import fuse
+
+    imp, dense = corpus.reference()
+    s_s, s_i = imp.search(terms_list, LIVE_FETCH, backend="matmul")
+    d_s, d_i = dense.search_ids(np.stack(dense_q), LIVE_FETCH)
+    runs, tied = [{}, {}], [set() for _ in served]
+    for e, (rows_s, rows_i, tol) in enumerate(((d_s, d_i, LIVE_TOL),
+                                               (s_s, s_i, 0.0))):
+        for j in range(len(served)):
+            srow = [float(x) for x in rows_s[j]]
+            irow = list(rows_i[j])
+            if len(srow) > DEPTH and \
+                    abs(srow[DEPTH] - srow[DEPTH - 1]) <= tol:
+                tied[j] |= {d for d, x in zip(irow, srow)
+                            if abs(x - srow[DEPTH - 1]) <= tol}
+            srow, irow = srow[:DEPTH], irow[:DEPTH]
+            if srow:
+                runs[e][str(j)] = {"docs": dict(zip(irow, srow)),
+                                   "max_score": srow[0],
+                                   "min_score": srow[-1]}
+    fused = fuse(runs, [HYB_ALPHA, 1.0 - HYB_ALPHA])
+    gone = set(deleted)
+    for j, got in enumerate(served):
+        want = fused.get(str(j), {})
+        got_ids = {d for d, _ in got}
+        if not got or got_ids & gone:
+            raise AssertionError(f"{label}: query {j} served {got} (deleted "
+                                 f"ids: {sorted(got_ids & gone)[:5]})")
+        for d, s in got:
+            if d not in tied[j] and (d not in want
+                                     or abs(want[d] - s) > LIVE_TOL):
+                raise AssertionError(
+                    f"{label}: query {j}: served {d} {s} != host fuse "
+                    f"{want.get(d)}; served {got}")
+        cut = float(got[-1][1]) if len(got) >= DEPTH else float("-inf")
+        missed = [d for d, s in want.items() if d not in tied[j]
+                  and s > cut + 2 * LIVE_TOL and d not in got_ids]
+        if missed or (not tied[j] and len(got) != min(DEPTH, len(want))):
+            raise AssertionError(f"{label}: query {j}: served {got}, host "
+                                 f"fuse also ranks {missed}")
+    return sum(bool(t) for t in tied)
+
+
+def http_round(base, queries, n_threads, deadline_s):
+    """One ``/search`` request per query from ``n_threads`` client threads:
+    (result rows of (doc, score), latency seconds, wall seconds)."""
+    from mllm_sparse_retrieval_tpu_torch.cli.ingest import _post
+
+    results, latency = [None] * len(queries), [None] * len(queries)
+    errors = []
+
+    def client(rows):
+        try:
+            for i in rows:
+                t_req = time.monotonic()
+                out = _post(base, "/search", {"queries": [queries[i]]},
+                            timeout=REQUEST_TIMEOUT_S)
+                latency[i] = time.monotonic() - t_req
+                results[i] = [(d, float(s)) for d, s in out["results"][0]]
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, daemon=True,
+                                args=(range(k, len(queries), n_threads),))
+               for k in range(n_threads)]
+    t_run = time.monotonic()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(max(0.0, t_run + deadline_s - time.monotonic()))
+    wall = time.monotonic() - t_run
+    if any(th.is_alive() for th in threads):
+        raise TimeoutError("the HTTP search path did not answer in time")
+    if errors:
+        raise errors[0]
+    return results, latency, wall
+
+
+def live_docs(rng, word_ids, p, cmap, ids, dim):
+    """``/documents`` entries for ``ids``: DOC_K terms drawn like the
+    corpus (Zipf word pieces folded through the canonical map, weights
+    1..349) and a unit dense row."""
+    import numpy as np
+
+    toks = rng.choice(word_ids, size=(len(ids), DOC_K), p=p)
+    ws = rng.integers(1, 350, size=(len(ids), DOC_K))
+    vecs = rng.standard_normal((len(ids), dim), dtype=np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    docs = []
+    for d, t, w, v in zip(ids, cmap[toks], ws, vecs):
+        terms = {}
+        for k, x in zip(t.tolist(), w.tolist()):
+            if k >= 0:
+                terms[k] = x                 # last write wins, as built
+        docs.append({"id": d, "terms": terms, "dense": v})
+    return docs
+
+
+def as_json(docs):
+    return [{"id": d["id"], "terms": {str(k): v for k, v in
+                                      d["terms"].items()},
+             "dense": [float(x) for x in d["dense"]]} for d in docs]
+
+
+class ServeProcess:
+    """``python -m mllm_sparse_retrieval_tpu_torch.cli.serve`` as a child
+    process; its port comes from its ``serving mode=`` log line."""
+
+    def __init__(self, args, boot_timeout_s):
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "mllm_sparse_retrieval_tpu_torch.cli.serve",
+             *args], cwd=root, env=env, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True)
+        self.log, self.base, self.up_s = [], None, None
+        self._t0 = time.monotonic()
+        self._up = threading.Event()
+        self._boot_timeout_s = boot_timeout_s
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self):
+        import re
+
+        for line in self.proc.stderr:
+            self.log.append(line)
+            m = re.search(r"serving mode=\S+ on (http://[\d.]+:\d+)", line)
+            if m:
+                self.base = m.group(1)
+                self.up_s = time.monotonic() - self._t0
+                self._up.set()
+        self._up.set()
+
+    def wait_up(self) -> str:
+        if not self._up.wait(self._boot_timeout_s) or self.base is None:
+            self.stop()
+            raise AssertionError("cli.serve did not come up:\n"
+                                 + "".join(self.log[-30:]))
+        return self.base
+
+    def stop(self) -> int:
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGINT)
+            try:
+                self.proc.wait(120)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(30)
+        return self.proc.returncode
+
+
+def live_scratch_dir():
+    """A scratch directory in RAM (``/dev/shm``) where it has room for the
+    phase's artifacts and saves, else in the temp directory."""
+    import shutil
+    import tempfile
+
+    shm = "/dev/shm"
+    if os.path.isdir(shm) and shutil.disk_usage(shm).free > LIVE_SCRATCH_BYTES:
+        return tempfile.mkdtemp(prefix="chip_smoke_live_", dir=shm)
+    return tempfile.mkdtemp(prefix="chip_smoke_live_")
+
+
+def phase_live(params, arch, arch_img, tok, tmpl, index, cmap, texts, host,
+               word_ids, card):
+    """Live indexes and the HTTP front end on the full-width model, beside
+    the hybrid phase's dense rows and the impact index: copies wrapped in
+    ``ArenaImpactIndex`` / ``ArenaDenseIndex`` serve a hybrid live service
+    (TAAT, micro-batches of MAX_BATCH, depth DEPTH) built by ``cli.serve``'s
+    boot function behind the aio server. Text queries over HTTP before and
+    after adds, replaces and deletes over HTTP; the cached int16 matrix
+    keeps its storage and the TAAT kernel on it equals its plain version;
+    an add past the headroom (``_grow``), the int16 drop, ``/compact``,
+    ``/save`` and ``load_live_state``; the same mutations through the
+    segment classes; image documents encoded by ``encode_examples`` and
+    posted by ``cli.ingest``'s helpers, each finding itself; and
+    ``cli.serve --live`` as a child process against an in-process arena.
+    Every served result is held to the host fuse of a static rebuild of
+    the live documents (``live_check``). Returns the TAAT and flash
+    launches of the served and encoded runs."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from mllm_sparse_retrieval_tpu_torch.cli import ingest, serve as serve_cli
+    from mllm_sparse_retrieval_tpu_torch.configs import SparseConfig
+    from mllm_sparse_retrieval_tpu_torch.data.karpathy import Example
+    from mllm_sparse_retrieval_tpu_torch.index import (
+        ArenaDenseIndex, ArenaImpactIndex, DenseFlatIndex, ImpactIndex,
+        LiveDenseIndex, LiveImpactIndex)
+    from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
+    from mllm_sparse_retrieval_tpu_torch.ops import impact_kernel as K
+    from mllm_sparse_retrieval_tpu_torch.ops.impact_kernel import (
+        prepare_query_arrays)
+    from mllm_sparse_retrieval_tpu_torch.pipelines.encode import (
+        encode_examples)
+    from mllm_sparse_retrieval_tpu_torch.serving import (
+        OnlineQueryEncoder, RetrievalService, load_live_state)
+
+    t_phase = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    rows, lookup, _ = host
+    dim = rows.shape[1]
+    rng = np.random.default_rng(SEED + 6)
+    p = zipf_p(word_ids.size)
+    corpus = LiveCorpus(index, rows, lookup)
+    corpus0 = corpus.copy()
+    taat_total = flash_total = 0
+    scratch = live_scratch_dir()
+    child = svc = server = None
+    restore = []
+    try:
+        # ---- artifacts for the child cli.serve, started now ---------------
+        t0 = time.monotonic()
+        index.save(os.path.join(scratch, "sparse"))
+        os.makedirs(os.path.join(scratch, "dense"))
+        static_dense = DenseFlatIndex(dim=dim, device=DEVICE)
+        static_dense.add(rows, lookup)
+        static_dense.save_shard(os.path.join(scratch, "dense",
+                                             "corpus_0.pkl"))
+        del static_dense
+        child = ServeProcess(
+            ["--sparse-index", os.path.join(scratch, "sparse"),
+             "--passage-reps", os.path.join(scratch, "dense"), "--live",
+             "--live-state", os.path.join(scratch, "child_state"),
+             "--port", "0", "--impact-backend", "taat", "--max-batch",
+             str(MAX_BATCH), "--depths", str(DEPTH), "--max-wait-ms", "10",
+             "--alpha", str(HYB_ALPHA), "--device", DEVICE],
+            LIVE_BOOT_TIMEOUT_S)
+        progress("live", f"artifacts written to {scratch} in "
+                 f"{time.monotonic() - t0:.2f} s; cli.serve --live started "
+                 f"as a child process")
+
+        # ---- the live service: cli.serve's boot, aio, in a thread ---------
+        dense_copy = DenseFlatIndex(dim=dim, device=DEVICE)
+        dense_copy.add(rows, lookup)
+        impact_copy = ImpactIndex.from_packed_arrays(
+            index.doc_terms, index.doc_weights, doc_ids=index.doc_ids,
+            term_keys=list(index.term_to_idx), device=DEVICE)
+        impact_copy.query_canonical = index.query_canonical
+        enc = RecordingEncoder(OnlineQueryEncoder(
+            params, arch, tok, tmpl, SparseConfig(), max_text_len=64,
+            device=DEVICE))
+        args = serve_cli.build_parser().parse_args(
+            ["--live", "--live-impl", "arena", "--impact-backend", "taat",
+             "--max-batch", str(MAX_BATCH), "--depths", str(DEPTH),
+             "--max-wait-ms", "10", "--alpha", str(HYB_ALPHA), "--port", "0",
+             "--http-impl", "aio", "--device", DEVICE])
+        t0 = time.monotonic()
+        svc, server = serve_cli.boot(args, enc,
+                                     indexes=(dense_copy, impact_copy))
+        server_thread = threading.Thread(target=server.serve_forever,
+                                         daemon=True)
+        server_thread.start()
+        base = "http://%s:%d" % server.server_address[:2]
+        arena_s, arena_d = svc.impact_index, svc.dense_index
+        inner = arena_s._inner
+        if (not isinstance(arena_s, ArenaImpactIndex)
+                or not isinstance(arena_d, ArenaDenseIndex)
+                or arena_s.doc_headroom != LIVE_HEADROOM):
+            raise AssertionError("cli.serve --live did not wrap the indexes "
+                                 "in the default arenas")
+        i16 = inner._dev["i16"]
+        ptr, cap = i16.data_ptr(), tuple(i16.shape)
+        progress("live", f"boot (live wrap, warm-up, aio bind) "
+                 f"{time.monotonic() - t0:.2f} s; i16 matrix {cap} "
+                 f"({i16.numel() * 2 / 1e9:.2f} GB, {index.num_docs} docs + "
+                 f"{LIVE_HEADROOM} reserved columns), dense corpus "
+                 f"{tuple(arena_d._inner._corpus_dev.shape)}; serving on "
+                 f"{base}")
+        builds = []
+        real_materialize = ImpactIndex._materialize
+
+        def counting_materialize(self, dtype="f32"):
+            if self is arena_s._inner and dtype not in (self._dev or {}):
+                builds.append(dtype)
+            return real_materialize(self, dtype)
+
+        ImpactIndex._materialize = counting_materialize
+        restore.append((ImpactIndex, "_materialize", real_materialize))
+        grows = []
+        real_grow = {cls: cls._grow for cls in (ArenaImpactIndex,
+                                                ArenaDenseIndex)}
+
+        def timed_grow(cls):
+            def grow(self, *a, **kw):
+                t = time.monotonic()
+                real_grow[cls](self, *a, **kw)
+                torch.cuda.synchronize()
+                grows.append((cls.__name__, time.monotonic() - t))
+            return grow
+
+        for cls, fn in real_grow.items():
+            cls._grow = timed_grow(cls)
+            restore.append((cls, "_grow", fn))
+
+        def text_round(label, state, deleted=()):
+            """The text queries over HTTP (N_THREADS clients), then in
+            process: both held to ``live_check``; one TAAT launch per
+            sparse micro-batch."""
+            nonlocal taat_total
+            out = {}
+            for how in ("http", "in-process"):
+                enc.calls.clear()
+                K.reset_launch_count()
+                b0 = svc.stats()["batches"]
+                if how == "http":
+                    res, lat, wall = http_round(
+                        base, [{"text": t, "depth": DEPTH} for t in texts],
+                        N_THREADS, SERVE_DEADLINE_S)
+                else:
+                    res, lat, wall = serve(svc, "text", texts, N_THREADS,
+                                           REQUEST_TIMEOUT_S,
+                                           SERVE_DEADLINE_S)
+                taat, batches = K.launch_count(), \
+                    svc.stats()["batches"] - b0
+                taat_total += taat
+                if taat != batches or batches != len(enc.calls):
+                    raise AssertionError(f"{label} {how}: {taat} TAAT "
+                                         f"launches in {batches} batches")
+                ties = live_check(
+                    f"{label} {how}", state,
+                    [terms_dict(enc.terms[t], cmap) for t in texts],
+                    [enc.dense[t] for t in texts], res, deleted)
+                out[how] = (res, latency_line(lat, len(texts), wall),
+                            batches, ties)
+            progress("live", f"{label}: HTTP {out['http'][1]}; in-process "
+                     f"{out['in-process'][1]}; {out['http'][2]} + "
+                     f"{out['in-process'][2]} micro-batches, one TAAT launch "
+                     f"each; every result equals the host fuse of a static "
+                     f"rebuild ({out['http'][3]} + {out['in-process'][3]} "
+                     f"queries with a tie at an engine's cut); card {card}")
+            return out
+
+        # ---- 1. text queries before any mutation -------------------------
+        http_round(base, [{"text": texts[0], "depth": DEPTH}], 1,
+                   SERVE_DEADLINE_S)        # the first connection, untimed
+        before = text_round("before mutations", corpus)
+        q_terms = {t: terms_dict(enc.terms[t], cmap) for t in texts}
+        q_dense = {t: enc.dense[t] for t in texts}
+
+        # ---- mutations over HTTP: adds, replaces, deletes ---------------
+        new_ids = [f"live{i}" for i in range(LIVE_POSTS * LIVE_POST_DOCS)]
+        new_docs = live_docs(rng, word_ids, p, cmap, new_ids, dim)
+        for i, t in enumerate(texts[:LIVE_PLANT]):
+            # planted: the query's own terms at a weight above any corpus
+            # weight (so above any corpus doc's score), and its vector
+            new_docs[i]["terms"] = {k: LIVE_PLANT_WEIGHT for k in q_terms[t]}
+            new_docs[i]["dense"] = q_dense[t]
+        base_ids = list(index.doc_ids)
+        pick = rng.permutation(len(base_ids))
+        replaced = [base_ids[i] for i in pick[:LIVE_REPLACE]]
+        deleted = [base_ids[i]
+                   for i in pick[LIVE_REPLACE:LIVE_REPLACE + LIVE_DELETE]]
+        replace_docs = live_docs(rng, word_ids, p, cmap, replaced, dim)
+        add_ms, t_mut = [], time.monotonic()
+        for r in range(LIVE_POSTS):
+            part = new_docs[r * LIVE_POST_DOCS:(r + 1) * LIVE_POST_DOCS]
+            payload = {"documents": as_json(part)}
+            t0 = time.monotonic()
+            out = ingest._post(base, "/documents", payload)
+            add_ms.append((time.monotonic() - t0) * 1e3)
+            if out != {"added": len(part)}:
+                raise AssertionError(f"POST /documents: {out}")
+        t0 = time.monotonic()
+        out = ingest._post(base, "/documents",
+                           {"documents": as_json(replace_docs)})
+        replace_ms = (time.monotonic() - t0) * 1e3
+        t0 = time.monotonic()
+        gone = ingest._post(base, "/documents/delete", {"ids": deleted})
+        delete_ms = (time.monotonic() - t0) * 1e3
+        if out != {"added": LIVE_REPLACE} or \
+                gone != {"deleted": LIVE_DELETE}:
+            raise AssertionError(f"replace {out}, delete {gone}")
+        corpus.add(new_docs + replace_docs)
+        corpus.delete(deleted)
+        progress("live", f"over HTTP: {LIVE_POSTS} adds of "
+                 f"{LIVE_POST_DOCS} docs ({DOC_K} terms, {dim}-wide dense; "
+                 f"{LIVE_PLANT} planted on the first queries) in "
+                 + ", ".join(f"{x:.1f}" for x in add_ms)
+                 + f" ms; {LIVE_REPLACE} replaces in {replace_ms:.1f} ms; "
+                 f"{LIVE_DELETE} deletes in {delete_ms:.1f} ms; "
+                 f"{time.monotonic() - t_mut:.2f} s in all")
+
+        # ---- 2. text queries after; the arena's promise ------------------
+        after = text_round("after mutations", corpus, deleted)
+        for how in ("http", "in-process"):
+            for i, t in enumerate(texts[:LIVE_PLANT]):
+                row = after[how][0][texts.index(t)]
+                if row[0][0] != new_ids[i]:
+                    raise AssertionError(f"planted {new_ids[i]} not first "
+                                         f"for its query: {row[:3]}")
+        if builds or inner._dev["i16"].data_ptr() != ptr or \
+                tuple(inner._dev["i16"].shape) != cap:
+            raise AssertionError(f"the i16 matrix was rebuilt or moved "
+                                 f"({builds})")
+        q_idx, q_w = inner.encode_queries(
+            [q_terms[t] for t in texts[:MAX_BATCH]])
+        safe_idx, safe_w = (torch.from_numpy(a).to(DEVICE)
+                            for a in prepare_query_arrays(q_idx, q_w))
+        check_kernel(f"live: mutated capacity matrix {cap} int16, "
+                     f"B={q_idx.shape[0]} Q={q_idx.shape[1]}",
+                     inner._dev["i16"], safe_idx, safe_w, iters=50)
+        # one 256-doc add's scatter, again (the same values: idempotent)
+        last = new_docs[-LIVE_POST_DOCS:]
+        t2i = inner.term_to_idx
+        tr = [(t2i[k], arena_s._pos[d["id"]], float(w)) for d in last
+              for k, w in d["terms"].items()]
+        terms_a, cols_a, vals_a = (np.array(x) for x in zip(*tr))
+        scatter_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            e0.record()
+            inner.scatter_append_triples(terms_a, cols_a, vals_a)
+            e1.record()
+            e1.synchronize()
+            scatter_ms.append(e0.elapsed_time(e1))
+        progress("live", f"the i16 matrix kept its storage and shape "
+                 f"through the adds and deletes, no matrix built; one "
+                 f"{LIVE_POST_DOCS}-doc add's scatter ({len(tr)} triples "
+                 f"into every cached matrix, uploads included): "
+                 + ", ".join(f"{x:.3f}" for x in scatter_ms)
+                 + f" ms (CUDA events); card {card}")
+
+        # ---- 4b. the same mutations through the segment classes ----------
+        seg_s = LiveImpactIndex(ImpactIndex.from_packed_arrays(
+            index.doc_terms, index.doc_weights, doc_ids=index.doc_ids,
+            term_keys=list(index.term_to_idx), device=DEVICE))
+        seg_s.query_canonical = index.query_canonical
+        seg_dense = DenseFlatIndex(dim=dim, device=DEVICE)
+        seg_dense.add(rows, lookup)
+        seg_d = LiveDenseIndex(seg_dense)
+        seg_svc = RetrievalService(
+            seg_d, seg_s, backend="taat", alpha=HYB_ALPHA,
+            max_batch=MAX_BATCH, depth_levels=(DEPTH,), max_wait_ms=10.0)
+        try:
+            for r in range(LIVE_POSTS):
+                seg_svc.add_documents(
+                    new_docs[r * LIVE_POST_DOCS:(r + 1) * LIVE_POST_DOCS])
+            seg_svc.add_documents(replace_docs)
+            seg_svc.delete_documents(deleted)
+            K.reset_launch_count()
+            b0 = seg_svc.stats()["batches"]
+            futs = [seg_svc.search_async(terms=q_terms[t], dense=q_dense[t])
+                    for t in texts]
+            seg_res = [f.result(REQUEST_TIMEOUT_S) for f in futs]
+            seg_taat, seg_b = K.launch_count(), \
+                seg_svc.stats()["batches"] - b0
+            taat_total += seg_taat
+            ties = live_check("segments", corpus,
+                              [q_terms[t] for t in texts],
+                              [q_dense[t] for t in texts], seg_res, deleted)
+            if seg_taat != seg_b:
+                raise AssertionError(f"segments: {seg_taat} TAAT launches "
+                                     f"in {seg_b} batches")
+            progress("live", f"segments (--live-impl segments): "
+                     f"{seg_s.num_segments} sparse and {seg_d.num_segments} "
+                     f"dense segments; {len(texts)} queries in {seg_b} "
+                     f"micro-batches, TAAT launched by the base segment "
+                     f"only ({seg_taat}); results equal the same host fuse "
+                     f"as the arena's ({ties} queries with a tie at a cut)")
+        finally:
+            seg_svc.close()
+            del seg_svc, seg_s, seg_d, seg_dense
+            torch.cuda.empty_cache()
+
+        # ---- 3. capacity: _grow, then the int16 drop ---------------------
+        grow_ids = [f"grow{i}" for i in range(LIVE_GROW_DOCS)]
+        grow_docs = live_docs(rng, word_ids, p, cmap, grow_ids, dim)
+        t0 = time.monotonic()
+        svc.add_documents(grow_docs)
+        torch.cuda.synchronize()
+        grow_add_s = time.monotonic() - t0
+        corpus.add(grow_docs)
+        if sorted(g for g, _ in grows) != ["ArenaDenseIndex",
+                                           "ArenaImpactIndex"]:
+            raise AssertionError(f"{LIVE_GROW_DOCS} docs past the headroom "
+                                 f"grew {grows}")
+        progress("live", f"one in-process add of {LIVE_GROW_DOCS} docs past "
+                 f"the headroom: {grow_add_s:.2f} s, of which _grow "
+                 + ", ".join(f"{g} {s:.2f} s" for g, s in grows)
+                 + f"; new capacity {arena_s._inner.doc_capacity} columns")
+        text_round("after _grow", corpus, deleted)
+        # on the last query with a term of integer weight >= 1: that term
+        # at 40,000, the rest at LIVE_PLANT_WEIGHT, its vector; scores must
+        # stay integers below 2^24 (exact in f32)
+        big_q = next(i for i in reversed(range(len(texts)))
+                     if max(map(int, q_terms[texts[i]].values())) >= 1)
+        last_terms = q_terms[texts[big_q]]
+        top_term = max(last_terms, key=last_terms.get)
+        big = {"id": "big_weight", "dense": q_dense[texts[big_q]],
+               "terms": {k: LIVE_BIG_WEIGHT if k == top_term
+                         else LIVE_PLANT_WEIGHT for k in last_terms}}
+        if sum(int(w) * big["terms"][k]
+               for k, w in last_terms.items()) >= 2 ** 24:
+            raise AssertionError("the 40,000-weight doc's score would pass "
+                                 "2^24")
+        ingest._post(base, "/documents", {"documents": as_json([big])})
+        corpus.add([big])
+        if arena_s._inner._i16_ok is not False or "i16" in (
+                arena_s._inner._dev or {}):
+            raise AssertionError("a weight of 40,000 kept the i16 matrix")
+        drop = text_round("after the int16 drop", corpus, deleted)
+        if drop["http"][0][big_q][0][0] != "big_weight":
+            raise AssertionError("the 40,000-weight doc is not first")
+        if "f32" not in arena_s._inner._dev:
+            raise AssertionError("the TAAT search did not rebuild in f32")
+
+        # ---- 4. /compact, /save, load_live_state -------------------------
+        t0 = time.monotonic()
+        out = ingest._post(base, "/compact", {})
+        compact_s = time.monotonic() - t0
+        saved = os.path.join(scratch, "saved")
+        t0 = time.monotonic()
+        out_save = ingest._post(base, "/save", {"directory": saved})
+        save_s = time.monotonic() - t0
+        if out != {"ok": True, "sparse_segments": 1, "dense_segments": 1} \
+                or out_save != {"ok": True, "directory": saved}:
+            raise AssertionError(f"/compact {out}, /save {out_save}")
+        text_round("after /compact", corpus, deleted)
+        t0 = time.monotonic()
+        back = RetrievalService(*load_live_state(saved, device=DEVICE),
+                                backend="taat", alpha=HYB_ALPHA,
+                                max_batch=MAX_BATCH, depth_levels=(DEPTH,),
+                                max_wait_ms=10.0)
+        try:
+            K.reset_launch_count()
+            futs = [back.search_async(terms=q_terms[t], dense=q_dense[t])
+                    for t in texts]
+            back_res = [f.result(REQUEST_TIMEOUT_S) for f in futs]
+            taat_total += K.launch_count()
+            load_s = time.monotonic() - t0
+            live_check("load_live_state", corpus,
+                       [q_terms[t] for t in texts],
+                       [q_dense[t] for t in texts], back_res, deleted)
+            if not isinstance(back.impact_index, ArenaImpactIndex):
+                raise AssertionError("the save did not load as an arena")
+        finally:
+            back.close()
+            del back
+            torch.cuda.empty_cache()
+        save_gb = sum(os.path.getsize(os.path.join(d, f))
+                      for d, _, fs in os.walk(saved) for f in fs) / 1e9
+        progress("live", f"/compact {compact_s:.2f} s, /save "
+                 f"{save_s:.2f} s ({save_gb:.2f} GB), "
+                 f"load_live_state + first {len(texts)} searches "
+                 f"{load_s:.2f} s: results equal the host fuse before and "
+                 f"after")
+
+        # ---- 5. ingest: image documents posted by cli.ingest's helpers ---
+        img_rng = np.random.default_rng(SEED + 7)
+        images = {}
+        examples = []
+        for i in range(LIVE_INGEST):
+            hw = IMAGE_SIZES[i % len(IMAGE_SIZES)]
+            images[f"ing{i}"] = img_rng.integers(
+                0, 256, size=hw + (3,), dtype=np.uint8).astype(
+                    np.float32) / 255.0
+            examples.append(Example(f"image {i}", f"/nonexistent/ing{i}.jpg",
+                                    f"t_ing{i}", f"ing{i}"))
+        encoded = {}
+        for is_query in (False, True):
+            FA.reset_launch_count()
+            t0 = time.monotonic()
+            encoded[is_query] = encode_examples(
+                examples, params, arch_img, tok, tmpl, encode_type="image",
+                sparse_cfg=SparseConfig(), batch_size=MAX_BATCH,
+                is_query=is_query,
+                pixel_loader=lambda ex: images[ex.img_id], device=DEVICE)
+            torch.cuda.synchronize()
+            flash = FA.launch_count()
+            flash_total += flash
+            want = arch_img.text.num_layers * -(-LIVE_INGEST // MAX_BATCH)
+            if flash != want:
+                raise AssertionError(f"ingest encode: {flash} flash "
+                                     f"launches, expected {want}")
+            progress("live", f"encode_examples of {LIVE_INGEST} images as "
+                     f"{'queries' if is_query else 'documents'}: "
+                     f"{time.monotonic() - t0:.2f} s, {flash} flash "
+                     f"launches ({arch_img.text.num_layers} per batch of "
+                     f"{MAX_BATCH})")
+        docs, skipped = ingest._doc_payload(encoded[False], 0, LIVE_INGEST,
+                                            True, True)
+        if skipped or ingest._post(base, "/documents", {
+                "documents": docs}) != {"added": LIVE_INGEST}:
+            raise AssertionError(f"ingest: skipped {skipped}")
+        qr = encoded[True]
+        K.reset_launch_count()
+        queries = []
+        for j in range(LIVE_INGEST):
+            st = qr.selected_terms[j]
+            queries.append({"depth": DEPTH,
+                            "dense": [float(x) for x in qr.dense[j]],
+                            "terms": {str(int(t)): float(w) for t, w in
+                                      zip(st.token_ids.tolist(),
+                                          st.weights.tolist()) if w > 0}})
+        res, lat, wall = http_round(base, queries, N_THREADS,
+                                    SERVE_DEADLINE_S)
+        taat_total += K.launch_count()
+        tops = [row[0][0] if row else None for row in res]
+        if tops != list(qr.ids):
+            raise AssertionError(f"ingest query smoke: {tops} != "
+                                 f"{list(qr.ids)}")
+        progress("live", f"ingest: {LIVE_INGEST} image docs posted "
+                 f"(cli.ingest._doc_payload / _post); each image, encoded "
+                 f"again as a query, finds itself first; "
+                 f"{latency_line(lat, LIVE_INGEST, wall)}")
+
+        # ---- 6. cli.serve as a child process ------------------------------
+        child_base = child.wait_up()
+        local = RetrievalService(
+            ArenaDenseIndex(DenseFlatIndex.load(
+                os.path.join(scratch, "dense"), device=DEVICE)),
+            ArenaImpactIndex(ImpactIndex.load(
+                os.path.join(scratch, "sparse"), device=DEVICE)),
+            backend="taat", alpha=HYB_ALPHA, max_batch=MAX_BATCH,
+            depth_levels=(DEPTH,), max_wait_ms=10.0)
+        try:
+            one = as_json(live_docs(rng, word_ids, p, cmap, ["child0"],
+                                    dim))[0]
+            one["terms"] = {str(k): 250 for k in q_terms[texts[0]]}
+            victim = before["http"][0][1][0][0]      # a corpus doc
+            checks = []
+            for step in ("before", "after"):
+                qs = [{"terms": {str(k): v for k, v in q_terms[t].items()},
+                       "dense": [float(x) for x in q_dense[t]],
+                       "depth": DEPTH} for t in texts]
+                got, lat, wall = http_round(child_base, qs, N_THREADS,
+                                            SERVE_DEADLINE_S)
+                mine = [local.search(terms=q_terms[t], dense=q_dense[t],
+                                     timeout=REQUEST_TIMEOUT_S)
+                        for t in texts]
+                for label, rows_ in (("child", got), ("in-process", mine)):
+                    live_check(f"cli.serve {label} {step}", corpus0,
+                               [q_terms[t] for t in texts],
+                               [q_dense[t] for t in texts], rows_,
+                               [victim] if step == "after" else ())
+                bad = [j for j, (a, b) in enumerate(zip(got, mine))
+                       if not close_up_to_ties(a, b, LIVE_TOL)]
+                if bad:
+                    raise AssertionError(f"cli.serve child != in-process "
+                                         f"arena at queries {bad}")
+                checks.append(latency_line(lat, len(texts), wall))
+                if step == "before":
+                    one_doc = dict(one, terms={int(k): v for k, v in
+                                               one["terms"].items()})
+                    if ingest._post(child_base, "/documents", {
+                            "documents": [one]}) != {"added": 1} or \
+                            ingest._post(child_base, "/documents/delete",
+                                         {"ids": [victim]}) != \
+                            {"deleted": 1}:
+                        raise AssertionError("child add/delete failed")
+                    local.add_documents([one_doc])
+                    local.delete_documents([victim])
+                    corpus0.add([one_doc])
+                    corpus0.delete([victim])
+        finally:
+            local.close()
+            del local
+        rc, up_s = child.stop(), child.up_s
+        child_log = "".join(child.log)
+        child = None
+        state = os.path.join(scratch, "child_state")
+        saved_ids = ImpactIndex.load(os.path.join(state, "sparse", "seg0"),
+                                     device="cpu").doc_ids
+        if rc != 0 or "child0" not in saved_ids or victim in saved_ids or \
+                not os.path.exists(os.path.join(state, "dense", "live.json")):
+            raise AssertionError(f"cli.serve exited {rc} without its live "
+                                 f"state:\n{child_log[-3000:]}")
+        progress("live", f"cli.serve --live child process (up "
+                 f"{up_s:.2f} s after its start, beside the phase's work): "
+                 f"HTTP "
+                 f"{checks[0]} before and {checks[1]} after one add and one "
+                 f"delete; results equal the in-process arena's and the "
+                 f"host fuse; stopped (exit 0), live state saved with the "
+                 f"add and without the delete")
+    finally:
+        for owner, name, fn in restore:
+            setattr(owner, name, fn)
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        if svc is not None:
+            svc.close()
+        if child is not None:
+            child.stop()
+        shutil.rmtree(scratch, ignore_errors=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    progress("live", f"phase {time.monotonic() - t_phase:.2f} s; peak "
+             f"{peak_gb:.2f} GB; TAAT launches {taat_total}, flash "
+             f"{flash_total}; card {card}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return taat_total, flash_total
+
+
 def tree_leaves(tree, path=()):
     """``(path, tensor)`` of every leaf of a parameter tree."""
     if isinstance(tree, dict):
@@ -3059,6 +3878,11 @@ def main() -> int:
     # ---- 10. search tiers: compact48, streams, SQ8, ANN, explain ----------
     tier_taat = phase_tiers(params, arch, tok, tmpl, lexicon, index,
                             cmap, texts, dense_host, card)
+
+    # ---- 10b. live indexes and the HTTP front end ------------------------
+    live_taat, live_flash = phase_live(params, arch, arch_img, tok, tmpl,
+                                       index, cmap, texts, dense_host,
+                                       word_ids, card)
     del dense_host
 
     # ---- 11. offline evaluation: corpus -> encode -> indexes -> search -----
@@ -3085,7 +3909,7 @@ def main() -> int:
              source="mllm_sparse_retrieval_tpu_torch/csrc/taat.cu",
              replaces="mllm_sparse_retrieval_tpu/ops/impact_kernel.py:115",
              launches=text_taat + img_taat + hyb_taat + tier_taat
-             + off_taat + fam_taat,
+             + live_taat + off_taat + fam_taat,
              max_abs_err=max_err,
              ms=served["ms"], plain_ms=served["plain_ms"],
              bound_ms=served["bound_ms"], bound_by=served["bound_by"],
@@ -3093,8 +3917,8 @@ def main() -> int:
         dict(name="flash_attention_fwd", route="cuda",
              source="mllm_sparse_retrieval_tpu_torch/csrc/flash_attn.cu",
              replaces="mllm_sparse_retrieval_tpu/models/layers.py:199",
-             launches=text_flash + img_flash + hyb_flash + off_flash
-             + train_launches["fwd"] + fam_flash,
+             launches=text_flash + img_flash + hyb_flash + live_flash
+             + off_flash + train_launches["fwd"] + fam_flash,
              **flash),
         dict(name="flash_attention_bwd_dkv", route="cuda",
              source="mllm_sparse_retrieval_tpu_torch/csrc/flash_attn_bwd.cu",

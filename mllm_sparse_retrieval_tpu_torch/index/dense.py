@@ -7,7 +7,10 @@ flight (``ops/stream.py``). Artifacts are the reference's pickles:
 ``corpus_{shard}.pkl`` holds ``(np.ndarray [N, d] float32, ids list)``, so
 either package loads the other's. ``doc_filter`` (an
 ``index.filter.DocFilter`` built against ``lookup``) scopes a search to the
-docs it allows. Not ported: meshes (ROADMAP Queue 1 #9).
+docs it allows. ``_materialize(capacity=...)`` and ``write_rows`` are the
+arena live index's hooks (``index/arena.py``): a device corpus with zero
+rows reserved past the documents, and an in-place write of appended rows
+into them. Not ported: meshes (ROADMAP Queue 1 #9).
 """
 
 from __future__ import annotations
@@ -99,24 +102,57 @@ class DenseFlatIndex:
         return np.concatenate(self._chunks) if len(self._chunks) != 1 \
             else self._chunks[0]
 
-    def _materialize(self) -> None:
+    def _materialize(self, capacity: Optional[int] = None) -> None:
+        """Place the corpus on the device, once. With ``capacity`` (the
+        arena's reservation) the device corpus has ``max(size, capacity)``
+        rows, the ones past the documents zero, and every row counts as
+        valid: the arena's live mask keeps the reserved ones out."""
         if self._corpus_dev is not None:
             return
-        corpus = self._host_corpus()
-        self._n_valid = corpus.shape[0]
+        corpus = self._host_corpus() if self._chunks else \
+            np.zeros((0, self.dim or 0), np.float32)
+        n = corpus.shape[0]
+        rows = max(n, capacity or 0)
+        self._n_valid = rows if capacity is not None else n
         if not self.q8:
-            self._corpus_dev = torch.from_numpy(corpus).to(self.device).to(
-                self.dtype)
+            dev = torch.from_numpy(corpus).to(self.device).to(self.dtype)
+            if rows > n:
+                dev = torch.cat([dev, dev.new_zeros((rows - n, dev.shape[1]))])
+            self._corpus_dev = dev
             return
         q8, scale = self._quantize_rows(corpus)
-        n, d = q8.shape
-        padded = np.zeros((-(-max(n, 1) // Q8_ALIGN) * Q8_ALIGN,
+        d = q8.shape[1]
+        padded = np.zeros((-(-max(rows, 1) // Q8_ALIGN) * Q8_ALIGN,
                            -(-max(d, 1) // Q8_ALIGN) * Q8_ALIGN), np.int8)
         padded[:n, :d] = q8
         scales = np.ones(padded.shape[0], np.float32)
         scales[:n] = scale
+        if capacity is not None:
+            self._n_valid = padded.shape[0]
         self._corpus_dev = torch.from_numpy(padded).to(self.device)
         self._row_scale_dev = torch.from_numpy(scales).to(self.device)
+
+    def write_rows(self, reps: np.ndarray, start: int) -> None:
+        """Write ``reps [m, d]`` into device corpus rows ``start ..
+        start + m`` in place (SQ8: quantized rows and their scales), the
+        arena's append. The rows must lie inside the placed corpus; no-op
+        when the corpus is not placed."""
+        if self._corpus_dev is None:
+            return
+        reps = np.ascontiguousarray(reps, np.float32)
+        m, d = reps.shape
+        if start + m > self._corpus_dev.shape[0]:
+            raise ValueError(f"rows {start}..{start + m} past the placed "
+                             f"corpus of {self._corpus_dev.shape[0]}")
+        if not self.q8:
+            self._corpus_dev[start:start + m] = torch.from_numpy(reps).to(
+                self.device).to(self.dtype)
+            return
+        q8, scale = self._quantize_rows(reps)
+        self._corpus_dev[start:start + m, :d] = torch.from_numpy(q8).to(
+            self.device)
+        self._row_scale_dev[start:start + m] = torch.from_numpy(scale).to(
+            self.device)
 
     # ---- search --------------------------------------------------------------
     def _dispatch_chunk(self, chunk: np.ndarray, depth: int,

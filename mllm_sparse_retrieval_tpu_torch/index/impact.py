@@ -30,8 +30,15 @@ scores, so rows become ragged.
 scores provably stay below 2^24 (``_search_plan`` and ``_check_wire``
 check both). ``search_encoded_stream`` / ``search_terms_stream`` keep up to
 ``lookahead`` chunks in flight across a stream of batches, and ``explain``
-breaks one doc's score down by term on the host. Not ported: arena capacity
-(ROADMAP Queue 1 #7) and sharding (#9).
+breaks one doc's score down by term on the host.
+
+Capacity mode (``doc_capacity`` / ``term_capacity``, set by the arena live
+index, ``index/arena.py``) pads the device matrix to the reservation, all
+zeros: reserved columns score 0 and the resolve drops them, like docs that
+share no query term. ``scatter_append_triples`` writes added documents'
+(term, column, weight) triples, or zeros over deleted ones, into every
+cached matrix in place, so a search after an add reads the same storage.
+Not ported: sharding (ROADMAP Queue 1 #9).
 """
 
 from __future__ import annotations
@@ -119,6 +126,12 @@ class ImpactIndex:
         self._dev: Optional[Dict[str, torch.Tensor]] = None
         self._n_valid = 0
         self._i16_ok: Optional[bool] = None
+        # arena capacity (index/arena.py): when set, device matrices are
+        # padded to >= doc_capacity columns and term_capacity (+1) rows, and
+        # _n_valid covers the whole padded width, so in-place appends
+        # (scatter_append_triples) never change a matrix's shape
+        self.doc_capacity: Optional[int] = None
+        self.term_capacity: Optional[int] = None
         # True iff term ids were canonicalized at build (from_selected_terms
         # with a canonical_map): queries must be folded through the same map
         self.query_canonical: bool = False
@@ -308,16 +321,19 @@ class ImpactIndex:
     def _materialize(self, dtype: str = "f32") -> torch.Tensor:
         """The dense ``[T'+1, N_pad]`` matrix on this index's device (int16
         for ``'i16'``, f32 for ``'f32'``), scattered from the CSR triples
-        and cached per dtype. Row 0 stays zero."""
+        and cached per dtype. Row 0 stays zero. In capacity mode the matrix
+        has ``max(T, term_capacity) + 1`` rows and at least
+        ``doc_capacity`` columns, and every column counts as valid (the
+        reserved ones score 0 and are dropped at resolve)."""
         self._ensure_finalized()
         if self._dev is None:
             self._dev = {}
         if dtype in self._dev:
             return self._dev[dtype]
         n = self.doc_terms.shape[0]
-        t = len(self.term_to_idx)
-        self._n_valid = n
-        n_pad = _round_up(max(n, 1), _DOC_TILE)
+        t = max(len(self.term_to_idx), self.term_capacity or 0)
+        n_pad = _round_up(max(n, self.doc_capacity or 0, 1), _DOC_TILE)
+        self._n_valid = n_pad if self.doc_capacity is not None else n
         itemsize = 2 if dtype == "i16" else 4
         need = (t + 1) * n_pad * itemsize
         cached = sum(d.numel() * d.element_size() for d in self._dev.values())
@@ -346,6 +362,25 @@ class ImpactIndex:
     def drop_device_cache(self) -> None:
         """Release the device matrices (rebuilt on the next search)."""
         self._dev = None
+
+    def scatter_append_triples(self, term_idx, doc_pos, weights) -> None:
+        """Write (term idx, doc column, weight) triples into every cached
+        device matrix in place: the arena's add and delete primitive
+        (``index/arena.py``). Positions and term ids must lie inside the
+        capacity reservation. No-op when nothing is materialized yet.
+
+        The triples go in as they are: a (row, col) pair given twice is
+        written in an undefined order on CUDA, so callers pass each cell
+        once."""
+        if not self._dev:
+            return
+        rows = torch.from_numpy(
+            np.asarray(term_idx, np.int64) + 1).to(self.device)
+        cols = torch.from_numpy(np.asarray(doc_pos, np.int64)).to(self.device)
+        vals = torch.from_numpy(np.asarray(weights, np.float32)).to(
+            self.device)
+        for dev in self._dev.values():
+            _scatter_block(dev, rows, cols, vals)
 
     # ---- query encoding ------------------------------------------------------
     def encode_queries(self, query_vectors: Sequence[SparseVector],

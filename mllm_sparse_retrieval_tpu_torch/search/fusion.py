@@ -13,7 +13,8 @@
 
 The JAX package's ``fuse`` hands dict input to a compiled helper
 (``hostops``) that gives the same doubles; the port runs the Python body,
-that helper's semantic reference (``hostops`` is ROADMAP Queue 1 #7).
+that helper's semantic reference. ``hostops`` is the one part of ROADMAP
+Queue 1 #7 still to port (the live indexes and front ends are in).
 """
 
 from __future__ import annotations

@@ -5,8 +5,8 @@ A "run" maps ``qid -> {'docs': {docid: score}, 'min_score': m,
 'max_score': M}``, the structure the reference threads between search,
 fusion and metrics. The JAX package hands all-list input to a compiled
 helper (``hostops``) with the same results; the port runs the Python body,
-which is that helper's semantic reference (``hostops`` is ROADMAP Queue 1
-#7).
+which is that helper's semantic reference. ``hostops`` is the one part of
+ROADMAP Queue 1 #7 still to port (the live indexes and front ends are in).
 """
 
 from __future__ import annotations

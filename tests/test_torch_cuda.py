@@ -4,8 +4,9 @@ versions, the filtered TAAT top-k against the plain one, the fused hybrid
 searcher against the host fuse, the tiny offline evaluation path on the
 card against the same path on the CPU, and the search tiers: the bf16
 dense search's peak memory, the SQ8 int8 product's padding, the compact48
-wire through the TAAT kernel and the ANN tier, and a converted checkpoint
-loaded onto the card (the tolerances of all but the kernels are in their
+wire through the TAAT kernel and the ANN tier, a converted checkpoint
+loaded onto the card, and the arena live index's in-place writes into the
+TAAT kernel's matrix (the tolerances of all but the kernels are in their
 docstrings). Marked ``cuda``; each test skips
 where no card is present (decided inside the test, so every pytest worker
 collects the same tests). This file
@@ -784,3 +785,135 @@ def test_ann_on_the_card_matches_the_cpu():
     for r in range(8):
         cut = gs[r, -1] + 2e-5
         assert {d for d, s in zip(gi[r], gs[r]) if s > cut} <= set(ci[r])
+
+
+def _arena_workload(device, seed=0):
+    """One arena on ``device`` through adds (past the headroom once),
+    replaces, deletes and an add of a weight past int16, searched with the
+    TAAT backend after each step -> (results per step, final matrices)."""
+    from mllm_sparse_retrieval_tpu_torch.index import (
+        ArenaImpactIndex, ImpactIndex)
+
+    rng = np.random.default_rng(seed)
+    vocab = np.arange(400)
+
+    def docs(ids):
+        return [(d, {int(t): int(w) for t, w in zip(
+            rng.choice(vocab, 12, replace=False), rng.integers(1, 300, 12))})
+            for d in ids]
+
+    base = ImpactIndex(device=device)
+    base.add_many(docs([f"b{i}" for i in range(3000)]))
+    arena = ArenaImpactIndex(base, doc_headroom=2048, term_headroom=64,
+                             device=device)
+    queries = [{int(t): int(w) for t, w in zip(
+        rng.choice(vocab, 16, replace=False), rng.integers(1, 4, 16))}
+        for _ in range(8)]
+    out = [arena.search_rows(queries, 50, backend="taat")]
+    for step, n in enumerate((500, 1000, 1500)):   # the last one grows
+        arena.add_documents(docs([f"n{step}_{i}" for i in range(n)]) +
+                            [(f"b{step}", {1: 7, 2: 5})])
+        arena.delete_documents([f"b{100 + i}" for i in range(50 * step,
+                                                              50 * step + 40)])
+        out.append(arena.search_rows(queries, 50, backend="taat"))
+    arena.add_documents([("big", {int(vocab[0]): 40_000})])
+    out.append(arena.search_rows(queries, 50, backend="taat"))
+    return out, {k: v.float().cpu().numpy()
+                 for k, v in arena._inner._dev.items()}
+
+
+def test_arena_on_the_card_equals_the_cpu():
+    """Adds, replaces, deletes, a grow and the int16 drop on the card give
+    the CPU's matrices exactly and its results up to ties at the cut."""
+    device = _card()
+    got, got_dev = _arena_workload(device)
+    want, want_dev = _arena_workload("cpu")
+    assert sorted(got_dev) == sorted(want_dev) == ["f32"]
+    for key in got_dev:
+        assert np.array_equal(got_dev[key], want_dev[key]), key
+    for (gs, gi), (ws, wi) in zip(got, want):
+        assert gs == ws
+        for s_row, i_row, w_row, wi_row in zip(gs, gi, ws, wi):
+            low = s_row[-1] if s_row else None
+            assert {i for i, s in zip(i_row, s_row) if s != low} == \
+                {i for i, s in zip(wi_row, w_row) if s != low}
+
+
+def test_taat_on_a_scatter_mutated_capacity_matrix_equals_plain():
+    """The kernel on the arena's capacity-padded int16 matrix after
+    in-place adds and deletes (same storage) equals its plain version."""
+    device = _card()
+    from mllm_sparse_retrieval_tpu_torch.index import (
+        ArenaImpactIndex, ImpactIndex)
+
+    rng = np.random.default_rng(1)
+    base = ImpactIndex(device=device)
+    base.add_many((f"b{i}", {int(t): int(w) for t, w in zip(
+        rng.choice(2000, 32, replace=False), rng.integers(1, 300, 32))})
+        for i in range(5000))
+    arena = ArenaImpactIndex(base, device=device)
+    arena.search_rows([{1: 1}], 10, backend="taat")
+    matrix = arena._inner._dev["i16"]
+    ptr = matrix.data_ptr()
+    arena.add_documents([(f"n{i}", {int(t): int(w) for t, w in zip(
+        rng.choice(2100, 32, replace=False), rng.integers(1, 300, 32))})
+        for i in range(1024)])
+    arena.delete_documents([f"b{i}" for i in range(0, 5000, 7)])
+    assert arena._inner._dev["i16"].data_ptr() == ptr
+    assert matrix.shape[1] % K.COLS_ALIGN == 0 and ptr % 16 == 0
+    q_idx = torch.from_numpy(rng.integers(
+        1, matrix.shape[0], (8, 128)).astype(np.int32)).to(device)
+    q_w = torch.from_numpy(rng.integers(1, 5, (8, 128)).astype(
+        np.float32)).to(device)
+    torch.testing.assert_close(K.impact_scores_taat(matrix, q_idx, q_w),
+                               K.impact_scores_taat_plain(matrix, q_idx, q_w),
+                               rtol=0, atol=0)
+
+
+def test_scatter_from_another_thread_never_returns_a_deleted_id():
+    """A writer thread adds and deletes while a search stream is in flight
+    on the main thread: no search that started after a delete returned
+    serves the deleted id, and both threads end in time."""
+    import threading
+
+    device = _card()
+    from mllm_sparse_retrieval_tpu_torch.index import (
+        ArenaImpactIndex, ImpactIndex)
+
+    rng = np.random.default_rng(2)
+    vocab = np.arange(300)
+    base = ImpactIndex(device=device)
+    base.add_many((f"b{i}", {int(t): 5 for t in rng.choice(
+        vocab, 16, replace=False)}) for i in range(4000))
+    arena = ArenaImpactIndex(base, device=device)
+    queries = [{int(t): 1 for t in rng.choice(vocab, 32, replace=False)}
+               for _ in range(16)]
+    deleted, errors, stop = set(), [], threading.Event()
+
+    def writer():
+        try:
+            wrng = np.random.default_rng(3)
+            for step in range(60):
+                arena.add_documents([(f"w{step}_{i}", {int(t): 9 for t in
+                                      wrng.choice(vocab, 16, replace=False)})
+                                     for i in range(32)])
+                victims = [f"b{step * 20 + i}" for i in range(20)]
+                arena.delete_documents(victims)
+                deleted.update(victims)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+        finally:
+            stop.set()
+
+    t = threading.Thread(target=writer, daemon=True)
+    t.start()
+    searches = 0
+    while not stop.is_set() and not errors:
+        gone = set(deleted)             # deletes that have returned
+        _, ids = arena.search_rows(queries, 4000, backend="taat")
+        hit = gone & {i for row in ids for i in row}
+        assert not hit, sorted(hit)[:5]
+        searches += 1
+    t.join(120)
+    assert not t.is_alive() and errors == [] and searches > 0
+

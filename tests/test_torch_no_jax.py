@@ -2,8 +2,9 @@
 of the JAX package (nor Pillow, which the card machine lacks), every port
 module (the offline evaluation path's ``cli``, ``eval``, ``search`` and
 ``index/native``, and the hybrid path's fusion, rank, filter and service
-modules, and the search tiers' SQ8, ANN, compact48 and stream modules
-included) imports with JAX blocked, checkpoints convert and load with
+modules, the search tiers' SQ8, ANN, compact48 and stream modules, and
+the live indexes, the HTTP front ends and the server CLIs included)
+imports with JAX blocked, checkpoints convert and load with
 ``transformers`` and ``safetensors`` blocked too, and the smoke check
 refuses to report a result without a card."""
 
@@ -47,6 +48,9 @@ HYBRID = ("eval.device_eval", "index.filter", "ops.eval_ranks",
 # the search tiers' modules: the ANN tier, SQ8, the compact48 wire, streams
 TIERS = ("index.ann", "index.impact", "index", "ops.ann", "ops.mips",
          "ops.packing", "ops.score_programs")
+# the live indexes, the HTTP front ends and the server CLIs
+LIVE = ("index.arena", "index.live", "serving.router", "serving.http",
+        "serving.aio", "cli.serve", "cli.ingest")
 
 
 def _env():
@@ -62,7 +66,7 @@ def test_port_and_chip_smoke_import_without_jax():
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 20
     imported = set(proc.stdout.splitlines()[-2].split())
-    missing = {m for m in OFFLINE + HYBRID + TIERS
+    missing = {m for m in OFFLINE + HYBRID + TIERS + LIVE
                if f"mllm_sparse_retrieval_tpu_torch.{m}" not in imported}
     assert missing == set()
 
@@ -76,7 +80,8 @@ def test_no_import_statement_names_jax_or_the_jax_package():
     assert len(files) > 20
     scanned = {str(f.relative_to(PORT)) for f in files
                if f.is_relative_to(PORT)}
-    assert {m.replace(".", "/") + ".py" for m in OFFLINE + HYBRID + TIERS
+    assert {m.replace(".", "/") + ".py"
+            for m in OFFLINE + HYBRID + TIERS + LIVE
             if m not in ("index.native", "index")} | {
                 "index/native/__init__.py", "index/__init__.py"} <= scanned
     hits = [f"{f}: {m.group(0).strip()}" for f in files
@@ -157,3 +162,25 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path, where):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_live_entry_points_default_to_the_card():
+    """The live indexes, their loaders, ``load_live_state`` and the server
+    CLIs put the indexes and the model on ``cuda`` unless asked."""
+    import inspect
+
+    from mllm_sparse_retrieval_tpu_torch.cli import serve
+    from mllm_sparse_retrieval_tpu_torch.index import (
+        ArenaDenseIndex, ArenaImpactIndex, LiveDenseIndex, LiveImpactIndex)
+    from mllm_sparse_retrieval_tpu_torch.serving import load_live_state
+
+    fns = [load_live_state]
+    for cls in (ArenaDenseIndex, ArenaImpactIndex, LiveDenseIndex,
+                LiveImpactIndex):
+        fns += [cls.__init__, cls.load] if "device" in inspect.signature(
+            cls.load).parameters else [cls.__init__]
+    assert len(fns) == 7
+    for fn in fns:
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    args = serve.build_parser().parse_args(["--live-empty", "sparse"])
+    assert args.device == "cuda"
