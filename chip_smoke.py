@@ -12,8 +12,10 @@ version at the shapes the port's paths give it: the TAAT kernel at the
 served and the benchmark shapes; the flash-attention forward and the dq and
 dkv backward kernels on synthetic 3,072-token rows with an all-pad row
 (what the kernels line reports) and on the rows of the profiled training
-step, and the forward again at LLaVA-1.6-Vicuna's 32 KV heads (G = 1);
-each with its bound and its share of the bf16 peak. Then it makes the
+step, and the forward again at LLaVA-1.6-Vicuna's 32 KV heads (G = 1) and
+at InternVL2.5-8B's 28 query on 4 KV heads (G = 7) on 3,584-token rows of
+its image prompt lengths (the kernels line's ``at_g7``); each with its
+bound and its share of the bf16 peak. Then it makes the
 main path's model from a checkpoint: the full-width, full-depth
 LLaVA-NeXT-Llama3-8B, bf16 weights drawn on the card from a seed, is
 written as a Hugging Face llava_next checkpoint (bf16 safetensors shards
@@ -67,7 +69,15 @@ with the flash kernels and with plain attention, and the two compared.
 Last, LLaVA-1.6-Vicuna-7B (anyres, the flash kernel at G = 1) and
 LLaVA-1.5-7B (fixed 336 px grid, prompts short enough for plain
 attention) are drawn at full width, one after the other, and serve 8 text
-and 8 image queries each, every result equal to the matmul backend's.
+and 8 image queries each, every result equal to the matmul backend's; and
+so, through their chat templates on the synthetic tokenizer with the
+families' special tokens as single ids, do InternVL2.5-8B (dynamic tiling
+into 13 tiles of 448 px, InternViT-300M, pixel shuffle, 3,584-token image
+prompts whose decoder attention is the flash kernel at G = 7, 28 launches
+per image micro-batch) and Qwen2.5-VL-7B (native-resolution
+preprocessing, the windowed ViT on up to 4,608 padded patches, M-RoPE,
+prompts under 1,024 tokens on plain attention), each with one image
+micro-batch's breakdown.
 
 Each phase prints one progress line with the seconds since start. The last
 lines are a JSON object describing the kernels, the card's name and power
@@ -199,6 +209,17 @@ CHECKSUM_CHUNK, CHECKSUM_MOD = 1 << 26, 8191
 # attention) drawn at full width, FAM_QUERIES text and image queries each;
 # the flash kernel at the Vicuna image shape has VICUNA_HEADS q / kv heads
 FAM_QUERIES, VICUNA_HEADS = 8, 32
+# chat-template families: InternVL2.5-8B (13 tiles x 256 = 3,328 image
+# tokens, prompts padded to 3,584; 28 query / 4 KV heads: the flash
+# forward at G = 7) and Qwen2.5-VL-7B (native resolution, at most 768
+# merge units: prompts under FLASH_MIN_SEQ, plain attention), drawn at
+# full width, FAM_QUERIES text and image queries each, through the chat
+# templates on the synthetic tokenizer with the families' special tokens
+# (CHAT_SPECIALS) as single ids
+CHAT_SPECIALS = ("<|im_start|>", "<|im_end|>", "<|vision_start|>",
+                 "<|vision_end|>", "<|image_pad|>", "<img>", "</img>",
+                 "<IMG_CONTEXT>")
+INTERNVL_HEADS = (28, 4)
 # live indexes and the HTTP front end: arena copies of the impact index and
 # the hybrid phase's dense rows with the default LIVE_HEADROOM reserved
 # columns and rows; LIVE_POSTS adds of LIVE_POST_DOCS new docs over HTTP
@@ -808,6 +829,82 @@ class RecordingEncoder:
         return dense, terms
 
 
+class ChatTokenizer:
+    """The synthetic tokenizer with the chat-template families' special
+    tokens (``CHAT_SPECIALS``) as single ids after its own vocabulary, as a
+    Hugging Face tokenizer's added tokens are: the text between them goes
+    through the synthetic tokenizer."""
+
+    def __init__(self, base, specials=CHAT_SPECIALS):
+        import re
+
+        self.base = base
+        self.special_ids = {t: base.vocab_size + i
+                            for i, t in enumerate(specials)}
+        self._split = re.compile("(" + "|".join(map(re.escape, specials))
+                                 + ")")
+        self.pad_id = base.pad_id
+
+    def get_vocab(self):
+        return {**self.base.get_vocab(), **self.special_ids}
+
+    @property
+    def vocab_size(self):
+        return self.base.vocab_size + len(self.special_ids)
+
+    def encode(self, text, add_special_tokens=True):
+        ids = [self.base.bos_id] if add_special_tokens else []
+        for part in self._split.split(text):
+            if part in self.special_ids:
+                ids.append(self.special_ids[part])
+            elif part:
+                ids.extend(self.base.encode(part, add_special_tokens=False))
+        return ids
+
+    def pad_batch(self, batch, max_len=None, pad_to_multiple=8):
+        return self.base.pad_batch(batch, max_len, pad_to_multiple)
+
+
+def chat_family_archs(ctok):
+    """(name, arch, template) of InternVL2.5-8B and Qwen2.5-VL-7B at the
+    registry's full width, their image placeholders set to ``ctok``'s ids
+    (every width unchanged)."""
+    import dataclasses
+
+    from mllm_sparse_retrieval_tpu_torch.models import registry, templates
+
+    ids = ctok.special_ids
+    internvl = dataclasses.replace(registry._internvl2_5_arch(),
+                                   image_token_id=ids["<IMG_CONTEXT>"])
+    qwen = dataclasses.replace(
+        registry._qwen2_5_vl_7b_arch(), image_token_id=ids["<|image_pad|>"],
+        vision_start_token_id=ids["<|vision_start|>"])
+    return (("InternVL2.5-8B", internvl, templates.INTERNVL2_5),
+            ("Qwen2.5-VL-7B", qwen, templates.QWEN2_5_VL))
+
+
+def internvl_prompt_lengths(ctok, arch, tmpl, sizes):
+    """Unpadded InternVL2.5 image prompt lengths of images of ``sizes``
+    (their tile grids as ``data.tiling.dynamic_tile`` picks them) and the
+    family's padded length (the longest prompt, 13 tiles, rounded up to
+    512)."""
+    from mllm_sparse_retrieval_tpu_torch.data.tiling import (
+        candidate_grids, closest_aspect_ratio)
+
+    s, mx = arch.vision.image_size, arch.max_dynamic_tiles
+    grids = candidate_grids(1, mx)
+
+    def length(n_tiles):
+        return len(ctok.encode(tmpl.expand_image(
+            tmpl.image_prompt(), arch.num_image_tokens * n_tiles)))
+
+    lengths = []
+    for h, w in sizes:
+        cols, rows = closest_aspect_ratio(w / h, grids, w, h, s)
+        lengths.append(length(cols * rows + (cols * rows > 1)))
+    return lengths, -(-length(mx + 1) // 512) * 512
+
+
 def host_ms(fn, iters: int) -> float:
     """Mean host-clock time of ``fn`` (which ends in a device sync)."""
     fn()
@@ -895,10 +992,11 @@ def breakdown(encoder, index, q_idx, q_w, batch):
              f"{s_busy:.4f} ms in {s_n} kernels and copies")
 
 
-def image_breakdown(encoder, images):
+def image_breakdown(encoder, images, flash=True, label="", iters=2):
     """Where one served image micro-batch's time goes: the host clock of a
-    real ``encode_images`` call and, from one profiled call, the device time
-    of its ``vision``, ``tower`` (``attention`` inside it), ``lm_head`` and
+    real ``encode_images`` call (mean of ``iters``) and, from one profiled
+    call, the device time of its ``vision``, ``tower`` (``attention``
+    inside it, the flash calls: required when ``flash``), ``lm_head`` and
     ``term_select`` ranges and the device's busy share."""
     import torch
 
@@ -912,18 +1010,19 @@ def image_breakdown(encoder, images):
         enc.image_inputs(images, b)
         torch.cuda.synchronize()
 
-    encode_ms, inputs_ms = host_ms(encode, 2), host_ms(inputs, 2)
+    encode_ms, inputs_ms = host_ms(encode, iters), host_ms(inputs, iters)
     busy, n, stage, _ = profiled_again(encode)
-    if busy <= 0.0 or stage["attention"] <= 0.0:
+    if busy <= 0.0 or (flash and stage["attention"] <= 0.0):
         raise AssertionError("the profiler saw no device time in the flash "
                              "attention ranges")
     stages = ", ".join(f"{k} {v:.3f} ms" for k, v in stage.items())
-    progress("breakdown", f"one {b}-image batch: encode_images "
+    share = (f"; attention share of tower "
+             f"{stage['attention'] / stage['tower']:.3f}" if flash else "")
+    progress("breakdown", f"{label}one {b}-image batch: encode_images "
              f"{encode_ms:.2f} ms host clock, of which host preprocessing "
              f"and upload {inputs_ms:.2f} ms; device {busy:.3f} ms in {n} "
              f"kernels and copies (busy share {busy / encode_ms:.3f}; "
-             f"{stages}; attention share of tower "
-             f"{stage['attention'] / stage['tower']:.3f})")
+             f"{stages}{share})")
 
 
 def serve(svc, kind, queries, n_threads, request_timeout, deadline_s,
@@ -995,7 +1094,7 @@ def tower_flash_check(encoder, params, arch, images):
     from mllm_sparse_retrieval_tpu_torch.models import mllm
     from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
 
-    ids, mask, px = encoder._enc.image_inputs(images, len(images))
+    ids, mask, px, _ = encoder._enc.image_inputs(images, len(images))
     out = {}
     for flash in (True, False):
         before = FA.launch_count()
@@ -3635,6 +3734,118 @@ def phase_families(tok, tmpl, lexicon, index, cmap, card):
     return taat, flash
 
 
+def phase_chat_families(ctok, lexicon, index, cmap, card):
+    """InternVL2.5-8B (dynamic tiling, InternViT, 3,584-token image
+    prompts through the flash forward at G = 7) and then Qwen2.5-VL-7B
+    (the windowed ViT at native resolution, M-RoPE, prompts under
+    FLASH_MIN_SEQ), each drawn at full width on the card and freed after
+    use: FAM_QUERIES text and image queries through ``RetrievalService``
+    with the family's chat template on ``ctok``, every result equal to the
+    matmul backend's; one TAAT launch per micro-batch; InternVL2.5 takes
+    exactly one flash launch per layer and image micro-batch (28), Qwen
+    none; then one image micro-batch's breakdown. Returns the TAAT and
+    flash launches of the served runs."""
+    import numpy as np
+    import torch
+
+    from mllm_sparse_retrieval_tpu_torch.configs import SparseConfig
+    from mllm_sparse_retrieval_tpu_torch.models import registry
+    from mllm_sparse_retrieval_tpu_torch.models.internvl import (
+        InternVLConfig)
+    from mllm_sparse_retrieval_tpu_torch.models.llama import param_count
+    from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
+    from mllm_sparse_retrieval_tpu_torch.ops import impact_kernel as K
+    from mllm_sparse_retrieval_tpu_torch.serving import (
+        OnlineQueryEncoder, RetrievalService)
+
+    rng = np.random.default_rng(SEED + 7)
+    taat = flash = 0
+    for name, arch, tmpl in chat_family_archs(ctok):
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+        params = registry.init_params(arch, gen, DEVICE, torch.bfloat16)
+        texts = captions(rng, lexicon, FAM_QUERIES, 10, 15)
+        images = [rng.integers(0, 256, size=hw + (3,), dtype=np.uint8)
+                  .astype(np.float32) / 255.0
+                  for hw in IMAGE_SIZES[:FAM_QUERIES]]
+        enc = RecordingEncoder(OnlineQueryEncoder(
+            params, arch, ctok, tmpl, SparseConfig(), max_text_len=64,
+            device=DEVICE))
+        svc = RetrievalService(impact_index=index, query_encoder=enc,
+                               backend="taat", max_batch=MAX_BATCH,
+                               depth_levels=(DEPTH,), max_wait_ms=10.0)
+        runs = {}
+        try:
+            svc.search(text=texts[0], timeout=WARMUP_TIMEOUT_S)
+            svc.search(image=images[0], timeout=IMAGE_REQUEST_TIMEOUT_S)
+            torch.cuda.reset_peak_memory_stats()
+            for kind, queries, threads, timeout, deadline in (
+                    ("text", texts, N_THREADS, REQUEST_TIMEOUT_S,
+                     SERVE_DEADLINE_S),
+                    ("image", images, IMAGE_THREADS, IMAGE_REQUEST_TIMEOUT_S,
+                     IMAGE_DEADLINE_S)):
+                torch.cuda.synchronize()
+                batches0 = svc.stats()["batches"]
+                enc.tower_s.clear()
+                K.reset_launch_count()
+                FA.reset_launch_count()
+                results, latency, wall = serve(svc, kind, queries, threads,
+                                               timeout, deadline)
+                runs[kind] = (K.launch_count(), FA.launch_count(),
+                              svc.stats()["batches"] - batches0, results,
+                              latency, wall, np.mean(enc.tower_s))
+        finally:
+            svc.close()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        img_len = -(-enc._image_state()["fixed_len"] // 16) * 16  # padded
+        per_batch = (arch.text.num_layers if isinstance(arch, InternVLConfig)
+                     else 0)
+        lines = []
+        for kind, run in runs.items():
+            k_n, f_n, n_batches, results, latency, wall, enc_s = run
+            want_flash = per_batch * n_batches if kind == "image" else 0
+            if k_n != n_batches or f_n != want_flash:
+                raise AssertionError(
+                    f"{name} {kind}: {k_n} TAAT and {f_n} flash launches in "
+                    f"{n_batches} micro-batches, want {n_batches} and "
+                    f"{want_flash}")
+            keys = texts if kind == "text" else [image_key(im)
+                                                 for im in images]
+            check_results(index, cmap, [f"{name} {kind} {i}"
+                                        for i in range(len(keys))],
+                          [enc.terms[q] for q in keys], results)
+            taat += k_n
+            flash += f_n
+            lat = np.array(latency) * 1e3
+            lines.append(f"{kind}: {n_batches} micro-batches, TAAT "
+                         f"launches {k_n}, flash launches {f_n}, p50 "
+                         f"{np.percentile(lat, 50):.2f} ms, "
+                         f"{len(keys) / wall:.2f} QPS, encode "
+                         f"{enc_s * 1e3:.2f} ms per batch")
+        t, v = arch.text, arch.vision
+        tower = (f"InternViT {v.num_layers} layers x {v.hidden_size}, "
+                 f"{arch.max_dynamic_tiles + 1} tiles of {v.image_size} px"
+                 if isinstance(arch, InternVLConfig) else
+                 f"windowed ViT {v.depth} blocks x {v.hidden_size}, "
+                 f"{arch.padded_window_units * v.merge_unit} padded patches"
+                 f" an image, M-RoPE {t.mrope_section}")
+        progress("chat_families", f"{name}: {param_count(params):,} bf16 "
+                 f"weights drawn on the card ({t.num_layers} layers, "
+                 f"{t.num_heads}/{t.num_kv_heads} heads, FFN "
+                 f"{t.intermediate_size}, vocab {t.vocab_size}; {tower}), "
+                 f"image prompts of {img_len} tokens; " + "; ".join(lines)
+                 + f"; all {2 * FAM_QUERIES} results equal the matmul "
+                 f"backend's; peak {peak_gb:.2f} GB; card {card}")
+        torch.cuda.reset_peak_memory_stats()
+        image_breakdown(enc, images[:MAX_BATCH], flash=per_batch > 0,
+                        label=f"{name}: ", iters=1)
+        progress("chat_families", f"{name}: breakdown peak "
+                 f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        del enc, svc, params
+        gc.collect()            # a closed service and its encoder form a
+        torch.cuda.empty_cache()  # cycle: free the weights before the next
+    return taat, flash
+
+
 def same_up_to_ties(got, want, depth=DEPTH):
     """Equal (doc, score) sets, except for docs tied at the depth cut."""
     g, w = set(got), set(want)
@@ -3727,6 +3938,14 @@ def main() -> int:
     dq_kernel, dkv_kernel = phase_flash_bwd(
         image_prompt_len[:TRAIN_B - 1] + [0], seq)
     phase_flash_bwd(train_lengths, seq)
+    # InternVL2.5-8B's image shape: 28 query heads on 4 KV heads (G = 7),
+    # prompts of 13 tiles padded to 3,584 tokens
+    ctok = ChatTokenizer(tok)
+    _, internvl_arch, internvl_tmpl = chat_family_archs(ctok)[0]
+    internvl_len, internvl_seq = internvl_prompt_lengths(
+        ctok, internvl_arch, internvl_tmpl, IMAGE_SIZES[:FLASH_B - 1])
+    flash_g7 = phase_flash(internvl_len + [0], internvl_seq,
+                           *INTERNVL_HEADS)
 
     # ---- 4. the model, from a checkpoint, and the index -----------------------
     params, arch = phase_checkpoint(spec, card)
@@ -3902,6 +4121,10 @@ def main() -> int:
     fam_taat, fam_flash = phase_families(tok, tmpl, lexicon, index, cmap,
                                          card)
 
+    # ---- 14. InternVL2.5-8B and Qwen2.5-VL-7B at full width ---------------
+    chat_taat, chat_flash = phase_chat_families(ctok, lexicon, index, cmap,
+                                                card)
+
     max_err = max(bench["i16"]["max_abs_err"], bench["f32"]["max_abs_err"],
                   served["max_abs_err"])
     kernels = [
@@ -3909,7 +4132,7 @@ def main() -> int:
              source="mllm_sparse_retrieval_tpu_torch/csrc/taat.cu",
              replaces="mllm_sparse_retrieval_tpu/ops/impact_kernel.py:115",
              launches=text_taat + img_taat + hyb_taat + tier_taat
-             + live_taat + off_taat + fam_taat,
+             + live_taat + off_taat + fam_taat + chat_taat,
              max_abs_err=max_err,
              ms=served["ms"], plain_ms=served["plain_ms"],
              bound_ms=served["bound_ms"], bound_by=served["bound_by"],
@@ -3918,8 +4141,11 @@ def main() -> int:
              source="mllm_sparse_retrieval_tpu_torch/csrc/flash_attn.cu",
              replaces="mllm_sparse_retrieval_tpu/models/layers.py:199",
              launches=text_flash + img_flash + hyb_flash + live_flash
-             + off_flash + train_launches["fwd"] + fam_flash,
-             **flash),
+             + off_flash + train_launches["fwd"] + fam_flash + chat_flash,
+             **flash,
+             at_g7=dict(shape=f"B={FLASH_B} T={internvl_seq} Hq/Hkv="
+                        f"{INTERNVL_HEADS[0]}/{INTERNVL_HEADS[1]}",
+                        launches=chat_flash, **flash_g7)),
         dict(name="flash_attention_bwd_dkv", route="cuda",
              source="mllm_sparse_retrieval_tpu_torch/csrc/flash_attn_bwd.cu",
              replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:941",

@@ -9,8 +9,8 @@ from typing import Optional
 
 
 class ModelFamily(str, enum.Enum):
-    """Supported MLLM families; the port builds the four LLaVA families
-    (from converted checkpoints) and ``TINY_DEBUG``."""
+    """Supported MLLM families: the four LLaVA families, Qwen2.5-VL and
+    InternVL2.5 (from converted checkpoints), and the tiny random ones."""
 
     LLAVA_NEXT_LLAMA3 = "llava_next_llama3"   # llava-hf/llama3-llava-next-8b
     LLAVA_1_5 = "llava_1_5"                    # llava-hf/llava-1.5-7b

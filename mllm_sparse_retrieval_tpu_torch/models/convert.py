@@ -1,9 +1,10 @@
 """HF checkpoint -> the port's parameter tree (the JAX package's
-``models/convert.py`` for the LLaVA families, without ``transformers``).
+``models/convert.py``, without ``transformers``).
 
-``convert_hf_dir`` reads a Hugging Face LLaVA / LLaVA-NeXT checkpoint
-directory (``config.json`` and ``*.safetensors``, one file or the shards
-that ``model.safetensors.index.json`` names) and writes the framework
+``convert_hf_dir`` reads a Hugging Face LLaVA / LLaVA-NeXT / Qwen2.5-VL /
+InternVL checkpoint directory (``config.json`` and ``*.safetensors``, one
+file or the shards that ``model.safetensors.index.json`` names) and
+writes the framework
 checkpoint both packages load: ``params.pkl``, a pickled tree of f32 numpy
 arrays in the JAX package's layout, ``arch.json``, the architecture
 manifest derived from ``config.json``, and the tokenizer files present.
@@ -17,12 +18,14 @@ Conventions translated (as in the JAX package):
 - CLIP's conv patch embedding ``[H, C, P, P]`` becomes the patchify matmul
   weight ``[P*P*C, H]`` with (row, col, channel) flattening;
 - CLIP's separate q/k/v projections are fused into one ``qkv``;
-- both HF key layouts resolve: the hub's ``language_model.model.*`` /
-  ``language_model.lm_head`` and transformers >= 4.52's
-  ``model.language_model.*`` / ``lm_head``.
+- Qwen's conv3d patch embedding ``[D, C, T, P, P]`` becomes ``[C*T*P*P,
+  D]`` (the ``qwen_vl.patchify`` feature order); InternViT's conv keeps
+  its bias and its position embedding loses the leading 1;
+- both HF key layouts resolve: the hub's (``language_model.model.*`` /
+  ``language_model.lm_head``; Qwen2.5-VL's ``visual.*`` / ``model.*``)
+  and transformers >= 4.52's ``model.language_model.*`` / ``lm_head``.
 
 ``load_converted`` loads such a checkpoint onto a torch device.
-Qwen2.5-VL and InternVL are not ported (ROADMAP Queue 1 #6).
 
     python -m mllm_sparse_retrieval_tpu_torch.models.convert <hf_dir> <out_dir>
 """
@@ -41,8 +44,6 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-_NOT_PORTED = ("is not ported yet (ROADMAP Queue 1 #6: models/qwen_vl.py, "
-               "models/internvl.py)")
 _TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json",
                     "special_tokens_map.json", "tokenizer.model")
 
@@ -160,6 +161,165 @@ def convert_llava_state_dict(sd: Mapping, num_vision_layers: int,
     return params
 
 
+def _resolve(sd: Mapping, prefix: str) -> str:
+    """The key prefix under which ``sd`` holds module ``prefix`` (written in
+    transformers >= 4.52's ``state_dict()`` layout minus its ``model.``):
+    that layout (``model.visual.*``, ``model.language_model.*``,
+    ``model.vision_tower.*``, ``lm_head``), the unprefixed one, or the
+    hub's shards of the chat-template families (Qwen2.5-VL:
+    ``visual.*``, ``model.layers.*``; HF-integrated InternVL:
+    ``language_model.model.*``, ``language_model.lm_head``)."""
+    candidates = [prefix, f"model.{prefix}"]
+    if prefix.startswith("language_model."):
+        rest = prefix[len("language_model."):]
+        candidates += [f"model.{rest}", f"language_model.model.{rest}"]
+    if prefix == "lm_head":
+        candidates.append("language_model.lm_head")
+    for cand in candidates:
+        if cand in sd or f"{cand}.weight" in sd:
+            return cand
+    raise KeyError(prefix)
+
+
+def convert_qwen25vl_state_dict(sd: Mapping, num_vision_layers: int,
+                                num_text_layers: int) -> Dict:
+    """Map an HF Qwen2_5_VLForConditionalGeneration state dict to the tree
+    of numpy f32 arrays in ``models/qwen_vl.py``'s layout (both key
+    layouts, see ``_resolve``)."""
+
+    def k(prefix: str) -> str:
+        return _resolve(sd, prefix)
+
+    conv = _t(sd[k("visual.patch_embed.proj.weight")])  # [D, C, T, P, P]
+    d = conv.shape[0]
+    vision = {
+        # flatten order (C, T, Py, Px) matches qwen_vl.patchify features
+        "patch_embed": {"w": conv.reshape(d, -1).T},
+        "merger": {
+            "ln_q": _rmsnorm(sd, k("visual.merger.ln_q")),
+            "fc1": _linear(sd, k("visual.merger.mlp.0")),
+            "fc2": _linear(sd, k("visual.merger.mlp.2")),
+        },
+        "blocks": [],
+    }
+    for i in range(num_vision_layers):
+        p = f"visual.blocks.{i}"
+        vision["blocks"].append({
+            "norm1": _rmsnorm(sd, k(f"{p}.norm1")),
+            "norm2": _rmsnorm(sd, k(f"{p}.norm2")),
+            "qkv": _linear(sd, k(f"{p}.attn.qkv")),
+            "proj": _linear(sd, k(f"{p}.attn.proj")),
+            "gate": _linear(sd, k(f"{p}.mlp.gate_proj")),
+            "up": _linear(sd, k(f"{p}.mlp.up_proj")),
+            "down": _linear(sd, k(f"{p}.mlp.down_proj")),
+        })
+
+    lm = "language_model"
+    text = {
+        "embed": _t(sd[k(f"{lm}.embed_tokens.weight")]),
+        "final_norm": _rmsnorm(sd, k(f"{lm}.norm")),
+        "blocks": [],
+    }
+    for i in range(num_text_layers):
+        p = f"{lm}.layers.{i}"
+        text["blocks"].append({
+            "attn_norm": _rmsnorm(sd, k(f"{p}.input_layernorm")),
+            "q": _linear(sd, k(f"{p}.self_attn.q_proj")),
+            "k": _linear(sd, k(f"{p}.self_attn.k_proj")),
+            "v": _linear(sd, k(f"{p}.self_attn.v_proj")),
+            "o": _linear(sd, k(f"{p}.self_attn.o_proj")),
+            "mlp_norm": _rmsnorm(sd, k(f"{p}.post_attention_layernorm")),
+            "gate": _linear(sd, k(f"{p}.mlp.gate_proj")),
+            "up": _linear(sd, k(f"{p}.mlp.up_proj")),
+            "down": _linear(sd, k(f"{p}.mlp.down_proj")),
+        })
+    try:
+        text["lm_head"] = _linear(sd, k("lm_head"))
+    except KeyError:
+        pass  # tied embeddings
+    return {"vision": vision, "text": text}
+
+
+def convert_internvl_state_dict(sd: Mapping, num_vision_layers: int,
+                                num_text_layers: int,
+                                use_qk_norm: bool = False,
+                                norm_type: str = "layer_norm") -> Dict:
+    """Map an HF InternVLForConditionalGeneration state dict to the tree
+    of numpy f32 arrays in ``models/internvl.py``'s layout (both key
+    layouts, see ``_resolve``)."""
+
+    def k(prefix: str) -> str:
+        return _resolve(sd, prefix)
+
+    def norm(prefix: str) -> Dict:
+        if norm_type == "rms_norm":
+            return _rmsnorm(sd, prefix)
+        return _layernorm(sd, prefix)
+
+    vt = "vision_tower"
+    conv = _t(sd[k(f"{vt}.embeddings.patch_embeddings.projection.weight")])
+    h = conv.shape[0]
+    vision = {
+        "patch_embed": {
+            "w": conv.transpose(2, 3, 1, 0).reshape(-1, h),
+            "b": _t(sd[k(
+                f"{vt}.embeddings.patch_embeddings.projection.bias")]),
+        },
+        "cls_token": _t(sd[k(f"{vt}.embeddings.cls_token")]).reshape(-1),
+        "pos_embed": _t(sd[k(f"{vt}.embeddings.position_embeddings")])[0],
+        "blocks": [],
+    }
+    for i in range(num_vision_layers):
+        p = f"{vt}.encoder.layer.{i}"
+        blk = {
+            "norm1": norm(k(f"{p}.layernorm_before")),
+            "norm2": norm(k(f"{p}.layernorm_after")),
+            "q": _linear(sd, k(f"{p}.attention.q_proj")),
+            "k": _linear(sd, k(f"{p}.attention.k_proj")),
+            "v": _linear(sd, k(f"{p}.attention.v_proj")),
+            "proj": _linear(sd, k(f"{p}.attention.projection_layer")),
+            "fc1": _linear(sd, k(f"{p}.mlp.fc1")),
+            "fc2": _linear(sd, k(f"{p}.mlp.fc2")),
+            "lambda1": _t(sd[k(f"{p}.lambda_1")]),
+            "lambda2": _t(sd[k(f"{p}.lambda_2")]),
+        }
+        if use_qk_norm:
+            blk["q_norm"] = _rmsnorm(sd, k(f"{p}.attention.q_norm"))
+            blk["k_norm"] = _rmsnorm(sd, k(f"{p}.attention.k_norm"))
+        vision["blocks"].append(blk)
+
+    projector = {
+        "ln": _layernorm(sd, k("multi_modal_projector.layer_norm")),
+        "fc1": _linear(sd, k("multi_modal_projector.linear_1")),
+        "fc2": _linear(sd, k("multi_modal_projector.linear_2")),
+    }
+
+    lm = "language_model"
+    text = {
+        "embed": _t(sd[k(f"{lm}.embed_tokens.weight")]),
+        "final_norm": _rmsnorm(sd, k(f"{lm}.norm")),
+        "blocks": [],
+    }
+    for i in range(num_text_layers):
+        p = f"{lm}.layers.{i}"
+        text["blocks"].append({
+            "attn_norm": _rmsnorm(sd, k(f"{p}.input_layernorm")),
+            "q": _linear(sd, k(f"{p}.self_attn.q_proj")),
+            "k": _linear(sd, k(f"{p}.self_attn.k_proj")),
+            "v": _linear(sd, k(f"{p}.self_attn.v_proj")),
+            "o": _linear(sd, k(f"{p}.self_attn.o_proj")),
+            "mlp_norm": _rmsnorm(sd, k(f"{p}.post_attention_layernorm")),
+            "gate": _linear(sd, k(f"{p}.mlp.gate_proj")),
+            "up": _linear(sd, k(f"{p}.mlp.up_proj")),
+            "down": _linear(sd, k(f"{p}.mlp.down_proj")),
+        })
+    try:
+        text["lm_head"] = _linear(sd, k("lm_head"))
+    except KeyError:
+        pass
+    return {"vision": vision, "projector": projector, "text": text}
+
+
 # ---------------------------------------------------------------------------
 # Architecture manifests: the arch dataclass derived from the checkpoint's
 # config.json is written as ``arch.json`` beside ``params.pkl``, in the JAX
@@ -167,18 +327,24 @@ def convert_llava_state_dict(sd: Mapping, num_vision_layers: int,
 # ---------------------------------------------------------------------------
 
 def arch_to_manifest(arch) -> Dict:
-    """Serialize an ``MLLMConfig`` to a JSON-able manifest tagged with its
-    kind."""
+    """Serialize an arch dataclass (``MLLMConfig``, ``QwenVLConfig`` or
+    ``InternVLConfig``) to a JSON-able manifest tagged with its kind."""
+    from mllm_sparse_retrieval_tpu_torch.models.internvl import (
+        InternVLConfig)
     from mllm_sparse_retrieval_tpu_torch.models.mllm import MLLMConfig
+    from mllm_sparse_retrieval_tpu_torch.models.qwen_vl import QwenVLConfig
 
-    if type(arch) is not MLLMConfig:
+    kinds = {MLLMConfig: "mllm", QwenVLConfig: "qwen2_5_vl",
+             InternVLConfig: "internvl"}
+    kind = kinds.get(type(arch))
+    if kind is None:
         raise TypeError(f"unknown arch type {type(arch)}")
-    return {"kind": "mllm", "config": dataclasses.asdict(arch)}
+    return {"kind": kind, "config": dataclasses.asdict(arch)}
 
 
 def _tuples(v):
     """JSON lists back to the tuples the frozen configs carry
-    (``grid_pinpoints``)."""
+    (``grid_pinpoints``, ``mrope_section``, ``fullatt_block_indexes``)."""
     if isinstance(v, list):
         return tuple(tuple(e) if isinstance(e, list) else e for e in v)
     return v
@@ -190,25 +356,36 @@ def _dataclass_from_dict(cls, d: Dict):
 
 
 def arch_from_manifest(manifest: Dict):
+    from mllm_sparse_retrieval_tpu_torch.models.internvl import (
+        InternViTConfig, InternVLConfig)
     from mllm_sparse_retrieval_tpu_torch.models.llama import LlamaConfig
     from mllm_sparse_retrieval_tpu_torch.models.mllm import MLLMConfig
+    from mllm_sparse_retrieval_tpu_torch.models.qwen_vl import (
+        QwenViTConfig, QwenVLConfig)
     from mllm_sparse_retrieval_tpu_torch.models.vit import ViTConfig
 
+    classes = {"mllm": (MLLMConfig, ViTConfig),
+               "qwen2_5_vl": (QwenVLConfig, QwenViTConfig),
+               "internvl": (InternVLConfig, InternViTConfig)}
     kind = manifest["kind"]
-    if kind in ("qwen2_5_vl", "internvl"):
-        raise NotImplementedError(f"manifest kind {kind!r} {_NOT_PORTED}")
-    if kind != "mllm":
+    if kind not in classes:
         raise ValueError(f"unknown manifest kind {kind!r}")
+    arch_cls, vision_cls = classes[kind]
     cfg = dict(manifest["config"])
     text = _dataclass_from_dict(LlamaConfig, cfg.pop("text"))
-    vision = _dataclass_from_dict(ViTConfig, cfg.pop("vision"))
-    return MLLMConfig(vision=vision, text=text,
-                      **{k: _tuples(v) for k, v in cfg.items()})
+    vision = _dataclass_from_dict(vision_cls, cfg.pop("vision"))
+    return arch_cls(vision=vision, text=text,
+                    **{k: _tuples(v) for k, v in cfg.items()})
 
 
-def _text_cfg_from_hf(tc: Dict):
+def _text_cfg_from_hf(tc: Dict, mrope: bool = False):
     from mllm_sparse_retrieval_tpu_torch.models.llama import LlamaConfig
 
+    sec = None
+    if mrope:
+        rs = tc.get("rope_scaling") or {}
+        if rs.get("mrope_section"):
+            sec = tuple(rs["mrope_section"])
     return LlamaConfig(
         vocab_size=tc["vocab_size"],
         hidden_size=tc["hidden_size"],
@@ -223,13 +400,19 @@ def _text_cfg_from_hf(tc: Dict):
         qkv_bias=bool(tc.get("attention_bias", False)) or
         tc.get("model_type") in ("qwen2", "qwen2_5_vl_text"),
         tie_lm_head=bool(tc.get("tie_word_embeddings", False)),
+        mrope_section=sec,
     )
 
 
 def arch_from_hf_config(hf_cfg: Dict):
     """The arch dataclass of a checkpoint's ``config.json`` dict: LLaVA-1.5
-    (``llava``) and LLaVA-NeXT / 1.6 / E5-V (``llava_next``)."""
+    (``llava``), LLaVA-NeXT / 1.6 / E5-V (``llava_next``), Qwen2.5-VL at
+    any size (``qwen2_5_vl``) and HF-integrated InternVL (``internvl``)."""
+    from mllm_sparse_retrieval_tpu_torch.models.internvl import (
+        InternViTConfig, InternVLConfig)
     from mllm_sparse_retrieval_tpu_torch.models.mllm import MLLMConfig
+    from mllm_sparse_retrieval_tpu_torch.models.qwen_vl import (
+        QwenViTConfig, QwenVLConfig)
     from mllm_sparse_retrieval_tpu_torch.models.vit import ViTConfig
 
     mt = hf_cfg.get("model_type")
@@ -253,10 +436,50 @@ def arch_from_hf_config(hf_cfg: Dict):
                                       hf_cfg.get("image_token_id")),
             grid_pinpoints=pinpoints if mt == "llava_next" else (),
         )
-    if mt in ("qwen2_5_vl", "internvl"):
-        raise NotImplementedError(f"HF model_type {mt!r} {_NOT_PORTED}")
+    if mt == "qwen2_5_vl":
+        vc = hf_cfg["vision_config"]
+        # older HF configs inline the text fields at the top level
+        tc = hf_cfg.get("text_config") or hf_cfg
+        vision = QwenViTConfig(
+            hidden_size=vc["hidden_size"], depth=vc["depth"],
+            num_heads=vc["num_heads"],
+            intermediate_size=vc["intermediate_size"],
+            out_hidden_size=vc["out_hidden_size"],
+            patch_size=vc["patch_size"],
+            temporal_patch_size=vc.get("temporal_patch_size", 2),
+            spatial_merge_size=vc.get("spatial_merge_size", 2),
+            window_size=vc.get("window_size", 112),
+            fullatt_block_indexes=tuple(
+                vc.get("fullatt_block_indexes", (7, 15, 23, 31))),
+        )
+        return QwenVLConfig(
+            vision=vision, text=_text_cfg_from_hf(tc, mrope=True),
+            image_token_id=hf_cfg.get("image_token_id", 151655),
+            vision_start_token_id=hf_cfg.get("vision_start_token_id", 151652),
+            native_resolution=True,
+        )
+    if mt == "internvl":
+        vc = hf_cfg["vision_config"]
+        vision = InternViTConfig(
+            hidden_size=vc["hidden_size"],
+            num_layers=vc["num_hidden_layers"],
+            num_heads=vc["num_attention_heads"],
+            intermediate_size=vc["intermediate_size"],
+            image_size=vc["image_size"] if isinstance(vc["image_size"], int)
+            else vc["image_size"][0],
+            patch_size=vc["patch_size"] if isinstance(vc["patch_size"], int)
+            else vc["patch_size"][0],
+            norm_type=vc.get("norm_type", "layer_norm"),
+            use_qk_norm=bool(vc.get("use_qk_norm", False)),
+        )
+        return InternVLConfig(
+            vision=vision, text=_text_cfg_from_hf(hf_cfg["text_config"]),
+            image_token_id=hf_cfg.get("image_token_id", 151667),
+            downsample_ratio=float(hf_cfg.get("downsample_ratio", 0.5)),
+        )
     raise ValueError(
-        f"unsupported HF model_type {mt!r} — supported: llava, llava_next")
+        f"unsupported HF model_type {mt!r} — supported: llava, llava_next, "
+        f"qwen2_5_vl, internvl")
 
 
 # ---------------------------------------------------------------------------
@@ -369,24 +592,37 @@ class _TreePickler(pickle._Pickler):
         super().memoize(obj)
 
 
+_EMBED_KEYS = ("language_model.model.embed_tokens.weight",
+               "model.language_model.embed_tokens.weight",
+               "model.embed_tokens.weight",
+               "language_model.embed_tokens.weight")
+
+
 def convert_hf_dir(hf_dir: str, out_dir: str) -> None:
-    """Convert a local HF LLaVA-family checkpoint directory (any size) into
-    a framework checkpoint dir: ``params.pkl`` + ``arch.json`` (dims from
-    ``config.json``) + the tokenizer files present."""
+    """Convert a local HF checkpoint directory of any supported family and
+    size into a framework checkpoint dir: ``params.pkl`` + ``arch.json``
+    (dims from ``config.json``) + the tokenizer files present."""
     with open(os.path.join(hf_dir, "config.json")) as f:
         hf_cfg = json.load(f)
     arch = arch_from_hf_config(hf_cfg)
+    mt = hf_cfg["model_type"]
     sd = SafetensorsStateDict(hf_dir)
     if arch.text.tie_lm_head and not any(
             h in sd for h in ("lm_head.weight",
                               "language_model.lm_head.weight")):
-        embed = next(e for e in ("language_model.model.embed_tokens.weight",
-                                 "model.language_model.embed_tokens.weight")
-                     if e in sd)
-        sd.alias("lm_head.weight", embed)
-    params = convert_llava_state_dict(sd, arch.vision.num_layers,
-                                      arch.text.num_layers,
-                                      arch.vision.patch_size)
+        sd.alias("lm_head.weight", next(e for e in _EMBED_KEYS if e in sd))
+    if mt == "qwen2_5_vl":
+        params = convert_qwen25vl_state_dict(sd, arch.vision.depth,
+                                             arch.text.num_layers)
+    elif mt == "internvl":
+        params = convert_internvl_state_dict(
+            sd, arch.vision.num_layers, arch.text.num_layers,
+            use_qk_norm=arch.vision.use_qk_norm,
+            norm_type=arch.vision.norm_type)
+    else:
+        params = convert_llava_state_dict(sd, arch.vision.num_layers,
+                                          arch.text.num_layers,
+                                          arch.vision.patch_size)
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "params.pkl"), "wb") as f:
         _TreePickler(f, protocol=4).dump(params)

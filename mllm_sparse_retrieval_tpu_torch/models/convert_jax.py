@@ -3,10 +3,10 @@
 The JAX llama tree (``embed``, ``blocks[i]``, ``final_norm``, ``lm_head``)
 maps one to one onto the port's dicts, in the same ``[in, out]`` dense
 orientation, so a test can run both models on the same weights; so do the
-ViT (``patch_embed``, ``pos_embed``, ``cls_token``, ``pre_ln``,
-``blocks[i]``), the projector and the ``image_newline`` embedding, and so
-do LoRA adapter trees (``models/lora.py``). Arrays arrive as numpy (the
-caller converts JAX arrays with ``np.asarray``).
+vision towers (the CLIP ViT, Qwen2.5-VL's windowed ViT with its
+``merger``, InternViT), the projectors and the ``image_newline``
+embedding, and so do LoRA adapter trees (``models/lora.py``). Arrays
+arrive as numpy (the caller converts JAX arrays with ``np.asarray``).
 """
 
 from __future__ import annotations
@@ -32,10 +32,11 @@ def from_jax_params(tree: Dict, device="cuda",
                     dtype: Optional[torch.dtype] = None) -> Dict:
     """Port params from a JAX tree of numpy arrays.
 
-    ``tree`` is either the JAX MLLM tree (``{"vision", "projector", "text"}``
-    and, for anyres configs, ``"image_newline"``) or a bare llama tree.
-    Returns the same keys (``{"text": llama params}`` for a bare tree) for
-    ``mllm.encode``.
+    ``tree`` is a JAX family tree (LLaVA: ``{"vision", "projector",
+    "text"}`` and, for anyres configs, ``"image_newline"``; Qwen2.5-VL:
+    ``{"vision", "text"}``; InternVL: ``{"vision", "projector", "text"}``)
+    or a bare llama tree. Returns the same keys (``{"text": llama params}``
+    for a bare tree) for the family's ``encode``.
     """
     text = tree["text"] if "text" in tree else tree
     missing = {"embed", "blocks", "final_norm"} - set(text)

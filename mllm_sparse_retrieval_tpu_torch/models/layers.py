@@ -77,6 +77,35 @@ def merge_lora_into_dense(p: Dict[str, torch.Tensor],
     return merged
 
 
+class ParamDraw:
+    """Random weights on one device from one generator, with the JAX
+    package's scaling: dense N(0, 1/fan_in), biases 0, norms scale 1 /
+    bias 0 (the vision towers of the chat-template families)."""
+
+    def __init__(self, generator: torch.Generator, device, dtype):
+        self.gen, self.device, self.dtype = generator, device, dtype
+
+    def normal(self, shape, scale):
+        return torch.randn(shape, generator=self.gen, device=self.device,
+                           dtype=self.dtype).mul_(scale)
+
+    def full(self, shape, value):
+        return torch.full(shape, value, device=self.device, dtype=self.dtype)
+
+    def dense(self, fan_in, fan_out, bias=False):
+        p = {"w": self.normal((fan_in, fan_out), 1.0 / math.sqrt(fan_in))}
+        if bias:
+            p["b"] = self.full((fan_out,), 0.0)
+        return p
+
+    def rmsnorm(self, dim):
+        return {"scale": self.full((dim,), 1.0)}
+
+    def layernorm(self, dim):
+        return {"scale": self.full((dim,), 1.0),
+                "bias": self.full((dim,), 0.0)}
+
+
 _MASK64 = (1 << 64) - 1
 
 
@@ -127,10 +156,14 @@ def rope_frequencies(head_dim: int, max_len: int, theta: float = 10000.0,
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
-    """Rotate-half RoPE. x: ``[B, T, H, Dh]``; cos/sin: ``[T, Dh/2]``."""
+    """Rotate-half RoPE. x: ``[B, T, H, Dh]``; cos/sin: ``[T, Dh/2]``
+    (shared positions) or ``[B, T, Dh/2]`` (per-sample positions: M-RoPE,
+    the Qwen ViT's per-image tables)."""
     x1, x2 = x.chunk(2, dim=-1)
-    c = cos[None, :, None, :].to(x.dtype)
-    s = sin[None, :, None, :].to(x.dtype)
+    if cos.dim() == 2:
+        cos, sin = cos[None], sin[None]
+    c = cos[:, :, None, :].to(x.dtype)
+    s = sin[:, :, None, :].to(x.dtype)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
@@ -155,6 +188,31 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = scores.masked_fill(~mask, torch.finfo(torch.float32).min)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhts,bshd->bthd", probs, v)
+
+
+ATTENTION_CHUNK_BYTES = 1 << 31
+
+
+def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      mask: torch.Tensor, *,
+                      chunk_bytes: int = ATTENTION_CHUNK_BYTES
+                      ) -> torch.Tensor:
+    """``attention`` over slices of the batch whose f32 logits
+    ``[b, Hq, T, S]`` take at most ``chunk_bytes`` (one item at least), so
+    a vision tower's many tiles or long full-attention blocks never hold
+    the whole batch's logits at once. ``mask`` has a batch dimension of 1
+    (shared) or the batch's. The same numbers as ``attention`` on the whole
+    batch: each item's attention is independent."""
+    b, t, hq, _ = q.shape
+    per_item = hq * t * k.shape[1] * 4
+    step = max(1, chunk_bytes // per_item)
+    if step >= b:
+        return attention(q, k, v, mask)
+    out = []
+    for i in range(0, b, step):
+        m = mask if mask.shape[0] == 1 else mask[i:i + step]
+        out.append(attention(q[i:i + step], k[i:i + step], v[i:i + step], m))
+    return torch.cat(out)
 
 
 def causal_padding_mask(attention_mask: torch.Tensor) -> torch.Tensor:

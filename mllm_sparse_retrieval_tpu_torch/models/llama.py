@@ -35,17 +35,20 @@ class LlamaConfig:
     rms_eps: float = 1e-5
     qkv_bias: bool = False       # True for Qwen2-style backbones
     tie_lm_head: bool = False
-    # the JAX package's M-RoPE (Qwen2.5-VL) and mixture-of-experts FFN
-    # fields, kept so that an ``arch.json`` manifest has the same keys in
-    # both packages; neither is ported, so only None is accepted
+    # M-RoPE (Qwen2.5-VL): per-frequency-band section sizes over head_dim/2
+    # for the (temporal, height, width) position components; None =
+    # standard RoPE
     mrope_section: Optional[Tuple[int, ...]] = None
+    # the JAX package's mixture-of-experts FFN field, kept so that an
+    # ``arch.json`` manifest has the same keys in both packages; it is not
+    # ported, so only None is accepted
     moe: None = None
 
     def __post_init__(self):
-        if self.mrope_section is not None or self.moe is not None:
+        if self.moe is not None:
             raise NotImplementedError(
-                "M-RoPE and mixture-of-experts backbones are not ported "
-                "(ROADMAP Queue 1 #6)")
+                "mixture-of-experts backbones are not ported (ROADMAP "
+                "Queue 1 #9: parallel/ep.py)")
 
     @property
     def head_dim(self) -> int:
@@ -142,22 +145,51 @@ def _block(x, p, cfg: LlamaConfig, mask, cos, sin, lora=None,
     return x + ld(gated, "down")
 
 
-def rope_tables(cfg: LlamaConfig, seq_len: int, device="cuda"):
-    """cos/sin tables ``[T, head_dim/2]`` for standard 1-D RoPE."""
-    return L.rope_frequencies(cfg.head_dim, seq_len, cfg.rope_theta,
-                              device=device)
+def rope_tables(cfg: LlamaConfig, seq_len: int,
+                position_ids: Optional[torch.Tensor] = None, device="cuda"):
+    """cos/sin tables: ``[T, head_dim/2]`` for standard RoPE over
+    ``arange(seq_len)``, ``[B, T, head_dim/2]`` for explicit ``[B, T]`` or
+    multimodal ``[3, B, T]`` position ids.
+
+    M-RoPE (HF ``apply_multimodal_rotary_pos_emb``): frequency band ``d``
+    takes the position component ``section_of(d)``, the temporal, height
+    and width sections of ``mrope_section`` over head_dim/2. Equal
+    components reduce to 1-D RoPE."""
+    if position_ids is None:
+        return L.rope_frequencies(cfg.head_dim, seq_len, cfg.rope_theta,
+                                  device=device)
+    inv = 1.0 / (cfg.rope_theta ** (
+        torch.arange(0, cfg.head_dim, 2, dtype=torch.float32,
+                     device=device) / cfg.head_dim))
+    pos = position_ids.to(device=device, dtype=torch.float32)
+    if pos.dim() == 3:
+        if cfg.mrope_section is None:
+            raise ValueError("3-D position ids need cfg.mrope_section")
+        if sum(cfg.mrope_section) != cfg.head_dim // 2:
+            raise ValueError(f"mrope_section {cfg.mrope_section} must sum "
+                             f"to head_dim/2 = {cfg.head_dim // 2}")
+        sec_map = torch.repeat_interleave(
+            torch.arange(len(cfg.mrope_section), device=device),
+            torch.tensor(cfg.mrope_section, device=device))
+        # [3, B, T] -> [B, T, hd/2], the component of each band
+        freqs = pos[sec_map].permute(1, 2, 0) * inv
+    else:
+        freqs = pos[:, :, None] * inv
+    return torch.cos(freqs), torch.sin(freqs)
 
 
 def apply(params: Dict, inputs_embeds: torch.Tensor,
           attention_mask: torch.Tensor, cfg: LlamaConfig,
-          lora: Optional[Dict] = None, remat: bool = False,
+          lora: Optional[Dict] = None,
+          position_ids: Optional[torch.Tensor] = None, remat: bool = False,
           allow_flash: bool = True, lora_seed: Optional[int] = None,
           lora_dropout: float = 0.0) -> torch.Tensor:
     """Run the decoder stack; returns final-norm hidden states
-    ``[B, T, H]``. Long sequences (anyres image prompts) take the flash
-    kernels when ``layers.flash_attention_eligible`` holds and never build
-    the ``[B, 1, T, T]`` mask; ``allow_flash=False`` forces the plain
-    masked attention.
+    ``[B, T, H]``. Long sequences (anyres and tiled image prompts) take the
+    flash kernels when ``layers.flash_attention_eligible`` holds and never
+    build the ``[B, 1, T, T]`` mask; ``allow_flash=False`` forces the plain
+    masked attention. ``position_ids``: ``[B, T]`` or ``[3, B, T]``
+    (M-RoPE) positions; None is ``arange(T)`` for every row.
 
     ``lora``: the text adapter tree ``{"blocks": [...]}``. ``remat=True``
     checkpoints each block (``torch.utils.checkpoint``, non-reentrant):
@@ -166,7 +198,8 @@ def apply(params: Dict, inputs_embeds: torch.Tensor,
     ``i`` seeded with ``fold_seed(lora_seed, i)``. Differentiable; serving
     callers run it under ``torch.inference_mode()``."""
     t = inputs_embeds.shape[1]
-    cos, sin = rope_tables(cfg, t, device=inputs_embeds.device)
+    cos, sin = rope_tables(cfg, t, position_ids,
+                           device=inputs_embeds.device)
     use_flash = allow_flash and L.flash_attention_eligible(
         t, cfg.head_dim, inputs_embeds.device)
     flash_mask = attention_mask if use_flash else None

@@ -151,6 +151,12 @@ class HFTokenizerAdapter:
         self._tok = hf_tokenizer
         self.pad_id = hf_tokenizer.pad_token_id or 0
 
+    @property
+    def hf_tokenizer(self):
+        """The HF tokenizer itself: ``templates.resolve_template`` renders
+        the Qwen2.5-VL and InternVL2.5 chat templates through it."""
+        return self._tok
+
     def get_vocab(self) -> Dict[str, int]:
         return self._tok.get_vocab()
 

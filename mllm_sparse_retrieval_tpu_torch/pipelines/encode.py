@@ -42,7 +42,7 @@ from mllm_sparse_retrieval_tpu_torch.configs import RepsLoc
 from mllm_sparse_retrieval_tpu_torch.data.karpathy import Example
 from mllm_sparse_retrieval_tpu_torch.models.anyres import CLIP_MEAN, CLIP_STD
 from mllm_sparse_retrieval_tpu_torch.models.api import (
-    encode_any, image_input_spec)
+    encode_any, image_input_spec, mrope_ids_for_batch)
 from mllm_sparse_retrieval_tpu_torch.models.layers import FLASH_MIN_SEQ
 from mllm_sparse_retrieval_tpu_torch.models.reps import normalize
 from mllm_sparse_retrieval_tpu_torch.ops.packing import (
@@ -145,16 +145,18 @@ def make_text_ds_encode(arch, reps_loc, k_text_full: int, exp_k: int):
 
 def make_image_ds_encode(arch, reps_loc, k_image: int, exp_k: int):
     """Image counterpart of ``make_text_ds_encode``: ``fn(params, lora, ids,
-    mask, pixels, fmask)`` packs (full-vocab top-k [+ expansion top-k],
-    L2-normalized dense); ``spec_fn()`` is shape-static (image selection has
-    no candidate set: the reference takes the top ``sparse_length`` vocab
-    terms). ``pixels`` is a pixel tensor or the anyres dict."""
+    mask, pixels, pos, fmask)`` packs (full-vocab top-k [+ expansion
+    top-k], L2-normalized dense); ``spec_fn()`` is shape-static (image
+    selection has no candidate set: the reference takes the top
+    ``sparse_length`` vocab terms). ``pixels`` is a pixel tensor or the
+    family's dict; ``pos`` the ``[3, B, T]`` M-RoPE ids (Qwen2.5-VL) or
+    None."""
     hidden = arch.text.hidden_size
 
     @torch.inference_mode()
-    def _fn(p, lora, ids, mask, pixels, fmask):
+    def _fn(p, lora, ids, mask, pixels, pos, fmask):
         sparse, dense = encode_any(p, arch, ids, mask, pixels, reps_loc,
-                                   lora)
+                                   lora, position_ids=pos)
         with record_function("term_select"):
             fv, fi = vocab_topk(sparse, k_image)
             blocks = [(fv, True), (fi, False)]
@@ -272,8 +274,9 @@ def default_raw_image_loader(
 ) -> Callable[[Example], np.ndarray]:
     """Deterministic synthetic un-normalised ``[H, W, 3]`` pixels in [0, 1]
     at ``synthetic_size`` for an example whose image file is absent: the
-    input form of the variable-token (anyres) families. For a file that
-    exists it raises, as ``default_pixel_loader`` does."""
+    input form of the variable-token families (anyres, dynamic tiling,
+    native resolution). For a file that exists it raises, as
+    ``default_pixel_loader`` does."""
 
     def load(ex: Example) -> np.ndarray:
         if os.path.exists(ex.image_path):
@@ -314,15 +317,17 @@ def encode_examples(
     Every batch has ``batch_size`` rows; the last is padded by repeating
     its last example and its pad rows are dropped by count (``valid``).
     Text prompts pad to the batch's longest, rounded up to
-    ``seq_pad_multiple``; anyres image prompts pad to the family's longest
-    prompt, rounded up to 512 once it reaches ``FLASH_MIN_SEQ`` so that the
-    decoder takes the flash kernel. ``is_query`` picks the string form the
+    ``seq_pad_multiple``; variable-token image prompts pad to the family's
+    longest prompt, rounded up to 512 once it reaches ``FLASH_MIN_SEQ`` so
+    that the decoder takes the flash kernel. Qwen2.5-VL image batches carry
+    their M-RoPE position ids. ``is_query`` picks the string form the
     result builds on access: ``query_weights`` or ``sparse_vectors``.
     Terms are selected on the device (``make_*_ds_encode``), the only
     route the port has. ``pixel_loader(example)`` gives an image's pixels:
     CLIP-normalized ``[S, S, 3]`` for fixed-grid families, raw
-    ``[H, W, 3]`` in [0, 1] for anyres; the default loaders make seeded
-    synthetic pixels for an absent file and raise for an existing one.
+    ``[H, W, 3]`` in [0, 1] for the variable ones; the default loaders make
+    seeded synthetic pixels for an absent file and raise for an existing
+    one.
     """
     if encode_type not in ("text", "image"):
         raise ValueError(f"encode_type must be 'text' or 'image', "
@@ -334,6 +339,7 @@ def encode_examples(
     spec = image_input_spec(arch)
 
     img_fixed_len = base_img_prompt = fixed_ids = fixed_mask = None
+    fixed_pos = None                   # M-RoPE ids of fixed-grid Qwen
     if encode_type == "image":
         if spec.variable:
             if pixel_loader is None:
@@ -352,6 +358,8 @@ def encode_examples(
             fixed_ids, fixed_mask = tokenizer.pad_batch(
                 [tokenizer.encode(img_prompt)] * batch_size,
                 pad_to_multiple=seq_pad_multiple)
+            if spec.needs_mrope:
+                fixed_pos = mrope_ids_for_batch(arch, fixed_ids, fixed_mask)
 
     k_image = sparse_cfg.sparse_length if sparse_cfg.sparse_manual else 128
     # the full-vocab top-k serves both manual-mode selection and the
@@ -394,9 +402,12 @@ def encode_examples(
             ids, mask = tokenizer.pad_batch(
                 rows, max_len=img_fixed_len,
                 pad_to_multiple=seq_pad_multiple)
-            return ids, mask, spec.batch_vision([i for i, _ in vitems])
+            pixels = spec.batch_vision([i for i, _ in vitems])
+            pos = (spec.mrope_from_batch(ids, mask, pixels)
+                   if spec.mrope_from_batch else None)
+            return ids, mask, pixels, pos
         pixels = np.stack([pixel_loader(ex) for ex in batch])
-        return fixed_ids, fixed_mask, pixels
+        return fixed_ids, fixed_mask, pixels, fixed_pos
 
     def produce():
         for start in range(0, len(examples), batch_size):
@@ -412,11 +423,12 @@ def encode_examples(
             packed = encode_fn(params, lora, put(ids).long(), put(mask),
                                put(cand_ids), put(cand_mask), fmask)
             return item, packed, spec_fn(cand_ids.shape[1])
-        ids, mask, pixels = host
+        ids, mask, pixels, pos = host
         d_px = ({k: put(v) for k, v in pixels.items()}
                 if isinstance(pixels, dict) else put(pixels))
+        d_pos = None if pos is None else put(pos).long()
         packed = encode_fn(params, lora, put(ids).long(), put(mask), d_px,
-                           fmask)
+                           d_pos, fmask)
         return item, packed, spec_fn()
 
     result = EncodeResult(is_query=is_query,

@@ -5,9 +5,11 @@ The same encode math as the offline pipeline — the same function factories
 and row-resolve helpers (``pipelines.encode.make_{text,image}_ds_encode`` /
 ``resolve_{text,image}_ds_rows``) — repackaged for serving: every request
 batch is padded to ONE fixed shape, as in the JAX package, so a query's
-terms do not depend on how requests were batched. Anyres image prompts are
-padded to the family's longest prompt, rounded up to a multiple of 512 once
-it reaches ``FLASH_MIN_SEQ`` so that the decoder takes the flash kernel.
+terms do not depend on how requests were batched. Variable-token image
+prompts (anyres, InternVL tiling, Qwen native resolution) are padded to the
+family's longest prompt, rounded up to a multiple of 512 once it reaches
+``FLASH_MIN_SEQ`` so that the decoder takes the flash kernel; Qwen2.5-VL
+image batches carry their M-RoPE position ids.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import torch
 
 from mllm_sparse_retrieval_tpu_torch.configs import RepsLoc
 from mllm_sparse_retrieval_tpu_torch.models.anyres import resize_bicubic
-from mllm_sparse_retrieval_tpu_torch.models.api import image_input_spec
+from mllm_sparse_retrieval_tpu_torch.models.api import (
+    image_input_spec, mrope_ids_for_batch)
 from mllm_sparse_retrieval_tpu_torch.models.layers import FLASH_MIN_SEQ
 from mllm_sparse_retrieval_tpu_torch.ops.packing import unpack_blocks
 from mllm_sparse_retrieval_tpu_torch.pipelines.encode import (
@@ -118,9 +121,9 @@ class OnlineQueryEncoder:
 
     def _image_state(self) -> dict:
         """Lazy image-path state: the encode function, its unpack spec, and
-        the family's prompt and pixel plumbing. Variable (anyres) families
-        pad every prompt to the family's longest one, so one shape serves
-        every grid."""
+        the family's prompt and pixel plumbing. Variable families pad every
+        prompt to the family's longest one, so one shape serves every
+        grid."""
         if self._img is not None:
             return self._img
         spec = image_input_spec(self.arch)
@@ -160,9 +163,10 @@ class OnlineQueryEncoder:
         return spec.preprocess((raw - CLIP_MEAN) / CLIP_STD)
 
     def image_inputs(self, images: Sequence[np.ndarray], pad_to: int):
-        """Device inputs ``(ids, mask, pixels)`` of one fixed-shape image
-        batch: the host preprocessing of ``encode_images``. Pad rows repeat
-        the last image. ``pixels`` is a tensor, or the anyres dict."""
+        """Device inputs ``(ids, mask, pixels, pos)`` of one fixed-shape
+        image batch: the host preprocessing of ``encode_images``. Pad rows
+        repeat the last image. ``pixels`` is a tensor, or the family's dict;
+        ``pos`` the ``[3, B, T]`` M-RoPE ids (Qwen2.5-VL) or None."""
         n, b = len(images), int(pad_to)
         if n == 0 or n > b:
             raise ValueError(f"got {n} images for a batch of {b}")
@@ -177,16 +181,24 @@ class OnlineQueryEncoder:
             ids, mask = self.tokenizer.pad_batch(
                 rows, max_len=st["fixed_len"], pad_to_multiple=16)
             pixels = spec.batch_vision([item for item, _ in vitems])
-            d_px = {k: torch.from_numpy(v).to(self.device)
-                    for k, v in pixels.items()}
+            pos = (spec.mrope_from_batch(ids, mask, pixels)
+                   if spec.mrope_from_batch else None)
         else:
             px = [self._fixed_pixels(spec, im) for im in images]
             px += [px[-1]] * (b - n)
+            pixels = np.stack(px)
             ids, mask = self.tokenizer.pad_batch([st["row"]] * b,
                                                  pad_to_multiple=16)
-            d_px = torch.from_numpy(np.stack(px)).to(self.device)
-        return (torch.from_numpy(ids).to(self.device).long(),
-                torch.from_numpy(mask).to(self.device), d_px)
+            pos = (mrope_ids_for_batch(self.arch, ids, mask)
+                   if spec.needs_mrope else None)
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        d_px = ({k: put(v) for k, v in pixels.items()}
+                if isinstance(pixels, dict) else put(pixels))
+        return (put(ids).long(), put(mask), d_px,
+                None if pos is None else put(pos).long())
 
     def encode_images(self, images: Sequence[np.ndarray],
                       pad_to: Optional[int] = None) -> Tuple[np.ndarray, List]:
@@ -195,9 +207,9 @@ class OnlineQueryEncoder:
         rows never resolve."""
         n = len(images)
         st = self._image_state()
-        d_ids, d_mask, d_px = self.image_inputs(images, pad_to or n)
+        d_ids, d_mask, d_px, d_pos = self.image_inputs(images, pad_to or n)
         packed = st["fn"](self.params, self.lora, d_ids, d_mask, d_px,
-                          self._fmask)
+                          d_pos, self._fmask)
         parts = unpack_blocks(packed.cpu().numpy(), st["unpack"])
         terms = resolve_image_ds_rows(parts, n, self.sparse_cfg)
         dense = np.asarray(parts[-1], np.float32)[:n]

@@ -24,8 +24,9 @@
 - Checkpoints keep the JAX layout, ``<dir>/step_<n>/`` and a ``latest``
   file, written with ``torch.save`` (the JAX trainer uses Orbax).
 
-Not ported: meshes (ROADMAP Queue 1 #9, sharding) and ``load_kbit``
-(``models/quantization.py``, Queue 1 #1); both raise.
+Not ported: meshes (ROADMAP Queue 1 #9, sharding), ``load_kbit``
+(``models/quantization.py``, Queue 1 #1) and training the chat-template
+families, Qwen2.5-VL and InternVL2.5 (Queue 1 #6b); all raise.
 """
 
 from __future__ import annotations
@@ -44,6 +45,8 @@ from mllm_sparse_retrieval_tpu_torch.models import layers as L
 from mllm_sparse_retrieval_tpu_torch.models import lora as lora_lib
 from mllm_sparse_retrieval_tpu_torch.models.api import (
     encode_any, image_input_spec)
+from mllm_sparse_retrieval_tpu_torch.models.internvl import InternVLConfig
+from mllm_sparse_retrieval_tpu_torch.models.qwen_vl import QwenVLConfig
 from mllm_sparse_retrieval_tpu_torch.models.layers import FLASH_MIN_SEQ
 from mllm_sparse_retrieval_tpu_torch.pipelines.encode import (
     default_pixel_loader, default_raw_image_loader)
@@ -63,6 +66,16 @@ class TrainBatch:
     image_pos_ids: Optional[np.ndarray] = None  # M-RoPE (Qwen); always None
 
 
+def _refuse_chat_families(arch) -> None:
+    """Training Qwen2.5-VL (its image prompts need M-RoPE ids, which the
+    collator does not make) and InternVL2.5 is the next slice."""
+    if isinstance(arch, (QwenVLConfig, InternVLConfig)):
+        raise NotImplementedError(
+            f"training {type(arch).__name__} is not ported yet (ROADMAP "
+            f"Queue 1 #6b: the chat-template families' training, M-RoPE "
+            f"ids in the collator)")
+
+
 def make_collator(tokenizer, template, arch,
                   pixel_loader: Optional[Callable] = None,
                   seq_pad_multiple: int = 16):
@@ -74,7 +87,9 @@ def make_collator(tokenizer, template, arch,
     ``pipelines/encode.py`` (the port decodes no image file). Anyres image
     prompts are padded to the family's longest prompt, rounded up to a
     multiple of 512 once it reaches ``FLASH_MIN_SEQ``, so that the decoder
-    takes the flash kernels (3,072 tokens on LLaVA-NeXT)."""
+    takes the flash kernels (3,072 tokens on LLaVA-NeXT). The LLaVA families
+    only: the chat-template families raise (ROADMAP Queue 1 #6b)."""
+    _refuse_chat_families(arch)
     spec = image_input_spec(arch)
     if spec.variable:
         if pixel_loader is None:
@@ -151,6 +166,7 @@ class ContrastiveTrainer:
             raise NotImplementedError(
                 "the port trains on one device: meshes wait for sharding "
                 "(ROADMAP Queue 1 #9, parallel/*)")
+        _refuse_chat_families(arch)
         if cfg.load_kbit:
             raise NotImplementedError(
                 f"load_kbit={cfg.load_kbit}: k-bit base weights wait for "

@@ -482,15 +482,34 @@ def test_build_model_manifest_wins_and_registry_default(tmp_path):
     assert arch == registry.get_family_spec(ModelFamily.E5_V).arch
     with pytest.raises(FileNotFoundError, match="royokong/e5-v"):
         build_model(ModelConfig(family=ModelFamily.E5_V), device="cpu")
+    # the chat-template families build as the JAX package builds them: the
+    # manifest's arch, the registry's template through resolve_template
+    # (no tokenizer: unchanged)
     for family in (ModelFamily.QWEN2_5_VL, ModelFamily.INTERNVL2_5):
-        with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-            build_model(ModelConfig(family=family,
-                                    checkpoint_path=str(tmp_path / "with")),
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-        convert.arch_from_hf_config({"model_type": "qwen2_5_vl"})
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-        convert.arch_from_manifest({"kind": "internvl", "config": {}})
+        _, arch, tok, tmpl = build_model(
+            ModelConfig(family=family, checkpoint_path=str(tmp_path / "with")),
+            device="cpu")
+        jspec = jregistry.get_family_spec(JFamily(family.value))
+        assert arch == tiny and tok is None
+        assert dataclasses.asdict(tmpl) == dataclasses.asdict(jspec.template)
+    qwen_cfg = {"model_type": "qwen2_5_vl",
+                "vision_config": {"hidden_size": 1280, "depth": 32,
+                                  "num_heads": 16, "intermediate_size": 3420,
+                                  "out_hidden_size": 3584, "patch_size": 14},
+                "text_config": {"vocab_size": 152064, "hidden_size": 3584,
+                                "num_hidden_layers": 28,
+                                "num_attention_heads": 28,
+                                "num_key_value_heads": 4,
+                                "intermediate_size": 18944,
+                                "model_type": "qwen2_5_vl_text",
+                                "rope_scaling": {"mrope_section":
+                                                 [16, 24, 24]}}}
+    assert dataclasses.asdict(convert.arch_from_hf_config(qwen_cfg)) == \
+        dataclasses.asdict(jconvert.arch_from_hf_config(qwen_cfg))
+    manifest = json.loads(json.dumps(jconvert.arch_to_manifest(
+        jregistry._internvl2_5_arch())))
+    assert dataclasses.asdict(convert.arch_from_manifest(manifest)) == \
+        dataclasses.asdict(jregistry._internvl2_5_arch())
 
 
 @pytest.mark.parametrize("encode_type", ["text", "image"])

@@ -5,8 +5,9 @@ searcher against the host fuse, the tiny offline evaluation path on the
 card against the same path on the CPU, and the search tiers: the bf16
 dense search's peak memory, the SQ8 int8 product's padding, the compact48
 wire through the TAAT kernel and the ANN tier, a converted checkpoint
-loaded onto the card, and the arena live index's in-place writes into the
-TAAT kernel's matrix (the tolerances of all but the kernels are in their
+loaded onto the card, the arena live index's in-place writes into the
+TAAT kernel's matrix, and tiny InternVL2.5 and Qwen2.5-VL encodes on the
+card against the CPU (the tolerances of all but the kernels are in their
 docstrings). Marked ``cuda``; each test skips
 where no card is present (decided inside the test, so every pytest worker
 collects the same tests). This file
@@ -424,6 +425,92 @@ def test_flash_forward_at_the_vicuna_width_g1():
     torch.cuda.synchronize()
     assert FA.launch_count() == before + 1
     _assert_flash_close(got, q, k, v, mask)
+
+
+def test_flash_forward_at_the_internvl_width_g7():
+    """InternVL2.5-8B's image prompts: 28 query heads on 4 KV heads (G = 7,
+    an odd number of query heads a KV head) at 3,584 tokens, one all-pad
+    row."""
+    dev = _card()
+    q, k, v, mask = _flash_inputs(18, 2, 3584, 28, 4, (3371, 0), dev)
+    before = FA.launch_count()
+    got = FA.flash_causal_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert FA.launch_count() == before + 1
+    _assert_flash_close(got, q, k, v, mask)
+
+
+@pytest.mark.parametrize("family", ["internvl", "qwen"])
+def test_chat_family_encode_on_the_card_equals_the_cpu(family):
+    """A tiny InternVL2.5 (dynamic tiles) and Qwen2.5-VL (native
+    resolution, M-RoPE ids) image encode in f32 on the card and on the CPU
+    from the same weights and inputs: sparse and dense reps within
+    ``1e-4 * (1 + |cpu|)`` (f32 both, sums in another order)."""
+    dev = _card()
+    from mllm_sparse_retrieval_tpu_torch.models import api, registry
+    from mllm_sparse_retrieval_tpu_torch.models.internvl import (
+        InternViTConfig, InternVLConfig)
+    from mllm_sparse_retrieval_tpu_torch.models.llama import LlamaConfig
+    from mllm_sparse_retrieval_tpu_torch.models.qwen_vl import (
+        QwenViTConfig, QwenVLConfig)
+
+    text = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
+                num_kv_heads=2, intermediate_size=128, rope_theta=1e6,
+                qkv_bias=True)
+    if family == "internvl":
+        arch = InternVLConfig(
+            vision=InternViTConfig(hidden_size=32, num_layers=2, num_heads=4,
+                                   intermediate_size=64, image_size=56),
+            text=LlamaConfig(**text), image_token_id=120,
+            max_dynamic_tiles=4)
+    else:
+        arch = QwenVLConfig(
+            vision=QwenViTConfig(hidden_size=64, depth=2, num_heads=4,
+                                 intermediate_size=128, out_hidden_size=64,
+                                 window_size=56, fullatt_block_indexes=(1,)),
+            text=LlamaConfig(**text, mrope_section=(4, 2, 2)),
+            image_token_id=120, native_resolution=True,
+            max_pixels=16 * 28 * 28)
+    params = registry.init_params(
+        arch, torch.Generator().manual_seed(0), "cpu", torch.float32)
+    spec = api.image_input_spec(arch)
+    rng = np.random.default_rng(3)
+    items = [spec.preprocess_example(rng.uniform(size=hw + (3,)).astype(
+        np.float32)) for hw in ((90, 140), (160, 50))]
+    t = max(n for _, n in items) + 8
+    ids = np.zeros((2, t), np.int64)
+    mask = np.zeros((2, t), np.int32)
+    for i, (_, n) in enumerate(items):
+        row = [1, 5] + [120] * n + [7, 9]
+        ids[i, :len(row)], mask[i, :len(row)] = row, 1
+    vision = spec.batch_vision([it for it, _ in items])
+    pos = (spec.mrope_from_batch(ids, mask, vision)
+           if spec.mrope_from_batch else None)
+
+    def run(device):
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        p = _tree_map(lambda x: x.to(device), params)
+        px = ({k: put(v) for k, v in vision.items()}
+              if isinstance(vision, dict) else put(vision))
+        with torch.inference_mode():
+            out = api.encode_any(p, arch, put(ids), put(mask), px,
+                                 position_ids=None if pos is None
+                                 else put(pos))
+        return [x.float().cpu().numpy() for x in out]
+
+    for got, ref in zip(run(dev), run("cpu")):
+        assert np.all(np.abs(got - ref) <= 1e-4 * (1 + np.abs(ref)))
+
+
+def _tree_map(fn, tree):
+    """``fn`` over the tensor leaves of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -3,11 +3,15 @@ of the JAX package (nor Pillow, which the card machine lacks), every port
 module (the offline evaluation path's ``cli``, ``eval``, ``search`` and
 ``index/native``, and the hybrid path's fusion, rank, filter and service
 modules, the search tiers' SQ8, ANN, compact48 and stream modules, and
-the live indexes, the HTTP front ends and the server CLIs included)
-imports with JAX blocked, checkpoints convert and load with
-``transformers`` and ``safetensors`` blocked too, and the smoke check
-refuses to report a result without a card."""
+the live indexes, the HTTP front ends and the server CLIs, and the
+chat-template families' Qwen2.5-VL, InternVL2.5, tiling and template
+modules included) imports with JAX blocked (and, Qwen's native
+resolution and InternVL's tiling among them, with Pillow blocked),
+checkpoints convert and load with ``transformers`` and ``safetensors``
+blocked too, and the smoke check refuses to report a result without a
+card."""
 
+import json
 import os
 import re
 import shutil
@@ -51,6 +55,10 @@ TIERS = ("index.ann", "index.impact", "index", "ops.ann", "ops.mips",
 # the live indexes, the HTTP front ends and the server CLIs
 LIVE = ("index.arena", "index.live", "serving.router", "serving.http",
         "serving.aio", "cli.serve", "cli.ingest")
+# the chat-template families
+CHAT = ("models.qwen_vl", "models.internvl", "data.tiling",
+        "models.templates", "models.api", "models.registry",
+        "models.convert")
 
 
 def _env():
@@ -66,7 +74,7 @@ def test_port_and_chip_smoke_import_without_jax():
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 20
     imported = set(proc.stdout.splitlines()[-2].split())
-    missing = {m for m in OFFLINE + HYBRID + TIERS + LIVE
+    missing = {m for m in OFFLINE + HYBRID + TIERS + LIVE + CHAT
                if f"mllm_sparse_retrieval_tpu_torch.{m}" not in imported}
     assert missing == set()
 
@@ -81,7 +89,7 @@ def test_no_import_statement_names_jax_or_the_jax_package():
     scanned = {str(f.relative_to(PORT)) for f in files
                if f.is_relative_to(PORT)}
     assert {m.replace(".", "/") + ".py"
-            for m in OFFLINE + HYBRID + TIERS + LIVE
+            for m in OFFLINE + HYBRID + TIERS + LIVE + CHAT
             if m not in ("index.native", "index")} | {
                 "index/native/__init__.py", "index/__init__.py"} <= scanned
     hits = [f"{f}: {m.group(0).strip()}" for f in files
@@ -184,3 +192,41 @@ def test_live_entry_points_default_to_the_card():
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     args = serve.build_parser().parse_args(["--live-empty", "sparse"])
     assert args.device == "cuda"
+
+
+def test_chat_family_entry_points_default_to_the_card():
+    """The chat-template families' weight draws and the registry put the
+    model on ``cuda`` unless asked."""
+    import inspect
+
+    from mllm_sparse_retrieval_tpu_torch.models import (
+        internvl, qwen_vl, registry)
+
+    for fn in (internvl.init_params, qwen_vl.init_params,
+               registry.init_params, registry.build_model):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_qwen_checkpoint_converts_with_jax_and_transformers_blocked(
+        tmp_path):
+    """A Qwen2.5-VL checkpoint in the hub's key layout (two shards and an
+    index, a tied head) converts and loads with ``jax``, the JAX package,
+    ``transformers`` and ``safetensors`` blocked."""
+    from safetensors.numpy import save_file
+
+    from tests.test_torch_qwen_vl import _hf_config, _hf_state_dict, _jarch
+
+    arch = _jarch()
+    hf = tmp_path / "hf"
+    hf.mkdir()
+    (hf / "config.json").write_text(json.dumps(_hf_config(arch)))
+    sd = _hf_state_dict(arch, 0, "hub", tied=True)
+    save_file(sd, str(hf / "model.safetensors"))
+    blocked = ("jax", "jaxlib", "mllm_sparse_retrieval_tpu", "transformers",
+               "safetensors", "PIL")
+    script = f"BLOCKED = {blocked!r}\n" + _CONVERT_BLOCKED
+    proc = subprocess.run(
+        [sys.executable, "-c", script, str(hf), str(tmp_path / "out")],
+        cwd=REPO, env=_env(), capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split("\n")[0] == "None 2 2 ['text', 'vision']"

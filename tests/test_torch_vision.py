@@ -309,13 +309,32 @@ def test_from_jax_params_carries_the_vision_tree(anyres_model):
 
 
 def test_unported_families_raise_with_the_roadmap_item():
-    from mllm_sparse_retrieval_tpu.models.qwen_vl import QwenVLConfig
-    from mllm_sparse_retrieval_tpu_torch.models import api
+    """Ported since: the calls that raised for Qwen2.5-VL and InternVL2.5
+    give the JAX package's spec, and ``encode_any`` its reps."""
+    from mllm_sparse_retrieval_tpu.models import api as japi
+    from mllm_sparse_retrieval_tpu.models import registry as jregistry
+    from mllm_sparse_retrieval_tpu_torch.models import api, registry
 
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-        api.image_input_spec(QwenVLConfig())
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-        api.encode_any({}, QwenVLConfig(), None, None)
+    for name in ("_qwen2_5_vl_7b_arch", "_internvl2_5_arch"):
+        spec = api.image_input_spec(getattr(registry, name)())
+        jspec = japi.image_input_spec(getattr(jregistry, name)())
+        for field in ("num_image_tokens", "image_size", "needs_mrope",
+                      "variable", "max_image_tokens"):
+            assert getattr(spec, field) == getattr(jspec, field)
+    jparams, jarch, jtok, _ = jregistry.build_model(
+        JModelConfig(family=JFamily.TINY_QWEN_DEBUG, dtype="float32"),
+        captions=["a dog runs"])
+    arch = registry.get_family_spec(ModelFamily.TINY_QWEN_DEBUG).arch
+    params = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams),
+                             device="cpu")
+    ids, mask = jtok.pad_batch([jtok.encode("a dog runs")])
+    want = japi.encode_any(jparams, jarch, jnp.asarray(ids),
+                           jnp.asarray(mask))
+    got = api.encode_any(params, arch, torch.from_numpy(ids).long(),
+                         torch.from_numpy(mask))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=1e-5)
     spec = api.image_input_spec(tiny_debug_arch(ModelConfig(**TINY)))
     assert not spec.variable and spec.num_image_tokens == 16
     assert spec.image_size == 64
