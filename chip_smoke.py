@@ -6,16 +6,18 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``csrc/`` (one plain ``nvcc`` call
-per source, all started together with the ``g++`` call of the native
-index builder) and holds each against its plain PyTorch
-version at the shapes the port's paths give it: the TAAT kernel at the
+per source, all started together with the ``g++`` calls of the native
+index builder and of the ``hostops`` CPython extension) and holds each
+kernel against its plain PyTorch version at the shapes the port's paths
+give it: the TAAT kernel at the
 served and the benchmark shapes; the flash-attention forward and the dq and
 dkv backward kernels on synthetic 3,072-token rows with an all-pad row
 (what the kernels line reports) and on the rows of the profiled training
 step, and the forward again at LLaVA-1.6-Vicuna's 32 KV heads (G = 1) and
 at InternVL2.5-8B's 28 query on 4 KV heads (G = 7) on 3,584-token rows of
-its image prompt lengths (the kernels line's ``at_g7``); each with its
-bound and its share of the bf16 peak. Then it makes the
+its image prompt lengths (the kernels line's ``at_g7``), and the dq and
+dkv kernels there too, on the lengths of an InternVL2.5 training batch;
+each with its bound and its share of the bf16 peak. Then it makes the
 main path's model from a checkpoint: the full-width, full-depth
 LLaVA-NeXT-Llama3-8B, bf16 weights drawn on the card from a seed, is
 written as a Hugging Face llava_next checkpoint (bf16 safetensors shards
@@ -77,7 +79,16 @@ prompts whose decoder attention is the flash kernel at G = 7, 28 launches
 per image micro-batch) and Qwen2.5-VL-7B (native-resolution
 preprocessing, the windowed ViT on up to 4,608 padded patches, M-RoPE,
 prompts under 1,024 tokens on plain attention), each with one image
-micro-batch's breakdown.
+micro-batch's breakdown; each of the two is then trained for two
+``train_on_batch`` steps (InternVL2.5's 3,584-token prompts through the
+flash kernels forward and backward, with the flash-vs-plain gradient
+check; Qwen2.5-VL's with M-RoPE ids), and on InternVL2.5 the training and
+analysis entry points run: ``cli.prepare_data`` on a Karpathy JSON,
+``cli.train.run`` for one epoch (its ``lora.pkl`` loaded back) and
+``term_weight_statistics`` of the trained model. The offline phase's
+runs and fusion and the live segments' merge must go through ``hostops``,
+whose C results are held to the Python bodies on the offline runs, which
+``fusion_provenance_statistics`` also ranks.
 
 Each phase prints one progress line with the seconds since start. The last
 lines are a JSON object describing the kernels, the card's name and power
@@ -220,6 +231,13 @@ CHAT_SPECIALS = ("<|im_start|>", "<|im_end|>", "<|vision_start|>",
                  "<|vision_end|>", "<|image_pad|>", "<img>", "</img>",
                  "<IMG_CONTEXT>")
 INTERNVL_HEADS = (28, 4)
+# chat-family training: CHAT_TRAIN_STEPS train_on_batch steps of TRAIN_B
+# pairs per family (LoRA, dropout and remat as in the training phase); then
+# the entry points on InternVL2.5-8B: cli.prepare_data on a Karpathy JSON of
+# CLI_IMAGES images (OFF_CAPS captions each; half train or restval), a
+# few-shot CSV of CLI_PAIRS images, cli.train.run for one epoch on them at
+# batch TRAIN_B, and term_weight_statistics of the trained model on them
+CHAT_TRAIN_STEPS, CLI_IMAGES, CLI_PAIRS = 2, 32, 8
 # live indexes and the HTTP front end: arena copies of the impact index and
 # the hybrid phase's dense rows with the default LIVE_HEADROOM reserved
 # columns and rows; LIVE_POSTS adds of LIVE_POST_DOCS new docs over HTTP
@@ -427,12 +445,14 @@ def sass_counts(so):
 
 def build_kernels():
     """Every kernel of the port, one ``nvcc`` each, all started together
-    with the ``g++`` call of the native index builder; prints each build's
-    time, ``-Xptxas -v`` register report and count of tensor-core
-    instructions. Every flash kernel runs on wgmma: a flash library with an
-    mma.sync instruction fails."""
+    with the ``g++`` calls of the native index builder and of the
+    ``hostops`` extension; prints each build's time, ``-Xptxas -v``
+    register report and count of tensor-core instructions. Every flash
+    kernel runs on wgmma: a flash library with an mma.sync instruction
+    fails; so does a ``hostops`` that does not build and load."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from mllm_sparse_retrieval_tpu_torch import hostops
     from mllm_sparse_retrieval_tpu_torch.ops import cuda_build
     from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
     from mllm_sparse_retrieval_tpu_torch.ops import impact_kernel as K
@@ -441,18 +461,29 @@ def build_kernels():
 
     sources = (K.SOURCE, FA.SOURCE, FA.BWD_SOURCE)
     t0 = time.monotonic()
-    with ThreadPoolExecutor(len(sources) + 1) as pool:
-        # the native index builder's g++ call runs beside the nvcc calls
-        def build_native():
+    with ThreadPoolExecutor(len(sources) + 2) as pool:
+        # the g++ calls run beside the nvcc calls
+        def timed(build):
             t = time.monotonic()
-            return native.build(), time.monotonic() - t
+            return build(), time.monotonic() - t
 
-        gxx = pool.submit(build_native)
+        gxx = pool.submit(timed, native.build)
+        hops = pool.submit(timed, hostops.build)
         results = list(pool.map(
             lambda src: cuda_build.build(src, verbose=True), sources))
         gxx_so, gxx_s = gxx.result()
+        hops_so, hops_s = hops.result()
     progress("build", f"index/native/impact_builder.cc: {native.compiler()} "
              f"{' '.join(native.CXX_FLAGS)} {gxx_s:.2f}s -> {gxx_so.name}")
+    loaded = hostops.get()
+    if loaded.path != hops_so or sorted(hostops.FUNCTIONS) != sorted(
+            n for n in dir(loaded.ext) if not n.startswith("_")):
+        raise AssertionError(f"hostops: {loaded.path} loaded, "
+                             f"{hops_so} built")
+    progress("build", f"hostops/hostops.c: {hostops.compiler()} "
+             f"{' '.join(hostops.CXX_FLAGS)} -I{hostops.include_dir()} "
+             f"{hops_s:.2f}s -> {hops_so.name}; loaded, functions "
+             f"{', '.join(hostops.FUNCTIONS)}")
     for src, (so, build_s, msgs) in zip(sources, results):
         regs = [ln.strip() for ln in msgs.splitlines()
                 if "registers" in ln or "spill" in ln or "arning" in ln]
@@ -464,8 +495,8 @@ def build_kernels():
             raise AssertionError(f"{src}: {hgmma} wgmma and {hmma} mma.sync "
                                  f"instructions; the flash kernels run on "
                                  f"wgmma only")
-    progress("build", f"all {len(sources)} CUDA sources and the index "
-             f"builder in {time.monotonic() - t0:.2f}s")
+    progress("build", f"all {len(sources)} CUDA sources, the index "
+             f"builder and hostops in {time.monotonic() - t0:.2f}s")
 
 
 def admissible_pairs(mask) -> int:
@@ -675,17 +706,18 @@ def grad_errors(got, ref, mag):
             float(diff.mean()) / (BWD_RTOL * mean_ref))
 
 
-def phase_flash_bwd(lengths, seq):
-    """The dq and dkv kernels at the training shape against the plain
-    backward (autograd through the plain version), their times, the plain
-    backward's, and the backward of ``scaled_dot_product_attention`` with
-    the same boolean mask (forward plus backward, minus forward)."""
+def phase_flash_bwd(lengths, seq, hq=FLASH_HQ, hkv=FLASH_HKV):
+    """The dq and dkv kernels at a training shape (one prompt a row of
+    ``lengths`` real tokens, ``hq`` query and ``hkv`` KV heads) against the
+    plain backward (autograd through the plain version), their times, the
+    plain backward's, and the backward of ``scaled_dot_product_attention``
+    with the same boolean mask (forward plus backward, minus forward)."""
     import torch
     import torch.nn.functional as F
 
     from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
 
-    b, hq, hkv, dh = len(lengths), FLASH_HQ, FLASH_HKV, FLASH_DH
+    b, dh = len(lengths), FLASH_DH
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
     q, k, v, dout = (torch.randn((b, seq, h, dh), generator=gen,
                                  device=DEVICE, dtype=torch.bfloat16)
@@ -1245,7 +1277,10 @@ def grad_check(trainer, batch):
     t_ids, i_ids = put(batch.text_ids, torch.long), put(batch.image_ids,
                                                         torch.long)
     t_mask, i_mask = put(batch.text_mask), put(batch.image_mask)
-    px = {k: put(v) for k, v in batch.pixels.items()}
+    px = ({k: put(v) for k, v in batch.pixels.items()}
+          if isinstance(batch.pixels, dict) else put(batch.pixels))
+    pos = None if batch.image_pos_ids is None else torch.from_numpy(
+        batch.image_pos_ids[:, :b]).to(DEVICE, torch.long)
     leaves = [x for x in lora.tree_leaves(trainer.adapters)
               if x.requires_grad]
     out = {}
@@ -1256,7 +1291,8 @@ def grad_check(trainer, batch):
                               remat=True, allow_flash=flash)
         _, i_emb = encode_any(trainer.params, trainer.arch, i_ids, i_mask,
                               px, RepsLoc.BEFORE_PAD, trainer.adapters,
-                              remat=True, allow_flash=flash)
+                              position_ids=pos, remat=True,
+                              allow_flash=flash)
         loss = info_nce_loss(t_emb, i_emb, TAU)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         torch.cuda.synchronize()
@@ -1396,7 +1432,8 @@ def phase_offline(params, arch, tok, tmpl, lexicon, card):
     builders on the jsonl (layouts equal, saved and loaded),
     ``DenseFlatIndex`` from the pickles, and ``run_search`` text->image and
     image->text (dense, sparse, min-max hybrid; RRF once) with recall.
-    Returns the TAAT and flash launches of the path."""
+    Returns the TAAT and flash launches of the path and the text->image
+    min-max search's dense and sparse runs."""
     import pickle
     import tempfile
 
@@ -1675,7 +1712,7 @@ def phase_offline(params, arch, tok, tmpl, lexicon, card):
              f"{rates[('text', 'queries')]:.2f}; TAAT launches "
              f"{taat_total}, flash launches {flash_total}; phase "
              f"{time.monotonic() - t_phase:.2f} s; card {card}")
-    return taat_total, flash_total
+    return taat_total, flash_total, (out.dense_run, out.sparse_run)
 
 
 def close_up_to_ties(got, want, tol, depth=DEPTH):
@@ -3743,8 +3780,12 @@ def phase_chat_families(ctok, lexicon, index, cmap, card):
     with the family's chat template on ``ctok``, every result equal to the
     matmul backend's; one TAAT launch per micro-batch; InternVL2.5 takes
     exactly one flash launch per layer and image micro-batch (28), Qwen
-    none; then one image micro-batch's breakdown. Returns the TAAT and
-    flash launches of the served runs."""
+    none; then one image micro-batch's breakdown; then, on the same
+    weights, contrastive LoRA training (``phase_chat_train``) and, for
+    InternVL2.5, the training and analysis entry points
+    (``phase_chat_cli``). Returns the TAAT and flash launches of the served
+    runs, the training's flash launches by kernel (the CLI's included) and
+    the statistics' flash launches."""
     import numpy as np
     import torch
 
@@ -3759,7 +3800,8 @@ def phase_chat_families(ctok, lexicon, index, cmap, card):
         OnlineQueryEncoder, RetrievalService)
 
     rng = np.random.default_rng(SEED + 7)
-    taat = flash = 0
+    taat = flash = stats_flash = 0
+    trained = dict.fromkeys(FA.KERNELS, 0)
     for name, arch, tmpl in chat_family_archs(ctok):
         gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
         params = registry.init_params(arch, gen, DEVICE, torch.bfloat16)
@@ -3840,10 +3882,314 @@ def phase_chat_families(ctok, lexicon, index, cmap, card):
                         label=f"{name}: ", iters=1)
         progress("chat_families", f"{name}: breakdown peak "
                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-        del enc, svc, params
+        del enc, svc
         gc.collect()            # a closed service and its encoder form a
-        torch.cuda.empty_cache()  # cycle: free the weights before the next
-    return taat, flash
+        torch.cuda.empty_cache()  # cycle: free them before training
+        launched = [phase_chat_train(name, params, arch, tmpl, ctok, lexicon,
+                                     card)]
+        if isinstance(arch, InternVLConfig):
+            cli_train, cli_stats = phase_chat_cli(params, arch, tmpl, ctok,
+                                                  lexicon, card)
+            launched.append(cli_train)
+            stats_flash += cli_stats
+        for counts in launched:
+            for k in FA.KERNELS:
+                trained[k] += counts[k]
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()  # free the weights before the next family
+    return taat, flash, trained, stats_flash
+
+
+def hostops_check(dense_run, sparse_run):
+    """``hostops`` on the offline phase's text->image runs: the C run
+    assembly (``make_run`` on the runs' rows as lists) and the C fusion
+    (``fuse`` of the two runs) equal to their Python bodies, and each C
+    function counted once. Returns the number of queries."""
+    from mllm_sparse_retrieval_tpu_torch import hostops
+    from mllm_sparse_retrieval_tpu_torch.search import fusion, runs
+
+    both = [dense_run.materialize(), sparse_run.materialize()]
+    hostops.reset_call_counts()
+    for label, run in (("dense", dense_run), ("sparse", sparse_run)):
+        rows = list(run.iter_ranked())
+        qids = [q for q, _, _ in rows]
+        scores = [[float(x) for x in s] for _, s, _ in rows]
+        ids = [[str(d) for d in i] for _, _, i in rows]
+        got = runs.make_run(qids, scores, ids, scores_sorted=True)
+        if got != runs._make_run_python(qids, scores, ids, False, True):
+            raise AssertionError(f"hostops: the {label} run differs from "
+                                 f"make_run's Python body")
+    weights = [OFF_ALPHA, 1 - OFF_ALPHA]
+    if fusion.fuse(both, weights) != fusion._fuse_python(both, weights):
+        raise AssertionError("hostops: the fused run differs from fuse's "
+                             "Python body")
+    counts = hostops.call_counts()
+    if counts["build_runs"] != 2 or counts["fuse_runs"] != 1:
+        raise AssertionError(f"hostops: calls {counts}, want 2 build_runs "
+                             f"and 1 fuse_runs")
+    return len(both[0])
+
+
+def chat_train_sizes(n):
+    """Image sizes of the chat-family training pairs (the training
+    phase's cycle through ``IMAGE_SIZES``)."""
+    return [IMAGE_SIZES[(3 * i) % len(IMAGE_SIZES)] for i in range(n)]
+
+
+def phase_chat_train(name, params, arch, tmpl, ctok, lexicon, card):
+    """Contrastive LoRA training of a chat-template family at full width:
+    ``CHAT_TRAIN_STEPS`` steps of ``ContrastiveTrainer.train_on_batch`` on
+    ``TRAIN_B`` seeded image-caption pairs each (LoRA r=8 on the text
+    tower, dropout 0.1, remat), with their step host ms, device ms (CUDA
+    events) and peak memory. InternVL2.5: 13-tile image prompts of 3,584
+    tokens through the flash kernels, 2 x 28 forward launches a step (the
+    remat recompute included) and 28 dq and 28 dkv, then the flash-vs-
+    plain gradient cosine (``grad_check``). Qwen2.5-VL: native-resolution
+    prompts under ``FLASH_MIN_SEQ``, no launch, every batch with ``[3, B,
+    T]`` M-RoPE ids. Returns the steps' flash launches by kernel."""
+    import numpy as np
+    import torch
+
+    from mllm_sparse_retrieval_tpu_torch.configs import TrainConfig
+    from mllm_sparse_retrieval_tpu_torch.data.karpathy import Example
+    from mllm_sparse_retrieval_tpu_torch.models import lora
+    from mllm_sparse_retrieval_tpu_torch.models.internvl import (
+        InternVLConfig)
+    from mllm_sparse_retrieval_tpu_torch.models.layers import FLASH_MIN_SEQ
+    from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
+    from mllm_sparse_retrieval_tpu_torch.train.trainer import (
+        ContrastiveTrainer, make_collator)
+
+    n = TRAIN_B * CHAT_TRAIN_STEPS
+    rng = np.random.default_rng(SEED + 8)
+    raw = {f"i{i}": rng.integers(0, 256, size=hw + (3,), dtype=np.uint8)
+           .astype(np.float32) / 255.0
+           for i, hw in enumerate(chat_train_sizes(n))}
+    examples = [Example(c, f"/nonexistent/chat_{i}.jpg", f"t{i}", f"i{i}")
+                for i, c in enumerate(captions(rng, lexicon, n, 8, 14))]
+    collate = make_collator(ctok, tmpl, arch,
+                            pixel_loader=lambda e: raw[e.img_id])
+    t0 = time.monotonic()
+    batches = [collate(examples[i * TRAIN_B:(i + 1) * TRAIN_B])
+               for i in range(CHAT_TRAIN_STEPS)]
+    collate_s = (time.monotonic() - t0) / CHAT_TRAIN_STEPS
+    layers = arch.text.num_layers
+    internvl = isinstance(arch, InternVLConfig)
+    if internvl:
+        want = {"fwd": 2 * layers, "dq": layers, "dkv": layers}
+        shape = (TRAIN_B, arch.max_dynamic_tiles + 1,
+                 arch.vision.image_size, arch.vision.image_size, 3)
+        for b in batches:
+            if b.pixels.shape != shape or b.image_pos_ids is not None \
+                    or b.image_ids.shape[1] < FLASH_MIN_SEQ:
+                raise AssertionError(f"{name}: tiles {b.pixels.shape}, "
+                                     f"prompts {b.image_ids.shape}")
+    else:
+        want = dict.fromkeys(FA.KERNELS, 0)
+        for b in batches:
+            if b.image_pos_ids is None or b.image_pos_ids.shape != (
+                    (3,) + b.image_ids.shape) or \
+                    b.image_ids.shape[1] >= FLASH_MIN_SEQ or not (
+                        b.image_pos_ids[1] != b.image_pos_ids[2]).any():
+                raise AssertionError(
+                    f"{name}: M-RoPE ids "
+                    f"{getattr(b.image_pos_ids, 'shape', None)} for image "
+                    f"prompts {b.image_ids.shape}")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    adapters = lora.init_lora(gen, params, arch, rank=LORA_RANK,
+                              alpha=LORA_ALPHA, device=DEVICE)
+    cfg = TrainConfig(learning_rate=TRAIN_LR, tau=TAU, lora_rank=LORA_RANK,
+                      lora_alpha=LORA_ALPHA, lora_dropout=LORA_DROPOUT,
+                      remat=True, seed=SEED)
+    trainer = ContrastiveTrainer(params, arch, adapters, cfg, device=DEVICE)
+    start = [x.detach().clone() for x in lora.tree_leaves(adapters)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    total = dict.fromkeys(FA.KERNELS, 0)
+    losses = []
+    for i, batch in enumerate(batches):
+        before = {k: FA.launch_count(k) for k in FA.KERNELS}
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t_step = time.monotonic()
+        begin.record()
+        loss = trainer.train_on_batch(batch)
+        end.record()
+        torch.cuda.synchronize()
+        host = (time.monotonic() - t_step) * 1e3
+        dev = begin.elapsed_time(end)
+        launched = {k: FA.launch_count(k) - before[k] for k in FA.KERNELS}
+        if launched != want:
+            raise AssertionError(f"{name} step {i}: flash launches "
+                                 f"{launched}, want {want}")
+        for k in FA.KERNELS:
+            total[k] += launched[k]
+        losses.append(loss)
+        progress("chat_train", f"{name} step {i}: loss {loss:.5f}, host "
+                 f"{host:.1f} ms, device {dev:.1f} ms, image prompts "
+                 f"{batch.image_ids.shape[1]} tokens, captions "
+                 f"{batch.text_ids.shape[1]}; flash launches {launched}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    moved = max(float((x.detach() - y).abs().max())
+                for x, y in zip(lora.tree_leaves(adapters), start))
+    if not all(np.isfinite(losses)) or not moved > 0:
+        raise AssertionError(f"{name} training: losses {losses}, adapters "
+                             f"moved {moved}")
+    extra = ("[3, B, T] M-RoPE ids in every batch" if not internvl else
+             f"{shape[1]} tiles of {shape[2]} px an image")
+    progress("chat_train", f"{name}: {CHAT_TRAIN_STEPS} steps of {TRAIN_B} "
+             f"pairs, LoRA r={LORA_RANK} on "
+             f"{len(lora.tree_leaves(adapters)) // 3} projections, dropout "
+             f"{LORA_DROPOUT}, remat; {extra}; host collate "
+             f"{collate_s * 1e3:.1f} ms per batch; peak {peak:.2f} GB; "
+             f"adapters moved by up to {moved:.3g}; launches {total}; card "
+             f"{card}")
+    if internvl:
+        grad_check(trainer, batches[0])
+    del trainer, adapters, start, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def write_karpathy_json(path, rng, lexicon):
+    """A seeded Karpathy ``dataset.json`` of ``CLI_IMAGES`` images (absent
+    files) with ``OFF_CAPS`` captions each, split train / restval / val /
+    test in turn."""
+    images, sent = [], 0
+    for i in range(CLI_IMAGES):
+        caps = captions(rng, lexicon, OFF_CAPS, 8, 14)
+        images.append({"imgid": i, "filename": f"cli_{i}.jpg",
+                       "split": ("train", "restval", "val", "test")[i % 4],
+                       "sentences": [{"raw": c, "sentid": sent + j}
+                                     for j, c in enumerate(caps)]})
+        sent += len(caps)
+    with open(path, "w") as f:
+        json.dump({"images": images}, f)
+
+
+def phase_chat_cli(params, arch, tmpl, ctok, lexicon, card):
+    """The training and analysis entry points on InternVL2.5-8B at full
+    width: ``cli.prepare_data`` split, few-shot and check on a seeded
+    Karpathy JSON; ``cli.train.run`` (the CLI's body) for one epoch on the
+    ``CLI_PAIRS`` few-shot pairs at batch ``TRAIN_B`` with remat, the
+    ``lora.pkl`` it writes loaded back and held to its adapters; then
+    ``term_weight_statistics`` of the trained model (the adapters from that
+    file) on those images and their captions. Returns the flash launches of
+    the training (by kernel) and of the statistics."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mllm_sparse_retrieval_tpu_torch.cli import prepare_data
+    from mllm_sparse_retrieval_tpu_torch.cli import train as train_cli
+    from mllm_sparse_retrieval_tpu_torch.configs import SparseConfig
+    from mllm_sparse_retrieval_tpu_torch.data import CrossModalCorpus
+    from mllm_sparse_retrieval_tpu_torch.eval.statistics import (
+        term_weight_statistics)
+    from mllm_sparse_retrieval_tpu_torch.models import lora
+    from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
+
+    layers = arch.text.num_layers
+    with tempfile.TemporaryDirectory() as tmp:
+        write_karpathy_json(os.path.join(tmp, "dataset.json"),
+                            np.random.default_rng(SEED + 10), lexicon)
+        data = os.path.join(tmp, "flickr")
+        few = os.path.join(data, f"flickr_train_{CLI_PAIRS}.csv")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            prepare_data.main(["split", "--json",
+                               os.path.join(tmp, "dataset.json"),
+                               "--out-dir", data, "--dataset", "flickr"])
+            prepare_data.main(["few-shot", "--train-csv",
+                               os.path.join(data, "flickr_train.csv"),
+                               "--out-csv", few, "--num-images",
+                               str(CLI_PAIRS)])
+            prepare_data.main(["check", "--csv", few])
+        printed = out.getvalue().splitlines()
+        want = [f"{split}\t{os.path.join(data, f'flickr_{split}.csv')}"
+                for split in ("train", "val", "test")] + [
+            f"{few}\t{CLI_PAIRS * OFF_CAPS} rows",
+            f"{OFF_CAPS} captions: {CLI_PAIRS} images"]
+        if printed != want:
+            raise AssertionError(f"cli.prepare_data printed {printed}")
+        args = train_cli.build_parser().parse_args([
+            "--dataset", "flickr", "--data-root", tmp, "--few-shot-sum",
+            str(CLI_PAIRS), "--batch-size", str(TRAIN_B), "--num-epochs",
+            "1", "--learning-rate", str(TRAIN_LR), "--tau", str(TAU),
+            "--lora-rank", str(LORA_RANK), "--lora-alpha", str(LORA_ALPHA),
+            "--lora-dropout", str(LORA_DROPOUT), "--remat", "--log-every",
+            "1", "--output-dir", os.path.join(tmp, "out"), "--device",
+            DEVICE])
+        before = {k: FA.launch_count(k) for k in FA.KERNELS}
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        path, trainer = train_cli.run(args, model=(params, arch, ctok, tmpl))
+        torch.cuda.synchronize()
+        train_s = time.monotonic() - t0
+        train = {k: FA.launch_count(k) - before[k] for k in FA.KERNELS}
+        steps = CLI_PAIRS // TRAIN_B
+        if train != {"fwd": 2 * layers * steps, "dq": layers * steps,
+                     "dkv": layers * steps}:
+            raise AssertionError(f"cli.train: flash launches {train} in "
+                                 f"{steps} steps")
+        saved = lora.load_lora(path, DEVICE)
+        mine = lora.tree_leaves(trainer.adapters)
+        theirs = lora.tree_leaves(saved)
+        if path != os.path.join(tmp, "out", "lora.pkl") or \
+                len(mine) != len(theirs) or not all(
+                    torch.equal(a.detach(), b) for a, b in zip(mine, theirs)):
+            raise AssertionError(f"cli.train: {path} does not hold the "
+                                 f"trained adapters")
+        losses = trainer.loss_history
+        if len(losses) != steps or not all(np.isfinite(losses)):
+            raise AssertionError(f"cli.train: losses {losses}")
+        del trainer, mine, theirs
+        gc.collect()
+        torch.cuda.empty_cache()
+        progress("chat_cli", f"InternVL2.5-8B: cli.prepare_data split / "
+                 f"few-shot / check ({CLI_PAIRS} of {CLI_IMAGES // 2} train "
+                 f"images, {CLI_PAIRS * OFF_CAPS} rows); cli.train.run one "
+                 f"epoch, {steps} steps of {TRAIN_B} pairs in {train_s:.1f} "
+                 f"s, losses {[round(x, 5) for x in losses]}, flash "
+                 f"launches {train}; {os.path.basename(path)} "
+                 f"({os.path.getsize(path):,} bytes) loads back equal to "
+                 f"the trained adapters")
+
+        corpus = CrossModalCorpus("flickr", "train", tmp,
+                                  few_shot_sum=CLI_PAIRS)
+        n_caps = sum(len(corpus.img2text[e.img_id])
+                     for e in corpus.examples_single())
+        fwd0 = FA.launch_count("fwd")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        stats = term_weight_statistics(
+            corpus, params, arch, ctok, tmpl, sparse_cfg=SparseConfig(),
+            num_images=CLI_PAIRS, batch_size=MAX_BATCH, lora=saved,
+            device=DEVICE)
+        stats_s = time.monotonic() - t0
+        stats_flash = FA.launch_count("fwd") - fwd0
+    v = ctok.vocab_size
+    sizes = (stats.image_in_text.size + stats.image_out_text.size,
+             stats.text_in_text.size + stats.text_out_text.size)
+    arrays = (stats.image_in_text, stats.image_out_text, stats.text_in_text,
+              stats.text_out_text)
+    if sizes != (CLI_PAIRS * v, n_caps * v) or not all(
+            np.isfinite(a).all() and (a >= 0).all() for a in arrays) or \
+            stats_flash != layers * -(-CLI_PAIRS // MAX_BATCH):
+        raise AssertionError(f"term_weight_statistics: sizes {sizes}, want "
+                             f"{(CLI_PAIRS * v, n_caps * v)}; flash "
+                             f"launches {stats_flash}")
+    progress("chat_cli", f"InternVL2.5-8B trained: term_weight_statistics "
+             f"of {CLI_PAIRS} images and {n_caps} captions in "
+             f"{stats_s:.1f} s (flash launches {stats_flash}, peak "
+             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB): "
+             f"{stats.summary()}; card {card}")
+    return train, stats_flash
 
 
 def same_up_to_ties(got, want, depth=DEPTH):
@@ -3867,8 +4213,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check runs only on the card",
               file=sys.stderr)
         return 2
+    from mllm_sparse_retrieval_tpu_torch import hostops
     from mllm_sparse_retrieval_tpu_torch.configs import (
         ModelFamily, SparseConfig)
+    from mllm_sparse_retrieval_tpu_torch.eval.statistics import (
+        fusion_provenance_statistics)
     from mllm_sparse_retrieval_tpu_torch.index import ImpactIndex
     from mllm_sparse_retrieval_tpu_torch.models import anyres, templates
     from mllm_sparse_retrieval_tpu_torch.models.layers import FLASH_MIN_SEQ
@@ -3881,6 +4230,7 @@ def main() -> int:
     from mllm_sparse_retrieval_tpu_torch.ops import impact_kernel as K
     from mllm_sparse_retrieval_tpu_torch.ops.impact_kernel import (
         prepare_query_arrays)
+    from mllm_sparse_retrieval_tpu_torch.search.fusion import fuse
     from mllm_sparse_retrieval_tpu_torch.serving import (
         OnlineQueryEncoder, RetrievalService)
     from mllm_sparse_retrieval_tpu_torch.sparse import (
@@ -3946,6 +4296,12 @@ def main() -> int:
         ctok, internvl_arch, internvl_tmpl, IMAGE_SIZES[:FLASH_B - 1])
     flash_g7 = phase_flash(internvl_len + [0], internvl_seq,
                            *INTERNVL_HEADS)
+    # and its backward at the chat-family training shape: the first
+    # training batch's prompt lengths, one all-pad row
+    train_g7, _ = internvl_prompt_lengths(
+        ctok, internvl_arch, internvl_tmpl, chat_train_sizes(TRAIN_B - 1))
+    dq_g7, dkv_g7 = phase_flash_bwd(train_g7 + [0], internvl_seq,
+                                    *INTERNVL_HEADS)
 
     # ---- 4. the model, from a checkpoint, and the index -----------------------
     params, arch = phase_checkpoint(spec, card)
@@ -3975,6 +4331,7 @@ def main() -> int:
              f"{index._int16_exact()}")
 
     # ---- 5. text queries through the service ----------------------------------
+    hostops.reset_call_counts()
     sparse_cfg = SparseConfig()
     encoder = RecordingEncoder(OnlineQueryEncoder(
         params, arch, tok, tmpl, sparse_cfg, max_text_len=64,
@@ -4099,14 +4456,42 @@ def main() -> int:
                             cmap, texts, dense_host, card)
 
     # ---- 10b. live indexes and the HTTP front end ------------------------
+    serve_ops = hostops.call_counts()
+    hostops.reset_call_counts()
     live_taat, live_flash = phase_live(params, arch, arch_img, tok, tmpl,
                                        index, cmap, texts, dense_host,
                                        word_ids, card)
     del dense_host
+    live_ops = hostops.call_counts()
+    if not live_ops["merge_topk_rows"]:
+        raise AssertionError(f"the live segments' host merge did not go "
+                             f"through hostops: {live_ops}")
 
     # ---- 11. offline evaluation: corpus -> encode -> indexes -> search -----
-    off_taat, off_flash = phase_offline(params, arch_img, tok, tmpl, lexicon,
-                                        card)
+    hostops.reset_call_counts()
+    off_taat, off_flash, off_runs = phase_offline(params, arch_img, tok,
+                                                  tmpl, lexicon, card)
+    off_ops = hostops.call_counts()
+    if not (off_ops["build_runs"] and off_ops["fuse_runs"]):
+        raise AssertionError(f"the offline phase's runs and fusion did not "
+                             f"go through hostops: {off_ops}")
+    n_fused = hostops_check(*off_runs)
+    prov = fusion_provenance_statistics(*off_runs, alpha=OFF_ALPHA,
+                                        top_n=OFF_DEPTH)
+    ranked = sum(min(OFF_DEPTH, len(docs)) for docs in
+                 fuse([r.materialize() for r in off_runs],
+                      [OFF_ALPHA, 1 - OFF_ALPHA]).values())
+    n_prov = prov.dense_ranks.size + prov.sparse_ranks.size \
+        + prov.fused_ranks.size
+    if n_prov != ranked:
+        raise AssertionError(f"fusion_provenance_statistics ranked {n_prov} "
+                             f"docs of {ranked}")
+    progress("hostops", f"C calls that gave their callers the result: text "
+             f"to tiers phases {serve_ops}; live phase {live_ops}; offline "
+             f"phase {off_ops}; on the offline "
+             f"text->image runs ({n_fused} queries) make_run and fuse equal "
+             f"their Python bodies; fusion_provenance_statistics (top "
+             f"{OFF_DEPTH}): {prov.summary()}")
     torch.cuda.empty_cache()
 
     # ---- 12. contrastive LoRA training; flash against plain gradients --------
@@ -4122,8 +4507,8 @@ def main() -> int:
                                          card)
 
     # ---- 14. InternVL2.5-8B and Qwen2.5-VL-7B at full width ---------------
-    chat_taat, chat_flash = phase_chat_families(ctok, lexicon, index, cmap,
-                                                card)
+    chat_taat, chat_flash, chat_train, stats_flash = phase_chat_families(
+        ctok, lexicon, index, cmap, card)
 
     max_err = max(bench["i16"]["max_abs_err"], bench["f32"]["max_abs_err"],
                   served["max_abs_err"])
@@ -4141,7 +4526,8 @@ def main() -> int:
              source="mllm_sparse_retrieval_tpu_torch/csrc/flash_attn.cu",
              replaces="mllm_sparse_retrieval_tpu/models/layers.py:199",
              launches=text_flash + img_flash + hyb_flash + live_flash
-             + off_flash + train_launches["fwd"] + fam_flash + chat_flash,
+             + off_flash + train_launches["fwd"] + fam_flash + chat_flash
+             + chat_train["fwd"] + stats_flash,
              **flash,
              at_g7=dict(shape=f"B={FLASH_B} T={internvl_seq} Hq/Hkv="
                         f"{INTERNVL_HEADS[0]}/{INTERNVL_HEADS[1]}",
@@ -4149,11 +4535,18 @@ def main() -> int:
         dict(name="flash_attention_bwd_dkv", route="cuda",
              source="mllm_sparse_retrieval_tpu_torch/csrc/flash_attn_bwd.cu",
              replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:941",
-             launches=train_launches["dkv"], **dkv_kernel),
+             launches=train_launches["dkv"] + chat_train["dkv"],
+             **dkv_kernel,
+             at_g7=dict(shape=f"B={TRAIN_B} T={internvl_seq} Hq/Hkv="
+                        f"{INTERNVL_HEADS[0]}/{INTERNVL_HEADS[1]}",
+                        launches=chat_train["dkv"], **dkv_g7)),
         dict(name="flash_attention_bwd_dq", route="cuda",
              source="mllm_sparse_retrieval_tpu_torch/csrc/flash_attn_bwd.cu",
              replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
-             launches=train_launches["dq"], **dq_kernel),
+             launches=train_launches["dq"] + chat_train["dq"], **dq_kernel,
+             at_g7=dict(shape=f"B={TRAIN_B} T={internvl_seq} Hq/Hkv="
+                        f"{INTERNVL_HEADS[0]}/{INTERNVL_HEADS[1]}",
+                        launches=chat_train["dq"], **dq_g7)),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

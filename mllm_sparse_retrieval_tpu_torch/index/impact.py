@@ -50,6 +50,7 @@ from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Tuple, Uni
 import numpy as np
 import torch
 
+from mllm_sparse_retrieval_tpu_torch import hostops as _hostops
 from mllm_sparse_retrieval_tpu_torch.ops.packing import (
     unpack_topk, unpack_topk48)
 from mllm_sparse_retrieval_tpu_torch.ops.score_programs import (
@@ -468,7 +469,10 @@ class ImpactIndex:
 
         Equal-width batches (the device-select serving shape) stay 2-D:
         dropped entries become (term 0, weight 0) slots, which both backends
-        score as padding, so no per-row compaction is needed."""
+        score as padding, so no per-row compaction is needed. Their int32
+        rows take the C helpers (``hostops.encode_terms`` without a
+        ``canonical_map``, ``hostops.stack_rows`` with one), which give
+        the numpy body's arrays."""
         self._ensure_finalized()
         lut = self._term_lut()
         b = len(terms_list)
@@ -476,10 +480,31 @@ class ImpactIndex:
         equal = b > 0 and first_w > 0 and all(
             np.asarray(t.token_ids).shape == (first_w,) for t in terms_list)
         if equal:
-            flat_t = np.stack([np.asarray(t.token_ids) for t in terms_list])
-            flat_w = np.stack([np.asarray(t.weights) for t in terms_list])
-            if flat_t.dtype.kind not in "iu":
-                flat_t = flat_t.astype(np.int64)
+            flat_t = flat_w = None
+            native = _hostops.get()
+            if canonical_map is None:
+                # one C pass per row: stack, lut gather, OOV / weight masking
+                # and pad fill; False = some row is not a contiguous int32
+                # buffer of the width
+                q_m = _round_up(max(int(q_max), first_w, 1),
+                                _QUERY_WIDTH_PAD)
+                out_idx = np.empty((b, q_m), np.int32)
+                out_w = np.empty((b, q_m), np.float32)
+                if native.encode_terms(terms_list, "token_ids", "weights",
+                                       lut, first_w, out_idx, out_w):
+                    return out_idx, out_w
+            # the C row stack; False as above, and the numpy stack runs
+            ti = np.empty((b, first_w), np.int32)
+            tw = np.empty((b, first_w), np.int32)
+            if native.stack_rows(terms_list, "token_ids", "weights", ti, tw):
+                flat_t, flat_w = ti, tw
+            if flat_t is None:
+                flat_t = np.stack([np.asarray(t.token_ids)
+                                   for t in terms_list])
+                flat_w = np.stack([np.asarray(t.weights)
+                                   for t in terms_list])
+                if flat_t.dtype.kind not in "iu":
+                    flat_t = flat_t.astype(np.int64)
             row = None
         else:
             flat_t, flat_w, row = _flatten_term_rows(terms_list)

@@ -30,9 +30,9 @@ Thread safety: mutators take the instance lock and swap immutable snapshot
 tuples; searches read one snapshot and never block updates. The delta
 searches of ``_search_segments`` run on a small thread pool on the device's
 default stream, so their kernels stay in stream order with every other
-thread's. The host merge is the Python body; the JAX package's optional
-``hostops`` C extension is not ported (ROADMAP Queue 1 #7), and its results
-are the same.
+thread's. The host merge of list-shaped rows is the C helper
+``hostops.merge_topk_rows``, with the same results as the Python body
+(``_merge_rows_python``).
 """
 
 from __future__ import annotations
@@ -47,6 +47,7 @@ import numpy as np
 
 import torch
 
+from mllm_sparse_retrieval_tpu_torch import hostops as _hostops
 from mllm_sparse_retrieval_tpu_torch.index.arena import (
     _DTYPE_NAMES, dense_dtype)
 from mllm_sparse_retrieval_tpu_torch.index.dense import DenseFlatIndex
@@ -101,11 +102,27 @@ def _merge_rows(
     Candidates concatenate in segment order and sort stably by descending
     score, so equal scores rank older-segment-first — deterministic, and ids
     never duplicate because adds tombstone their id everywhere else.
+
+    List-shaped rows take the C merge (``hostops.merge_topk_rows``); other
+    rows, or rows it refuses, take the Python body.
     """
     # snapshot the tombstone set objects once (deletes replace, never
-    # mutate, them) so the merge sees one consistent view
+    # mutate, them) so both paths see one consistent view per merge
     tombs = [seg.tombstones for seg in segments]
     pads = [1 if seg.n_pad else 0 for seg in segments]
+    if all(type(p[0]) is list and type(p[1]) is list for p in per_segment):
+        try:
+            return _hostops.get().merge_topk_rows(
+                [p[0] for p in per_segment], [p[1] for p in per_segment],
+                tombs, pads, _PAD_ID, int(depth))
+        except (TypeError, ValueError):
+            pass
+    return _merge_rows_python(per_segment, tombs, pads, depth)
+
+
+def _merge_rows_python(per_segment, tombs, pads, depth: int
+                       ) -> Tuple[List[List[float]], List[List[str]]]:
+    """``_merge_rows``' Python body, the C merge's semantic reference."""
     b = len(per_segment[0][0])
     out_s: List[List[float]] = []
     out_i: List[List[str]] = []

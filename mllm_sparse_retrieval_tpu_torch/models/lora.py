@@ -95,11 +95,13 @@ def num_lora_params(lora: Dict) -> int:
     return sum(int(x.numel()) for x in tree_leaves(lora) if x.dim() >= 2)
 
 
-def _to_numpy(tree: Any):
+def to_numpy(tree: Any):
+    """A tree of tensors as nested dicts / lists of numpy arrays on the
+    host (bf16 as float32: numpy has no bfloat16)."""
     if isinstance(tree, dict):
-        return {k: _to_numpy(v) for k, v in tree.items()}
+        return {k: to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_to_numpy(v) for v in tree]
+        return [to_numpy(v) for v in tree]
     x = tree.detach().cpu()
     if x.dtype == torch.bfloat16:
         x = x.float()
@@ -109,7 +111,7 @@ def _to_numpy(tree: Any):
 def save_lora(lora: Dict, path: str) -> None:
     """Pickle the adapter tree as nested dicts/lists of numpy arrays."""
     with open(path, "wb") as f:
-        pickle.dump(_to_numpy(lora), f)
+        pickle.dump(to_numpy(lora), f)
 
 
 def load_lora(path: str, device="cuda",

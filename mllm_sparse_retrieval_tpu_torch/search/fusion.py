@@ -11,10 +11,9 @@
 - TREC read/write. The reader sets ``min_score`` to the *last* line's score
   (file order), the true minimum of a ranked file, as the reference does.
 
-The JAX package's ``fuse`` hands dict input to a compiled helper
-(``hostops``) that gives the same doubles; the port runs the Python body,
-that helper's semantic reference. ``hostops`` is the one part of ROADMAP
-Queue 1 #7 still to port (the live indexes and front ends are in).
+``fuse`` hands dict input to the C helper (``hostops.fuse_runs``), which
+gives the same doubles (the same operations in the same order) as the
+Python body (``_fuse_python``), its semantic reference.
 """
 
 from __future__ import annotations
@@ -23,6 +22,7 @@ import operator
 from dataclasses import dataclass
 from typing import Dict, Sequence
 
+from mllm_sparse_retrieval_tpu_torch import hostops as _hostops
 from mllm_sparse_retrieval_tpu_torch.search.runs import Run
 
 _SCORE = operator.itemgetter(1)
@@ -80,9 +80,25 @@ def fuse(runs: Sequence[Run], weights: Sequence[float]) -> Dict[str, Dict[str, f
     A qid missing from one run (an asymmetric pair: e.g. a sparse query
     with no terms, which query.tsv skips) contributes 0 from that run; the
     reference raises ``KeyError`` there.
+
+    Dict input takes the C fusion; entries of a surprising shape make it
+    raise ``TypeError`` and take the Python body.
     """
     runs = [r.materialize() if hasattr(r, "materialize") else r
             for r in runs]
+    if len(weights) >= len(runs) and all(type(r) is dict for r in runs):
+        try:
+            return _hostops.get().fuse_runs(list(runs),
+                                            [float(x) for x in weights])
+        except TypeError:
+            pass
+    return _fuse_python(runs, weights)
+
+
+def _fuse_python(runs: Sequence[Run], weights: Sequence[float]
+                 ) -> Dict[str, Dict[str, float]]:
+    """``fuse``'s Python body (dict runs), the C fusion's semantic
+    reference."""
     fused: Dict[str, Dict[str, float]] = {}
     qids = set()
     for run in runs:

@@ -1,12 +1,11 @@
 """Run dictionaries: per-query ranked results with min/max score
-bookkeeping (the JAX package's ``search/runs.py``, its pure-Python bodies).
+bookkeeping (the JAX package's ``search/runs.py``).
 
 A "run" maps ``qid -> {'docs': {docid: score}, 'min_score': m,
 'max_score': M}``, the structure the reference threads between search,
-fusion and metrics. The JAX package hands all-list input to a compiled
-helper (``hostops``) with the same results; the port runs the Python body,
-which is that helper's semantic reference. ``hostops`` is the one part of
-ROADMAP Queue 1 #7 still to port (the live indexes and front ends are in).
+fusion and metrics. ``make_run`` hands all-list input to the C helper
+(``hostops.build_runs``), which gives the same dicts as the Python body
+(``_make_run_python``), its semantic reference.
 """
 
 from __future__ import annotations
@@ -16,6 +15,7 @@ from typing import Dict, Iterable, Sequence
 
 import numpy as np
 
+from mllm_sparse_retrieval_tpu_torch import hostops as _hostops
 
 Run = Dict[str, dict]
 
@@ -127,7 +127,27 @@ def make_run(
     self-hit removal (the reference's ``get_run_dict`` convention).
     ``scores_sorted=True`` promises each row is descending (what every
     search here returns), so min/max are the row's ends.
+
+    All-list input (what the resolve paths produce) takes the C assembler;
+    other input, or input it refuses (non-list rows, length mismatches),
+    takes the Python body, which zip-truncates mismatched lengths.
     """
+    if (type(batch_ids) is list and type(batch_scores) is list
+            and type(batch_rankings) is list):
+        try:
+            return _hostops.get().build_runs(
+                batch_ids, batch_scores, batch_rankings, bool(remove_query),
+                bool(scores_sorted))
+        except (TypeError, ValueError):
+            pass
+    return _make_run_python(batch_ids, batch_scores, batch_rankings,
+                            remove_query, scores_sorted)
+
+
+def _make_run_python(batch_ids, batch_scores, batch_rankings,
+                     remove_query: bool = False,
+                     scores_sorted: bool = False) -> Run:
+    """``make_run``'s Python body, the C assembler's semantic reference."""
     run: Run = {}
     for qid, scores, rankings in zip(batch_ids, batch_scores, batch_rankings):
         if isinstance(rankings, np.ndarray):   # raw batch_search output

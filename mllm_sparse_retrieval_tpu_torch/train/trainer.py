@@ -6,8 +6,10 @@
   JAX trainer differentiates every leaf). ``adapters=None`` or
   ``cfg.train_full`` trains the full param tree instead.
 - One step: the text and image towers through ``models.api.encode_any``
-  (the image prompts of the anyres families take the flash kernels, forward
-  and backward), the batch symmetric InfoNCE (``train/contrastive.py``),
+  (the image prompts of LLaVA-NeXT's anyres and InternVL2.5's dynamic
+  tiling reach ``FLASH_MIN_SEQ`` and take the flash kernels, forward and
+  backward; Qwen2.5-VL image prompts carry ``[3, B, T]`` M-RoPE ids), the
+  batch symmetric InfoNCE (``train/contrastive.py``),
   ``torch.autograd.grad`` over the trainable leaves, then the update the
   JAX trainer's optax chain makes, written out: global-norm clipping
   (scale by ``max_norm / norm`` only when ``norm >= max_norm``), Adam
@@ -15,18 +17,19 @@
   before the learning rate), and the learning rate of the schedule at the
   update count before the step. The trainable tensors are updated in place.
 - Gradient accumulation splits the step batch into micro-batches (in-batch
-  negatives come from the micro-batch), sums their f32 gradients, divides
-  by the count, casts them to the trainable dtype and reports the mean
-  loss.
+  negatives come from the micro-batch; M-RoPE ids split on their batch
+  axis), sums their f32 gradients, divides by the count, casts them to the
+  trainable dtype and reports the mean loss. Pixels given as a dict (the
+  anyres and the Qwen native-resolution layouts) cannot be split, as the
+  JAX trainer's reshape cannot split them: that raises.
 - LoRA dropout draws from seeds derived from ``(cfg.seed, step)``
   (``layers.fold_seed``), so a resumed run replays exactly; with
   ``cfg.remat`` every decoder block is recomputed in the backward pass.
 - Checkpoints keep the JAX layout, ``<dir>/step_<n>/`` and a ``latest``
   file, written with ``torch.save`` (the JAX trainer uses Orbax).
 
-Not ported: meshes (ROADMAP Queue 1 #9, sharding), ``load_kbit``
-(``models/quantization.py``, Queue 1 #1) and training the chat-template
-families, Qwen2.5-VL and InternVL2.5 (Queue 1 #6b); all raise.
+Not ported: meshes (ROADMAP Queue 1 #9, sharding) and ``load_kbit``
+(``models/quantization.py``, Queue 1 #1); both raise.
 """
 
 from __future__ import annotations
@@ -44,9 +47,7 @@ from mllm_sparse_retrieval_tpu_torch.data.karpathy import Example
 from mllm_sparse_retrieval_tpu_torch.models import layers as L
 from mllm_sparse_retrieval_tpu_torch.models import lora as lora_lib
 from mllm_sparse_retrieval_tpu_torch.models.api import (
-    encode_any, image_input_spec)
-from mllm_sparse_retrieval_tpu_torch.models.internvl import InternVLConfig
-from mllm_sparse_retrieval_tpu_torch.models.qwen_vl import QwenVLConfig
+    encode_any, image_input_spec, mrope_ids_for_batch)
 from mllm_sparse_retrieval_tpu_torch.models.layers import FLASH_MIN_SEQ
 from mllm_sparse_retrieval_tpu_torch.pipelines.encode import (
     default_pixel_loader, default_raw_image_loader)
@@ -62,18 +63,10 @@ class TrainBatch:
     text_mask: np.ndarray     # [B, Tt]
     image_ids: np.ndarray     # [B, Ti]
     image_mask: np.ndarray    # [B, Ti]
-    pixels: Any               # [B, H, W, 3], or the anyres dict of arrays
-    image_pos_ids: Optional[np.ndarray] = None  # M-RoPE (Qwen); always None
-
-
-def _refuse_chat_families(arch) -> None:
-    """Training Qwen2.5-VL (its image prompts need M-RoPE ids, which the
-    collator does not make) and InternVL2.5 is the next slice."""
-    if isinstance(arch, (QwenVLConfig, InternVLConfig)):
-        raise NotImplementedError(
-            f"training {type(arch).__name__} is not ported yet (ROADMAP "
-            f"Queue 1 #6b: the chat-template families' training, M-RoPE "
-            f"ids in the collator)")
+    # [B, H, W, 3] (LLaVA), [B, tiles, S, S, 3] (InternVL), [B, S, pd]
+    # (Qwen, fixed grid), or a dict of arrays (anyres, Qwen native)
+    pixels: Any
+    image_pos_ids: Optional[np.ndarray] = None  # [3, B, Ti] M-RoPE (Qwen)
 
 
 def make_collator(tokenizer, template, arch,
@@ -82,14 +75,16 @@ def make_collator(tokenizer, template, arch,
     """Host collator: examples -> ``TrainBatch`` of numpy arrays.
 
     ``pixel_loader(example)`` returns the example's image: a raw ``[H, W,
-    3]`` float array in [0, 1] for the anyres families, the model's pixel
-    input for the fixed-grid ones. By default the synthetic loaders of
-    ``pipelines/encode.py`` (the port decodes no image file). Anyres image
-    prompts are padded to the family's longest prompt, rounded up to a
-    multiple of 512 once it reaches ``FLASH_MIN_SEQ``, so that the decoder
-    takes the flash kernels (3,072 tokens on LLaVA-NeXT). The LLaVA families
-    only: the chat-template families raise (ROADMAP Queue 1 #6b)."""
-    _refuse_chat_families(arch)
+    3]`` float array in [0, 1] for the variable families, the model's
+    pixel input for the fixed-grid ones. By default the synthetic loaders of
+    ``pipelines/encode.py`` (the port decodes no image file). The image
+    prompts of the variable families (anyres, InternVL's tiles, Qwen's
+    native resolution) are padded to the family's longest prompt, rounded
+    up to a multiple of 512 once it reaches ``FLASH_MIN_SEQ``, so that the
+    decoder takes the flash kernels (3,072 tokens on LLaVA-NeXT, 3,584 on
+    InternVL2.5). Qwen2.5-VL image prompts get ``image_pos_ids``: from each
+    example's own grid at native resolution, from the fixed grid
+    otherwise."""
     spec = image_input_spec(arch)
     if spec.variable:
         if pixel_loader is None:
@@ -121,12 +116,16 @@ def make_collator(tokenizer, template, arch,
                 img_rows, max_len=img_fixed_len,
                 pad_to_multiple=seq_pad_multiple)
             pixels = spec.batch_vision([item for item, _ in vitems])
+            pos = spec.mrope_from_batch(i_ids, i_mask, pixels) \
+                if spec.mrope_from_batch else None
         else:
             img_rows = [tokenizer.encode(img_prompt)] * len(batch)
             i_ids, i_mask = tokenizer.pad_batch(
                 img_rows, pad_to_multiple=seq_pad_multiple)
             pixels = np.stack([pixel_loader(e) for e in batch])
-        return TrainBatch(t_ids, t_mask, i_ids, i_mask, pixels, None)
+            pos = mrope_ids_for_batch(arch, i_ids, i_mask) \
+                if spec.needs_mrope else None
+        return TrainBatch(t_ids, t_mask, i_ids, i_mask, pixels, pos)
 
     return collate
 
@@ -166,7 +165,6 @@ class ContrastiveTrainer:
             raise NotImplementedError(
                 "the port trains on one device: meshes wait for sharding "
                 "(ROADMAP Queue 1 #9, parallel/*)")
-        _refuse_chat_families(arch)
         if cfg.load_kbit:
             raise NotImplementedError(
                 f"load_kbit={cfg.load_kbit}: k-bit base weights wait for "
@@ -234,11 +232,15 @@ class ContrastiveTrainer:
             pixels = {k: put(v) for k, v in pixels.items()}
         else:
             pixels = put(pixels)
+        pos = batch.image_pos_ids
+        if pos is not None:          # [3, B, T]: the batch axis is the 2nd
+            pos = torch.from_numpy(np.ascontiguousarray(
+                pos[:, lo:hi])).to(self.device, torch.long)
         return (put(batch.text_ids, torch.long), put(batch.text_mask),
                 put(batch.image_ids, torch.long), put(batch.image_mask),
-                pixels)
+                pixels, pos)
 
-    def _loss(self, t_ids, t_mask, i_ids, i_mask, pixels,
+    def _loss(self, t_ids, t_mask, i_ids, i_mask, pixels, pos,
               seed: int) -> torch.Tensor:
         cfg = self.cfg
         dropout = 0.0 if self.full_finetune else cfg.lora_dropout
@@ -249,7 +251,8 @@ class ContrastiveTrainer:
                               self.reps_loc, self.adapters, remat=cfg.remat,
                               lora_seed=t_seed, lora_dropout=dropout)
         _, i_emb = encode_any(self.params, self.arch, i_ids, i_mask, pixels,
-                              self.reps_loc, self.adapters, remat=cfg.remat,
+                              self.reps_loc, self.adapters,
+                              position_ids=pos, remat=cfg.remat,
                               lora_seed=i_seed, lora_dropout=dropout)
         return info_nce_loss(t_emb, i_emb, cfg.tau)
 
@@ -260,6 +263,13 @@ class ContrastiveTrainer:
         if b % accum != 0:
             raise ValueError(f"batch size {b} not divisible by "
                              f"grad_accum_steps {accum}")
+        if accum > 1 and isinstance(batch.pixels, dict):
+            # the JAX trainer reshapes the pixels as one array here, which
+            # a dict has no method for
+            raise AttributeError(
+                f"grad_accum_steps={accum} splits pixels as one array; "
+                f"this family's pixels are a dict of "
+                f"{sorted(batch.pixels)}")
         m = b // accum
         leaves = self._trainable_leaves()
         step_seed = L.fold_seed(self.cfg.seed, self.step)

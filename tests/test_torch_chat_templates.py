@@ -4,8 +4,9 @@ every family, string-equal), ``resolve_template`` through a stub HF
 tokenizer with a chat template (string-equal), the registry's archs and
 templates (equal), M-RoPE ``rope_tables`` with ``[B, T]`` and ``[3, B, T]``
 position ids (f32, within ``1e-6 * (1 + |jax|)``: the same products, the
-same cos / sin on another backend), the decoder with M-RoPE ids (f32,
-``atol=rtol=1e-5``), and the trainer's refusal of both families.
+same cos / sin on another backend) and the decoder with M-RoPE ids (f32,
+``atol=rtol=1e-5``). Training both families is held to the JAX trainer in
+``test_torch_train_chat.py``.
 
 It also holds the helpers that ``test_torch_internvl.py`` and
 ``test_torch_qwen_vl.py`` use to hold the served slice and
@@ -49,7 +50,7 @@ from mllm_sparse_retrieval_tpu.models.tokenizer import (
 from mllm_sparse_retrieval_tpu.models.tokenizer import (
     WordPieceLiteTokenizer as JTokenizer)
 from mllm_sparse_retrieval_tpu_torch.configs import (
-    ModelConfig, ModelFamily, SparseConfig, TrainConfig)
+    ModelFamily, SparseConfig)
 from mllm_sparse_retrieval_tpu_torch.data.karpathy import Example
 from mllm_sparse_retrieval_tpu_torch.index import ImpactIndex
 from mllm_sparse_retrieval_tpu_torch.models import (
@@ -63,8 +64,6 @@ from mllm_sparse_retrieval_tpu_torch.serving import (
     OnlineQueryEncoder, RetrievalService)
 from mllm_sparse_retrieval_tpu_torch.sparse import (
     SelectedTerms, canonical_id_map)
-from mllm_sparse_retrieval_tpu_torch.train.trainer import (
-    ContrastiveTrainer, make_collator)
 
 FAMILIES = ("LLAMA3", "LLAVA_V1_5", "QWEN2_5_VL", "INTERNVL2_5", "TINY")
 ROPE_TOL = 1e-6
@@ -384,18 +383,3 @@ def test_llama_config_still_refuses_moe():
         LlamaConfig(moe=object())
     assert LlamaConfig(mrope_section=(16, 24, 24)).mrope_section == \
         (16, 24, 24)
-
-
-@pytest.mark.parametrize("family", ["QWEN2_5_VL", "INTERNVL2_5"])
-def test_trainer_refuses_the_chat_families(family):
-    arch = registry.get_family_spec(ModelFamily[family]).arch
-    with pytest.raises(NotImplementedError, match="Queue 1 #6b"):
-        ContrastiveTrainer({}, arch, None, TrainConfig(lr_schedule="constant"),
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 #6b"):
-        make_collator(None, templates.TINY, arch)
-    # the tiny Qwen family too: its image prompts need M-RoPE ids
-    tiny = registry.get_family_spec(ModelFamily.TINY_QWEN_DEBUG,
-                                    ModelConfig()).arch
-    with pytest.raises(NotImplementedError, match="Queue 1 #6b"):
-        make_collator(None, templates.TINY, tiny)

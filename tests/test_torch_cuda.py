@@ -6,9 +6,10 @@ card against the same path on the CPU, and the search tiers: the bf16
 dense search's peak memory, the SQ8 int8 product's padding, the compact48
 wire through the TAAT kernel and the ANN tier, a converted checkpoint
 loaded onto the card, the arena live index's in-place writes into the
-TAAT kernel's matrix, and tiny InternVL2.5 and Qwen2.5-VL encodes on the
-card against the CPU (the tolerances of all but the kernels are in their
-docstrings). Marked ``cuda``; each test skips
+TAAT kernel's matrix, tiny InternVL2.5 and Qwen2.5-VL encodes on the
+card against the CPU, and the ``hostops`` extension built on the card's
+machine against the Python bodies (the tolerances of all but the kernels
+are in their docstrings). Marked ``cuda``; each test skips
 where no card is present (decided inside the test, so every pytest worker
 collects the same tests). This file
 imports nothing of JAX, so it also runs where JAX is absent:
@@ -438,6 +439,75 @@ def test_flash_forward_at_the_internvl_width_g7():
     torch.cuda.synchronize()
     assert FA.launch_count() == before + 1
     _assert_flash_close(got, q, k, v, mask)
+
+
+def test_flash_bwd_at_the_internvl_width_g7():
+    """The dq and dkv kernels at InternVL2.5-8B's training shape: 28 query
+    heads on 4 KV heads (G = 7: dkv sums seven query heads a KV head) at
+    3,584 tokens, a ragged row and an all-pad row, against the plain
+    backward."""
+    dev = _card()
+    q, k, v, mask, dout = _bwd_case(19, 2, 3584, 28, 4, (3371, 0), dev)
+    out, lse = FA.flash_causal_attention_lse(q, k, v, mask)
+    di = FA.flash_bwd_di(out, dout)
+    before = {n: FA.launch_count(n) for n in FA.KERNELS}
+    dq = FA.flash_attention_bwd_dq(q, k, v, mask, lse, di, dout)
+    dk, dv = FA.flash_attention_bwd_dkv(q, k, v, mask, lse, di, dout)
+    torch.cuda.synchronize()
+    assert {n: FA.launch_count(n) - before[n] for n in FA.KERNELS} == \
+        {"fwd": 0, "dq": 1, "dkv": 1}
+    _assert_bwd_close((dq, dk, dv), q, k, v, mask, dout)
+
+
+def test_hostops_builds_and_equals_the_python_bodies():
+    """On the card's machine (its compiler and ``Python.h``): the extension
+    builds and loads, and run assembly, fusion, the live merge and the
+    query encode of an index on the card equal the Python bodies."""
+    dev = _card()
+    from mllm_sparse_retrieval_tpu_torch import hostops
+    from mllm_sparse_retrieval_tpu_torch.index import impact as impact_mod
+    from mllm_sparse_retrieval_tpu_torch.index import live
+    from mllm_sparse_retrieval_tpu_torch.search import fusion, runs
+    from mllm_sparse_retrieval_tpu_torch.sparse import SelectedTerms
+
+    assert hostops.get().path == hostops.build()
+    rng = np.random.default_rng(4)
+    qids = [f"q{i}" for i in range(16)]
+    made = []
+    for _ in range(2):
+        scores = [sorted(rng.normal(size=int(rng.integers(0, 12))).tolist(),
+                         reverse=True) for _ in qids]
+        ids = [[f"d{int(x)}" for x in rng.integers(0, 40, len(r))]
+               for r in scores]
+        hostops.reset_call_counts()
+        run = runs.make_run(qids, scores, ids, scores_sorted=True)
+        assert hostops.call_counts()["build_runs"] == 1
+        assert run == runs._make_run_python(qids, scores, ids, False, True)
+        made.append(run)
+    assert fusion.fuse(made, [0.4, 0.6]) == \
+        fusion._fuse_python(made, [0.4, 0.6])
+    segs = [live._Segment(None, set(), {"d1", "d2"}, 0) for _ in range(3)]
+    per = [([[float(x) for x in rng.integers(0, 5, 6)] for _ in qids],
+            [[f"d{int(x)}" for x in rng.integers(0, 9, 6)] for _ in qids])
+           for _ in segs]
+    assert live._merge_rows(per, segs, 4) == live._merge_rows_python(
+        per, [s.tombstones for s in segs], [0, 0, 0], 4)
+    index = impact_mod.ImpactIndex.from_packed_arrays(
+        rng.integers(0, 90, (30, 6)).astype(np.int32),
+        rng.integers(1, 40, (30, 6)).astype(np.float32),
+        term_keys=range(90), device=dev)
+    rows = [SelectedTerms(rng.integers(-3, 120, 10).astype(np.int32),
+                          rng.integers(-2, 30, 10).astype(np.int32))
+            for _ in range(8)]
+    hostops.reset_call_counts()
+    got = index.encode_query_terms(rows)
+    assert hostops.call_counts()["encode_terms"] == 1
+    want = index.encode_query_terms([SelectedTerms(
+        r.token_ids.astype(np.int64), r.weights.astype(np.int64))
+        for r in rows])                    # int64 rows: the numpy body
+    assert hostops.call_counts()["encode_terms"] == 1
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("family", ["internvl", "qwen"])

@@ -5,7 +5,8 @@ module (the offline evaluation path's ``cli``, ``eval``, ``search`` and
 modules, the search tiers' SQ8, ANN, compact48 and stream modules, and
 the live indexes, the HTTP front ends and the server CLIs, and the
 chat-template families' Qwen2.5-VL, InternVL2.5, tiling and template
-modules included) imports with JAX blocked (and, Qwen's native
+modules, and the training and analysis CLIs with ``data.prep``,
+``eval.statistics`` and ``hostops`` included) imports with JAX blocked (and, Qwen's native
 resolution and InternVL's tiling among them, with Pillow blocked),
 checkpoints convert and load with ``transformers`` and ``safetensors``
 blocked too, and the smoke check refuses to report a result without a
@@ -59,6 +60,9 @@ LIVE = ("index.arena", "index.live", "serving.router", "serving.http",
 CHAT = ("models.qwen_vl", "models.internvl", "data.tiling",
         "models.templates", "models.api", "models.registry",
         "models.convert")
+# training and analysis entry points, and the host helpers
+TRAIN = ("hostops", "cli.train", "cli.prepare_data", "cli.stats",
+         "data.prep", "eval.statistics", "train.trainer")
 
 
 def _env():
@@ -74,7 +78,7 @@ def test_port_and_chip_smoke_import_without_jax():
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 20
     imported = set(proc.stdout.splitlines()[-2].split())
-    missing = {m for m in OFFLINE + HYBRID + TIERS + LIVE + CHAT
+    missing = {m for m in OFFLINE + HYBRID + TIERS + LIVE + CHAT + TRAIN
                if f"mllm_sparse_retrieval_tpu_torch.{m}" not in imported}
     assert missing == set()
 
