@@ -21,9 +21,21 @@ each with its bound and its share of the bf16 peak. Then it makes the
 main path's model from a checkpoint: the full-width, full-depth
 LLaVA-NeXT-Llama3-8B, bf16 weights drawn on the card from a seed, is
 written as a Hugging Face llava_next checkpoint (bf16 safetensors shards
-in the hub's key layout, kept in RAM, an index and ``config.json``),
-converted by ``models.convert.convert_hf_dir`` and loaded by
-``build_model``, every tensor bit-equal to the drawn one. It drives the
+in the hub's key layout, kept in RAM, an index, ``config.json`` and the
+committed Llama-3-layout ``tokenizer.json`` fixture, ``<image>`` at the
+arch's id), converted by ``models.convert.convert_hf_dir`` and loaded by
+``build_model``, every tensor bit-equal to the drawn one and the tokenizer
+read by the port's ``tokenizer.json`` reader. On that converted directory
+the files phase runs the reference's job from real files with no Pillow
+or ``transformers``: the committed JPEG fixtures (the eight served sizes,
+baseline and progressive, 4:2:0 and 4:4:4) decoded by the port's own
+codec to the SHA-256 of Pillow's decode pinned beside them, the reader's
+ids equal to ``transformers``' pinned ids, then ``cli.encode`` of a
+flickr-layout corpus of those JPEGs and PNGs written here (the flash
+kernel), ``cli.index`` and ``cli.search`` (the TAAT kernel, its sparse
+scores equal to the matmul backend's) through their ``main(argv)``, and
+``image_b64`` queries over HTTP equal to the service's in-process results
+on the decoded pixels. It drives the
 port's five paths end to end on that loaded model: text
 queries through ``RetrievalService`` and the 32-layer text tower; image
 queries through anyres preprocessing, the 24-layer ViT-L/14-336 on five
@@ -31,7 +43,7 @@ queries through anyres preprocessing, the 24-layer ViT-L/14-336 on five
 the flash kernel (both paths select terms on the device and score an impact
 index of 25,010 synthetic docs with the TAAT kernel; every served result
 must equal the matmul backend's on the same terms); offline evaluation, a
-flickr-layout CSV of 64 seeded images and 320 captions read by
+flickr-layout CSV of 40 seeded images and 200 captions read by
 ``CrossModalCorpus``, encoded by ``encode_examples`` as documents and as
 queries (the image prompts take the flash kernel), written as artifacts,
 indexed by both impact-index builders (layouts equal) and the dense flat
@@ -79,8 +91,8 @@ prompts whose decoder attention is the flash kernel at G = 7, 28 launches
 per image micro-batch) and Qwen2.5-VL-7B (native-resolution
 preprocessing, the windowed ViT on up to 4,608 padded patches, M-RoPE,
 prompts under 1,024 tokens on plain attention), each with one image
-micro-batch's breakdown; each of the two is then trained for two
-``train_on_batch`` steps (InternVL2.5's 3,584-token prompts through the
+micro-batch's breakdown; each of the two is then trained for one
+``train_on_batch`` step (InternVL2.5's 3,584-token prompts through the
 flash kernels forward and backward, with the flash-vs-plain gradient
 check; Qwen2.5-VL's with M-RoPE ids), and on InternVL2.5 the training and
 analysis entry points run: ``cli.prepare_data`` on a Karpathy JSON,
@@ -174,7 +186,7 @@ GRAD_CHECK_B, GRAD_COS_FLOOR = 2, 0.996
 # batch OFF_BATCH as documents and as queries, searched both ways at depth
 # OFF_DEPTH. Dense scores must lie within OFF_DENSE_TOL of a float64 product
 # of the same f32 vectors (the card sums 4,096 products in f32, TF32 off)
-OFF_IMAGES, OFF_CAPS, OFF_BATCH, OFF_DEPTH = 64, 5, 8, 100
+OFF_IMAGES, OFF_CAPS, OFF_BATCH, OFF_DEPTH = 40, 5, 8, 100
 OFF_KS, OFF_DENSE_TOL, OFF_ALPHA = (1, 5, 10, 100), 1e-5, 0.5
 # hybrid serving: a dense flat index of the impact index's N_DOCS doc ids at
 # the model's dense width (4,096), f32 (and one bf16 pass); per served query
@@ -213,7 +225,7 @@ CKPT_SHARD_BYTES = 5 * 10 ** 9
 # the converter's pickling rate apart from its disk: the f32 tree of the
 # first PICKLE_SPLIT_LAYERS decoder blocks, pickled as convert_hf_dir
 # pickles params.pkl, to /dev/null, to a RAM file and to a disk file
-PICKLE_SPLIT_LAYERS = 4
+PICKLE_SPLIT_LAYERS = 1
 CHECKSUM_CHUNK, CHECKSUM_MOD = 1 << 26, 8191
 # families: LLaVA-1.6-Vicuna-7B (anyres, 32 KV heads: the flash forward at
 # G = 1) and LLaVA-1.5-7B (fixed grid, prompts under FLASH_MIN_SEQ: plain
@@ -253,7 +265,7 @@ CHAT_TRAIN_STEPS, CLI_IMAGES, CLI_PAIRS = 2, 32, 8
 # LIVE_BOOT_TIMEOUT_S
 LIVE_HEADROOM, LIVE_POSTS, LIVE_POST_DOCS, LIVE_PLANT = 8192, 4, 256, 8
 LIVE_REPLACE, LIVE_DELETE, LIVE_GROW_DOCS = 64, 256, 9000
-LIVE_BIG_WEIGHT, LIVE_INGEST, LIVE_TOL, LIVE_FETCH = 40_000, 16, 1e-5, 64
+LIVE_BIG_WEIGHT, LIVE_INGEST, LIVE_TOL, LIVE_FETCH = 40_000, 8, 1e-5, 64
 LIVE_SCRATCH_BYTES, LIVE_BOOT_TIMEOUT_S = 4 * 10 ** 9, 300
 LIVE_PLANT_WEIGHT = 1000        # above every corpus weight (1..349)
 
@@ -453,6 +465,7 @@ def build_kernels():
     from concurrent.futures import ThreadPoolExecutor
 
     from mllm_sparse_retrieval_tpu_torch import hostops
+    from mllm_sparse_retrieval_tpu_torch.data import imageio
     from mllm_sparse_retrieval_tpu_torch.ops import cuda_build
     from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
     from mllm_sparse_retrieval_tpu_torch.ops import impact_kernel as K
@@ -461,7 +474,7 @@ def build_kernels():
 
     sources = (K.SOURCE, FA.SOURCE, FA.BWD_SOURCE)
     t0 = time.monotonic()
-    with ThreadPoolExecutor(len(sources) + 2) as pool:
+    with ThreadPoolExecutor(len(sources) + 3) as pool:
         # the g++ calls run beside the nvcc calls
         def timed(build):
             t = time.monotonic()
@@ -469,12 +482,17 @@ def build_kernels():
 
         gxx = pool.submit(timed, native.build)
         hops = pool.submit(timed, hostops.build)
+        codec = pool.submit(timed, imageio.build)
         results = list(pool.map(
             lambda src: cuda_build.build(src, verbose=True), sources))
         gxx_so, gxx_s = gxx.result()
         hops_so, hops_s = hops.result()
+        codec_so, codec_s = codec.result()
     progress("build", f"index/native/impact_builder.cc: {native.compiler()} "
              f"{' '.join(native.CXX_FLAGS)} {gxx_s:.2f}s -> {gxx_so.name}")
+    progress("build", f"data/native/imagecodec.cc: {imageio.compiler()} "
+             f"{' '.join(imageio.CXX_FLAGS)} {codec_s:.2f}s -> "
+             f"{codec_so.name}")
     loaded = hostops.get()
     if loaded.path != hops_so or sorted(hostops.FUNCTIONS) != sorted(
             n for n in dir(loaded.ext) if not n.startswith("_")):
@@ -496,7 +514,8 @@ def build_kernels():
                                  f"instructions; the flash kernels run on "
                                  f"wgmma only")
     progress("build", f"all {len(sources)} CUDA sources, the index "
-             f"builder and hostops in {time.monotonic() - t0:.2f}s")
+             f"builder, hostops and the image codec in "
+             f"{time.monotonic() - t0:.2f}s")
 
 
 def admissible_pairs(mask) -> int:
@@ -1209,7 +1228,8 @@ def phase_train(params, arch, tok, tmpl, lexicon, rng, seq):
             box = {}
             busy, n_kernels, _, names = profiled(
                 lambda: box.update(loss=trainer.train_on_batch(batch)),
-                by_name=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+                by_name=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                stages=())
             loss = box["loss"]
         else:
             loss = trainer.train_on_batch(batch)
@@ -3577,14 +3597,532 @@ def pickle_split(hf_dir, tmp):
     return gb, times
 
 
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data", "torch_port")
+
+
+def write_fixture_tokenizer(out_dir):
+    """The committed Llama-3-layout tokenizer files into ``out_dir``
+    (``tokenizer.json`` from its xz copy); returns the file names."""
+    import lzma
+    import shutil
+
+    src = os.path.join(FIXTURES, "llama3_tokenizer")
+    names = []
+    for name in sorted(os.listdir(src)):
+        if name.endswith(".xz"):
+            with open(os.path.join(src, name), "rb") as f:
+                raw = lzma.decompress(f.read())
+            name = name[:-3]
+            with open(os.path.join(out_dir, name), "wb") as f:
+                f.write(raw)
+        else:
+            shutil.copyfile(os.path.join(src, name),
+                            os.path.join(out_dir, name))
+        names.append(name)
+    return names
+
+
+def png_file(pixels, interlace=False, alpha=False):
+    """An 8-bit RGB (or RGBA, alpha 255) PNG of uint8 ``pixels`` written
+    with zlib: rows filtered None / Sub / Up / Average / Paeth in turn,
+    Adam7 passes when ``interlace``."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    if alpha:
+        pixels = np.concatenate(
+            [pixels, np.full(pixels.shape[:2] + (1,), 255, np.uint8)], -1)
+    h, w, c = pixels.shape
+
+    def filtered(img):
+        rows = img.reshape(img.shape[0], -1).astype(np.int32)
+        prev = np.vstack([np.zeros_like(rows[:1]), rows[:-1]])
+        a = np.hstack([np.zeros_like(rows[:, :c]), rows[:, :-c]])
+        cc = np.hstack([np.zeros_like(prev[:, :c]), prev[:, :-c]])
+        p = a + prev - cc
+        pa, pb, pc = np.abs(p - a), np.abs(p - prev), np.abs(p - cc)
+        paeth = np.where((pa <= pb) & (pa <= pc), a,
+                         np.where(pb <= pc, prev, cc))
+        preds = [0, a, prev, (a + prev) // 2, paeth]
+        out = []
+        for y in range(rows.shape[0]):
+            ft = y % 5
+            pred = preds[ft] if ft == 0 else preds[ft][y]
+            out.append(bytes([ft]) + ((rows[y] - pred) & 255).astype(
+                np.uint8).tobytes())
+        return b"".join(out)
+
+    if interlace:
+        raw = b"".join(
+            filtered(pixels[y0::dy, x0::dx])
+            for x0, y0, dx, dy in ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8),
+                                   (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+                                   (0, 1, 1, 2))
+            if pixels[y0::dy, x0::dx].size)
+    else:
+        raw = filtered(pixels)
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
+                                         6 if alpha else 2, 0, 0,
+                                         int(interlace)))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def files_check():
+    """Every committed JPEG fixture decoded by the port's codec (built by
+    this machine's g++) against the SHA-256 of Pillow's decode pinned
+    beside it; the decode time of the 640 x 480 files (median of 20).
+    Returns ({name: pixels}, {kind: ms})."""
+    import hashlib
+
+    import numpy as np
+
+    from mllm_sparse_retrieval_tpu_torch.data import imageio
+
+    t0 = time.monotonic()
+    so = imageio.build()
+    build_s = time.monotonic() - t0
+    with open(os.path.join(FIXTURES, "images.json")) as f:
+        meta = json.load(f)
+    pixels, bad = {}, []
+    for name, want in sorted(meta["files"].items()):
+        img = imageio.load_rgb(os.path.join(FIXTURES, "jpeg", name))
+        if (list(img.shape) != want["shape"] or hashlib.sha256(
+                img.tobytes()).hexdigest() != want["sha256"]):
+            bad.append(name)
+        pixels[name] = img
+    if bad:
+        raise AssertionError(f"decodes differ from Pillow's pinned hashes: "
+                             f"{bad}")
+    decode_ms = {}
+    for kind in ("baseline", "progressive"):
+        with open(os.path.join(FIXTURES, "jpeg", f"480x640_{kind}.jpg"),
+                  "rb") as f:
+            data = f.read()
+        times = []
+        for _ in range(20):
+            t = time.perf_counter()
+            imageio.decode_image_bytes(data)
+            times.append(time.perf_counter() - t)
+        decode_ms[kind] = float(np.median(times)) * 1e3
+    progress("files", f"image codec: {imageio.compiler()} "
+             f"{' '.join(imageio.CXX_FLAGS)} {build_s:.2f} s -> {so.name}; "
+             f"all {len(pixels)} JPEG fixtures (Pillow "
+             f"{meta['pillow']}, libjpeg-turbo {meta['libjpeg_turbo']}) "
+             f"decode to their pinned SHA-256; 640 x 480 4:2:0 decode "
+             f"{decode_ms['baseline']:.3f} ms baseline, "
+             f"{decode_ms['progressive']:.3f} ms progressive (median of 20)")
+    return pixels, decode_ms
+
+
+def tokenizer_check(tok, ckpt_dir):
+    """The reader's ids of the pinned texts equal ``transformers``' pinned
+    ids, and its vocabulary and pad id; returns captions/s of a fresh
+    reader of ``ckpt_dir`` over 2,000 distinct seeded captions."""
+    import numpy as np
+
+    from mllm_sparse_retrieval_tpu_torch.models.hf_tokenizer import (
+        HFJsonTokenizer)
+
+    with open(os.path.join(FIXTURES, "ids.json")) as f:
+        pinned = json.load(f)
+    bad = [t for t, with_sp, without in pinned["texts"]
+           if tok.encode(t) != with_sp
+           or tok.encode(t, add_special_tokens=False) != without]
+    if bad or tok.vocab_size != pinned["vocab_size"] or \
+            tok.pad_id != pinned["pad_id"]:
+        raise AssertionError(f"tokenizer.json reader: {len(bad)} texts "
+                             f"differ from the pinned ids ({bad[:2]}), "
+                             f"vocab {tok.vocab_size}, pad {tok.pad_id}")
+    words = sorted({w for t, _, _ in pinned["texts"][:24] for w in t.split()})
+    rng = np.random.default_rng(SEED + 9)
+    caps = [" ".join(rng.choice(words, int(rng.integers(8, 15))))
+            + f" {i}" for i in range(2000)]
+    t0 = time.perf_counter()
+    fresh = HFJsonTokenizer.from_dir(ckpt_dir)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for c in caps:
+        fresh.encode(c)
+    rate = len(caps) / (time.perf_counter() - t0)
+    progress("files", f"tokenizer.json reader: {len(pinned['texts'])} "
+             f"pinned texts give transformers' ids with and without "
+             f"specials, vocab {tok.vocab_size}, pad id {tok.pad_id}, "
+             f"<image> {tok.get_vocab()['<image>']}; a fresh reader loads in "
+             f"{load_s:.2f} s and encodes {rate:.0f} captions/s on this "
+             f"host ({len(caps)} distinct captions)")
+    return rate
+
+
+def same_terms_up_to_cut(got, want):
+    """Two ``{token: integer weight}`` rows are the same selection: equal,
+    or equal above their lowest weight with as many terms at it (logits
+    tied at the top-k cut may be taken either way, ROADMAP's rule)."""
+    if got == want:
+        return True
+    if not got or not want or len(got) != len(want):
+        return False
+    cut = min(min(got.values()), min(want.values()))
+    return ({t: w for t, w in got.items() if w > cut}
+            == {t: w for t, w in want.items() if w > cut}
+            and min(got.values()) == min(want.values()) == cut)
+
+
+def rate_from_files(pixels, tmp, params, arch, tok, tmpl, sparse_cfg):
+    """The offline phase's workload, OFF_IMAGES images cycling through the
+    eight IMAGE_SIZES in batches of OFF_BATCH, as the committed JPEG
+    fixtures of those sizes copied to files: their host decoding (the
+    default loader, one thread), then ``encode_examples`` of the same
+    examples from memory (the loader's arrays) and from the files (the
+    default loader on the prefetch thread), one after the other on the
+    warm model; the two outputs must be equal. Returns ({"memory",
+    "files": images/s}, host decode ms per batch)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from mllm_sparse_retrieval_tpu_torch.data.karpathy import Example
+    from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
+    from mllm_sparse_retrieval_tpu_torch.pipelines.encode import (
+        default_raw_image_loader, encode_examples)
+
+    rate_dir = os.path.join(tmp, "rate")
+    os.makedirs(rate_dir)
+    examples = []
+    for i in range(OFF_IMAGES):
+        h, w = IMAGE_SIZES[i % len(IMAGE_SIZES)]
+        path = os.path.join(rate_dir, f"{i}.jpg")
+        shutil.copyfile(os.path.join(FIXTURES, "jpeg", f"{h}x{w}.jpg"), path)
+        examples.append(Example(text="", image_path=path, text_id=str(i),
+                                img_id=str(i)))
+    loader = default_raw_image_loader()
+    t0 = time.perf_counter()
+    in_memory = {ex.img_id: loader(ex) for ex in examples}
+    decode_batch_ms = (time.perf_counter() - t0) * 1e3 * OFF_BATCH \
+        / len(examples)
+    for ex in examples:
+        h, w = in_memory[ex.img_id].shape[:2]
+        if not np.array_equal(in_memory[ex.img_id],
+                              pixels[f"{h}x{w}.jpg"] / np.float32(255)):
+            raise AssertionError(f"{ex.image_path}: the loader's pixels "
+                                 f"differ from the fixture's decode")
+    rates, out = {}, {}
+    for label, pixel_loader in (("memory", lambda ex: in_memory[ex.img_id]),
+                                ("files", None)):
+        f0 = FA.launch_count()
+        t0 = time.monotonic()
+        out[label] = encode_examples(
+            examples, params, arch, tok, tmpl, encode_type="image",
+            sparse_cfg=sparse_cfg, batch_size=OFF_BATCH,
+            pixel_loader=pixel_loader, device=DEVICE)
+        torch.cuda.synchronize()
+        rates[label] = len(examples) / (time.monotonic() - t0)
+        want = arch.text.num_layers * -(-len(examples) // OFF_BATCH)
+        if FA.launch_count() - f0 != want:
+            raise AssertionError(f"encode from {label}: "
+                                 f"{FA.launch_count() - f0} flash launches, "
+                                 f"expected {want}")
+    mem, files = out["memory"], out["files"]
+    if mem.ids != files.ids or not np.array_equal(mem.dense, files.dense) \
+            or mem.sparse_vectors != files.sparse_vectors:
+        raise AssertionError("encode_examples from files differs from the "
+                             "same pixels in memory")
+    progress("files", f"{len(examples)} JPEG files (the offline phase's "
+             f"{len(IMAGE_SIZES)} sizes in turn, batches of {OFF_BATCH}): "
+             f"host decode {decode_batch_ms:.1f} ms per batch (default "
+             f"loader, one thread); encode_examples from memory "
+             f"{rates['memory']:.3f} images/s, from the files "
+             f"{rates['files']:.3f} images/s (decoding on the prefetch "
+             f"thread), outputs equal")
+    return rates, decode_batch_ms
+
+
+def phase_files(ckpt_dir, params, arch, tok, tmpl, card):
+    """Real files on the card: the JPEG fixtures decoded to Pillow's pinned
+    hashes, the checkpoint's ``tokenizer.json`` read to ``transformers``'
+    pinned ids, then on the converted LLaVA-NeXT-Llama3-8B directory
+    ``cli.encode`` of a flickr-layout corpus of the JPEG files and PNGs
+    written here (the flash forward), ``cli.index`` and ``cli.search``
+    (the image files as queries: the flash forward, then the TAAT kernel,
+    whose sparse scores equal the matmul backend's on the same encoded
+    queries), the host term selection held to ``cli.encode``'s rows, the
+    offline workload from files and from memory (``rate_from_files``),
+    and, after one untimed query, two ``image_b64`` queries over HTTP
+    whose results equal ``RetrievalService.search(image=...)`` in process
+    on the decoded pixels. Returns the phase's TAAT and flash launches."""
+    import base64
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mllm_sparse_retrieval_tpu_torch.cli import encode as cli_encode
+    from mllm_sparse_retrieval_tpu_torch.cli import index as cli_index
+    from mllm_sparse_retrieval_tpu_torch.cli import search as cli_search
+    from mllm_sparse_retrieval_tpu_torch.cli import serve as serve_cli
+    from mllm_sparse_retrieval_tpu_torch.cli.ingest import _post
+    from mllm_sparse_retrieval_tpu_torch.configs import SparseConfig
+    from mllm_sparse_retrieval_tpu_torch.data import CrossModalCorpus
+    from mllm_sparse_retrieval_tpu_torch.data.imageio import (
+        decode_image_bytes, load_rgb)
+    from mllm_sparse_retrieval_tpu_torch.index import ImpactIndex
+    from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
+    from mllm_sparse_retrieval_tpu_torch.ops import impact_kernel as K
+    from mllm_sparse_retrieval_tpu_torch.pipelines.encode import (
+        encode_examples)
+    from mllm_sparse_retrieval_tpu_torch.serving import OnlineQueryEncoder
+    from mllm_sparse_retrieval_tpu_torch.sparse import canonical_id_map
+
+    t_phase = time.monotonic()
+    FA.reset_launch_count()
+    K.reset_launch_count()
+    pixels, decode_ms = files_check()
+    tok_rate = tokenizer_check(tok, ckpt_dir)
+    with open(os.path.join(FIXTURES, "ids.json")) as f:
+        words = sorted({w for t, _, _ in json.load(f)["texts"][:24]
+                        for w in t.split()})
+    rng = np.random.default_rng(SEED + 8)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "data")
+        img_dir = os.path.join(root, "flickr", "flickr30k-images")
+        os.makedirs(img_dir)
+        sized = sorted(n for n in pixels if not n.startswith("480x640_"))
+        names = sized[4:]               # four JPEG files as they are
+        for name in names:
+            with open(os.path.join(FIXTURES, "jpeg", name), "rb") as f:
+                data = f.read()
+            with open(os.path.join(img_dir, name), "wb") as f:
+                f.write(data)
+        # PNGs written here from the other four decoded fixtures: RGB and
+        # RGBA, plain and Adam7; each must decode back to its pixels
+        for i, name in enumerate(sized[:4]):
+            data = png_file(pixels[name], interlace=i % 2 == 1,
+                            alpha=i >= 2)
+            if not np.array_equal(decode_image_bytes(data), pixels[name]):
+                raise AssertionError(f"PNG of {name} ({i}) does not decode "
+                                     f"to its pixels")
+            png = name.replace(".jpg", f"_{'adam7' if i % 2 else 'plain'}"
+                               f"_{'rgba' if i >= 2 else 'rgb'}.png")
+            with open(os.path.join(img_dir, png), "wb") as f:
+                f.write(data)
+            names.append(png)
+        lines = ["imgid,filename,caption,sentid"]
+        for i, name in enumerate(names):
+            for c in range(2):
+                cap = " ".join(rng.choice(words, int(rng.integers(6, 12))))
+                lines.append(f"{i},{name},{cap},{2 * i + c}")
+        with open(os.path.join(root, "flickr", "flickr_test.csv"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        common = ["--dataset", "flickr", "--data-root", root, "--family",
+                  "llava_next_llama3", "--checkpoint-path", ckpt_dir,
+                  "--dtype", "bfloat16", "--batch-size", str(OFF_BATCH),
+                  "--device", DEVICE]
+
+        # ---- cli.encode: the image files as documents ----------------------
+        spans = {}
+        real_encode = cli_encode.encode_examples
+
+        def timed_encode(*a, **k):
+            t = time.monotonic()
+            out = real_encode(*a, **k)
+            torch.cuda.synchronize()
+            spans["encode"] = time.monotonic() - t
+            return out
+
+        out = io.StringIO()
+        cli_encode.encode_examples = timed_encode
+        t0 = time.monotonic()
+        try:
+            with contextlib.redirect_stdout(out):
+                cli_encode.main(common + [
+                    "--encode-type", "image",
+                    "--dense-output-dir", os.path.join(tmp, "dense"),
+                    "--sparse-output-dir", os.path.join(tmp, "sparse")])
+        finally:
+            cli_encode.encode_examples = real_encode
+        encode_main_s = time.monotonic() - t0
+        dense_dir, sparse_dir = out.getvalue().split()[-2:]
+        gc.collect()            # the CLI's own copy of the weights
+        torch.cuda.empty_cache()
+        enc_flash = FA.launch_count()
+        n_batches = -(-len(names) // OFF_BATCH)
+        if enc_flash != arch.text.num_layers * n_batches:
+            raise AssertionError(f"cli.encode: {enc_flash} flash launches "
+                                 f"for {n_batches} image batches")
+        with open(os.path.join(sparse_dir, "corpus_0.jsonl")) as f:
+            docs = [json.loads(ln) for ln in f]
+        if [d["id"] for d in docs] != [str(i) for i in range(len(names))] \
+                or not all(d["vector"] for d in docs):
+            raise AssertionError("cli.encode's corpus jsonl misses images")
+        progress("files", f"cli.encode main() on {ckpt_dir} (the converted "
+                 f"checkpoint with its tokenizer.json): {len(names)} image "
+                 f"files (4 JPEG, 4 PNG) in "
+                 f"{encode_main_s:.2f} s with the checkpoint load, "
+                 f"encode_examples {spans['encode']:.2f} s (one cold batch "
+                 f"of a freshly loaded model: not a rate); {enc_flash} "
+                 f"flash launches ({n_batches} batches); card {card}")
+
+        # ---- cli.index, cli.search (TAAT) ----------------------------------
+        idx_dir = os.path.join(tmp, "idx")
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli_index.main(["--input", sparse_dir, "--index", idx_dir,
+                            "--device", DEVICE])
+        recorded = []
+        real_search = ImpactIndex.search_encoded
+
+        def recording_search(self, q_idx, q_w, depth, *a, **k):
+            res = real_search(self, q_idx, q_w, depth, *a, **k)
+            recorded.append((self, q_idx, q_w, depth, res))
+            return res
+
+        out = io.StringIO()
+        taat0, flash0 = K.launch_count(), FA.launch_count()
+        ImpactIndex.search_encoded = recording_search
+        t0 = time.monotonic()
+        try:
+            with contextlib.redirect_stdout(out):
+                cli_search.main(common + [
+                    "--query-type", "image", "--passage-reps", dense_dir,
+                    "--sparse-index", idx_dir, "--depth", str(DEPTH),
+                    "--impact-backend", "taat", "--save-dir",
+                    os.path.join(tmp, "runs")])
+        finally:
+            ImpactIndex.search_encoded = real_search
+        search_main_s = time.monotonic() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        search_taat = K.launch_count() - taat0
+        search_flash = FA.launch_count() - flash0
+        if search_taat < 1 or len(recorded) != 1 or \
+                search_flash != arch.text.num_layers * n_batches:
+            raise AssertionError(f"cli.search: {search_taat} TAAT and "
+                                 f"{search_flash} flash launches, "
+                                 f"{len(recorded)} sparse searches")
+        index, q_idx, q_w, depth, (s_scores, s_ids) = recorded[0]
+        ref_s, ref_i = index.search_encoded(q_idx, q_w, depth,
+                                            backend="matmul")
+        for q, (s_row, i_row, rs, ri) in enumerate(zip(
+                s_scores, s_ids, ref_s, ref_i)):
+            if not same_up_to_ties(list(zip(i_row, s_row)),
+                                   list(zip(ri, rs))):
+                raise AssertionError(f"cli.search query {q}: taat "
+                                     f"{list(zip(i_row, s_row))} != matmul "
+                                     f"{list(zip(ri, rs))}")
+        with open(os.path.join(tmp, "runs", "sparse.trec")) as f:
+            n_trec = sum(1 for _ in f)
+        if n_trec < len(names):
+            raise AssertionError(f"cli.search's sparse run has {n_trec} "
+                                 f"lines for {len(names)} queries")
+        progress("files", f"cli.index and cli.search main() "
+                 f"({search_main_s:.2f} s with the checkpoint load): the "
+                 f"{len(s_scores)} image files as queries (a random model "
+                 f"selects no caption's terms for an image), {search_flash} "
+                 f"flash and {search_taat} TAAT launches, every sparse score "
+                 f"equal to the matmul backend's on the same encoded "
+                 f"queries; {n_trec} sparse run lines")
+
+        # ---- image_b64 over HTTP against the service in process ----------
+        corpus = CrossModalCorpus("flickr", "test", root)
+        sparse_cfg = SparseConfig()
+        res = encode_examples(
+            corpus.examples("single"), params, arch, tok, tmpl,
+            encode_type="image", sparse_cfg=sparse_cfg,
+            batch_size=OFF_BATCH, device_select=False, device=DEVICE)
+        host_rows = dict(zip(res.ids, res.sparse_vectors))
+        for d in docs:
+            if not same_terms_up_to_cut(host_rows.get(d["id"], {}),
+                                        d["vector"]):
+                raise AssertionError(
+                    f"image {d['id']}: host-route terms "
+                    f"{sorted(host_rows.get(d['id'], {}).items())} != "
+                    f"cli.encode's device-route terms "
+                    f"{sorted(d['vector'].items())}")
+        progress("files", f"encode_examples(device_select=False) of the "
+                 f"{len(res.ids)} files: the full [B, "
+                 f"{tok.vocab_size}] logits selected on the host give "
+                 f"cli.encode's device-route terms and integer weights for "
+                 f"every image (ties at the cut as sets)")
+        rates, decode_batch_ms = rate_from_files(pixels, tmp, params, arch,
+                                                 tok, tmpl, sparse_cfg)
+
+        served_index = ImpactIndex.from_selected_terms(
+            res.ids, res.selected_terms,
+            canonical_map=canonical_id_map(tok.get_vocab(), True),
+            device=DEVICE)
+        enc = OnlineQueryEncoder(params, arch, tok, tmpl, sparse_cfg,
+                                 device=DEVICE)
+        args = serve_cli.build_parser().parse_args(
+            ["--impact-backend", "taat", "--max-batch", str(MAX_BATCH),
+             "--depths", str(DEPTH), "--max-wait-ms", "10", "--port", "0",
+             "--http-impl", "aio", "--device", DEVICE])
+        svc, server = serve_cli.boot(args, enc, indexes=(None, served_index))
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = "http://%s:%d" % server.server_address[:2]
+        http_ms = []
+        try:
+            with open(os.path.join(img_dir, names[1]), "rb") as f:
+                _post(base, "/search", {"queries": [{"image_b64": base64.
+                      b64encode(f.read()).decode(), "depth": DEPTH}]})
+            for name in (names[0], names[-1]):      # a JPEG and a PNG
+                with open(os.path.join(img_dir, name), "rb") as f:
+                    b64 = base64.b64encode(f.read()).decode()
+                t0 = time.monotonic()
+                got = _post(base, "/search", {"queries": [
+                    {"image_b64": b64, "depth": DEPTH}]})["results"][0]
+                http_ms.append((time.monotonic() - t0) * 1e3)
+                want = svc.search(
+                    image=load_rgb(os.path.join(img_dir, name)).astype(
+                        np.float32) / 255.0, depth=DEPTH,
+                    timeout=IMAGE_REQUEST_TIMEOUT_S)
+                if [(d, float(s)) for d, s in got] != \
+                        [(d, float(s)) for d, s in want] or not got:
+                    raise AssertionError(f"image_b64 {name} over HTTP: "
+                                         f"{got} != in process {want}")
+        finally:
+            server.shutdown()
+            server.server_close()
+            svc.close()
+            thread.join(timeout=60)
+    taat, flash = K.launch_count(), FA.launch_count()
+    progress("files", f"the host route's terms -> an id-keyed index; after "
+             f"one untimed image_b64 query, 2 over HTTP (a JPEG, a PNG; "
+             f"{', '.join(f'{m:.1f}' for m in http_ms)} ms) equal "
+             f"RetrievalService.search(image=decoded pixels) in process; "
+             f"phase TAAT launches {taat}, flash launches {flash}; decode "
+             f"{decode_ms['baseline']:.3f} / {decode_ms['progressive']:.3f} "
+             f"ms per 640 x 480 JPEG (baseline / progressive), "
+             f"{decode_batch_ms:.1f} ms of host decoding per batch of "
+             f"{OFF_BATCH}; encode_examples of {OFF_IMAGES} JPEG files "
+             f"{rates['files']:.3f} images/s, of their pixels in memory "
+             f"{rates['memory']:.3f}; tokenizer {tok_rate:.0f} captions/s "
+             f"(the 276-merge fixture, not Llama 3's); phase "
+             f"{time.monotonic() - t_phase:.2f} s; card {card}")
+    return taat, flash
+
+
 def phase_checkpoint(spec, card):
     """The main path's model from a checkpoint: LLaVA-NeXT-Llama3-8B drawn
     at full width and depth on the card (bf16), written as an HF llava_next
-    checkpoint (its shards in RAM, ``ram_file``; the f32 ``params.pkl`` on
-    disk), converted by ``convert_hf_dir`` and loaded by
-    ``build_model``; every loaded tensor equal to its drawn one bit for
-    bit and the manifest's arch equal to the registry's. Returns
-    ``(params, arch)``, the loaded tree."""
+    checkpoint with the committed Llama-3-layout tokenizer files (its
+    shards in RAM, ``ram_file``; the f32 ``params.pkl`` on disk), converted
+    by ``convert_hf_dir`` and loaded by ``build_model``; every loaded
+    tensor equal to its drawn one bit for bit, the manifest's arch equal to
+    the registry's, the tokenizer read from its ``tokenizer.json``. Then,
+    before the converted directory goes, ``phase_files`` on it. Returns
+    ``(params, arch, files)``: the loaded tree and ``phase_files``'
+    result."""
     import resource
     import shutil
     import tempfile
@@ -3595,6 +4133,8 @@ def phase_checkpoint(spec, card):
     from mllm_sparse_retrieval_tpu_torch.models import build_model, mllm
     from mllm_sparse_retrieval_tpu_torch.models.convert import (
         arch_from_hf_config, convert_hf_dir)
+    from mllm_sparse_retrieval_tpu_torch.models.hf_tokenizer import (
+        HFJsonTokenizer)
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     drawn = mllm.init_params(spec.arch, gen, DEVICE, torch.bfloat16)
@@ -3613,6 +4153,7 @@ def phase_checkpoint(spec, card):
         n_tensors = len(tensors)
         written, shards = write_hf_checkpoint(tensors, config, hf_dir,
                                               ram_file)
+        tok_files = write_fixture_tokenizer(hf_dir)
         write_s = time.monotonic() - t0
         del tensors, drawn
         torch.cuda.empty_cache()
@@ -3620,7 +4161,8 @@ def phase_checkpoint(spec, card):
                  f"{spec.hf_repo} at full width: {n_tensors} bf16 tensors "
                  f"written from the card as {len(shards)} safetensors "
                  f"shards (in RAM, linked by name), {written / 1e9:.3f} GB "
-                 f"in {write_s:.2f} s")
+                 f"in {write_s:.2f} s, and the tokenizer files "
+                 f"{', '.join(tok_files)}")
         t0 = time.monotonic()
         convert_hf_dir(hf_dir, out_dir)
         convert_s = time.monotonic() - t0
@@ -3637,11 +4179,15 @@ def phase_checkpoint(spec, card):
         t0 = time.monotonic()
         for f in shards:
             f.close()
-        params, arch, tok, _ = build_model(ModelConfig(
+        params, arch, tok, tmpl = build_model(ModelConfig(
             family=spec.family, checkpoint_path=out_dir, dtype="bfloat16"),
             device=DEVICE)
         torch.cuda.synchronize()
         load_s = time.monotonic() - t0
+        if not isinstance(tok, HFJsonTokenizer) or \
+                tok.get_vocab().get("<image>") != spec.arch.image_token_id:
+            raise AssertionError(f"the checkpoint's tokenizer: {tok}")
+        files = phase_files(out_dir, params, arch, tok, tmpl, card)
     finally:
         for f in shards:
             f.close()
@@ -3650,10 +4196,10 @@ def phase_checkpoint(spec, card):
     got = checksums(params)
     bad = sorted(str(p) for p in set(want) | set(got)
                  if want.get(p) != got.get(p))
-    if bad or arch != spec.arch or tok is not None:
+    if bad or arch != spec.arch:
         raise AssertionError(f"loaded checkpoint: {len(bad)} tensors differ "
                              f"from the drawn ones ({bad[:4]}), arch equal "
-                             f"{arch == spec.arch}, tokenizer {tok}")
+                             f"{arch == spec.arch}")
     progress("checkpoint", f"write {write_s:.2f} s, convert_hf_dir "
              f"{convert_s:.2f} s; build_model / load_converted {load_s:.2f} s "
              f"({pkl_bytes / 1e9 / load_s:.3f} GB/s of params.pkl); host "
@@ -3661,7 +4207,7 @@ def phase_checkpoint(spec, card):
              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB; all "
              f"{len(got)} loaded tensors equal the drawn ones bit for bit, "
              f"arch equal to the registry's; card {card}")
-    return params, arch
+    return params, arch, files
 
 
 def phase_families(tok, tmpl, lexicon, index, cmap, card):
@@ -4240,8 +4786,14 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     card = smi()
+    try:
+        import jinja2
+        jinja = jinja2.__version__
+    except ImportError:
+        jinja = "not installed"
     progress("device", f"{kind} x{count}; nvidia-smi: {card}; torch "
-             f"{torch.__version__} cuda {torch.version.cuda}")
+             f"{torch.__version__} cuda {torch.version.cuda}; jinja2 "
+             f"{jinja}")
 
     # ---- 1. build --------------------------------------------------------
     build_kernels()
@@ -4304,7 +4856,7 @@ def main() -> int:
                                     *INTERNVL_HEADS)
 
     # ---- 4. the model, from a checkpoint, and the index -----------------------
-    params, arch = phase_checkpoint(spec, card)
+    params, arch, (files_taat, files_flash) = phase_checkpoint(spec, card)
     t, v = arch.text, arch.vision
     vis = param_count(params) - param_count(params["text"])
     progress("slice", f"LLaVA-NeXT-Llama3-8B: {param_count(params['text']):,}"
@@ -4516,8 +5068,8 @@ def main() -> int:
         dict(name="taat_impact", route="cuda",
              source="mllm_sparse_retrieval_tpu_torch/csrc/taat.cu",
              replaces="mllm_sparse_retrieval_tpu/ops/impact_kernel.py:115",
-             launches=text_taat + img_taat + hyb_taat + tier_taat
-             + live_taat + off_taat + fam_taat + chat_taat,
+             launches=files_taat + text_taat + img_taat + hyb_taat
+             + tier_taat + live_taat + off_taat + fam_taat + chat_taat,
              max_abs_err=max_err,
              ms=served["ms"], plain_ms=served["plain_ms"],
              bound_ms=served["bound_ms"], bound_by=served["bound_by"],
@@ -4525,9 +5077,9 @@ def main() -> int:
         dict(name="flash_attention_fwd", route="cuda",
              source="mllm_sparse_retrieval_tpu_torch/csrc/flash_attn.cu",
              replaces="mllm_sparse_retrieval_tpu/models/layers.py:199",
-             launches=text_flash + img_flash + hyb_flash + live_flash
-             + off_flash + train_launches["fwd"] + fam_flash + chat_flash
-             + chat_train["fwd"] + stats_flash,
+             launches=files_flash + text_flash + img_flash + hyb_flash
+             + live_flash + off_flash + train_launches["fwd"] + fam_flash
+             + chat_flash + chat_train["fwd"] + stats_flash,
              **flash,
              at_g7=dict(shape=f"B={FLASH_B} T={internvl_seq} Hq/Hkv="
                         f"{INTERNVL_HEADS[0]}/{INTERNVL_HEADS[1]}",

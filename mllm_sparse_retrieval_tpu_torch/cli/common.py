@@ -14,7 +14,7 @@ from typing import Optional
 import torch
 
 from mllm_sparse_retrieval_tpu_torch.configs import (
-    ModelConfig, ModelFamily, SparseConfig)
+    ModelConfig, ModelFamily, RepsLoc, SparseConfig)
 from mllm_sparse_retrieval_tpu_torch.data.karpathy import CrossModalCorpus
 from mllm_sparse_retrieval_tpu_torch.models import build_model
 from mllm_sparse_retrieval_tpu_torch.models.lora import load_lora
@@ -95,28 +95,33 @@ def sparse_config_from_args(args) -> SparseConfig:
 
 
 def model_config_from_args(args) -> ModelConfig:
+    """The model's config from the arguments, as the JAX CLIs build it:
+    ``build_everything`` loads the adapter from its ``lora_path``, and
+    ``config_to_json`` writes both restored fields into a pipeline JSON."""
     return ModelConfig(family=ModelFamily(args.family),
-                       checkpoint_path=args.checkpoint_path, dtype=args.dtype)
+                       checkpoint_path=args.checkpoint_path,
+                       lora_path=args.lora_path,
+                       reps_loc=RepsLoc(args.reps_loc), dtype=args.dtype)
 
 
 def build_everything(args):
     """``(corpus, params, arch, tokenizer, template, lora)`` on
     ``args.device``. Raises ``NotImplementedError`` for ``--mesh`` and for
-    a checkpoint whose tokenizer cannot be loaded here."""
+    a checkpoint without a tokenizer the port can read (its
+    ``tokenizer.json``)."""
     if args.mesh:
         raise NotImplementedError(
             "--mesh: sharding is not ported (ROADMAP Queue 1 #9)")
     corpus = CrossModalCorpus(args.dataset, args.split, args.data_root)
+    cfg = model_config_from_args(args)
     params, arch, tok, template = build_model(
-        model_config_from_args(args),
-        captions=list(corpus.text_dict.values()), device=args.device)
+        cfg, captions=list(corpus.text_dict.values()), device=args.device)
     if tok is None:
         raise NotImplementedError(
             f"{args.checkpoint_path} has no tokenizer the port can load: it "
-            f"needs the checkpoint's tokenizer files and transformers (a "
-            f"tokenizer.json reader of its own is ROADMAP Queue 1 #8b)")
-    lora = load_lora(args.lora_path, args.device) if args.lora_path \
-        else None
+            f"needs the checkpoint's tokenizer.json (a sentencepiece "
+            f"tokenizer.model alone is ROADMAP Queue 1 #8c)")
+    lora = load_lora(cfg.lora_path, args.device) if cfg.lora_path else None
     return corpus, params, arch, tok, template, lora
 
 

@@ -53,7 +53,9 @@ def main(argv=None):
             is_query=args.query, lora=lora, device=args.device)
 
     timer.phase("write")
-    model_name = args.family
+    # the artifact tree names a checkpoint by its directory, as in JAX
+    model_name = args.family if not args.checkpoint_path else \
+        args.checkpoint_path.strip("/").split("/")[-1]
     is_lora = args.lora_path is not None
     dense_dir = artifact_dir(args.dense_output_dir, model_name, args.dataset,
                              args.encode_type, sparse_cfg, lora=is_lora)

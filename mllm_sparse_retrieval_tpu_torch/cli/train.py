@@ -114,8 +114,9 @@ def run(args, model=None):
     params, arch, tok, template = model
     if tok is None:
         raise NotImplementedError(
-            f"{args.checkpoint_path} has no tokenizer the port can load "
-            f"(a tokenizer.json reader of its own is ROADMAP Queue 1 #8b)")
+            f"{args.checkpoint_path} has no tokenizer the port can load: it "
+            f"needs the checkpoint's tokenizer.json (a sentencepiece "
+            f"tokenizer.model alone is ROADMAP Queue 1 #8c)")
     examples = corpus.examples_single()   # one caption per image
 
     total_steps = ContrastiveTrainer.total_train_steps(

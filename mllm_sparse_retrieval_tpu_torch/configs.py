@@ -1,10 +1,15 @@
-"""Configuration dataclasses the port reads (a copy of the JAX package's
-``configs.py``, cut to the classes the ported paths use)."""
+"""Configuration dataclasses (a copy of the JAX package's ``configs.py``).
+
+``config_to_json`` / ``pipeline_config_from_json`` write and read the same
+JSON as the JAX package's, so a pipeline config moves between the two
+packages either way without loss."""
 
 from __future__ import annotations
 
+import dataclasses
 import enum
-from dataclasses import dataclass
+import json
+from dataclasses import dataclass, field
 from typing import Optional
 
 
@@ -59,6 +64,8 @@ class ModelConfig:
 
     family: ModelFamily = ModelFamily.TINY_DEBUG
     checkpoint_path: Optional[str] = None  # converted checkpoint to load
+    lora_path: Optional[str] = None        # LoRA adapter the CLIs load
+    reps_loc: RepsLoc = RepsLoc.BEFORE_PAD
     dtype: str = "bfloat16"                # compute dtype on the card
     # tiny-debug architecture knobs (real families carry their own
     # architecture in models/registry.py)
@@ -132,3 +139,74 @@ class TrainConfig:
     remat: bool = False                   # gradient-checkpoint decoder blocks
     output_dir: str = "./output"
     checkpoint_every_steps: int = 0       # 0 = final-only (reference default)
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh layout: data axis = batch sharding, model axis = tensor
+    parallel. The port runs on one device (meshes are not ported); the
+    class keeps pipeline configs whole across the packages."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallel: int = -1               # -1 = all remaining devices
+    model_parallel: int = 1
+
+
+@dataclass(frozen=True)
+class PipelineConfig:
+    """Top-level bundle used by CLI entry points."""
+
+    data: DataConfig = field(default_factory=DataConfig)
+    sparse: SparseConfig = field(default_factory=SparseConfig)
+    model: ModelConfig = field(default_factory=ModelConfig)
+    search: SearchConfig = field(default_factory=SearchConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    dense_output_dir: str = "./dense_output"
+    sparse_output_dir: str = "./sparse_output"
+
+
+def _to_jsonable(obj):
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {k: _to_jsonable(v) for k, v in dataclasses.asdict(obj).items()}
+    if isinstance(obj, enum.Enum):
+        return obj.value
+    if isinstance(obj, (list, tuple)):
+        return [_to_jsonable(v) for v in obj]
+    if isinstance(obj, dict):
+        return {k: _to_jsonable(v) for k, v in obj.items()}
+    return obj
+
+
+def config_to_json(cfg) -> str:
+    """Serialize any config dataclass to a JSON string."""
+    return json.dumps(_to_jsonable(cfg), indent=2, sort_keys=True)
+
+
+def pipeline_config_from_json(s: str) -> PipelineConfig:
+    """Parse a PipelineConfig from JSON produced by ``config_to_json`` of
+    either package."""
+    d = json.loads(s)
+    sub = {
+        "data": DataConfig,
+        "sparse": SparseConfig,
+        "model": ModelConfig,
+        "search": SearchConfig,
+        "train": TrainConfig,
+        "mesh": MeshConfig,
+    }
+    kwargs = {}
+    for name, cls in sub.items():
+        if name in d:
+            sd = dict(d[name])
+            if name == "model":
+                if "family" in sd:
+                    sd["family"] = ModelFamily(sd["family"])
+                if "reps_loc" in sd:
+                    sd["reps_loc"] = RepsLoc(sd["reps_loc"])
+            kwargs[name] = cls(**sd)
+    for name in ("dense_output_dir", "sparse_output_dir"):
+        if name in d:
+            kwargs[name] = d[name]
+    return PipelineConfig(**kwargs)

@@ -3,12 +3,11 @@ copy of the JAX package's ``hostops``).
 
 The extension is built at first use with one ``g++ -O2 -fPIC -shared``
 call against the include directory of the interpreter that loads it (it
-needs ``Python.h``) into ``build/`` beside this file (gitignored). Its name
-hashes the source, the compiler, the flags, the include directory, the
-interpreter (its ABI tag and version) and the host, so a stale build, or
-one for another Python or machine, is never loaded; a build writes a file
-named by its process id and renames it into place, so concurrent builds
-need no lock. There is no silent fallback: when the extension cannot be
+needs ``Python.h``) into ``build/`` beside this file (gitignored), by
+``native_build``. Its name hashes the source, the compiler, the flags (the
+include directory among them), the interpreter (its ABI tag and version)
+and the host, so a stale build, or one for another Python or machine, is
+never loaded. There is no silent fallback: when the extension cannot be
 built or loaded, ``get`` raises.
 
 What stays with the callers is the input dispatch: list-shaped input goes
@@ -21,11 +20,8 @@ it went through C.
 
 from __future__ import annotations
 
-import hashlib
 import importlib.util
 import os
-import platform
-import subprocess
 import sys
 import sysconfig
 import threading
@@ -33,13 +29,13 @@ from importlib.machinery import ExtensionFileLoader
 from pathlib import Path
 from typing import Dict, Optional
 
+from mllm_sparse_retrieval_tpu_torch import native_build
+
 SOURCE = Path(__file__).resolve().parent / "hostops.c"
-BUILD_DIR = SOURCE.parent / "build"
 MODULE = "mllm_torch_hostops"
 CXX_FLAGS = ("-O2", "-fPIC", "-shared")
 FUNCTIONS = ("build_runs", "merge_topk_rows", "stack_rows", "encode_terms",
              "fuse_runs")
-BUILD_TIMEOUT_S = 120
 
 _lock = threading.Lock()
 _module: Optional["HostOps"] = None
@@ -48,7 +44,7 @@ _counts: Dict[str, int] = dict.fromkeys(FUNCTIONS, 0)
 
 def compiler() -> str:
     """The compiler: ``$CXX``, else ``g++``."""
-    return os.environ.get("CXX") or "g++"
+    return native_build.compiler()
 
 
 def include_dir() -> str:
@@ -56,16 +52,16 @@ def include_dir() -> str:
     return sysconfig.get_paths()["include"]
 
 
+def _flags_and_parts():
+    abi = sysconfig.get_config_var("EXT_SUFFIX") or sys.implementation.cache_tag
+    return (*CXX_FLAGS, f"-I{include_dir()}"), (abi, sys.version)
+
+
 def library_path() -> Path:
     """Where the extension lives once built, named by a hash of the source,
     the compiler, the flags, the include directory, the interpreter and the
     host."""
-    digest = hashlib.sha256(SOURCE.read_bytes())
-    abi = sysconfig.get_config_var("EXT_SUFFIX") or sys.implementation.cache_tag
-    for part in (compiler(), *CXX_FLAGS, include_dir(), abi, sys.version,
-                 platform.machine(), platform.node()):
-        digest.update(str(part).encode() + b"\0")
-    return BUILD_DIR / f"{MODULE}_{digest.hexdigest()[:16]}.so"
+    return native_build.library_path(SOURCE, MODULE, *_flags_and_parts())
 
 
 def build() -> Path:
@@ -79,23 +75,9 @@ def build() -> Path:
     if not os.path.exists(header):
         raise RuntimeError(f"cannot build hostops: {header} is missing (the "
                            f"interpreter's development headers)")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [compiler(), *CXX_FLAGS, f"-I{include_dir()}", "-o", str(tmp),
-           str(SOURCE)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=BUILD_TIMEOUT_S)
-    except (OSError, subprocess.TimeoutExpired) as e:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"cannot build hostops: {' '.join(cmd)}: {e}") \
-            from e
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"hostops failed to build ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)
-    return so
+    flags, parts = _flags_and_parts()
+    return native_build.build(SOURCE, MODULE, flags, "hostops extension",
+                              parts)
 
 
 def _load(so: Path):

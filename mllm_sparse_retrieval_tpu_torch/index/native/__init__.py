@@ -2,34 +2,27 @@
 the port's own copy of the JAX package's builder).
 
 The library is built at first use with one ``g++`` call into ``build/``
-beside this file (gitignored). Its name hashes the source, the compiler,
-the flags and the host, so a stale build, or one copied from another
-machine, is never loaded; a build writes a file named by its process id and
-renames it into place, so concurrent builds need no lock. There is no
-silent fallback: when the library cannot be built or loaded, ``load``
-raises, and ``ImpactIndex.from_jsonl(use_native=True)`` with it. The
-compiler is ``$CXX``, else ``g++``.
+beside this file (``native_build``: named by a hash of the source, the
+compiler, the flags and the host). There is no silent fallback: when the
+library cannot be built or loaded, ``load`` raises, and
+``ImpactIndex.from_jsonl(use_native=True)`` with it.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import platform
-import subprocess
 import threading
 from pathlib import Path
 from typing import Dict
 
 import numpy as np
 
+from mllm_sparse_retrieval_tpu_torch import native_build
+
 SOURCE = Path(__file__).resolve().parent / "impact_builder.cc"
-BUILD_DIR = SOURCE.parent / "build"
 # -march=native is left out (the JAX package's Makefile passes it): the
 # library then runs on any CPU of the host's architecture
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
-BUILD_TIMEOUT_S = 120
 
 _lock = threading.Lock()
 _libs: Dict[Path, ctypes.CDLL] = {}
@@ -37,43 +30,20 @@ _libs: Dict[Path, ctypes.CDLL] = {}
 
 def compiler() -> str:
     """The C++ compiler: ``$CXX``, else ``g++``."""
-    return os.environ.get("CXX") or "g++"
+    return native_build.compiler()
 
 
 def library_path() -> Path:
     """Where the library lives once built, named by a hash of the source,
     the compiler, the flags and the host."""
-    digest = hashlib.sha256(SOURCE.read_bytes())
-    for part in (compiler(), *CXX_FLAGS, platform.machine(),
-                 platform.node()):
-        digest.update(part.encode() + b"\0")
-    return BUILD_DIR / f"libimpact_builder_{digest.hexdigest()[:16]}.so"
+    return native_build.library_path(SOURCE, "libimpact_builder", CXX_FLAGS)
 
 
 def build() -> Path:
     """Compile the library unless it exists; raises with the compiler's
     output when the build fails."""
-    so = library_path()
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [compiler(), *CXX_FLAGS, "-o", str(tmp), str(SOURCE)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=BUILD_TIMEOUT_S)
-    except (OSError, subprocess.TimeoutExpired) as e:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"cannot build the native impact builder: "
-                           f"{' '.join(cmd)}: {e}") from e
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"the native impact builder failed to build "
-            f"({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}"
-            f"{proc.stderr}")
-    os.replace(tmp, so)
-    return so
+    return native_build.build(SOURCE, "libimpact_builder", CXX_FLAGS,
+                              "native impact builder")
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -654,18 +654,18 @@ def _to_device(tree, device: torch.device, dtype: torch.dtype):
 
 
 def _hf_tokenizer(ckpt_dir: str):
-    """An ``HFTokenizerAdapter`` over the directory's tokenizer files, or
-    None when it has none or ``transformers`` is not installed."""
+    """The directory's tokenizer: an ``HFJsonTokenizer`` over its
+    ``tokenizer.json`` (with ``tokenizer_config.json``,
+    ``special_tokens_map.json`` and ``chat_template.jinja``), or None when
+    it has no tokenizer file at all. A directory with tokenizer files but
+    no ``tokenizer.json`` (a sentencepiece ``tokenizer.model`` alone)
+    raises ``FileNotFoundError``."""
     if not any(os.path.exists(os.path.join(ckpt_dir, n))
                for n in _TOKENIZER_FILES):
         return None
-    try:
-        from transformers import AutoTokenizer
-    except ImportError:
-        return None
-    from mllm_sparse_retrieval_tpu_torch.models.tokenizer import (
-        HFTokenizerAdapter)
-    return HFTokenizerAdapter(AutoTokenizer.from_pretrained(ckpt_dir))
+    from mllm_sparse_retrieval_tpu_torch.models.hf_tokenizer import (
+        HFJsonTokenizer)
+    return HFJsonTokenizer.from_dir(ckpt_dir)
 
 
 def load_converted(checkpoint_path: str, spec=None,
@@ -678,8 +678,9 @@ def load_converted(checkpoint_path: str, spec=None,
     ``(params, tokenizer_or_None, arch_or_None)``: the tree of tensors on
     ``device`` in the port's layout (the JAX tree's, as
     ``convert_jax.from_jax_params`` gives it), the tokenizer when the
-    directory has one and ``transformers`` imports, and the manifest's
-    arch, which carries the checkpoint's true dims. ``spec`` is unused, as
+    directory has one (read from its ``tokenizer.json`` by
+    ``hf_tokenizer.HFJsonTokenizer``, no ``transformers``), and the
+    manifest's arch, which carries the checkpoint's true dims. ``spec`` is unused, as
     in the JAX package."""
     params_file = checkpoint_path if checkpoint_path.endswith(".pkl") \
         else os.path.join(checkpoint_path, "params.pkl")

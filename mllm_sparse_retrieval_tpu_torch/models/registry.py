@@ -259,8 +259,8 @@ def build_model(model_cfg: ModelConfig,
     tokenizer built from ``captions``. Real families load
     ``model_cfg.checkpoint_path``, a directory converted by
     ``models/convert.py``; its ``arch.json`` manifest's dims win over the
-    registry's, and its tokenizer is None where it ships none or
-    ``transformers`` is missing. The template goes through
+    registry's, and its tokenizer is read from its ``tokenizer.json``
+    (None where it ships no tokenizer file). The template goes through
     ``templates.resolve_template`` with that tokenizer (the chat families
     render through its chat template when it has one). Without a
     checkpoint they raise ``FileNotFoundError``.

@@ -9,12 +9,12 @@ slot expanded to one placeholder token per image embedding, at encode time.
 String-wrapper families (Llama-3, LLaVA-1.5) use literal wrappers.
 Chat-message families (Qwen2.5-VL, InternVL2.5) are rendered as the
 reference renders them, ``apply_chat_template(messages, tokenize=False,
-add_generation_prompt=True)``: when a converted checkpoint ships an HF
-tokenizer with a chat template, ``resolve_template`` renders through it;
-otherwise the wrappers below, which reproduce the known rendered output of
-those templates, are used unchanged. On the card there is no
-``transformers``, so a checkpoint's tokenizer is None and the wrappers are
-what serves.
+add_generation_prompt=True)``: when a converted checkpoint ships a
+tokenizer with a chat template, ``resolve_template`` renders through it
+(the port's ``hf_tokenizer.HFJsonTokenizer`` renders with ``jinja2`` as
+``transformers`` does, and raises where ``jinja2`` is missing); otherwise
+the wrappers below, which reproduce the known rendered output of those
+templates, are used unchanged.
 
 Image-token expansion is family-specific: the single ``<image>`` slot
 becomes ``wrap_open + image_token x n + wrap_close`` (InternVL:
@@ -129,11 +129,14 @@ TINY = PromptTemplate("user: {}\nassistant: ", image_sep=" ")
 def resolve_template(template: PromptTemplate, tokenizer) -> PromptTemplate:
     """Re-render a chat-family template through the checkpoint's own HF chat
     template when one is available — exact parity with the reference's
-    ``processor.apply_chat_template`` path. Returns ``template`` unchanged
-    for string-wrapper families or when no chat template is shipped.
+    ``processor.apply_chat_template`` path. ``tokenizer`` is an
+    ``HFJsonTokenizer`` (which renders itself) or an ``HFTokenizerAdapter``
+    (which renders through its HF tokenizer). Returns ``template``
+    unchanged for string-wrapper families or when no chat template is
+    shipped.
     """
     messages = _CHAT_MESSAGES.get(template.image_token)
-    hf_tok = getattr(tokenizer, "hf_tokenizer", None)
+    hf_tok = getattr(tokenizer, "hf_tokenizer", tokenizer)
     if messages is None or hf_tok is None or \
             not getattr(hf_tok, "chat_template", None):
         return template

@@ -39,8 +39,10 @@ import torch
 from torch.profiler import record_function
 
 from mllm_sparse_retrieval_tpu_torch.configs import RepsLoc
+from mllm_sparse_retrieval_tpu_torch.data.imageio import load_rgb
 from mllm_sparse_retrieval_tpu_torch.data.karpathy import Example
-from mllm_sparse_retrieval_tpu_torch.models.anyres import CLIP_MEAN, CLIP_STD
+from mllm_sparse_retrieval_tpu_torch.models.anyres import (
+    CLIP_MEAN, CLIP_STD, resize_bicubic)
 from mllm_sparse_retrieval_tpu_torch.models.api import (
     encode_any, image_input_spec, mrope_ids_for_batch)
 from mllm_sparse_retrieval_tpu_torch.models.layers import FLASH_MIN_SEQ
@@ -53,7 +55,8 @@ from mllm_sparse_retrieval_tpu_torch.ops.stream import (
     pipeline_dispatch, prefetch_thread)
 from mllm_sparse_retrieval_tpu_torch.sparse.term_selection import (
     SelectedTerms, doc_string_vector, get_filtered_ids, quantize_weights,
-    query_string_weights, text_candidate_ids)
+    query_string_weights, select_image_terms, select_text_terms,
+    text_candidate_ids)
 
 
 @dataclass
@@ -177,6 +180,25 @@ def make_image_ds_encode(arch, reps_loc, k_image: int, exp_k: int):
     return _fn, _spec
 
 
+def make_plain_encode(arch, reps_loc):
+    """``(fn, spec_fn)`` of the host route: ``fn(params, lora, ids, mask,
+    pixels, pos)`` (``pixels`` None for text) packs the full-vocabulary
+    sparse logits and the L2-normalized dense vectors into one int32
+    tensor; the host then selects terms from each ``[V]`` row
+    (``select_text_terms`` / ``select_image_terms``)."""
+
+    @torch.inference_mode()
+    def _fn(p, lora, ids, mask, pixels, pos):
+        sparse, dense = encode_any(p, arch, ids, mask, pixels, reps_loc,
+                                   lora, position_ids=pos)
+        return pack_blocks([(sparse, True), (normalize(dense), True)])
+
+    def _spec():
+        return [(arch.text.vocab_size, True), (arch.text.hidden_size, True)]
+
+    return _fn, _spec
+
+
 def resolve_image_ds_rows(parts, valid: int, sparse_cfg
                           ) -> List[SelectedTerms]:
     """SelectedTerms rows from the unpacked ``make_image_ds_encode`` output
@@ -251,19 +273,24 @@ def resolve_text_ds_rows(parts, valid: int, cand_ids, cand_mask,
 
 
 def default_pixel_loader(image_size: int) -> Callable[[Example], np.ndarray]:
-    """Deterministic synthetic CLIP-normalised ``[S, S, 3]`` pixels for an
-    example whose image file is absent (seeded by ``zlib.crc32`` of its
-    ``img_id``, as in the JAX package). The port does not decode image files
-    (the card machine has no Pillow): for a file that exists it raises, and
-    the caller injects a ``pixel_loader`` instead."""
+    """CLIP-normalized ``[S, S, 3]`` float32 pixels of an example's image
+    file: decoded by ``data/imageio.load_rgb`` and resized by
+    ``anyres.resize_bicubic``, both bit-equal to Pillow, so the result
+    equals the JAX loader's bit for bit. An absent file gets deterministic
+    synthetic pixels (seeded by ``zlib.crc32`` of its ``img_id``, as in the
+    JAX package); a file the decoder refuses raises ``ValueError``."""
     mean, std = CLIP_MEAN, CLIP_STD
 
     def load(ex: Example) -> np.ndarray:
         if os.path.exists(ex.image_path):
-            raise _file_error(ex)
-        # crc32, NOT hash(): str hashes are salted per process
-        rng = np.random.default_rng(zlib.crc32(str(ex.img_id).encode()))
-        arr = rng.uniform(size=(image_size, image_size, 3)).astype(np.float32)
+            img = resize_bicubic(load_rgb(ex.image_path),
+                                 (image_size, image_size))
+            arr = np.asarray(img, np.float32) / 255.0
+        else:
+            # crc32, NOT hash(): str hashes are salted per process
+            rng = np.random.default_rng(zlib.crc32(str(ex.img_id).encode()))
+            arr = rng.uniform(size=(image_size, image_size, 3)).astype(
+                np.float32)
         return (arr - mean) / std
 
     return load
@@ -272,26 +299,19 @@ def default_pixel_loader(image_size: int) -> Callable[[Example], np.ndarray]:
 def default_raw_image_loader(
     synthetic_size: tuple = (480, 640),
 ) -> Callable[[Example], np.ndarray]:
-    """Deterministic synthetic un-normalised ``[H, W, 3]`` pixels in [0, 1]
-    at ``synthetic_size`` for an example whose image file is absent: the
-    input form of the variable-token families (anyres, dynamic tiling,
-    native resolution). For a file that exists it raises, as
-    ``default_pixel_loader`` does."""
+    """Un-normalized ``[H, W, 3]`` float32 pixels in [0, 1] of an example's
+    image file at its original resolution: the input form of the
+    variable-token families (anyres, dynamic tiling, native resolution).
+    Deterministic synthetic pixels at ``synthetic_size`` for an absent
+    file, as ``default_pixel_loader``."""
 
     def load(ex: Example) -> np.ndarray:
         if os.path.exists(ex.image_path):
-            raise _file_error(ex)
+            return np.asarray(load_rgb(ex.image_path), np.float32) / 255.0
         rng = np.random.default_rng(zlib.crc32(str(ex.img_id).encode()))
         return rng.uniform(size=synthetic_size + (3,)).astype(np.float32)
 
     return load
-
-
-def _file_error(ex: Example) -> NotImplementedError:
-    return NotImplementedError(
-        f"{ex.image_path} exists, and the port does not decode image files "
-        f"(no Pillow on the card machine): pass a pixel_loader that returns "
-        f"the image as an [H, W, 3] float array")
 
 
 def encode_examples(
@@ -309,6 +329,7 @@ def encode_examples(
     lora=None,
     pixel_loader: Optional[Callable[[Example], np.ndarray]] = None,
     seq_pad_multiple: int = 16,
+    device_select: bool = True,
     device="cuda",
 ) -> EncodeResult:
     """Encode examples into dense vectors and selected terms on ``device``
@@ -322,12 +343,15 @@ def encode_examples(
     that the decoder takes the flash kernel. Qwen2.5-VL image batches carry
     their M-RoPE position ids. ``is_query`` picks the string form the
     result builds on access: ``query_weights`` or ``sparse_vectors``.
-    Terms are selected on the device (``make_*_ds_encode``), the only
-    route the port has. ``pixel_loader(example)`` gives an image's pixels:
-    CLIP-normalized ``[S, S, 3]`` for fixed-grid families, raw
-    ``[H, W, 3]`` in [0, 1] for the variable ones; the default loaders make
-    seeded synthetic pixels for an absent file and raise for an existing
-    one.
+    ``device_select=True`` (the default) selects terms on the device
+    (``make_*_ds_encode``) and copies back ``[B, k]`` ids and values;
+    ``device_select=False`` copies the full ``[B, V]`` sparse logits back
+    and selects on the host (``select_text_terms`` /
+    ``select_image_terms``), the same terms. ``pixel_loader(example)``
+    gives an image's pixels: CLIP-normalized ``[S, S, 3]`` for fixed-grid
+    families, raw ``[H, W, 3]`` in [0, 1] for the variable ones; the
+    default loaders decode the example's image file (``data/imageio.py``)
+    and make seeded synthetic pixels for an absent one.
     """
     if encode_type not in ("text", "image"):
         raise ValueError(f"encode_type must be 'text' or 'image', "
@@ -335,6 +359,7 @@ def encode_examples(
     device = torch.device(device)
     vocab = tokenizer.get_vocab()
     id_to_token = {v: k for k, v in vocab.items()}
+    filtered_ids = get_filtered_ids(vocab)
     encode_word = lambda w: tokenizer.encode(w, add_special_tokens=False)
     spec = image_input_spec(arch)
 
@@ -368,11 +393,13 @@ def encode_examples(
                       else 0, sparse_cfg.fallback_top_k)
     exp_k = sparse_cfg.num_expanded_tokens
     fmask = None
-    if exp_k > 0:
+    if exp_k > 0 and device_select:
         fm = np.zeros(arch.text.vocab_size, bool)
-        fm[get_filtered_ids(vocab)] = True
+        fm[filtered_ids] = True
         fmask = torch.from_numpy(fm).to(device)
-    if encode_type == "text":
+    if not device_select:
+        plain_fn, spec_fn = make_plain_encode(arch, reps_loc)
+    elif encode_type == "text":
         encode_fn, spec_fn = make_text_ds_encode(arch, reps_loc,
                                                  k_text_full, exp_k)
     else:
@@ -420,6 +447,10 @@ def encode_examples(
         batch, valid, host = item
         if encode_type == "text":
             ids, mask, cand_ids, cand_mask = host
+            if not device_select:
+                packed = plain_fn(params, lora, put(ids).long(), put(mask),
+                                  None, None)
+                return item, packed, spec_fn()
             packed = encode_fn(params, lora, put(ids).long(), put(mask),
                                put(cand_ids), put(cand_mask), fmask)
             return item, packed, spec_fn(cand_ids.shape[1])
@@ -427,8 +458,12 @@ def encode_examples(
         d_px = ({k: put(v) for k, v in pixels.items()}
                 if isinstance(pixels, dict) else put(pixels))
         d_pos = None if pos is None else put(pos).long()
-        packed = encode_fn(params, lora, put(ids).long(), put(mask), d_px,
-                           d_pos, fmask)
+        if not device_select:
+            packed = plain_fn(params, lora, put(ids).long(), put(mask),
+                              d_px, d_pos)
+        else:
+            packed = encode_fn(params, lora, put(ids).long(), put(mask),
+                               d_px, d_pos, fmask)
         return item, packed, spec_fn()
 
     result = EncodeResult(is_query=is_query,
@@ -439,7 +474,17 @@ def encode_examples(
     def resolve(handle):
         (batch, valid, host), packed, pk_spec = handle
         parts = unpack_blocks(packed.cpu().numpy(), pk_spec)
-        if encode_type == "text":
+        if not device_select:
+            logits = parts[0]
+            if encode_type == "text":
+                terms = [select_text_terms(ex.text, encode_word, logits[b],
+                                           sparse_cfg, filtered_ids)
+                         for b, ex in enumerate(batch[:valid])]
+            else:
+                terms = [select_image_terms(logits[b], sparse_cfg,
+                                            filtered_ids)
+                         for b in range(valid)]
+        elif encode_type == "text":
             terms = resolve_text_ds_rows(parts, valid, host[2], host[3],
                                          sparse_cfg)
         else:

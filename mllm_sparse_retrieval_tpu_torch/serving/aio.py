@@ -19,8 +19,7 @@ Division of labor per request class:
   ``/save``), ``/reload`` and ``/filters`` registration run on a small
   thread pool: they hold engine locks or rebuild filter masks, and a
   blocking call on the loop would stall every in-flight search. So does a
-  search carrying ``image_b64`` (a 400 in the port: no image decoder yet,
-  ROADMAP Queue 1 #8b).
+  search carrying ``image_b64``: decoding the image file takes host time.
 
 The server object mirrors the stdlib server surface (``server_address``,
 ``serve_forever()``, ``shutdown()``, ``server_close()``), so ``cli.serve``

@@ -12,9 +12,9 @@ server is the zero-magic debugging fallback). Endpoints:
 - ``POST /search``  body ``{"queries": [{"terms": {"17": 2.0} | [[17, 2.0],
   ...], "dense": [...], "depth": 10}, ...]}`` (or one query object) ->
   ``{"results": [[[doc_id, score], ...], ...]}`` score-descending. A query
-  may instead carry ``"text": "a dog on a beach"`` when the service has a
-  query encoder (live model encode on the device). ``"image_b64"`` is a
-  400: the port has no image file decoder yet (ROADMAP Queue 1 #8b).
+  may instead carry ``"text": "a dog on a beach"`` or ``"image_b64"`` (a
+  base64 JPEG or PNG file, decoded by ``data/imageio.py``) when the
+  service has a query encoder (live model encode on the device).
 - ``GET /healthz``  -> ``{"ok": true, "mode": ...}``
 - ``GET /stats``    -> micro-batcher counters (batches, items, mean size;
   plus live doc/segment counts when serving live indexes).

@@ -12,11 +12,11 @@ decides how to wait (a blocking ``Future.result`` on a handler thread, or
 ``await`` on the event loop).
 
 Endpoint semantics (bodies, status codes, error classes) are documented in
-``serving/http.py``. One difference from the JAX package: an
-``image_b64`` query is a 400 client error. Decoding image file bytes needs
-an image decoder, and the port imports no Pillow; its own decoder is
-ROADMAP Queue 1 #8b. Image queries in process (``search(image=...)`` with
-raw pixels) are served.
+``serving/http.py``. ``image_b64`` queries are decoded by the port's own
+decoder (``data/imageio.py``, JPEG and PNG bit-equal to Pillow), not by
+Pillow: a payload that is not valid base64, not a JPEG or PNG, or
+truncated is a 400, as an undecodable payload is in the JAX package; a
+GIF, WebP or BMP payload, which Pillow decodes, is a 400 here too.
 """
 
 from __future__ import annotations
@@ -68,15 +68,21 @@ _CLIENT_ERRORS = (ValueError, KeyError, TypeError, json.JSONDecodeError)
 
 
 def decode_image(b64: Optional[str]):
-    """base64 image file bytes -> raw [H, W, 3] pixels: not ported. Raises
-    ``ValueError`` (a 400) for any payload: the port has no image file
-    decoder (ROADMAP Queue 1 #8b)."""
+    """base64 image file bytes -> raw [H, W, 3] float32 in [0, 1] at the
+    original resolution (the encoder owns family-specific resize/tiling).
+    Invalid base64 and an image the decoder refuses raise ``ValueError``
+    (a 400)."""
     if b64 is None:
         return None
-    raise ValueError(
-        "image_b64 queries are not served by this port yet: it has no "
-        "image file decoder (ROADMAP Queue 1 #8b); send terms/dense or "
-        "text, or call RetrievalService.search(image=pixels) in process")
+    import base64
+
+    import numpy as np
+
+    from mllm_sparse_retrieval_tpu_torch.data.imageio import (
+        decode_image_bytes)
+
+    img = decode_image_bytes(base64.b64decode(b64), "image_b64")
+    return np.asarray(img, np.float32) / 255.0
 
 
 def normalize_terms(raw, int_keyed: bool):

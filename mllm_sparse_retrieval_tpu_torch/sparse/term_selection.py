@@ -1,5 +1,10 @@
 """Sparse term selection helpers (a copy of the JAX package's
-``sparse/term_selection.py``, cut to what this slice uses).
+``sparse/term_selection.py``).
+
+``select_image_terms`` / ``select_text_terms`` are the host route's
+selection from a full-vocabulary row of sparse logits (the reference's
+per-image / per-caption rule); the device route (``ops/select.py`` and
+``pipelines/encode.resolve_*_ds_rows``) gives the same terms.
 
 Token ids are the primary key space. ``canonical_id_map`` reproduces the
 string-keyed artifact path's collision merges (lowercase, leading-character
@@ -15,6 +20,7 @@ from typing import Callable, Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 
+from mllm_sparse_retrieval_tpu_torch.configs import SparseConfig
 from mllm_sparse_retrieval_tpu_torch.data.tokenization import caption_words
 
 
@@ -71,6 +77,46 @@ def quantize_weights(values: np.ndarray, scale: float = 100.0) -> np.ndarray:
     return np.rint(np.asarray(values, dtype=np.float64) * scale).astype(np.int32)
 
 
+def _topk(logits: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Top-k values/indices of a 1-D array, sorted by descending value.
+
+    Ties broken by lower index first (torch.topk convention).
+    """
+    k = min(k, logits.shape[0])
+    # argsort of (-value, index): stable mergesort on -value gives
+    # lowest-index-first among ties.
+    idx = np.argsort(-logits, kind="stable")[:k]
+    return logits[idx], idx.astype(np.int32)
+
+
+def select_image_terms(
+    logits: np.ndarray,
+    cfg: SparseConfig,
+    filtered_ids: np.ndarray,
+) -> SelectedTerms:
+    """Sparse vector for an image: full-vocab top-k (+ optional expansion).
+
+    Mirrors ``get_img_valid_tokens_values`` (reference src/encode.py:56-93).
+    The reference's image-expansion candidate set is effectively *all*
+    filtered ids (its ``set(top_k_indices)`` over a torch tensor never
+    intersects an int set); this excludes the already-selected ids, which
+    only changes results when a top-k id is also a top-expansion id.
+    """
+    k = cfg.sparse_length if cfg.sparse_manual else 128
+    values, indices = _topk(logits, k)
+    weights = quantize_weights(values, cfg.quantization_scale)
+
+    if cfg.num_expanded_tokens > 0:
+        candidates = np.setdiff1d(filtered_ids, indices, assume_unique=False)
+        if candidates.size:
+            exp_k = min(cfg.num_expanded_tokens, candidates.size)
+            exp_vals, exp_pos = _topk(logits[candidates], exp_k)
+            indices = np.concatenate([indices, candidates[exp_pos]])
+            weights = np.concatenate(
+                [weights, quantize_weights(exp_vals, cfg.quantization_scale)])
+    return SelectedTerms(indices.astype(np.int32), weights)
+
+
 def text_candidate_ids(
     text: str,
     encode_fn: Callable[[str], Sequence[int]],
@@ -85,6 +131,44 @@ def text_candidate_ids(
     for word in caption_words(text):
         token_ids.update(int(t) for t in encode_fn(word))
     return np.array(sorted(token_ids), dtype=np.int32)
+
+
+def select_text_terms(
+    text: str,
+    encode_fn: Callable[[str], Sequence[int]],
+    logits: np.ndarray,
+    cfg: SparseConfig,
+    filtered_ids: np.ndarray,
+) -> SelectedTerms:
+    """Sparse vector for a caption: in-text candidate top-k (+ expansion).
+
+    Mirrors ``get_text_valid_tokens_values`` (reference
+    src/encode.py:96-153):
+    - no candidates  -> top-`fallback_top_k` over the full vocab;
+    - manual mode    -> top-`sparse_length` over the full vocab;
+    - otherwise      -> top-min(|candidates|, 128) within candidates.
+    """
+    candidates = text_candidate_ids(text, encode_fn)
+
+    if candidates.size == 0:
+        values, indices = _topk(logits, cfg.fallback_top_k)
+    elif cfg.sparse_manual:
+        values, indices = _topk(logits, cfg.sparse_length)
+    else:
+        k = min(candidates.size, 128)
+        values, pos = _topk(logits[candidates], k)
+        indices = candidates[pos]
+    weights = quantize_weights(values, cfg.quantization_scale)
+
+    if cfg.num_expanded_tokens > 0:
+        out_text = np.setdiff1d(filtered_ids, candidates, assume_unique=False)
+        if out_text.size:
+            exp_k = min(cfg.num_expanded_tokens, out_text.size)
+            exp_vals, exp_pos = _topk(logits[out_text], exp_k)
+            indices = np.concatenate([indices, out_text[exp_pos]])
+            weights = np.concatenate(
+                [weights, quantize_weights(exp_vals, cfg.quantization_scale)])
+    return SelectedTerms(indices.astype(np.int32), weights)
 
 
 def canonical_id_map(

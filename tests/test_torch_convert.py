@@ -35,8 +35,8 @@ from mllm_sparse_retrieval_tpu_torch.models import anyres as A
 from mllm_sparse_retrieval_tpu_torch.models import build_model
 from mllm_sparse_retrieval_tpu_torch.models import convert
 from mllm_sparse_retrieval_tpu_torch.models import mllm, registry, templates
-from mllm_sparse_retrieval_tpu_torch.models.tokenizer import (
-    HFTokenizerAdapter)
+from mllm_sparse_retrieval_tpu_torch.models.hf_tokenizer import (
+    HFJsonTokenizer)
 
 transformers = pytest.importorskip("transformers")
 safetensors_torch = pytest.importorskip("safetensors.torch")
@@ -251,7 +251,7 @@ def test_params_pkl_loads_across_packages(converted, direction):
         manifest = json.loads((jdir / "arch.json").read_text())
         assert json.loads(json.dumps(dataclasses.asdict(arch))) == \
             manifest["config"]
-        assert isinstance(tok, HFTokenizerAdapter)
+        assert isinstance(tok, HFJsonTokenizer)
         assert tok.encode("a dog", add_special_tokens=False) == [2, 3]
         assert tok.encode("<image>", add_special_tokens=False) == [IMG]
         assert all(t.is_contiguous() for t in jax.tree_util.tree_leaves(

@@ -7,6 +7,7 @@ entries of a surprising shape). Tolerance: none; every result is equal
 ``assert_array_equal``). Then the loader: a failed build raises, and the
 callers' calls are counted."""
 
+import os
 import random
 
 import numpy as np
@@ -341,12 +342,13 @@ def test_merge_topk_rows_bit_equal_to_python_and_jax(jnative):
 
 def test_a_failed_build_raises(monkeypatch, tmp_path):
     """No fallback: a compiler that fails, or a missing ``Python.h``, makes
-    the build raise; nothing is left in the build directory."""
-    monkeypatch.setattr(hostops, "BUILD_DIR", tmp_path / "build")
+    the build raise; it leaves no file in the build directory."""
     monkeypatch.setenv("CXX", "false")
     with pytest.raises(RuntimeError, match="failed to build"):
         hostops.build()
-    assert list((tmp_path / "build").iterdir()) == []
+    build_dir = hostops.SOURCE.parent / "build"
+    assert not hostops.library_path().exists()
+    assert list(build_dir.glob(f"*.{os.getpid()}.tmp.so")) == []
     monkeypatch.setattr(hostops, "include_dir", lambda: str(tmp_path))
     with pytest.raises(RuntimeError, match="Python.h"):
         hostops.build()
@@ -357,7 +359,8 @@ def test_a_failed_build_raises(monkeypatch, tmp_path):
 
 def test_library_name_tracks_source_and_flags(monkeypatch):
     so = hostops.library_path()
-    assert so.parent == hostops.BUILD_DIR and so.suffix == ".so"
+    assert so.parent == hostops.SOURCE.parent / "build"
+    assert so.suffix == ".so"
     assert hostops.get().path == so and so.exists()
     monkeypatch.setattr(hostops, "CXX_FLAGS", ("-O3", "-fPIC", "-shared"))
     assert hostops.library_path() != so

@@ -11,8 +11,8 @@ against the JAX package's on the CPU.
 - ``text`` queries over HTTP with the tiny family's encoders (one set of
   weights, carried across from JAX) give the JAX server's results up to
   ties at the cut.
-- ``image_b64`` is a 400 that names ROADMAP #8b (the port has no image file
-  decoder), where the JAX package decodes it with Pillow.
+- ``image_b64`` of bytes that are no image is a 400, as in the JAX
+  package (the port's own decoder refuses it where Pillow does).
 - ``cli.serve --device cpu --live`` as a subprocess: its port read from its
   log line, its results equal to an in-process arena service's after the
   same add and delete, and its ``--live-state`` saved when it is stopped;
@@ -169,7 +169,7 @@ def test_live_endpoints_match_jax(tmp_path, front_end):
             assert (tmp_path / d / "dense" / "seg0.pkl").exists()
         status, body = _request(base, "POST", "/search", {"queries": [
             {"image_b64": "aGVsbG8="}]})
-        assert status == 400 and "#8b" in body["error"]
+        assert status == 400 and "not a JPEG or PNG" in body["error"]
     finally:
         _stop(jserver, jthread, jsvc)
         _stop(server, thread, svc)
@@ -247,7 +247,7 @@ def test_text_queries_over_http_match_jax(slice_setup, front_end):
 
 def test_decode_image_names_the_missing_decoder():
     assert decode_image(None) is None
-    with pytest.raises(ValueError, match="#8b"):
+    with pytest.raises(ValueError, match="image_b64: not a JPEG or PNG"):
         decode_image("aGVsbG8=")
 
 

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 from mllm_sparse_retrieval_tpu.index.impact import ImpactIndex as JImpactIndex
+from mllm_sparse_retrieval_tpu_torch import native_build
 from mllm_sparse_retrieval_tpu_torch.index import ImpactIndex, native
 
 LAYOUT = ("doc_terms", "doc_weights", "csr_offsets", "csr_docs",
@@ -159,14 +160,14 @@ def test_unusable_compiler_raises_and_never_falls_back(shards, monkeypatch,
 
 def test_library_is_named_by_source_compiler_flags_and_host(monkeypatch):
     so = native.build()
-    assert so.exists() and so.parent == native.BUILD_DIR
+    assert so.exists() and so.parent == native.SOURCE.parent / "build"
     assert native.build() == so                # built once, reused
     assert native.load() is native.load()
     assert "-march=native" not in native.CXX_FLAGS
     monkeypatch.setattr(native, "CXX_FLAGS", native.CXX_FLAGS + ("-g",))
     assert native.library_path() != so
     monkeypatch.undo()
-    monkeypatch.setattr(native.platform, "node", lambda: "another-host")
+    monkeypatch.setattr(native_build.platform, "node", lambda: "another-host")
     assert native.library_path() != so
 
 

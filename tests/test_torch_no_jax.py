@@ -1,5 +1,7 @@
 """The PyTorch port and ``chip_smoke.py`` import nothing of JAX and nothing
-of the JAX package (nor Pillow, which the card machine lacks), every port
+of the JAX package (nor Pillow, ``transformers``, ``tokenizers`` or
+``regex``, which the card machine lacks; the port decodes image files and
+reads ``tokenizer.json`` with those blocked), every port
 module (the offline evaluation path's ``cli``, ``eval``, ``search`` and
 ``index/native``, and the hybrid path's fusion, rank, filter and service
 modules, the search tiers' SQ8, ANN, compact48 and stream modules, and
@@ -147,9 +149,9 @@ def test_checkpoints_convert_and_load_without_jax_transformers_safetensors(
     torch.manual_seed(0)
     transformers.LlavaNextForConditionalGeneration(cfg).save_pretrained(
         str(tmp_path / "hf"))
-    (tmp_path / "hf" / "tokenizer.json").write_text("{}")
+    _write_tokenizer(tmp_path / "hf")
     blocked = ("jax", "jaxlib", "mllm_sparse_retrieval_tpu", "transformers",
-               "safetensors")
+               "safetensors", "tokenizers", "PIL", "regex")
     script = f"BLOCKED = {blocked!r}\n" + _CONVERT_BLOCKED
     proc = subprocess.run(
         [sys.executable, "-c", script, str(tmp_path / "hf"),
@@ -157,8 +159,87 @@ def test_checkpoints_convert_and_load_without_jax_transformers_safetensors(
         text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split("\n")[0] == (
-        "None 1 3 ['image_newline', 'projector', 'text', 'vision']")
-    assert (tmp_path / "out" / "tokenizer.json").read_text() == "{}"
+        "HFJsonTokenizer(vocab_size=5) 1 3 "
+        "['image_newline', 'projector', 'text', 'vision']")
+    assert (tmp_path / "out" / "tokenizer.json").read_text() == \
+        (tmp_path / "hf" / "tokenizer.json").read_text()
+
+
+def _write_tokenizer(path):
+    """A five-token word-level tokenizer.json (no library needed)."""
+    vocab = {"<unk>": 0, "▁a": 1, "▁dog": 2, "▁cat": 3}
+    (path / "tokenizer.json").write_text(json.dumps({
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": 4, "content": "<image>", "single_word": False,
+                          "lstrip": False, "rstrip": False,
+                          "normalized": False, "special": True}],
+        "normalizer": None,
+        "pre_tokenizer": {"type": "Metaspace", "replacement": "▁",
+                          "prepend_scheme": "always", "split": True},
+        "post_processor": None, "decoder": None,
+        "model": {"type": "WordLevel", "vocab": vocab,
+                  "unk_token": "<unk>"}}))
+
+
+_READ_BLOCKED = """
+import sys
+import numpy as np
+for name in list(sys.modules):
+    if name.split('.')[0] in BLOCKED:
+        del sys.modules[name]
+for name in BLOCKED:
+    sys.modules[name] = None          # any import of these now fails
+import importlib, pkgutil
+import mllm_sparse_retrieval_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                               pkg.__name__ + '.')]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+from mllm_sparse_retrieval_tpu_torch.data.imageio import load_rgb
+from mllm_sparse_retrieval_tpu_torch.models.hf_tokenizer import (
+    HFJsonTokenizer)
+img = load_rgb(sys.argv[1])
+tok = HFJsonTokenizer.from_dir(sys.argv[2])
+print(len(names), img.shape, int(img.astype(np.int64).sum()),
+      tok.encode("a dog<image> cat"))
+"""
+
+
+def test_port_decodes_images_and_reads_tokenizers_with_the_libraries_blocked(
+        tmp_path):
+    """Every port module and ``chip_smoke.py`` import, a JPEG decodes and a
+    ``tokenizer.json`` is read, with JAX, ``transformers``, ``tokenizers``,
+    Pillow and ``regex`` blocked, as they are missing on the card
+    machine; no port source imports any of them."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    buf = io.BytesIO()
+    Image.fromarray(rng.integers(0, 256, (9, 13, 3), dtype=np.uint8)).save(
+        buf, "JPEG", quality=90)
+    (tmp_path / "x.jpg").write_bytes(buf.getvalue())
+    want = np.asarray(Image.open(io.BytesIO(buf.getvalue())).convert("RGB"))
+    _write_tokenizer(tmp_path)
+    blocked = ("jax", "jaxlib", "mllm_sparse_retrieval_tpu", "transformers",
+               "tokenizers", "PIL", "regex")
+    proc = subprocess.run(
+        [sys.executable, "-c", f"BLOCKED = {blocked!r}\n" + _READ_BLOCKED,
+         str(tmp_path / "x.jpg"), str(tmp_path)], cwd=REPO, env=_env(),
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    n, rest = proc.stdout.split(" ", 1)
+    assert int(n) >= 20
+    assert rest.strip() == (f"(9, 13, 3) {int(want.astype(np.int64).sum())}"
+                            f" [1, 2, 4, 3]")
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(transformers|tokenizers|PIL|regex)\b",
+        re.MULTILINE)
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert [f for f in files if pattern.search(f.read_text())] == []
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

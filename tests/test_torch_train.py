@@ -167,10 +167,10 @@ def test_default_loaders_match_jax(tmp_path):
         pencode.default_raw_image_loader((50, 70))(ex),
         jencode.default_raw_image_loader((50, 70))(jex))
     real = tmp_path / "img.jpg"
-    real.write_bytes(b"not decoded")
+    real.write_bytes(b"not an image")
     for loader in (pencode.default_pixel_loader(32),
                    pencode.default_raw_image_loader()):
-        with pytest.raises(NotImplementedError, match="pixel_loader"):
+        with pytest.raises(ValueError, match="img.jpg: not a JPEG or PNG"):
             loader(Example("x", str(real), "t", "i"))
 
 
