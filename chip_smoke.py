@@ -100,7 +100,16 @@ analysis entry points run: ``cli.prepare_data`` on a Karpathy JSON,
 ``term_weight_statistics`` of the trained model. The offline phase's
 runs and fusion and the live segments' merge must go through ``hostops``,
 whose C results are held to the Python bodies on the offline runs, which
-``fusion_provenance_statistics`` also ranks.
+``fusion_provenance_statistics`` also ranks. After the LoRA steps, QLoRA
+on the same LLaVA-NeXT-Llama3-8B: the base quantized on the card to nf4
+(one decoder block byte-equal to the CPU's), ``cli.train.run --load-kbit 4
+--quant-format nf4`` for four steps (flash forward and backward, the base
+dequantized per use), the flash-vs-plain gradient check on that base, and
+8 images encoded over the quantized tree and over its dequantized copy;
+then a mixture-of-experts decoder at Mixtral-8x7B's published widths (2 of
+its 32 layers): ``moe_ffn`` on 4,096 tokens held to a float64 per-token
+reference, and ``llama.apply`` forward and backward through the flash
+kernels against plain attention.
 
 Each phase prints one progress line with the seconds since start. The last
 lines are a JSON object describing the kernels, the card's name and power
@@ -176,6 +185,39 @@ BWD_RTOL = 2.0 ** -6
 # tau 0.05, remat, TRAIN_B image-caption pairs a step
 TRAIN_B, TRAIN_STEPS, TRAIN_LR = 4, 4, 1e-4
 LORA_RANK, LORA_ALPHA, LORA_DROPOUT, TAU = 8, 16, 0.1, 0.05
+# QLoRA, after the training phase on the same full-width model: the base
+# quantized on the card to QLORA_BITS-bit QLORA_FORMAT (one decoder block
+# byte-equal to the CPU's quantization), cli.train.run --load-kbit for
+# TRAIN_STEPS steps of TRAIN_B pairs (LoRA, dropout and remat as above), the
+# gradient check on the quantized base, and QLORA_IMAGES images encoded over
+# the quantized tree and over its dequantized copy (the same weights, the
+# same dtypes: expected bit-equal; dense reps within QLORA_ENC_TOL, terms
+# equal)
+QLORA_BITS, QLORA_FORMAT, QLORA_IMAGES, QLORA_ENC_TOL = 4, "nf4", 8, 1e-6
+# mixture of experts at Mixtral-8x7B-v0.1's published widths (config.json:
+# hidden 4,096, FFN 14,336, 32 / 8 heads of 128, 8 experts top-2, vocab
+# 32,000, rope_theta 1e6), MOE_LAYERS of its 32 layers, bf16 weights drawn
+# on the card. moe_ffn on MOE_B * MOE_T tokens (capacity 1,280) carrying a
+# shared component of MOE_HOT logits along expert 0's router column (a hot
+# expert, so that the capacity drops assignments), held to moe_reference:
+# seats equal; every MOE_REF_EVERY-th token and up to MOE_REF_DROPPED that
+# lost a seat within MOE_REL normwise of float64 (a few bf16 roundings of
+# 2^-8 in a row: ~0.006 expected), tokens with no seat exactly 0. Then
+# llama.apply on MOE_B rows of MOE_T tokens (the second MOE_REAL real),
+# forward and backward through the flash kernels; hidden states against
+# plain attention. Routing is discrete: a token whose router ranks two
+# experts within rounding of each other may take another expert, and each
+# such change moves the seats behind it at a full expert (another token is
+# dropped or kept) and the keys that later tokens attend to. So the flash
+# route runs once more without gradients on the plain run's experts and
+# seats (its own gate values): every token within MOE_TOKEN_REL normwise;
+# on its own routing at least MOE_SAME_SHARE of the tokens must be routed
+# alike in every layer
+MOE_WIDTHS = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+                  num_heads=32, num_kv_heads=8, rope_theta=1e6)
+MOE_LAYERS, MOE_B, MOE_T, MOE_REAL, MOE_HOT = 2, 2, 2048, 1500, 1.0
+MOE_REF_EVERY, MOE_REF_DROPPED, MOE_REL = 32, 64, 2.0 ** -6
+MOE_SAME_SHARE, MOE_TOKEN_REL = 0.8, 2.0 ** -5
 # whole-model gradient, flash kernels against plain attention, at B=2 and
 # no dropout (after the training steps, so every adapter gradient is live):
 # the cosine of the concatenated adapter gradients. bf16 through 32 layers
@@ -1178,7 +1220,8 @@ def phase_train(params, arch, tok, tmpl, lexicon, rng, seq):
     steps of ``ContrastiveTrainer.train_on_batch`` on ``TRAIN_B`` seeded
     image-caption pairs each (image prompts of ``seq`` tokens on the flash
     route), the last one profiled. Returns the trainer, the collated
-    batches and the launch counts of the run."""
+    batches, the launch counts of the run and ``(mean host ms of the steps
+    after the first, peak GB above what was allocated before a step)``."""
     import numpy as np
     import torch
 
@@ -1221,8 +1264,11 @@ def phase_train(params, arch, tok, tmpl, lexicon, rng, seq):
     FA.reset_launch_count()
     K.reset_launch_count()
     steps = []
+    above = 0.0
     for i, batch in enumerate(batches):
         before = {k: FA.launch_count(k) for k in FA.KERNELS}
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t_step = time.monotonic()
         if i == len(batches) - 1:
             box = {}
@@ -1235,6 +1281,8 @@ def phase_train(params, arch, tok, tmpl, lexicon, rng, seq):
             loss = trainer.train_on_batch(batch)
         torch.cuda.synchronize()
         ms = (time.monotonic() - t_step) * 1e3
+        above = max(above, (torch.cuda.max_memory_allocated() - resident)
+                    / 1e9)
         launched = {k: FA.launch_count(k) - before[k] for k in FA.KERNELS}
         if launched != {"fwd": 2 * layers, "dq": layers, "dkv": layers}:
             raise AssertionError(f"step {i}: flash launches {launched}, want "
@@ -1249,7 +1297,7 @@ def phase_train(params, arch, tok, tmpl, lexicon, rng, seq):
                  f"real tokens/s); flash launches {launched}")
     launches = {k: FA.launch_count(k) for k in FA.KERNELS}
     taat = K.launch_count()
-    peak = torch.cuda.max_memory_allocated() / 1e9
+    peak = (resident / 1e9) + above
     moved = max(float((x.detach() - y).abs().max())
                 for x, y in zip(lora.tree_leaves(adapters), start))
     if not all(np.isfinite(x[0]) for x in steps) or not moved > 0:
@@ -1264,14 +1312,15 @@ def phase_train(params, arch, tok, tmpl, lexicon, rng, seq):
              f"r={LORA_RANK} on {len(lora.tree_leaves(adapters)) // 3} "
              f"projections, dropout {LORA_DROPOUT}, remat: host collate "
              f"{collate_s * 1e3:.1f} ms per batch; steps after the first "
-             f"{np.mean(plain):.1f} ms mean; peak {peak:.2f} GB; adapters "
+             f"{np.mean(plain):.1f} ms mean; peak {peak:.2f} GB ({above:.2f} "
+             f"above the resident tree); adapters "
              f"moved by up to {moved:.3g}; launches {launches}; profiled "
              f"step: device {busy:.1f} ms in {n_kernels} kernels and "
              f"copies, flash forward {names['flash_fwd']:.1f} ms, dq "
              f"{names['flash_bwd_dq']:.1f} ms, dkv "
              f"{names['flash_bwd_dkv']:.1f} ms (backward kernels "
              f"{bwd_ms / busy:.3f} of the step's device time)")
-    return trainer, batches, launches
+    return trainer, batches, launches, (float(np.mean(plain)), above)
 
 
 def grad_check(trainer, batch):
@@ -4738,6 +4787,441 @@ def phase_chat_cli(params, arch, tmpl, ctok, lexicon, card):
     return train, stats_flash
 
 
+def phase_qlora(params, arch, tok, tmpl, lexicon, batches, lora_step, card):
+    """QLoRA on the full-width LLaVA-NeXT-Llama3-8B: the base quantized on
+    the card (nf4, double-quantized scales; one decoder block's bytes equal
+    to the CPU's), then ``cli.train.run --load-kbit 4 --quant-format nf4``
+    for ``TRAIN_STEPS`` steps of ``TRAIN_B`` pairs (the base quantized and
+    dequantized per use, remat, flash forward and backward), its adapters
+    loaded back from ``lora.pkl``; the flash-vs-plain gradient check on
+    the quantized base; and ``QLORA_IMAGES`` images encoded over the
+    quantized tree and over its dequantized copy. Returns the flash
+    launches of the training, the gradient check and the encodes."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mllm_sparse_retrieval_tpu_torch.cli import prepare_data
+    from mllm_sparse_retrieval_tpu_torch.cli import train as train_cli
+    from mllm_sparse_retrieval_tpu_torch.configs import SparseConfig
+    from mllm_sparse_retrieval_tpu_torch.models import lora
+    from mllm_sparse_retrieval_tpu_torch.models.quantization import (
+        dequantize_params, quantize_params, quantized_bytes,
+        quantized_leaves, tree_to)
+    from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
+    from mllm_sparse_retrieval_tpu_torch.serving import OnlineQueryEncoder
+    from mllm_sparse_retrieval_tpu_torch.train.trainer import (
+        ContrastiveTrainer)
+
+    layers = arch.text.num_layers
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    qparams = quantize_params(params, QLORA_BITS, mode=QLORA_FORMAT)
+    torch.cuda.synchronize()
+    quant_s = time.monotonic() - t0
+    fp_bytes, q_bytes = quantized_bytes(params), quantized_bytes(qparams)
+    n_quant = len(quantized_leaves(qparams))
+    t0 = time.monotonic()
+    cpu_block = quantize_params(tree_to(params["text"]["blocks"][0], "cpu"),
+                                QLORA_BITS, mode=QLORA_FORMAT)
+    cpu_s = time.monotonic() - t0
+    card_block = quantized_leaves(qparams["text"]["blocks"][0])
+    if len(card_block) != 7 or not all(
+            torch.equal(a, b.cpu()) for x, y in zip(
+                quantized_leaves(cpu_block), card_block)
+            for a, b in zip(x.tensors(), y.tensors())):
+        raise AssertionError("one decoder block quantized on the card is "
+                             "not byte-equal to the CPU's")
+    del qparams, cpu_block, card_block
+    progress("qlora", f"{QLORA_FORMAT} {QLORA_BITS}-bit base: {n_quant} "
+             f"dense weights quantized on the card in {quant_s:.2f} s; "
+             f"{fp_bytes / 1e9:.3f} GB bf16 tree -> {q_bytes / 1e9:.3f} GB "
+             f"(ratio {q_bytes / fp_bytes:.4f}); decoder block 0 quantized on "
+             f"the CPU in {cpu_s:.2f} s, byte-equal")
+
+    n = TRAIN_B * TRAIN_STEPS
+    if CLI_IMAGES // 2 < n:
+        raise AssertionError(f"{CLI_IMAGES // 2} train images for {n} pairs")
+    steps = []
+    real_step = ContrastiveTrainer.train_on_batch
+
+    def timed_step(self, batch):
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = {k: FA.launch_count(k) for k in FA.KERNELS}
+        t_step = time.monotonic()
+        loss = real_step(self, batch)
+        torch.cuda.synchronize()
+        steps.append(((time.monotonic() - t_step) * 1e3,
+                      (torch.cuda.max_memory_allocated() - resident) / 1e9,
+                      resident / 1e9,
+                      {k: FA.launch_count(k) - before[k]
+                       for k in FA.KERNELS}))
+        return loss
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_karpathy_json(os.path.join(tmp, "dataset.json"),
+                            np.random.default_rng(SEED + 21), lexicon)
+        data = os.path.join(tmp, "flickr")
+        with contextlib.redirect_stdout(io.StringIO()):
+            prepare_data.main(["split", "--json",
+                               os.path.join(tmp, "dataset.json"),
+                               "--out-dir", data, "--dataset", "flickr"])
+            prepare_data.main(["few-shot", "--train-csv",
+                               os.path.join(data, "flickr_train.csv"),
+                               "--out-csv",
+                               os.path.join(data, f"flickr_train_{n}.csv"),
+                               "--num-images", str(n)])
+        args = train_cli.build_parser().parse_args([
+            "--dataset", "flickr", "--data-root", tmp, "--few-shot-sum",
+            str(n), "--batch-size", str(TRAIN_B), "--num-epochs", "1",
+            "--learning-rate", str(TRAIN_LR), "--tau", str(TAU),
+            "--lora-rank", str(LORA_RANK), "--lora-alpha", str(LORA_ALPHA),
+            "--lora-dropout", str(LORA_DROPOUT), "--remat", "--load-kbit",
+            str(QLORA_BITS), "--quant-format", QLORA_FORMAT, "--log-every",
+            "0", "--output-dir", os.path.join(tmp, "out"), "--device",
+            DEVICE])
+        ContrastiveTrainer.train_on_batch = timed_step
+        try:
+            t0 = time.monotonic()
+            path, trainer = train_cli.run(args,
+                                          model=(params, arch, tok, tmpl))
+            torch.cuda.synchronize()
+            run_s = time.monotonic() - t0
+        finally:
+            ContrastiveTrainer.train_on_batch = real_step
+        saved = lora.load_lora(path, DEVICE)
+        mine = lora.tree_leaves(trainer.adapters)
+        if path != os.path.join(tmp, "out", "lora.pkl") or not all(
+                torch.equal(a.detach(), b)
+                for a, b in zip(mine, lora.tree_leaves(saved))):
+            raise AssertionError(f"cli.train: {path} does not hold the "
+                                 f"trained adapters")
+    losses = trainer.loss_history
+    want = {"fwd": 2 * layers, "dq": layers, "dkv": layers}
+    bad = [s[3] for s in steps if s[3] != want]
+    moved = max(float(blk[name]["b"].detach().abs().max())
+                for blk in trainer.adapters["text"]["blocks"] for name in blk)
+    qleaves = quantized_leaves(trainer.params)
+    if len(steps) != TRAIN_STEPS or bad or len(losses) != TRAIN_STEPS \
+            or not all(np.isfinite(losses)) or not moved > 0:
+        raise AssertionError(f"QLoRA: {len(steps)} steps, flash launches "
+                             f"{bad or want} per step, losses {losses}, "
+                             f"adapters moved {moved}")
+    if len(qleaves) != n_quant or any(
+            t.requires_grad for q in qleaves for t in q.tensors()) or len(
+                trainer.opt_state["mu"]) != len(mine):
+        raise AssertionError("QLoRA: the base did not stay a frozen "
+                             "quantized tree beside the adapters")
+    train = {k: sum(s[3][k] for s in steps) for k in FA.KERNELS}
+    step_ms = float(np.mean([s[0] for s in steps[1:]]))
+    above = max(s[1] for s in steps)
+    progress("qlora", f"cli.train.run --load-kbit {QLORA_BITS} "
+             f"--quant-format {QLORA_FORMAT} --remat: {TRAIN_STEPS} steps "
+             f"of {TRAIN_B} pairs in {run_s:.1f} s, losses "
+             f"{[round(x, 5) for x in losses]}; steps after the first "
+             f"{step_ms:.1f} ms mean (bf16 LoRA {lora_step[0]:.1f}); peak "
+             f"{above:.2f} GB above the {steps[-1][2]:.2f} GB resident "
+             f"(bf16 LoRA {lora_step[1]:.2f} GB above its tree); adapters "
+             f"moved by up to {moved:.3g}; flash launches {train}; "
+             f"lora.pkl loads back equal; card {card}")
+
+    before = {k: FA.launch_count(k) for k in FA.KERNELS}
+    grad_check(trainer, batches[0])
+    grad = {k: FA.launch_count(k) - before[k] for k in FA.KERNELS}
+    qtree = trainer.params
+    del trainer, saved, mine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same bytes dequantized up front: the vision tower and projector
+    # in f32 (the dtype a quantized weight reports, which the patch
+    # embedding casts pixels to), the decoder in the bf16 it runs in
+    deq = dict(qtree)
+    deq["vision"] = dequantize_params(qtree["vision"], torch.float32)
+    deq["projector"] = dequantize_params(qtree["projector"], torch.float32)
+    deq["text"] = dequantize_params(qtree["text"], torch.bfloat16)
+    img_rng = np.random.default_rng(SEED + 22)
+    images = [img_rng.integers(0, 256, size=IMAGE_SIZES[i % len(IMAGE_SIZES)]
+                               + (3,), dtype=np.uint8).astype(np.float32)
+              / 255.0 for i in range(QLORA_IMAGES)]
+    out = {}
+    fwd0 = FA.launch_count("fwd")
+    for name, tree in (("quantized", qtree), ("dequantized", deq)):
+        enc = OnlineQueryEncoder(tree, arch, tok, tmpl, SparseConfig(),
+                                 device=DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out[name] = enc.encode_images(images, pad_to=QLORA_IMAGES)
+        torch.cuda.synchronize()
+        out[name] += (time.monotonic() - t0,)
+        del enc
+    enc_flash = FA.launch_count("fwd") - fwd0
+    (dq, tq, sq), (dd, td, sd) = out["quantized"], out["dequantized"]
+    diff = float(np.abs(dq - dd).max())
+    same = sum(np.array_equal(a.token_ids, b.token_ids)
+               and np.array_equal(a.weights, b.weights)
+               for a, b in zip(tq, td))
+    if not (np.isfinite(dq).all() and diff <= QLORA_ENC_TOL) or \
+            same != QLORA_IMAGES or enc_flash != 2 * layers:
+        raise AssertionError(f"{QLORA_IMAGES} images over the quantized "
+                             f"tree and its dequantized copy: dense max "
+                             f"diff {diff}, {same} equal term rows, flash "
+                             f"launches {enc_flash}")
+    progress("qlora", f"{QLORA_IMAGES} images encoded over the quantized "
+             f"tree ({sq * 1e3:.1f} ms, the vision tower in f32) and over "
+             f"its dequantized copy ({sd * 1e3:.1f} ms): dense max diff "
+             f"{diff:.3g} (tolerance {QLORA_ENC_TOL}), {same} of "
+             f"{QLORA_IMAGES} term rows equal, flash launches {enc_flash}")
+    del qtree, deq
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"fwd": train["fwd"] + grad["fwd"] + enc_flash,
+            "dq": train["dq"] + grad["dq"],
+            "dkv": train["dkv"] + grad["dkv"]}
+
+
+def moe_reference(x, p, probs, moe, capacity, sample):
+    """The MoE FFN written per token on the host: the routing from the
+    card's f32 probabilities (top-k by a stable sort, the lower expert first
+    on a tie; slot-major seats, token order within a slot; drops past
+    ``capacity``), and the outputs of the ``sample`` tokens in float64 from
+    the same bf16 weights. Returns ``(expert, seat, keep, gate, y)``."""
+    import numpy as np
+    import torch
+
+    pr = probs.double().cpu().numpy()
+    n, e = pr.shape
+    k = moe.top_k
+    expert = np.argsort(-pr, axis=1, kind="stable")[:, :k]
+    gate = np.take_along_axis(pr, expert, axis=1)
+    if moe.normalize_gates:
+        gate = gate / np.maximum(gate.sum(axis=1, keepdims=True), 1e-9)
+    seat = np.zeros((n, k), np.int64)
+    count = [0] * e
+    for s in range(k):
+        for t in range(n):
+            seat[t, s] = count[expert[t, s]]
+            count[expert[t, s]] += 1
+    keep = seat < capacity
+    xs = x.double().cpu()
+    y = torch.zeros((len(sample), x.shape[1]), dtype=torch.float64)
+    row = {int(t): i for i, t in enumerate(sample)}
+    for ex in range(e):
+        hits = [(row[t], s, t) for t in sample for s in range(k)
+                if keep[t, s] and expert[t, s] == ex]
+        if not hits:
+            continue
+        idx = torch.tensor([t for _, _, t in hits])
+        xe = xs[idx]
+        g = p["gate"][ex].double().cpu()
+        u = p["up"][ex].double().cpu()
+        d = p["down"][ex].double().cpu()
+        ye = (torch.nn.functional.silu(xe @ g) * (xe @ u)) @ d
+        w = torch.tensor([gate[t, s] for _, s, t in hits],
+                         dtype=torch.float64)
+        y.index_add_(0, torch.tensor([r for r, _, _ in hits]),
+                     ye * w[:, None])
+    return expert, seat, keep, gate, y
+
+
+def phase_moe(card):
+    """A mixture-of-experts decoder at Mixtral-8x7B's published widths
+    (``MOE_LAYERS`` of its 32 layers, bf16 weights drawn on the card):
+    ``moe_ffn`` on ``MOE_B * MOE_T`` tokens held to ``moe_reference``
+    (seats equal, sampled outputs within ``MOE_REL``), then
+    ``llama.apply`` forward and backward through the flash kernels, its
+    hidden states against plain attention. Returns the flash launches."""
+    import numpy as np
+    import torch
+
+    from mllm_sparse_retrieval_tpu_torch.models import llama
+    from mllm_sparse_retrieval_tpu_torch.models.llama import LlamaConfig
+    from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
+    from mllm_sparse_retrieval_tpu_torch.parallel import ep
+
+    moe = ep.MoEConfig(num_experts=8, top_k=2)
+    cfg = LlamaConfig(num_layers=MOE_LAYERS, max_seq_len=32768, rms_eps=1e-5,
+                      moe=moe, **MOE_WIDTHS)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 23)
+    t0 = time.monotonic()
+    params = llama.init_params(cfg, gen, DEVICE, torch.bfloat16)
+    torch.cuda.synchronize()
+    draw_s = time.monotonic() - t0
+    h, n = cfg.hidden_size, MOE_B * MOE_T
+    capacity = ep.expert_capacity(n, moe)
+    p = params["blocks"][0]["moe"]
+    # tokens with a shared component along expert 0's router column: a hot
+    # expert, so the capacity drops assignments
+    hot = p["router"][:, 0] / p["router"][:, 0].square().sum()
+    x = (torch.randn((n, h), generator=gen, device=DEVICE)
+         + MOE_HOT * hot).to(torch.bfloat16)
+    with torch.no_grad():
+        y, aux = ep.moe_ffn(x, p, moe)
+        probs = torch.softmax(x.float() @ p["router"], dim=-1)
+        r = ep._dispatch_combine(probs, moe, capacity)
+        ffn_ms = event_ms(lambda: ep.moe_ffn(x, p, moe), 5)
+    dropped = int((~r.keep).sum())
+    lost = r.keep.sum(dim=1) == 0                  # every seat dropped
+    sample = sorted(set(range(0, n, MOE_REF_EVERY))
+                    | set(torch.nonzero(~r.keep.all(dim=1))[:, 0]
+                          .tolist()[:MOE_REF_DROPPED]))
+    t0 = time.monotonic()
+    expert, seat, keep, gate, ref = moe_reference(x, p, probs, moe,
+                                                  capacity, sample)
+    ref_s = time.monotonic() - t0
+    if not (np.array_equal(r.expert.cpu().numpy(), expert)
+            and np.array_equal(r.seat.cpu().numpy(), seat)
+            and np.array_equal(r.keep.cpu().numpy(), keep)):
+        raise AssertionError("moe_ffn's seating differs from the per-token "
+                             "reference's")
+    gate_err = float(np.abs(r.gate.double().cpu().numpy() - gate).max())
+    got = y[sample].double().cpu()
+    norms = ref.norm(dim=1)
+    rel = ((got - ref).norm(dim=1) / norms.clamp(min=1e-30)).numpy()
+    zero = lost[sample].cpu().numpy()
+    worst = float(rel[~zero].max())
+    if not (torch.isfinite(y).all() and worst <= MOE_REL
+            and gate_err <= 1e-6 and not got[zero].any()
+            and float(aux) > 0):
+        raise AssertionError(f"moe_ffn against the float64 reference: "
+                             f"worst token {worst} (limit {MOE_REL}), gates "
+                             f"{gate_err}, dropped tokens non-zero "
+                             f"{bool(got[zero].any())}, aux {float(aux)}")
+    progress("moe", f"Mixtral-8x7B widths (hidden {h}, FFN "
+             f"{cfg.intermediate_size}, 8 experts top-2, {cfg.num_heads}/"
+             f"{cfg.num_kv_heads} heads), "
+             f"{MOE_LAYERS} of 32 layers drawn in {draw_s:.2f} s; moe_ffn on "
+             f"{n} tokens, capacity {capacity}: {ffn_ms:.3f} ms (CUDA "
+             f"events), seats taken per expert "
+             f"{torch.bincount(r.expert[r.keep], minlength=8).tolist()}, "
+             f"{dropped} of {n * moe.top_k} assignments dropped, "
+             f"{int(lost.sum())} tokens with none; seating equal to the "
+             f"reference's, {len(sample)} tokens against float64 "
+             f"(reference {ref_s:.1f} s): worst normwise error {worst:.3g} "
+             f"(limit {MOE_REL}), gates within {gate_err:.2g}, aux "
+             f"{float(aux):.5f}")
+    del x, y, probs, r, ref
+
+    ids_gen = torch.Generator(device=DEVICE).manual_seed(SEED + 24)
+    ids = torch.randint(0, cfg.vocab_size, (MOE_B, MOE_T), generator=ids_gen,
+                        device=DEVICE)
+    mask = torch.ones((MOE_B, MOE_T), dtype=torch.long, device=DEVICE)
+    mask[1, MOE_REAL:] = 0
+    emb = llama.embed_tokens(params, ids)
+    # every block weight trains, so the backward crosses each layer's
+    # attention (the flash dq and dkv kernels); the routers and experts
+    # first in ``leaves``
+    experts = [t for blk in params["blocks"] for t in blk["moe"].values()]
+    leaves = experts + [t for blk in params["blocks"] for name, v in
+                        blk.items() if name != "moe" for t in v.values()]
+    # each layer's routing, the plain run's first (moe_ffn looks
+    # _dispatch_combine up at each call)
+    routes = []
+    real_routing = ep._dispatch_combine
+
+    def recorded(*args):
+        routes.append(real_routing(*args))
+        return routes[-1]
+
+    def pinned(probs, moe_cfg, capacity):
+        # the plain run's experts and seats, this run's own gates for them
+        ref = plain_routes[len(routes) - MOE_LAYERS]
+        own = recorded(probs, moe_cfg, capacity)
+        gate = probs.gather(1, ref.expert)
+        if moe_cfg.normalize_gates:
+            gate = gate / torch.clamp(gate.sum(dim=-1, keepdim=True),
+                                      min=1e-9)
+        return ep.Routing(ref.expert, ref.seat, ref.keep, gate, own.aux)
+
+    ep._dispatch_combine = recorded
+    try:
+        with torch.no_grad():
+            plain, plain_aux = llama.apply(params, emb, mask, cfg,
+                                           allow_flash=False)
+        plain_routes = list(routes)
+        before = {k: FA.launch_count(k) for k in FA.KERNELS}
+        ep._dispatch_combine = pinned
+        with torch.no_grad():
+            fixed, _ = llama.apply(params, emb, mask, cfg)
+        del routes[MOE_LAYERS:]
+        ep._dispatch_combine = recorded
+        for t in leaves:
+            t.requires_grad_(True)
+        weight = torch.randn(plain.shape, generator=ids_gen, device=DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        hid, aux = llama.apply(params, emb, mask, cfg)
+        torch.cuda.synchronize()
+    finally:
+        ep._dispatch_combine = real_routing
+    fwd_ms = (time.monotonic() - t0) * 1e3
+    loss = (hid.float() * weight).sum() / weight.numel() ** 0.5 \
+        + moe.aux_loss_coef * aux
+    t0 = time.monotonic()
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    bwd_ms = (time.monotonic() - t0) * 1e3
+    aux = aux.detach()
+    launched = {k: FA.launch_count(k) - before[k] for k in FA.KERNELS}
+    if launched != {"fwd": 2 * MOE_LAYERS, "dq": MOE_LAYERS,
+                    "dkv": MOE_LAYERS}:
+        raise AssertionError(f"MoE decoder: flash launches {launched}")
+    per_expert = [float(g[e].abs().sum()) if g.dim() == 3 else
+                  float(g.abs().sum()) for g in grads[:len(experts)]
+                  for e in range(g.shape[0] if g.dim() == 3 else 1)]
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    b = plain.float()
+
+    def token_errors(h):
+        return ((h.float() - b).norm(dim=-1)
+                / b.norm(dim=-1).clamp(min=1e-30)).flatten()
+
+    # with the plain run's routing: the attention routes alone differ
+    pin_rel = token_errors(fixed)
+    # on its own routing: tokens routed alike in every layer (same experts,
+    # same seats kept); a token routed otherwise differs by an expert
+    same = torch.ones(MOE_B * MOE_T, dtype=torch.bool, device=DEVICE)
+    for rp, rf in zip(routes[:MOE_LAYERS], routes[MOE_LAYERS:]):
+        same &= ((rp.expert == rf.expert) & (rp.keep == rf.keep)).all(dim=1)
+    free_rel = token_errors(hid.detach())
+    share_same = float(same.float().mean())
+    within = float((free_rel[same] <= MOE_TOKEN_REL).float().mean())
+    if not (len(routes) == 2 * MOE_LAYERS and finite
+            and min(per_expert) > 0 and torch.isfinite(aux)
+            and float(aux) > 0 and float(pin_rel.max()) <= MOE_TOKEN_REL
+            and share_same >= MOE_SAME_SHARE):
+        raise AssertionError(f"MoE decoder: gradients finite {finite}, "
+                             f"smallest router/expert gradient "
+                             f"{min(per_expert)}, aux {float(aux)}; flash "
+                             f"vs plain on the plain routing: worst token "
+                             f"{float(pin_rel.max())}, median "
+                             f"{float(pin_rel.median())} (limit "
+                             f"{MOE_TOKEN_REL}); {share_same} of the tokens "
+                             f"routed alike on their own")
+    progress("moe", f"llama.apply on {MOE_B} x {MOE_T} tokens (a row of "
+             f"{MOE_REAL} real): forward {fwd_ms:.1f} ms, backward to every "
+             f"block weight {bwd_ms:.1f} ms (host clock), flash "
+             f"launches {launched}; aux {float(aux):.5f} (plain "
+             f"{float(plain_aux):.5f}); {len(per_expert)} router and expert "
+             f"gradients finite and non-zero; hidden states flash vs plain "
+             f"attention on the plain run's routing: median "
+             f"{float(pin_rel.median()):.3g}, worst "
+             f"{float(pin_rel.max()):.3g} normwise (limit {MOE_TOKEN_REL}); "
+             f"on its own routing {share_same:.4f} of the tokens routed "
+             f"alike in every layer (floor {MOE_SAME_SHARE}), {within:.4f} "
+             f"of those within {MOE_TOKEN_REL} (median "
+             f"{float(free_rel[same].median()):.3g}); card {card}")
+    del params, grads, leaves, experts, hid, plain, fixed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launched
+
+
 def same_up_to_ties(got, want, depth=DEPTH):
     """Equal (doc, score) sets, except for docs tied at the depth cut."""
     g, w = set(got), set(want)
@@ -5047,12 +5531,22 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 12. contrastive LoRA training; flash against plain gradients --------
-    trainer, batches, train_launches = phase_train(
+    trainer, batches, train_launches, lora_step = phase_train(
         params, arch_img, tok, tmpl, lexicon, rng, seq)
     grad_check(trainer, batches[0])
-    del trainer, batches, params, svc
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 12b. QLoRA: the same model on an nf4 base -------------------------
+    qlora = phase_qlora(params, arch_img, tok, tmpl, lexicon, batches,
+                        lora_step, card)
+    del batches, params, svc
     gc.collect()                # the closed services still hold the weights
     torch.cuda.empty_cache()
+
+    # ---- 12c. a mixture-of-experts decoder at Mixtral-8x7B's widths --------
+    moe = phase_moe(card)
 
     # ---- 13. LLaVA-1.6-Vicuna-7B and LLaVA-1.5-7B at full width ------------
     fam_taat, fam_flash = phase_families(tok, tmpl, lexicon, index, cmap,
@@ -5079,7 +5573,8 @@ def main() -> int:
              replaces="mllm_sparse_retrieval_tpu/models/layers.py:199",
              launches=files_flash + text_flash + img_flash + hyb_flash
              + live_flash + off_flash + train_launches["fwd"] + fam_flash
-             + chat_flash + chat_train["fwd"] + stats_flash,
+             + chat_flash + chat_train["fwd"] + stats_flash + qlora["fwd"]
+             + moe["fwd"],
              **flash,
              at_g7=dict(shape=f"B={FLASH_B} T={internvl_seq} Hq/Hkv="
                         f"{INTERNVL_HEADS[0]}/{INTERNVL_HEADS[1]}",
@@ -5087,7 +5582,8 @@ def main() -> int:
         dict(name="flash_attention_bwd_dkv", route="cuda",
              source="mllm_sparse_retrieval_tpu_torch/csrc/flash_attn_bwd.cu",
              replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:941",
-             launches=train_launches["dkv"] + chat_train["dkv"],
+             launches=train_launches["dkv"] + chat_train["dkv"]
+             + qlora["dkv"] + moe["dkv"],
              **dkv_kernel,
              at_g7=dict(shape=f"B={TRAIN_B} T={internvl_seq} Hq/Hkv="
                         f"{INTERNVL_HEADS[0]}/{INTERNVL_HEADS[1]}",
@@ -5095,7 +5591,8 @@ def main() -> int:
         dict(name="flash_attention_bwd_dq", route="cuda",
              source="mllm_sparse_retrieval_tpu_torch/csrc/flash_attn_bwd.cu",
              replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
-             launches=train_launches["dq"] + chat_train["dq"], **dq_kernel,
+             launches=train_launches["dq"] + chat_train["dq"] + qlora["dq"]
+             + moe["dq"], **dq_kernel,
              at_g7=dict(shape=f"B={TRAIN_B} T={internvl_seq} Hq/Hkv="
                         f"{INTERNVL_HEADS[0]}/{INTERNVL_HEADS[1]}",
                         launches=chat_train["dq"], **dq_g7)),

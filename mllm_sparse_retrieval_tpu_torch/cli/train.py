@@ -15,11 +15,15 @@ params) path.
         --data-root DATA --family tiny_debug --few-shot-sum 200 \\
         --batch-size 8 --num-epochs 5 --output-dir OUT [--device cpu]
 
-``--mesh`` raises (sharding is ROADMAP Queue 1 #9); ``--fsdp`` and
-``--no-zero1`` only set their ``TrainConfig`` fields, which act under a
-mesh, as in the JAX CLI without one. ``--load-kbit`` raises (k-bit base
-weights are Queue 1 #1). ``run(args, model=...)`` trains a model the
-caller already holds, ``(params, arch, tokenizer, template)``.
+``--load-kbit {4,8}`` trains QLoRA-style: the base is quantized on its
+device before training (``models.quantization.quantize_params``: nf4 or
+linear int4 at 4 bits, ``--quant-format``; linear int8 at 8), dequantized
+per use, and only the adapters train; with ``--train-full`` or ``--merge``
+it is a usage error, as in the JAX CLI. ``--mesh`` raises (sharding is
+ROADMAP Queue 1 #9); ``--fsdp`` and ``--no-zero1`` only set their
+``TrainConfig`` fields, which act under a mesh, as in the JAX CLI without
+one. ``run(args, model=...)`` trains a model the caller already holds,
+``(params, arch, tokenizer, template)``.
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ from mllm_sparse_retrieval_tpu_torch.configs import RepsLoc, TrainConfig
 from mllm_sparse_retrieval_tpu_torch.data.karpathy import CrossModalCorpus
 from mllm_sparse_retrieval_tpu_torch.models import build_model
 from mllm_sparse_retrieval_tpu_torch.models import lora as lora_lib
+from mllm_sparse_retrieval_tpu_torch.models.quantization import (
+    quantize_params, quantized_bytes)
 from mllm_sparse_retrieval_tpu_torch.train.trainer import (
     ContrastiveTrainer, make_collator)
 
@@ -57,11 +63,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--lora-dropout", type=float, default=0.1,
                         help="dropout on the decoder's LoRA paths")
     parser.add_argument("--load-kbit", type=int, default=0, choices=[0, 4, 8],
-                        help="k-bit base weights (QLoRA); not ported, "
-                             "ROADMAP Queue 1 #1")
+                        help="store base weights quantized, dequantized per "
+                             "use (QLoRA)")
     parser.add_argument("--quant-format", default="nf4",
                         choices=["nf4", "linear"],
-                        help="4-bit storage format of --load-kbit")
+                        help="4-bit storage format: nf4 (blockwise "
+                             "NormalFloat + double-quant scales) or linear "
+                             "per-channel int4; 8-bit is always linear")
     parser.add_argument("--train-vision-lora", action="store_true")
     parser.add_argument("--train-projector-lora", action="store_true")
     parser.add_argument("--no-gather-gradient", action="store_true",
@@ -99,9 +107,13 @@ def run(args, model=None):
         raise NotImplementedError(
             "--mesh: sharding is not ported (ROADMAP Queue 1 #9)")
     if args.load_kbit:
-        raise NotImplementedError(
-            f"--load-kbit {args.load_kbit}: k-bit base weights wait for "
-            f"models/quantization.py (ROADMAP Queue 1 #1)")
+        if args.train_full:
+            build_parser().error("--load-kbit pairs with LoRA (QLoRA); "
+                                 "--train-full needs trainable fp weights")
+        if args.merge:
+            build_parser().error("--merge cannot fold adapters into a "
+                                 "quantized base; serve adapters "
+                                 "separately (--lora-path)")
     logger = get_logger("train")
     timer = StepTimer(logger)
     timer.phase("setup")
@@ -117,6 +129,14 @@ def run(args, model=None):
             f"{args.checkpoint_path} has no tokenizer the port can load: it "
             f"needs the checkpoint's tokenizer.json (a sentencepiece "
             f"tokenizer.model alone is ROADMAP Queue 1 #8c)")
+    if args.load_kbit:
+        fp_bytes = quantized_bytes(params)
+        mode = args.quant_format if args.load_kbit == 4 else "linear"
+        params = quantize_params(params, bits=args.load_kbit, mode=mode)
+        logger.info("kbit load: %d-bit (%s) base, %.1f MB -> %.1f MB (%.2fx)",
+                    args.load_kbit, mode, fp_bytes / 1e6,
+                    quantized_bytes(params) / 1e6,
+                    fp_bytes / max(quantized_bytes(params), 1))
     examples = corpus.examples_single()   # one caption per image
 
     total_steps = ContrastiveTrainer.total_train_steps(

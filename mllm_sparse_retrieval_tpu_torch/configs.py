@@ -96,10 +96,11 @@ class TrainConfig:
     """Contrastive LoRA fine-tuning (reference: src/train.py + scripts/train.sh).
 
     Every field and default of the JAX package's ``TrainConfig``. The port's
-    trainer runs on one device: it raises for a mesh and for
-    ``load_kbit > 0`` (``models/quantization.py`` is not ported), and, as the
-    JAX trainer does without a mesh, ignores ``gather_save_gradient``,
-    ``shard_optimizer_state`` and ``shard_params_data_axis``.
+    trainer runs on one device: it raises for a mesh and, as the JAX
+    trainer does without a mesh, ignores ``gather_save_gradient``,
+    ``shard_optimizer_state`` and ``shard_params_data_axis``. As in the JAX
+    package, ``load_kbit`` is the train CLI's record: the CLI quantizes the
+    base (``models/quantization.py``) before the trainer sees it.
     """
 
     learning_rate: float = 5e-5
@@ -114,8 +115,9 @@ class TrainConfig:
     # resume replays exactly. Vision/projector adapters (off in the
     # reference recipe) train without dropout.
     lora_dropout: float = 0.1
-    # k-bit base-weight loading (reference --load_kbit {4,8}); 0 = full
-    # precision. Not ported: the trainer raises for any other value.
+    # k-bit base-weight loading (reference --load_kbit {4,8} + bitsandbytes):
+    # base weights stored nf4 / int4 / int8 and dequantized per use; 0 =
+    # full precision
     load_kbit: int = 0
     train_vision_lora: bool = False
     train_projector_lora: bool = False

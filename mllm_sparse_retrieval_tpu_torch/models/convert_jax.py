@@ -6,7 +6,10 @@ orientation, so a test can run both models on the same weights; so do the
 vision towers (the CLIP ViT, Qwen2.5-VL's windowed ViT with its
 ``merger``, InternViT), the projectors and the ``image_newline``
 embedding, and so do LoRA adapter trees (``models/lora.py``). Arrays
-arrive as numpy (the caller converts JAX arrays with ``np.asarray``).
+arrive as numpy (the caller converts JAX arrays with ``np.asarray``). A
+quantized JAX tree carries across too: each JAX ``QuantizedWeight`` (found
+by its fields, the port imports nothing of the JAX package) becomes the
+port's, with the same bytes and metadata, its scales kept f32.
 """
 
 from __future__ import annotations
@@ -16,8 +19,22 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from mllm_sparse_retrieval_tpu_torch.models.quantization import (
+    QuantizedWeight)
+
+_QUANT_FIELDS = ("q", "scale", "bits", "logical_shape", "scale_q",
+                 "scale_off", "mode")
+
 
 def _to_torch(tree: Any, device, dtype: Optional[torch.dtype]):
+    if all(hasattr(tree, f) for f in _QUANT_FIELDS):
+        def arr(x):
+            return None if x is None else _to_torch(x, device, None)
+
+        return QuantizedWeight(
+            arr(tree.q), arr(tree.scale), int(tree.bits),
+            tuple(int(d) for d in tree.logical_shape), arr(tree.scale_q),
+            arr(tree.scale_off), str(tree.mode))
     if isinstance(tree, dict):
         return {k: _to_torch(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

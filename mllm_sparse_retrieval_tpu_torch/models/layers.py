@@ -17,6 +17,8 @@ from typing import Dict, Optional
 
 import torch
 
+from mllm_sparse_retrieval_tpu_torch.models.quantization import (
+    QuantizedWeight, dequantize_weight)
 from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
 
 
@@ -38,8 +40,16 @@ def dense(x: torch.Tensor, p: Dict[str, torch.Tensor],
     bf16 weights turn the residual stream f32 from the first adapted
     projection on; here it stays in the weights' dtype. Where both are f32
     (the CPU tests) the two agree exactly.
+
+    ``p["w"]`` may be a ``QuantizedWeight`` (k-bit base weights, QLoRA): it
+    is dequantized per use into ``x``'s dtype, as in the JAX package, so
+    one layer's weight at a time exists in the compute dtype. It never
+    requires a gradient.
     """
-    y = x @ p["w"]
+    w = p["w"]
+    if isinstance(w, QuantizedWeight):
+        w = dequantize_weight(w, x.dtype)
+    y = x @ w
     if lora is not None:
         a = lora["a"]
         xl = x.to(a.dtype)
@@ -70,7 +80,13 @@ def merge_lora_into_dense(p: Dict[str, torch.Tensor],
                           lora: Dict[str, torch.Tensor]
                           ) -> Dict[str, torch.Tensor]:
     """``w + (a @ b) * scale`` (PEFT's ``merge_and_unload``), cast to ``w``'s
-    dtype (the dtype rule of ``dense``); other entries are kept."""
+    dtype (the dtype rule of ``dense``); other entries are kept. A quantized
+    base weight raises ``TypeError``, as in the JAX package."""
+    if isinstance(p["w"], QuantizedWeight):
+        raise TypeError(
+            "cannot merge LoRA into a quantized base weight — keep the "
+            "adapters separate (serve with lora=...) or dequantize_params "
+            "first for an export-time merge")
     merged = dict(p)
     delta = (lora["a"] @ lora["b"]) * lora["scale"]
     merged["w"] = p["w"] + delta.to(p["w"].dtype)

@@ -1,7 +1,8 @@
 """Decoder LM: Llama-family architecture (RMSNorm, RoPE, GQA, SwiGLU).
 
-The language backbone of the LLaVA families, with the dense SwiGLU FFN and
-optional LoRA adapters on its seven projections. Parameters are a dict in
+The language backbone of the LLaVA families, with the dense SwiGLU FFN (or,
+with ``LlamaConfig.moe``, the mixture-of-experts FFN of ``parallel/ep.py``)
+and optional LoRA adapters on its projections. Parameters are a dict in
 the JAX package's tree layout (``embed``, ``blocks[i]``, ``final_norm``,
 ``lm_head``); norms and softmax run in f32, matmuls in the weights' dtype.
 As in the JAX package, the LM head is not applied over the sequence: the
@@ -20,6 +21,7 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from mllm_sparse_retrieval_tpu_torch.models import layers as L
+from mllm_sparse_retrieval_tpu_torch.parallel import ep
 
 
 @dataclass(frozen=True)
@@ -39,16 +41,11 @@ class LlamaConfig:
     # for the (temporal, height, width) position components; None =
     # standard RoPE
     mrope_section: Optional[Tuple[int, ...]] = None
-    # the JAX package's mixture-of-experts FFN field, kept so that an
-    # ``arch.json`` manifest has the same keys in both packages; it is not
-    # ported, so only None is accepted
-    moe: None = None
-
-    def __post_init__(self):
-        if self.moe is not None:
-            raise NotImplementedError(
-                "mixture-of-experts backbones are not ported (ROADMAP "
-                "Queue 1 #9: parallel/ep.py)")
+    # Mixture-of-Experts FFN (Mixtral-class backbones): replaces the dense
+    # SwiGLU with parallel/ep.py's capacity-bucketed expert layer; ``apply``
+    # then returns ``(hidden, aux_loss)``. None = dense FFN. Read back from
+    # an arch.json manifest it stays a dict, as in the JAX package.
+    moe: Optional[ep.MoEConfig] = None
 
     @property
     def head_dim(self) -> int:
@@ -91,10 +88,14 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
             "v": dense_init(h, cfg.num_kv_heads * dh),
             "o": dense_init(cfg.num_heads * dh, h),
             "mlp_norm": norm_init(h),
-            "gate": dense_init(h, cfg.intermediate_size),
-            "up": dense_init(h, cfg.intermediate_size),
-            "down": dense_init(cfg.intermediate_size, h),
         }
+        if cfg.moe is not None:
+            blk["moe"] = ep.moe_init(generator, h, cfg.intermediate_size,
+                                     cfg.moe, dtype, device)
+        else:
+            blk["gate"] = dense_init(h, cfg.intermediate_size)
+            blk["up"] = dense_init(h, cfg.intermediate_size)
+            blk["down"] = dense_init(cfg.intermediate_size, h)
         if cfg.qkv_bias:
             for name, width in (("q", cfg.num_heads * dh),
                                 ("k", cfg.num_kv_heads * dh),
@@ -113,7 +114,8 @@ def _block(x, p, cfg: LlamaConfig, mask, cos, sin, lora=None,
     ``lora_dropout > 0`` each LoRA call site draws its dropout mask from a
     fresh generator seeded with ``fold_seed(lora_seed, site)``, sites in the
     JAX order q, k, v, o, gate, up, down: a pure function of integers, so a
-    recompute under ``remat`` draws the same masks."""
+    recompute under ``remat`` draws the same masks. An MoE block returns
+    ``(x, aux)``: its experts are no adapter targets."""
     b, t, _ = x.shape
     dh = cfg.head_dim
     site = [0]
@@ -141,6 +143,9 @@ def _block(x, p, cfg: LlamaConfig, mask, cos, sin, lora=None,
     attn = attn.reshape(b, t, cfg.num_heads * dh)
     x = x + ld(attn, "o")
     y = L.rmsnorm(x, p["mlp_norm"], cfg.rms_eps)
+    if cfg.moe is not None:
+        ffn, aux = ep.moe_ffn(y, p["moe"], cfg.moe)
+        return x + ffn, aux
     gated = F.silu(ld(y, "gate")) * ld(y, "up")
     return x + ld(gated, "down")
 
@@ -183,13 +188,15 @@ def apply(params: Dict, inputs_embeds: torch.Tensor,
           lora: Optional[Dict] = None,
           position_ids: Optional[torch.Tensor] = None, remat: bool = False,
           allow_flash: bool = True, lora_seed: Optional[int] = None,
-          lora_dropout: float = 0.0) -> torch.Tensor:
+          lora_dropout: float = 0.0):
     """Run the decoder stack; returns final-norm hidden states
-    ``[B, T, H]``. Long sequences (anyres and tiled image prompts) take the
-    flash kernels when ``layers.flash_attention_eligible`` holds and never
-    build the ``[B, 1, T, T]`` mask; ``allow_flash=False`` forces the plain
-    masked attention. ``position_ids``: ``[B, T]`` or ``[3, B, T]``
-    (M-RoPE) positions; None is ``arange(T)`` for every row.
+    ``[B, T, H]``, or ``(hidden, moe_aux_loss)`` when ``cfg.moe`` is set
+    (the blocks' load-balance losses summed, for the trainer to weight with
+    ``cfg.moe.aux_loss_coef``). Long sequences (anyres and tiled image
+    prompts) take the flash kernels when ``layers.flash_attention_eligible``
+    holds and never build the ``[B, 1, T, T]`` mask; ``allow_flash=False``
+    forces the plain masked attention. ``position_ids``: ``[B, T]`` or
+    ``[3, B, T]`` (M-RoPE) positions; None is ``arange(T)`` for every row.
 
     ``lora``: the text adapter tree ``{"blocks": [...]}``. ``remat=True``
     checkpoints each block (``torch.utils.checkpoint``, non-reentrant):
@@ -207,6 +214,8 @@ def apply(params: Dict, inputs_embeds: torch.Tensor,
     dropout_on = lora_seed is not None and lora_dropout > 0.0 \
         and lora is not None
     x = inputs_embeds
+    moe_aux = None if cfg.moe is None else torch.zeros(
+        (), dtype=torch.float32, device=x.device)
     for i, blk in enumerate(params["blocks"]):
         blora = None
         if lora is not None and "blocks" in lora and lora["blocks"][i]:
@@ -219,7 +228,11 @@ def apply(params: Dict, inputs_embeds: torch.Tensor,
                            use_reentrant=False)
         else:
             x = _block(*args, lora_dropout=drop)
-    return L.rmsnorm(x, params["final_norm"], cfg.rms_eps)
+        if moe_aux is not None:
+            x, aux = x
+            moe_aux = moe_aux + aux
+    out = L.rmsnorm(x, params["final_norm"], cfg.rms_eps)
+    return out if moe_aux is None else (out, moe_aux)
 
 
 def embed_tokens(params: Dict, input_ids: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,8 @@ import torch
 from mllm_sparse_retrieval_tpu_torch.models import layers as L
 from mllm_sparse_retrieval_tpu_torch.models.convert_jax import from_jax_lora
 from mllm_sparse_retrieval_tpu_torch.models.mllm import MLLMConfig
+from mllm_sparse_retrieval_tpu_torch.models.quantization import (
+    QuantizedWeight)
 
 # Per-submodule linear names eligible for adapters (LM head excluded).
 TEXT_TARGETS = ("q", "k", "v", "o", "gate", "up", "down")
@@ -37,7 +39,10 @@ def init_lora(generator: torch.Generator, params: Dict, cfg: MLLMConfig,
     """Build a LoRA tree aligned with ``params``: text blocks always, the
     ViT blocks and the projector on request. Draws come from ``generator``
     (on ``device``) in tree order; they differ from the JAX package's, whose
-    tree structure, shapes and dtypes they share."""
+    tree structure, shapes and dtypes they share. A quantized base gives
+    its logical shapes; mixture-of-experts blocks have no ``gate`` / ``up``
+    / ``down`` (the experts are not adapter targets), so their entries hold
+    the attention projections only."""
 
     def make(w):
         return L.lora_init(generator, w.shape[0], w.shape[1], rank, alpha,
@@ -82,7 +87,9 @@ def merge_lora(params: Dict, lora: Dict) -> Dict:
 
 def tree_leaves(tree: Any) -> List[torch.Tensor]:
     """Tensor leaves of a nested dict/list tree (adapters, params), in tree
-    order."""
+    order; a ``QuantizedWeight`` gives its stored tensors."""
+    if isinstance(tree, QuantizedWeight):
+        return tree.tensors()
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
     if isinstance(tree, (list, tuple)):

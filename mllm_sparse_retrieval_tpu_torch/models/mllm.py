@@ -155,7 +155,14 @@ def forward_hidden(params: Dict, cfg: MLLMConfig, input_ids: torch.Tensor,
     ``lora_seed``/``lora_dropout`` apply to the decoder adapters;
     vision/projector adapters train without dropout, as in the JAX package.
     The ``vision`` range names the ViT and projector in a profiler trace.
+    An MoE text config raises ``ValueError``, as in the JAX package: its
+    ``llama.apply`` returns ``(hidden, aux_loss)``, which this wrapper's
+    one-tensor contract cannot carry.
     """
+    if cfg.text.moe is not None:
+        raise ValueError("MLLM wrapper does not support MoE text configs; "
+                         "use models.llama.apply directly (returns "
+                         "(hidden, moe_aux_loss))")
     lget = (lambda name: lora.get(name) if lora else None)
     embeds = llama.embed_tokens(params["text"], input_ids)
     if pixel_values is not None:

@@ -2,15 +2,17 @@
 
 Patch embedding is reshape + matmul (a convolution whose stride equals its
 kernel is a patchwise matmul), so no cuDNN convolution and no TF32 question
-arises. Blocks are pre-LN with ``quick_gelu`` MLPs; the features are the
+arises. Blocks are pre-LN with GELU-family MLPs; the features are the
 hidden states of ``feature_layer`` with the CLS token dropped, LLaVA's
 ``vision_feature_layer=-2`` / ``'default'`` select. Attention is the plain
 ``layers.attention`` with an all-true mask (T = 577 at 336 px: no kernel).
 
-Only the CLIP tower is built: a CLS token and ``quick_gelu`` are fixed.
-``ViTConfig`` carries the JAX package's ``use_cls_token`` and ``act`` fields,
-so that architecture manifests stay the same across packages, and refuses
-any other value; ``mlp_ratio`` comes from a checkpoint's ``config.json``.
+CLIP's tower has a CLS token and ``quick_gelu``; ``use_cls_token=False``
+builds a tower without one (no CLS row in ``pos_embed``, nothing to drop),
+and any other ``act`` is the tanh-approximate GELU, as the JAX package's
+``_act`` computes it, whatever the name (HF's ``gelu`` is erf-exact and
+``silu`` is no GELU: the port keeps the JAX package's choice).
+``mlp_ratio`` comes from a checkpoint's ``config.json``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from dataclasses import dataclass
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from mllm_sparse_retrieval_tpu_torch.models import layers as L
 
@@ -33,15 +36,8 @@ class ViTConfig:
     num_heads: int = 16
     mlp_ratio: int = 4
     feature_layer: int = -2       # hidden layer used as image features
-    use_cls_token: bool = True    # only CLIP's values are built
-    act: str = "quick_gelu"
-
-    def __post_init__(self):
-        if not self.use_cls_token or self.act != "quick_gelu":
-            raise NotImplementedError(
-                f"only CLIP's vision tower is ported (a CLS token and "
-                f"quick_gelu), not use_cls_token={self.use_cls_token}, "
-                f"act={self.act!r}")
+    use_cls_token: bool = True
+    act: str = "quick_gelu"       # CLIP; any other name: tanh-approx GELU
 
     @property
     def num_patches(self) -> int:
@@ -49,7 +45,7 @@ class ViTConfig:
 
     @property
     def seq_len(self) -> int:
-        return self.num_patches + 1  # + CLS
+        return self.num_patches + (1 if self.use_cls_token else 0)
 
 
 def init_params(cfg: ViTConfig, generator: torch.Generator, device="cuda",
@@ -77,8 +73,9 @@ def init_params(cfg: ViTConfig, generator: torch.Generator, device="cuda",
         "pos_embed": normal((cfg.seq_len, h), 0.02),
         "pre_ln": ln_init(h),
         "blocks": [],
-        "cls_token": normal((h,), 0.02),
     }
+    if cfg.use_cls_token:
+        params["cls_token"] = normal((h,), 0.02)
     for _ in range(cfg.num_layers):
         params["blocks"].append({
             "ln1": ln_init(h), "qkv": dense_init(h, 3 * h),
@@ -96,11 +93,14 @@ def patchify(pixel_values: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(b, gh * gw, patch * patch * c)
 
 
-def _quick_gelu(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.sigmoid(1.702 * x)
+def _act(x: torch.Tensor, name: str) -> torch.Tensor:
+    if name == "quick_gelu":
+        return x * torch.sigmoid(1.702 * x)
+    return F.gelu(x, approximate="tanh")
 
 
-def _block(x, p, num_heads: int, lora: Optional[Dict] = None):
+def _block(x, p, num_heads: int, lora: Optional[Dict] = None,
+           act: str = "quick_gelu"):
     b, t, h = x.shape
     dh = h // num_heads
     lget = (lambda name: lora.get(name) if lora else None)
@@ -113,7 +113,7 @@ def _block(x, p, num_heads: int, lora: Optional[Dict] = None):
     attn = L.attention(q, k, v, mask).reshape(b, t, h)
     x = x + L.dense(attn, p["out"], lget("out"))
     y = L.layernorm(x, p["ln2"])
-    y = _quick_gelu(L.dense(y, p["fc1"], lget("fc1")))
+    y = _act(L.dense(y, p["fc1"], lget("fc1")), act)
     return x + L.dense(y, p["fc2"], lget("fc2"))
 
 
@@ -129,8 +129,9 @@ def apply(params: Dict, pixel_values: torch.Tensor, cfg: ViTConfig,
     x = patchify(pixel_values.to(params["patch_embed"]["w"].dtype),
                  cfg.patch_size)
     x = L.dense(x, params["patch_embed"])
-    cls = params["cls_token"].expand(x.shape[0], 1, cfg.hidden_size)
-    x = torch.cat([cls, x], dim=1)
+    if cfg.use_cls_token:
+        cls = params["cls_token"].expand(x.shape[0], 1, cfg.hidden_size)
+        x = torch.cat([cls, x], dim=1)
     x = x + params["pos_embed"][None]
     x = L.layernorm(x, params["pre_ln"])
     keep = range(len(params["blocks"]))[cfg.feature_layer]
@@ -138,7 +139,8 @@ def apply(params: Dict, pixel_values: torch.Tensor, cfg: ViTConfig,
         blora = None
         if lora is not None and "blocks" in lora and lora["blocks"][i]:
             blora = lora["blocks"][i]
-        x = _block(x, blk, cfg.num_heads, blora)
+        x = _block(x, blk, cfg.num_heads, blora, act=cfg.act)
         if i == keep:
             feats = x
-    return feats[:, 1:]  # drop CLS: LLaVA 'default' feature select
+    # drop CLS: LLaVA 'default' feature select
+    return feats[:, 1:] if cfg.use_cls_token else feats

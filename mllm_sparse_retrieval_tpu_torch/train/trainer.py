@@ -28,8 +28,13 @@
 - Checkpoints keep the JAX layout, ``<dir>/step_<n>/`` and a ``latest``
   file, written with ``torch.save`` (the JAX trainer uses Orbax).
 
-Not ported: meshes (ROADMAP Queue 1 #9, sharding) and ``load_kbit``
-(``models/quantization.py``, Queue 1 #1); both raise.
+- QLoRA: ``params`` may hold ``QuantizedWeight``s (``models/quantization.
+  quantize_params``, ``cfg.load_kbit``); they are dequantized per use and
+  never reach the optimizer, which updates the adapters only. A full
+  finetune over a quantized tree raises ``ValueError``, as in the JAX
+  package.
+
+Not ported: meshes (ROADMAP Queue 1 #9, sharding); they raise.
 """
 
 from __future__ import annotations
@@ -49,6 +54,8 @@ from mllm_sparse_retrieval_tpu_torch.models import lora as lora_lib
 from mllm_sparse_retrieval_tpu_torch.models.api import (
     encode_any, image_input_spec, mrope_ids_for_batch)
 from mllm_sparse_retrieval_tpu_torch.models.layers import FLASH_MIN_SEQ
+from mllm_sparse_retrieval_tpu_torch.models.quantization import (
+    quantized_leaves)
 from mllm_sparse_retrieval_tpu_torch.pipelines.encode import (
     default_pixel_loader, default_raw_image_loader)
 from mllm_sparse_retrieval_tpu_torch.train.contrastive import info_nce_loss
@@ -165,10 +172,12 @@ class ContrastiveTrainer:
             raise NotImplementedError(
                 "the port trains on one device: meshes wait for sharding "
                 "(ROADMAP Queue 1 #9, parallel/*)")
-        if cfg.load_kbit:
-            raise NotImplementedError(
-                f"load_kbit={cfg.load_kbit}: k-bit base weights wait for "
-                f"models/quantization.py (ROADMAP Queue 1 #1)")
+        if (cfg.train_full or adapters is None) and quantized_leaves(params):
+            raise ValueError(
+                "full finetune over a k-bit quantized tree is not "
+                "supported (int weights are not trainable) — kbit "
+                "loading pairs with LoRA adapters (QLoRA), matching "
+                "the reference's prepare_model_for_kbit_training")
         if cfg.lr_schedule not in ("linear", "cosine", "constant"):
             raise ValueError(f"unknown lr_schedule {cfg.lr_schedule!r}: "
                              "'linear', 'cosine', or 'constant'")

@@ -379,7 +379,20 @@ def test_decoder_with_mrope_ids_matches_jax():
 
 
 def test_llama_config_still_refuses_moe():
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
-        LlamaConfig(moe=object())
+    """``LlamaConfig`` takes an MoE FFN now (``parallel/ep.py``); what still
+    refuses it is the MLLM wrapper, with the JAX package's ``ValueError``
+    (its one-tensor contract cannot carry the aux loss)."""
+    from mllm_sparse_retrieval_tpu_torch.models.mllm import (
+        MLLMConfig, forward_hidden)
+    from mllm_sparse_retrieval_tpu_torch.models.vit import ViTConfig
+    from mllm_sparse_retrieval_tpu_torch.parallel import MoEConfig
+
+    cfg = LlamaConfig(moe=MoEConfig(num_experts=8, top_k=2))
+    assert cfg.moe.num_experts == 8
+    arch = MLLMConfig(vision=ViTConfig(), text=cfg)
+    with pytest.raises(ValueError, match="MoE text configs"):
+        forward_hidden({"text": {"embed": torch.zeros(4, 2)}}, arch,
+                       torch.zeros((1, 2), dtype=torch.long),
+                       torch.ones((1, 2)))
     assert LlamaConfig(mrope_section=(16, 24, 24)).mrope_section == \
         (16, 24, 24)

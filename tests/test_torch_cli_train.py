@@ -208,12 +208,20 @@ def test_adapter_files_load_in_both_packages(tmp_path):
 
 @pytest.mark.parametrize("flag,match", [
     (("--mesh",), "Queue 1 #9"),
-    (("--load-kbit", "4"), "Queue 1 #1"),
+    (("--load-kbit", "4", "--merge"), "--merge cannot fold adapters"),
 ])
-def test_train_cli_refuses_what_is_not_ported(data_root, tmp_path, flag,
-                                              match):
+def test_train_cli_refuses_what_is_not_ported(data_root, tmp_path, capsys,
+                                              flag, match):
+    """``--mesh`` is not ported; ``--load-kbit`` is (QLoRA, trained in
+    ``test_torch_quantization.py``), and with ``--merge`` it is the JAX
+    CLI's usage error."""
     args = cli_train.build_parser().parse_args(
         _args(data_root, "tiny_debug", tmp_path, "--device", "cpu", *flag))
-    with pytest.raises(NotImplementedError, match=match):
-        cli_train.run(args)
+    if "--load-kbit" in flag:
+        with pytest.raises(SystemExit):
+            cli_train.run(args)
+        assert match in capsys.readouterr().err
+    else:
+        with pytest.raises(NotImplementedError, match=match):
+            cli_train.run(args)
     assert not (tmp_path / "lora.pkl").exists()

@@ -426,31 +426,63 @@ def test_template_strings_equal_jax(name):
                             getattr(jtemplates, name))
 
 
+def _tiny_tower_equal_to_jax(**field):
+    """A tiny ViT with ``field`` built by both packages (the JAX weights
+    carried across) and run on the same pixels: features within TOL."""
+    from mllm_sparse_retrieval_tpu.models import vit as jvit
+    from mllm_sparse_retrieval_tpu_torch.models import vit
+    from mllm_sparse_retrieval_tpu_torch.models.convert_jax import (
+        _to_torch)
+
+    dims = dict(image_size=28, patch_size=14, hidden_size=32, num_layers=2,
+                num_heads=4, **field)
+    jcfg, cfg = jvit.ViTConfig(**dims), vit.ViTConfig(**dims)
+    assert cfg.seq_len == jcfg.seq_len
+    jp = jvit.init_params(jax.random.PRNGKey(0), jcfg)
+    params = _to_torch(jax.tree_util.tree_map(np.asarray, jp), "cpu", None)
+    assert set(params) == set(jp)
+    assert params["pos_embed"].shape[0] == cfg.seq_len
+    px = np.random.default_rng(1).random((2, 28, 28, 3), np.float32)
+    want = jvit.apply(jp, jnp.asarray(px), jcfg)
+    got = vit.apply(params, torch.from_numpy(px), cfg)
+    assert got.shape == want.shape == (2, cfg.num_patches, 32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 @pytest.mark.parametrize("vision_cfg", [
     {"hidden_act": "gelu"},            # HF's exact erf GELU
     {"hidden_act": "gelu_pytorch_tanh"},
     {"hidden_act": "silu"},
 ])
 def test_non_clip_vision_towers_are_refused(vision_cfg):
-    """The port builds CLIP's tower only: a config.json whose tower has
-    another activation raises instead of loading with the wrong one."""
+    """No longer refused: a config.json whose tower has another activation
+    converts to the JAX package's arch, and the tower runs as the JAX one
+    does, tanh-approximate GELU for every name but ``quick_gelu`` (the JAX
+    package's ``_act``, not HF's erf GELU or SiLU)."""
     cfg = dict(PUBLISHED["llava_1_5"])
     cfg["vision_config"] = dict(CLIP_L_336, **vision_cfg)
-    with pytest.raises(NotImplementedError, match="CLIP"):
-        convert.arch_from_hf_config(cfg)
+    arch = convert.arch_from_hf_config(cfg)
+    assert arch.vision.act == vision_cfg["hidden_act"]
+    assert dataclasses.asdict(arch) == dataclasses.asdict(
+        jconvert.arch_from_hf_config(cfg))
+    _tiny_tower_equal_to_jax(act=vision_cfg["hidden_act"])
 
 
 @pytest.mark.parametrize("field", [{"use_cls_token": False},
                                    {"act": "gelu"}])
 def test_manifest_with_a_non_clip_tower_is_refused(field):
+    """No longer refused: both packages read the manifest back to the same
+    arch, and the tower (no CLS token: ``seq_len`` and ``pos_embed`` one
+    row shorter, nothing dropped) runs equal to JAX ``vit.apply``."""
     arch = registry.get_family_spec(ModelFamily.LLAVA_1_5).arch
     manifest = convert.arch_to_manifest(arch)
     manifest["config"]["vision"].update(field)
     (key, value), = field.items()
-    # the JAX package builds such towers; the port refuses them
-    assert getattr(jconvert.arch_from_manifest(manifest).vision, key) == value
-    with pytest.raises(NotImplementedError, match="CLIP"):
-        convert.arch_from_manifest(manifest)
+    got = convert.arch_from_manifest(manifest)
+    assert getattr(got.vision, key) == value
+    assert dataclasses.asdict(got) == dataclasses.asdict(
+        jconvert.arch_from_manifest(manifest))
+    _tiny_tower_equal_to_jax(**field)
 
 
 def test_build_model_manifest_wins_and_registry_default(tmp_path):

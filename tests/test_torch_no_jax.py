@@ -65,6 +65,8 @@ CHAT = ("models.qwen_vl", "models.internvl", "data.tiling",
 # training and analysis entry points, and the host helpers
 TRAIN = ("hostops", "cli.train", "cli.prepare_data", "cli.stats",
          "data.prep", "eval.statistics", "train.trainer")
+# k-bit base weights (QLoRA) and the mixture-of-experts FFN
+QLORA = ("models.quantization", "parallel", "parallel.ep")
 
 
 def _env():
@@ -81,6 +83,7 @@ def test_port_and_chip_smoke_import_without_jax():
     assert int(proc.stdout.split()[-1]) >= 20
     imported = set(proc.stdout.splitlines()[-2].split())
     missing = {m for m in OFFLINE + HYBRID + TIERS + LIVE + CHAT + TRAIN
+               + QLORA
                if f"mllm_sparse_retrieval_tpu_torch.{m}" not in imported}
     assert missing == set()
 
@@ -95,9 +98,10 @@ def test_no_import_statement_names_jax_or_the_jax_package():
     scanned = {str(f.relative_to(PORT)) for f in files
                if f.is_relative_to(PORT)}
     assert {m.replace(".", "/") + ".py"
-            for m in OFFLINE + HYBRID + TIERS + LIVE + CHAT
-            if m not in ("index.native", "index")} | {
-                "index/native/__init__.py", "index/__init__.py"} <= scanned
+            for m in OFFLINE + HYBRID + TIERS + LIVE + CHAT + QLORA
+            if m not in ("index.native", "index", "parallel")} | {
+                "index/native/__init__.py", "index/__init__.py",
+                "parallel/__init__.py"} <= scanned
     hits = [f"{f}: {m.group(0).strip()}" for f in files
             for m in pattern.finditer(f.read_text())]
     assert hits == []
@@ -290,6 +294,20 @@ def test_chat_family_entry_points_default_to_the_card():
     for fn in (internvl.init_params, qwen_vl.init_params,
                registry.init_params, registry.build_model):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_moe_and_qlora_entry_points_default_to_the_card():
+    """MoE weights are drawn on ``cuda`` unless asked; the train CLI (which
+    quantizes the base where the model lives) runs there too."""
+    import inspect
+
+    from mllm_sparse_retrieval_tpu_torch.cli import train
+    from mllm_sparse_retrieval_tpu_torch.parallel import ep
+
+    assert inspect.signature(ep.moe_init).parameters["device"].default == \
+        "cuda"
+    args = train.build_parser().parse_args(["--load-kbit", "4"])
+    assert (args.device, args.quant_format) == ("cuda", "nf4")
 
 
 def test_qwen_checkpoint_converts_with_jax_and_transformers_blocked(

@@ -30,6 +30,7 @@ from mllm_sparse_retrieval_tpu.configs import TrainConfig as JTrainConfig
 from mllm_sparse_retrieval_tpu.data.karpathy import Example as JExample
 from mllm_sparse_retrieval_tpu.models import build_model as j_build_model
 from mllm_sparse_retrieval_tpu.models import lora as jlora
+from mllm_sparse_retrieval_tpu.models import quantization as jquantization
 from mllm_sparse_retrieval_tpu.models.llama import LlamaConfig as JLlamaConfig
 from mllm_sparse_retrieval_tpu.models.mllm import MLLMConfig as JMLLMConfig
 from mllm_sparse_retrieval_tpu.models.vit import ViTConfig as JViTConfig
@@ -46,6 +47,8 @@ from mllm_sparse_retrieval_tpu_torch.models.convert_jax import (
     from_jax_lora, from_jax_params)
 from mllm_sparse_retrieval_tpu_torch.models.llama import LlamaConfig
 from mllm_sparse_retrieval_tpu_torch.models.mllm import MLLMConfig
+from mllm_sparse_retrieval_tpu_torch.models.quantization import (
+    quantize_params)
 from mllm_sparse_retrieval_tpu_torch.models.registry import get_family_spec
 from mllm_sparse_retrieval_tpu_torch.models.tokenizer import (
     WordPieceLiteTokenizer)
@@ -286,13 +289,20 @@ def test_trainer_learning_rates_match_optax(tiny):
 
 
 def test_trainer_refuses_what_is_not_ported(tiny):
-    _, (params, arch, _, _) = tiny
+    (jparams, jarch, _, _), (params, arch, _, _) = tiny
     with pytest.raises(NotImplementedError, match="mesh"):
         ContrastiveTrainer(params, arch, None, TrainConfig(), mesh=object(),
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="quantization"):
-        ContrastiveTrainer(params, arch, None, TrainConfig(load_kbit=4),
+    # k-bit bases are ported (QLoRA, test_torch_quantization.py); a full
+    # finetune over one is refused with the JAX trainer's ValueError
+    qparams = quantize_params(params, 4, mode="nf4")
+    with pytest.raises(ValueError, match="k-bit"):
+        ContrastiveTrainer(qparams, arch, None, TrainConfig(load_kbit=4),
                            device="cpu")
+    jq = jquantization.quantize_params(jparams, 4, mode="nf4")
+    with pytest.raises(ValueError, match="k-bit"):
+        jtrainer.ContrastiveTrainer(jq, jarch, None,
+                                    JTrainConfig(load_kbit=4))
     with pytest.raises(ValueError, match="total_steps"):
         ContrastiveTrainer(params, arch, None,
                            TrainConfig(lr_schedule="cosine"), device="cpu")
