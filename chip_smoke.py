@@ -67,7 +67,15 @@ wire (served text, filtered, the 2^24 refusal; equal to the i32 wire),
 indexes in dense and device-fused hybrid modes (exact int32 products,
 scores within 1e-5 relative of float64, ANN with every candidate equal to
 the exact index, candidate recall on low-rank rows), and the bf16 search's
-memory bound; live indexes and the HTTP front end: arena copies of the
+memory bound; search, encode and serve over a data-axis mesh
+(``parallel/mesh.py``): the text queries through sparse and hybrid
+services over four shards of the one card (``make_mesh(4, devices=[cuda:0]
+* 4)``: the TAAT kernel once per shard per micro-batch), over the default
+1x1 mesh and unsharded, every result held to the unsharded engines on the
+served inputs; one sharded TAAT and MIPS search against their plain
+versions; and 8 images through ``encode_examples`` on a 2 x 2 mesh (the
+flash kernel once per shard and layer, at G = 4 on 16/4 heads) against
+the unsharded batch; live indexes and the HTTP front end: arena copies of the
 impact index and the dense rows served by ``cli.serve``'s boot behind the
 aio server, text queries over HTTP before and after adds, replaces and
 deletes over HTTP (the int16 matrix keeps its storage; the TAAT kernel on
@@ -103,7 +111,7 @@ whose C results are held to the Python bodies on the offline runs, which
 ``fusion_provenance_statistics`` also ranks. After the LoRA steps, QLoRA
 on the same LLaVA-NeXT-Llama3-8B: the base quantized on the card to nf4
 (one decoder block byte-equal to the CPU's), ``cli.train.run --load-kbit 4
---quant-format nf4`` for four steps (flash forward and backward, the base
+--quant-format nf4`` for three steps (flash forward and backward, the base
 dequantized per use), the flash-vs-plain gradient check on that base, and
 8 images encoded over the quantized tree and over its dequantized copy;
 then a mixture-of-experts decoder at Mixtral-8x7B's published widths (2 of
@@ -183,7 +191,9 @@ LSE_RTOL = 1e-4
 BWD_RTOL = 2.0 ** -6
 # training: LoRA rank 8 / alpha 16 on the seven text targets, dropout 0.1,
 # tau 0.05, remat, TRAIN_B image-caption pairs a step
-TRAIN_B, TRAIN_STEPS, TRAIN_LR = 4, 4, 1e-4
+# (TRAIN_STEPS was 4 until the mesh phase came: one step less, in the LoRA
+# and the QLoRA phases, pays for that phase within the 600 s target)
+TRAIN_B, TRAIN_STEPS, TRAIN_LR = 4, 3, 1e-4
 LORA_RANK, LORA_ALPHA, LORA_DROPOUT, TAU = 8, 16, 0.1, 0.05
 # QLoRA, after the training phase on the same full-width model: the base
 # quantized on the card to QLORA_BITS-bit QLORA_FORMAT (one decoder block
@@ -256,6 +266,11 @@ TIER_STREAMS, TIER_STREAM_B, TIER_EXPLAIN = 4, 64, 8
 TIER_ANN_RANK, TIER_ANN_CAND, TIER_REL = 64, 1024, 1e-5
 TIER_LOW_RANK, TIER_LOW_NOISE, TIER_RECALL_FLOOR = 48, 0.02, 0.95
 TIER_PROFILE_ITERS = 20         # host-clock calls of each dense search
+# search, encode and serve over a data-axis mesh: the text queries through a
+# sparse and a hybrid service over MESH_SHARDS shards of the one card (and
+# the default 1x1 mesh, and unsharded), MESH_IMAGES images through
+# encode_examples on a data x model mesh of MESH_ENCODE
+MESH_SHARDS, MESH_IMAGES, MESH_ENCODE = 4, 8, (2, 2)
 # checkpoint: the drawn LLaVA-NeXT-Llama3-8B (full width and depth) is
 # written as an HF llava_next checkpoint (the hub's legacy key layout, bf16
 # safetensors in shards of at most CKPT_SHARD_BYTES, with an index),
@@ -2707,6 +2722,233 @@ class LiveCorpus:
         return self._ref
 
 
+def phase_mesh(params, arch, arch_img, tok, tmpl, index, cmap, texts, host,
+               images, card):
+    """Search, encode and serve over a data-axis mesh on the full-width
+    model (``parallel/mesh.py``): the text queries through a sparse and a
+    hybrid ``RetrievalService`` unsharded, over the default 1x1 mesh and
+    over MESH_SHARDS shards of the one card (``make_mesh(devices=[cuda:0]
+    * MESH_SHARDS)``: each shard its own matrix block and dense rows, the
+    TAAT kernel once per shard per micro-batch), every served result held
+    to the unsharded engines on the terms and dense vector served (sparse
+    equal to the matmul backend's, hybrid within HYB_TOL of the host
+    fuse); one sharded TAAT and MIPS search against their plain versions;
+    and MESH_IMAGES images through ``encode_examples`` on a data x model
+    mesh (MESH_ENCODE), the flash kernel once per shard and layer at G = 4
+    on 16/4 heads, against the unsharded batch within the tower's flash
+    gate. Returns the TAAT launches of the served runs and the flash
+    launches of the sharded encode."""
+    import copy
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from mllm_sparse_retrieval_tpu_torch.configs import SparseConfig
+    from mllm_sparse_retrieval_tpu_torch.data.karpathy import Example
+    from mllm_sparse_retrieval_tpu_torch.index import DenseFlatIndex
+    from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
+    from mllm_sparse_retrieval_tpu_torch.ops import impact_kernel as K
+    from mllm_sparse_retrieval_tpu_torch.ops import mips
+    from mllm_sparse_retrieval_tpu_torch.ops import score_programs as SP
+    from mllm_sparse_retrieval_tpu_torch.ops.packing import unpack_topk
+    from mllm_sparse_retrieval_tpu_torch.parallel import (
+        make_mesh, replicated)
+    from mllm_sparse_retrieval_tpu_torch.pipelines.encode import (
+        encode_examples)
+    from mllm_sparse_retrieval_tpu_torch.serving import (
+        OnlineQueryEncoder, RetrievalService)
+
+    t_phase = time.monotonic()
+    rows, lookup, _ = host
+    dev = torch.device(DEVICE)
+    meshes = (("unsharded", None),
+              ("1x1 mesh", make_mesh(devices=None if dev.type == "cuda"
+                                     else [dev])),
+              (f"{MESH_SHARDS} shards", make_mesh(
+                  MESH_SHARDS, devices=[dev] * MESH_SHARDS)))
+    # one index object per placement, so no search re-places another's
+    engines = {}
+    for label, mesh in meshes:
+        impact = index
+        if mesh is not None:
+            impact = copy.copy(index)
+            impact.drop_device_cache()
+        dense = DenseFlatIndex(dim=rows.shape[1], device=DEVICE)
+        dense.add(rows, lookup)
+        dense._materialize(mesh=mesh)
+        impact._materialize("i16", mesh)
+        engines[label] = (impact, dense)
+    base_dense = engines["unsharded"][1]
+    shards4 = engines[meshes[2][0]][0]._dev["i16"]
+    progress("mesh", f"{meshes[1][0]} {dict(meshes[1][1].shape)} and "
+             f"{meshes[2][0]} of {DEVICE} {dict(meshes[2][1].shape)}: "
+             f"impact int16 blocks {[tuple(m.shape) for m in shards4]}, "
+             f"dense f32 blocks {[tuple(b.shape) for b in engines[meshes[2][0]][1]._corpus_dev]}; "
+             f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+
+    encoder = OnlineQueryEncoder(params, arch, tok, tmpl, SparseConfig(),
+                                 max_text_len=64, device=DEVICE)
+    taat_total, lines = 0, {}
+    for label, mesh in meshes:
+        impact, dense = engines[label]
+        shards = 1 if mesh is None else len(mesh.shard_devices)
+        for mode in ("sparse", "hybrid"):
+            enc = RecordingEncoder(encoder)
+            kw = dict(impact_index=impact) if mode == "sparse" else dict(
+                dense_index=dense, impact_index=impact, alpha=HYB_ALPHA,
+                candidate_depth=HYB_CAND, device_batch=MAX_BATCH)
+            svc = RetrievalService(query_encoder=enc, backend="taat",
+                                   max_batch=MAX_BATCH,
+                                   depth_levels=(DEPTH,), max_wait_ms=10.0,
+                                   mesh=mesh, **kw)
+            try:
+                svc.search(text=texts[0], timeout=WARMUP_TIMEOUT_S)
+                torch.cuda.synchronize()
+                enc.calls.clear()
+                b0 = svc.stats()["batches"]
+                K.reset_launch_count()
+                results, lat, wall = serve(svc, "text", texts, N_THREADS,
+                                           REQUEST_TIMEOUT_S,
+                                           SERVE_DEADLINE_S)
+                taat = K.launch_count()
+                batches = svc.stats()["batches"] - b0
+            finally:
+                svc.close()
+            taat_total += taat
+            if taat != shards * batches:
+                raise AssertionError(f"mesh {label} {mode}: {taat} TAAT "
+                                     f"launches in {batches} micro-batches "
+                                     f"of {shards} shards")
+            if mode == "sparse":
+                check_results(index, cmap, [repr(q) for q in texts],
+                              [enc.terms[q] for q in texts], results)
+            else:
+                check_hybrid(f"mesh {label} hybrid", enc, texts, results,
+                             base_dense, index, cmap)
+            lines[label, mode] = latency_line(lat, len(texts), wall)
+            progress("mesh", f"{mode} text over {label}: {len(texts)} "
+                     f"queries from {N_THREADS} threads in {batches} "
+                     f"micro-batches, {lines[label, mode]}; TAAT launches "
+                     f"{taat} ({shards} a micro-batch); every result equal "
+                     f"to the unsharded engines' on the served inputs; "
+                     f"card {card}")
+
+    # ---- one sharded TAAT and MIPS search against the plain versions -----
+    mesh4 = meshes[2][1]
+    impact4, dense4 = engines[meshes[2][0]]
+    served = [encoder.encode_texts(texts[:MAX_BATCH], pad_to=MAX_BATCH)]
+    q_dense, q_terms = served[0]
+    q_idx, q_w = index.encode_query_terms(q_terms, cmap)
+    qi, qw = replicated(mesh4, q_idx), replicated(mesh4, q_w)
+
+    def plain_taat(m, i, w):
+        safe_idx, safe_w = SP._safe_query(i, w)
+        return K.impact_scores_taat_plain(
+            m, safe_idx.to(torch.int32).contiguous(), safe_w.contiguous())
+
+    n_valid = impact4._n_valid
+    K.reset_launch_count()
+    got = SP._sharded_taat_topk(mesh4, shards4, qi, qw, n_valid, DEPTH)
+    if K.launch_count() != MESH_SHARDS:
+        raise AssertionError(f"sharded TAAT: {K.launch_count()} launches")
+    ref = SP._sharded_topk(plain_taat, mesh4, shards4, qi, qw, n_valid,
+                           DEPTH, None)
+    ids = np.asarray(index.doc_ids)
+    for (gs, gi), (ws, wi) in zip(zip(*unpack_topk(got.cpu().numpy())),
+                                  zip(*unpack_topk(ref.cpu().numpy()))):
+        if not same_up_to_ties(list(zip(ids[gi], gs)),
+                               list(zip(ids[wi], ws))):
+            raise AssertionError("sharded TAAT differs from its plain "
+                                 "version")
+    full = engines["unsharded"][0]._dev["i16"]
+    d_idx, d_w = (torch.from_numpy(a).to(DEVICE) for a in (q_idx, q_w))
+    taat_ms = device_ms(lambda: SP._sharded_taat_topk(
+        mesh4, shards4, qi, qw, n_valid, DEPTH), 50)
+    taat_plain_ms = device_ms(lambda: SP._sharded_topk(
+        plain_taat, mesh4, shards4, qi, qw, n_valid, DEPTH, None), 5)
+    taat_one_ms = device_ms(lambda: SP._taat_topk(
+        full, d_idx, d_w, index._n_valid, DEPTH), 50)
+    q = torch.from_numpy(np.stack(q_dense)).to(DEVICE)
+    qs = replicated(mesh4, q)
+    got_s, got_i = mips.sharded_mips_topk(mesh4, qs, dense4._corpus_dev,
+                                          dense4._n_valid, DEPTH)
+    with SP.full_f32_matmul():
+        ref_s, ref_i = torch.topk(q @ base_dense._corpus_dev.T, DEPTH, dim=1)
+    mips_err = float((got_s - ref_s).abs().max())
+    for gi, gs, wi in zip(got_i.tolist(), got_s.tolist(), ref_i.tolist()):
+        cut = gs[-1] + 2 * HYB_TOL
+        if not {d for d, x in zip(gi, gs) if x > cut} <= set(wi):
+            raise AssertionError("sharded MIPS differs from the plain "
+                                 "matmul")
+    if not mips_err <= HYB_TOL:
+        raise AssertionError(f"sharded MIPS scores off by {mips_err}")
+    mips_ms = device_ms(lambda: mips.sharded_mips_topk(
+        mesh4, qs, dense4._corpus_dev, dense4._n_valid, DEPTH), 50)
+    mips_one_ms = device_ms(lambda: mips.mips_topk_packed(
+        q, base_dense._corpus_dev, DEPTH), 50)
+    progress("mesh", f"one search over {MESH_SHARDS} shards (B={q.shape[0]} "
+             f"Q={q_idx.shape[1]}, depth {DEPTH}): TAAT top-k {taat_ms:.4f} "
+             f"ms ({MESH_SHARDS} launches; its plain version "
+             f"{taat_plain_ms:.4f} ms, equal; unsharded {taat_one_ms:.4f} "
+             f"ms); f32 MIPS top-k {mips_ms:.4f} ms (unsharded "
+             f"{mips_one_ms:.4f} ms), max abs err against the plain f32 "
+             f"matmul {mips_err:.3g}; card {card}")
+
+    # ---- encode_examples over a data x model mesh ------------------------
+    d_n, m_n = MESH_ENCODE
+    mesh_enc = make_mesh(d_n, m_n, devices=[dev] * (d_n * m_n))
+    examples = [Example("", f"mesh-image-{i}.jpg", str(i), str(i))
+                for i in range(MESH_IMAGES)]
+
+    def loader(ex):
+        return images[int(ex.img_id)]
+
+    out, secs = {}, {}
+    for label, mesh in (("mesh", mesh_enc), ("unsharded", None)):
+        FA.reset_launch_count()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out[label] = encode_examples(
+            examples, params, arch_img, tok, tmpl, encode_type="image",
+            sparse_cfg=SparseConfig(), batch_size=MESH_IMAGES,
+            pixel_loader=loader, device=DEVICE, mesh=mesh)
+        secs[label] = time.monotonic() - t0
+        out[label, "flash"] = FA.launch_count()
+    t = arch_img.text
+    want = d_n * m_n * t.num_layers
+    if out["mesh", "flash"] != want or out["unsharded", "flash"] != \
+            t.num_layers:
+        raise AssertionError(f"encode flash launches {out['mesh', 'flash']}"
+                             f" over the mesh (want {want}), "
+                             f"{out['unsharded', 'flash']} unsharded")
+    a, b = (torch.from_numpy(out[k].dense) for k in ("mesh", "unsharded"))
+    cos = float(F.cosine_similarity(a, b, dim=-1).min())
+    overlap = min(len(set(g.token_ids.tolist()) & set(w.token_ids.tolist()))
+                  / max(len(w.token_ids), 1) for g, w in
+                  zip(out["mesh"].selected_terms,
+                      out["unsharded"].selected_terms))
+    progress("mesh", f"encode_examples of {MESH_IMAGES} images over a "
+             f"{d_n} x {m_n} mesh of {DEVICE}: {out['mesh', 'flash']} flash "
+             f"launches ({d_n * m_n} a layer: {t.num_heads // m_n}/"
+             f"{t.num_kv_heads // m_n} heads, G = "
+             f"{t.num_heads // t.num_kv_heads}, {MESH_IMAGES // d_n} images a"
+             f" shard), {secs['mesh']:.2f} s; unsharded "
+             f"{out['unsharded', 'flash']} launches, "
+             f"{secs['unsharded']:.2f} s; min dense cosine {cos:.6f} (floor "
+             f"{DENSE_COS_FLOOR}), min term overlap {overlap:.3f}; phase "
+             f"{time.monotonic() - t_phase:.2f} s")
+    if not cos >= DENSE_COS_FLOOR:
+        raise AssertionError(f"mesh encode: dense cosine {cos} below "
+                             f"{DENSE_COS_FLOOR}")
+    del engines, base_dense, dense4, impact4, shards4, full
+    torch.cuda.empty_cache()
+    return taat_total, out["mesh", "flash"], dict(
+        shards=MESH_SHARDS, ms=taat_ms, plain_ms=taat_plain_ms,
+        unsharded_ms=taat_one_ms, mips_ms=mips_ms,
+        mips_unsharded_ms=mips_one_ms)
+
+
 def live_check(label, corpus, terms_list, dense_q, served, deleted=()):
     """Each served row against the host fuse (``search.fusion.fuse``,
     weight HYB_ALPHA on the dense run) of the two engines' top-DEPTH runs
@@ -2995,10 +3237,10 @@ def phase_live(params, arch, arch_img, tok, tmpl, index, cmap, texts, host,
         builds = []
         real_materialize = ImpactIndex._materialize
 
-        def counting_materialize(self, dtype="f32"):
+        def counting_materialize(self, dtype="f32", mesh=None):
             if self is arena_s._inner and dtype not in (self._dev or {}):
                 builds.append(dtype)
-            return real_materialize(self, dtype)
+            return real_materialize(self, dtype, mesh)
 
         ImpactIndex._materialize = counting_materialize
         restore.append((ImpactIndex, "_materialize", real_materialize))
@@ -5491,6 +5733,11 @@ def main() -> int:
     tier_taat = phase_tiers(params, arch, tok, tmpl, lexicon, index,
                             cmap, texts, dense_host, card)
 
+    # ---- 10a. search, encode and serve over a data-axis mesh -------------
+    mesh_taat, mesh_flash, mesh_kernel = phase_mesh(
+        params, arch, arch_img, tok, tmpl, index, cmap, texts, dense_host,
+        images, card)
+
     # ---- 10b. live indexes and the HTTP front end ------------------------
     serve_ops = hostops.call_counts()
     hostops.reset_call_counts()
@@ -5563,16 +5810,19 @@ def main() -> int:
              source="mllm_sparse_retrieval_tpu_torch/csrc/taat.cu",
              replaces="mllm_sparse_retrieval_tpu/ops/impact_kernel.py:115",
              launches=files_taat + text_taat + img_taat + hyb_taat
-             + tier_taat + live_taat + off_taat + fam_taat + chat_taat,
+             + tier_taat + mesh_taat + live_taat + off_taat + fam_taat
+             + chat_taat,
              max_abs_err=max_err,
              ms=served["ms"], plain_ms=served["plain_ms"],
              bound_ms=served["bound_ms"], bound_by=served["bound_by"],
-             library_ms=served["library_ms"]),
+             library_ms=served["library_ms"],
+             mesh=dict(launches=mesh_taat, **mesh_kernel)),
         dict(name="flash_attention_fwd", route="cuda",
              source="mllm_sparse_retrieval_tpu_torch/csrc/flash_attn.cu",
              replaces="mllm_sparse_retrieval_tpu/models/layers.py:199",
              launches=files_flash + text_flash + img_flash + hyb_flash
-             + live_flash + off_flash + train_launches["fwd"] + fam_flash
+             + mesh_flash + live_flash + off_flash + train_launches["fwd"]
+             + fam_flash
              + chat_flash + chat_train["fwd"] + stats_flash + qlora["fwd"]
              + moe["fwd"],
              **flash,

@@ -18,6 +18,7 @@ from mllm_sparse_retrieval_tpu_torch.configs import (
 from mllm_sparse_retrieval_tpu_torch.data.karpathy import CrossModalCorpus
 from mllm_sparse_retrieval_tpu_torch.models import build_model
 from mllm_sparse_retrieval_tpu_torch.models.lora import load_lora
+from mllm_sparse_retrieval_tpu_torch.parallel.mesh import make_mesh
 
 
 def get_logger(name: str) -> logging.Logger:
@@ -69,9 +70,10 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    choices=["bfloat16", "float32"])
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--mesh", action="store_true",
-                   help="not ported: sharding is ROADMAP Queue 1 #9")
+                   help="shard work over every local card (cuda) or over "
+                        "--device alone (cpu)")
     p.add_argument("--model-parallel", type=int, default=1,
-                   help="model-axis size of --mesh (not ported)")
+                   help="model-axis size of --mesh")
     p.add_argument("--device", default="cuda",
                    help="torch device of the model and indexes (default "
                         "cuda; cpu runs the plain versions of the kernels)")
@@ -104,14 +106,23 @@ def model_config_from_args(args) -> ModelConfig:
                        reps_loc=RepsLoc(args.reps_loc), dtype=args.dtype)
 
 
+def mesh_from_args(args):
+    """``make_mesh(model_parallel=args.model_parallel)`` under ``--mesh``
+    (every card for a CUDA ``--device``, else that device alone), else
+    None."""
+    if not args.mesh:
+        return None
+    devices = None if torch.device(args.device).type == "cuda" \
+        else [args.device]
+    return make_mesh(model_parallel=args.model_parallel, devices=devices)
+
+
 def build_everything(args):
-    """``(corpus, params, arch, tokenizer, template, lora)`` on
-    ``args.device``. Raises ``NotImplementedError`` for ``--mesh`` and for
-    a checkpoint without a tokenizer the port can read (its
-    ``tokenizer.json``)."""
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: sharding is not ported (ROADMAP Queue 1 #9)")
+    """``(corpus, params, arch, tokenizer, template, mesh, lora)`` on
+    ``args.device`` (``mesh`` None without ``--mesh``, see
+    ``mesh_from_args``). Raises ``NotImplementedError`` for a checkpoint
+    without a tokenizer the port can read (its ``tokenizer.json``)."""
+    mesh = mesh_from_args(args)
     corpus = CrossModalCorpus(args.dataset, args.split, args.data_root)
     cfg = model_config_from_args(args)
     params, arch, tok, template = build_model(
@@ -122,7 +133,7 @@ def build_everything(args):
             f"needs the checkpoint's tokenizer.json (a sentencepiece "
             f"tokenizer.model alone is ROADMAP Queue 1 #8c)")
     lora = load_lora(cfg.lora_path, args.device) if cfg.lora_path else None
-    return corpus, params, arch, tok, template, lora
+    return corpus, params, arch, tok, template, mesh, lora
 
 
 class Profiler:

@@ -34,7 +34,7 @@ def main(argv=None):
     logger = get_logger("encode")
     timer = StepTimer(logger)
     timer.phase("setup")
-    corpus, params, arch, tok, template, lora = build_everything(args)
+    corpus, params, arch, tok, template, mesh, lora = build_everything(args)
     sparse_cfg = sparse_config_from_args(args)
 
     mode = "full" if args.encode_type == "text" else "single"
@@ -50,7 +50,7 @@ def main(argv=None):
             examples, params, arch, tok, template,
             encode_type=args.encode_type, sparse_cfg=sparse_cfg,
             reps_loc=RepsLoc(args.reps_loc), batch_size=args.batch_size,
-            is_query=args.query, lora=lora, device=args.device)
+            is_query=args.query, lora=lora, device=args.device, mesh=mesh)
 
     timer.phase("write")
     # the artifact tree names a checkpoint by its directory, as in JAX

@@ -116,7 +116,7 @@ def main(argv=None):
                 "+".join(n for n, s in (("dense", send_dense),
                                         ("terms", send_terms)) if s))
 
-    corpus, params, arch, tok, template, lora = build_everything(args)
+    corpus, params, arch, tok, template, mesh, lora = build_everything(args)
     examples = corpus.examples_single()
     if args.limit:
         examples = examples[: args.limit]
@@ -127,7 +127,7 @@ def main(argv=None):
             part, params, arch, tok, template, encode_type=args.encode_type,
             sparse_cfg=sparse_cfg, reps_loc=RepsLoc(args.reps_loc),
             batch_size=batch_size, is_query=is_query, lora=lora,
-            device=args.device)
+            device=args.device, mesh=mesh)
 
     total = 0
     n_skipped = 0

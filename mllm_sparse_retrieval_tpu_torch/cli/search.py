@@ -115,7 +115,7 @@ def main(argv=None):
     logger = get_logger("search")
     timer = StepTimer(logger)
     timer.phase("setup")
-    corpus, params, arch, tok, template, lora = build_everything(args)
+    corpus, params, arch, tok, template, mesh, lora = build_everything(args)
     sparse_cfg = sparse_config_from_args(args)
     search_cfg = SearchConfig(
         passage_reps=args.passage_reps, sparse_index=args.sparse_index,
@@ -163,7 +163,7 @@ def main(argv=None):
             eval_mode=args.eval_mode,
             metrics=[m for m in args.metrics.split(",") if m],
             get_target=lambda qid: corpus.get_target(qid, args.query_type),
-            device=args.device)
+            device=args.device, mesh=mesh)
     timer.close()
 
     if args.save_dir:

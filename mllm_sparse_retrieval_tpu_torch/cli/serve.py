@@ -1,5 +1,5 @@
 """Serve prebuilt or live indexes over HTTP with micro-batched device calls
-(the JAX package's ``cli/serve.py``, one device).
+(the JAX package's ``cli/serve.py``).
 
 The online counterpart of ``cli/search.py``: load the same artifacts, then
 take queries over HTTP and coalesce them into device-sized batches
@@ -17,8 +17,12 @@ starts live with no corpus; ``--live-state DIR`` resumes from a save there
 and saves to it on shutdown (Ctrl-C or SIGTERM). ``--encode-queries``
 loads the model and accepts ``{"text": ...}`` queries. The indexes and the
 model live on ``--device`` (default cuda). ``boot`` builds the service and
-the bound server around an encoder the caller already holds. Not ported:
-``--mesh`` (ROADMAP Queue 1 #9).
+the bound server around an encoder the caller already holds. ``--mesh``
+serves the indexes sharded over every local card (``--device cpu``:
+over the CPU alone; ``cli.common.mesh_from_args``): the impact matrix by
+doc columns, the dense corpus by rows (live indexes too); the query
+encoder stays on ``--device``. It keeps the i32 wire (``--impact-wire
+compact48`` is refused, as in the JAX CLI).
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ import numpy as np
 import torch
 
 from mllm_sparse_retrieval_tpu_torch.cli.common import (
-    add_common_args, build_everything, get_logger, sparse_config_from_args)
+    add_common_args, build_everything, get_logger, mesh_from_args,
+    sparse_config_from_args)
 from mllm_sparse_retrieval_tpu_torch.configs import RepsLoc
 from mllm_sparse_retrieval_tpu_torch.index.ann import DenseANNIndex
 from mllm_sparse_retrieval_tpu_torch.index.arena import (
@@ -206,8 +211,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.ann_rank and args.dense_dtype == "int8":
         parser.error("--ann-rank is incompatible with --dense-dtype int8 "
                      "(pick one approximation; bf16 composes with ANN)")
-    if args.mesh:
-        parser.error("--mesh is not ported (ROADMAP Queue 1 #9)")
+    if args.mesh and args.impact_wire == "compact48":
+        parser.error("--impact-wire compact48 is single-chip only (the "
+                     "packed 48-bit lane cannot carry mesh-global doc "
+                     "positions); drop --mesh or use the i32 wire")
     if args.live_state and not _has_live_state(args.live_state) \
             and args.passage_reps is None and args.sparse_index is None \
             and args.live_empty is None:
@@ -219,7 +226,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def build_encoder(args) -> OnlineQueryEncoder:
     """The query encoder of ``--encode-queries`` on ``args.device``."""
-    _, params, arch, tok, template, lora = build_everything(args)
+    _, params, arch, tok, template, _, lora = build_everything(args)
     return OnlineQueryEncoder(
         params, arch, tok, template, sparse_config_from_args(args),
         reps_loc=RepsLoc(args.reps_loc), lora=lora,
@@ -296,6 +303,9 @@ def boot(args, encoder=None, logger=None, indexes=None):
     ``server.server_close()`` and ``service.close()``."""
     logger = logger or get_logger("serve")
     dense_index, impact_index = _load_indexes(args, logger, indexes)
+    mesh = mesh_from_args(args)
+    if mesh is not None:
+        logger.info("serving over a %s-device mesh", mesh.size)
     filters = None
     if args.filters:
         with open(args.filters) as f:
@@ -309,7 +319,7 @@ def boot(args, encoder=None, logger=None, indexes=None):
         wire=args.impact_wire, max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms, query_encoder=encoder,
         live_state_dir=args.live_state, filters=filters,
-        fusion_rule=args.fusion_rule)
+        fusion_rule=args.fusion_rule, mesh=mesh)
     try:
         if not args.no_warm:
             _warm(service, logger)

@@ -44,7 +44,7 @@ def main(argv=None):
     logger = get_logger("stats")
     timer = StepTimer(logger)
     timer.phase("setup")
-    corpus, params, arch, tok, template, lora = build_everything(args)
+    corpus, params, arch, tok, template, mesh, lora = build_everything(args)
     sparse_cfg = sparse_config_from_args(args)
 
     if args.mode == "term-weights":
@@ -52,7 +52,7 @@ def main(argv=None):
         stats = term_weight_statistics(
             corpus, params, arch, tok, template, sparse_cfg=sparse_cfg,
             num_images=args.num_images, batch_size=args.batch_size,
-            lora=lora, device=args.device)
+            mesh=mesh, lora=lora, device=args.device)
         logger.info(stats.summary())
         timer.phase("plot")
         paths = plot_term_weight_stats(stats, args.out_dir)
@@ -85,7 +85,7 @@ def main(argv=None):
         search_cfg=SearchConfig(depth=args.depth, alpha=args.alpha),
         dense_index=dense_index, impact_index=impact_index,
         reps_loc=RepsLoc(args.reps_loc), batch_size=args.batch_size,
-        lora=lora, device=args.device)
+        lora=lora, device=args.device, mesh=mesh)
 
     timer.phase("analyze")
     stats = fusion_provenance_statistics(out.dense_run, out.sparse_run,

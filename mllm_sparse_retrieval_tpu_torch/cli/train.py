@@ -19,8 +19,8 @@ params) path.
 device before training (``models.quantization.quantize_params``: nf4 or
 linear int4 at 4 bits, ``--quant-format``; linear int8 at 8), dequantized
 per use, and only the adapters train; with ``--train-full`` or ``--merge``
-it is a usage error, as in the JAX CLI. ``--mesh`` raises (sharding is
-ROADMAP Queue 1 #9); ``--fsdp`` and ``--no-zero1`` only set their
+it is a usage error, as in the JAX CLI. ``--mesh`` raises (training over
+a mesh is ROADMAP Queue 1 #9b); ``--fsdp`` and ``--no-zero1`` only set their
 ``TrainConfig`` fields, which act under a mesh, as in the JAX CLI without
 one. ``run(args, model=...)`` trains a model the caller already holds,
 ``(params, arch, tokenizer, template)``.
@@ -105,7 +105,9 @@ def run(args, model=None):
     ``(path printed by the CLI, trainer)``."""
     if args.mesh:
         raise NotImplementedError(
-            "--mesh: sharding is not ported (ROADMAP Queue 1 #9)")
+            "--mesh: training over a mesh is not ported (ROADMAP Queue 1 "
+            "#9b: tp, fsdp, zero1 and the sharded loss on "
+            "torch.distributed)")
     if args.load_kbit:
         if args.train_full:
             build_parser().error("--load-kbit pairs with LoRA (QLoRA); "

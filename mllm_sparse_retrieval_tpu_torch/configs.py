@@ -146,8 +146,9 @@ class TrainConfig:
 @dataclass(frozen=True)
 class MeshConfig:
     """Device mesh layout: data axis = batch sharding, model axis = tensor
-    parallel. The port runs on one device (meshes are not ported); the
-    class keeps pipeline configs whole across the packages."""
+    parallel. The CLIs build their mesh from ``--mesh`` and
+    ``--model-parallel`` (``parallel.mesh.make_mesh``); the class keeps
+    pipeline configs whole across the packages."""
 
     data_axis: str = "data"
     model_axis: str = "model"

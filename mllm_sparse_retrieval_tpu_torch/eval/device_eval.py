@@ -1,5 +1,7 @@
 """Evaluation from device ranks: recall, MRR, nDCG and MAP without copying
-the runs (the JAX package's ``eval/device_eval.py``, one device).
+the runs (the JAX package's ``eval/device_eval.py``). Under a mesh the
+engines' merged top-k land on the mesh's lead device and the ranks are
+computed there.
 
 When the product of a search is its metrics, the run has no other
 consumer: ``ops/eval_ranks.py`` computes each query's target ranks from
@@ -25,15 +27,8 @@ import torch
 from mllm_sparse_retrieval_tpu_torch.eval.metrics import MetricResult
 from mllm_sparse_retrieval_tpu_torch.eval.recall import RecallResult
 from mllm_sparse_retrieval_tpu_torch.ops.eval_ranks import (
-    NO_HIT, ranks_from_packed)
+    NO_HIT, ranks_from_packed, ranks_from_parts)
 from mllm_sparse_retrieval_tpu_torch.ops.stream import pipeline_dispatch
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "the port evaluates on one device: meshes wait for sharding "
-            "(ROADMAP Queue 1 #9)")
 
 
 def build_target_arrays(qids: Sequence[str], get_target: Callable,
@@ -103,8 +98,7 @@ def impact_eval_ranks(index, q_idx: np.ndarray, q_w: np.ndarray,
     copying the run: the index's own plan, chunks and scoring (the TAAT
     kernel on the card), then ``ranks_from_packed`` under the impact rule
     (scores <= 0 drop, as in ``ImpactIndex._resolve_encoded``)."""
-    _no_mesh(mesh)
-    plan = index._search_plan(backend, depth)
+    plan = index._search_plan(backend, depth, mesh=mesh)
 
     def chunk_iter():
         pos = 0
@@ -117,8 +111,8 @@ def impact_eval_ranks(index, q_idx: np.ndarray, q_w: np.ndarray,
         packed = index._dispatch_encoded(plan, chunk_i, chunk_w)
         bp = packed.shape[0]
         return ranks_from_packed(
-            packed, _to(_pad_rows(tgt[pos:pos + take], bp, -1), index.device),
-            _to(_pad_rows(self_pos[pos:pos + take], bp, -1), index.device),
+            packed, _to(_pad_rows(tgt[pos:pos + take], bp, -1), packed.device),
+            _to(_pad_rows(self_pos[pos:pos + take], bp, -1), packed.device),
             rule="positive"), take
 
     return _ranks_pipeline(chunk_iter(), dispatch, lookahead)
@@ -130,8 +124,7 @@ def dense_eval_ranks(index, q_reps: np.ndarray, tgt: np.ndarray,
     """Target ranks of a dense MIPS search (rule ``'all'``: the unfiltered
     host route keeps every returned entry). ``tgt`` and ``self_pos`` are
     dense-lookup positions."""
-    _no_mesh(mesh)
-    index._materialize()
+    index._materialize(mesh=mesh)
     q_reps = np.asarray(q_reps, dtype=np.float32)
     n = q_reps.shape[0]
 
@@ -147,12 +140,15 @@ def dense_eval_ranks(index, q_reps: np.ndarray, tgt: np.ndarray,
 
     def dispatch(item):
         chunk, take, pos = item
-        packed = index._dispatch_chunk(chunk, depth)
-        bp = packed.shape[0]
-        return ranks_from_packed(
-            packed, _to(_pad_rows(tgt[pos:pos + take], bp, -1), index.device),
-            _to(_pad_rows(self_pos[pos:pos + take], bp, -1), index.device),
-            rule="all"), take
+        out = index._dispatch_chunk(chunk, depth)
+        head = out[0] if isinstance(out, tuple) else out
+        bp = head.shape[0]
+        tgt_c = _to(_pad_rows(tgt[pos:pos + take], bp, -1), head.device)
+        self_c = _to(_pad_rows(self_pos[pos:pos + take], bp, -1), head.device)
+        if isinstance(out, tuple):          # mesh form: (scores, idx)
+            return ranks_from_parts(out[0], out[1], tgt_c, self_c,
+                                    rule="all"), take
+        return ranks_from_packed(out, tgt_c, self_c, rule="all"), take
 
     return _ranks_pipeline(chunk_iter(), dispatch, lookahead)
 

@@ -73,10 +73,8 @@ def term_weight_statistics(
 ) -> TermWeightStats:
     """Collect in-caption vs out-of-caption sparse weight populations.
     ``sparse_cfg`` is taken for the JAX package's signature: the weights
-    are the full-vocabulary ones, before any term selection."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: sharding is not ported (ROADMAP Queue 1 #9)")
+    are the full-vocabulary ones, before any term selection. ``mesh``
+    splits every batch over its data axis (``encode_examples``' rule)."""
 
     def encode_word(w):
         return tokenizer.encode(w, add_special_tokens=False)
@@ -84,7 +82,8 @@ def term_weight_statistics(
     vocab_size = tokenizer.vocab_size
     images = corpus.examples_single()[:num_images]
     img_logits = _raw_sparse(images, params, arch, tokenizer, template,
-                             "image", batch_size, lora, pixel_loader, device)
+                             "image", batch_size, lora, pixel_loader, device,
+                             mesh)
 
     cap_examples: List[Example] = []
     cap_owner: List[int] = []
@@ -94,7 +93,8 @@ def term_weight_statistics(
                                         tid, ex.img_id))
             cap_owner.append(i)
     cap_logits = _raw_sparse(cap_examples, params, arch, tokenizer, template,
-                             "text", batch_size, lora, pixel_loader, device)
+                             "text", batch_size, lora, pixel_loader, device,
+                             mesh)
 
     # per image: union of candidate token ids over its ground-truth captions
     img_in, img_out, txt_in, txt_out = [], [], [], []
@@ -126,19 +126,31 @@ def term_weight_statistics(
 
 
 def _raw_sparse(examples, params, arch, tokenizer, template, encode_type,
-                batch_size, lora, pixel_loader, device):
-    """Full-vocabulary sparse weights per example (before top-k), f32."""
+                batch_size, lora, pixel_loader, device, mesh=None):
+    """Full-vocabulary sparse weights per example (before top-k), f32.
+    Under a ``mesh`` each batch splits over the data axis, shard ``i`` on
+    ``mesh.shard_devices[i]`` with its own parameter copy and the flash
+    kernel over its row of the mesh."""
     from mllm_sparse_retrieval_tpu_torch.models.api import (
         encode_any, image_input_spec, mrope_ids_for_batch)
+    from mllm_sparse_retrieval_tpu_torch.parallel.mesh import (
+        DATA_AXIS, replicated)
     from mllm_sparse_retrieval_tpu_torch.pipelines.encode import (
         _pad_batch_examples, default_pixel_loader)
     from mllm_sparse_retrieval_tpu_torch.train.trainer import make_collator
 
-    device = torch.device(device)
+    if mesh is None:
+        shards = [(params, lora, torch.device(device), True)]
+    else:
+        n_data = mesh.shape[DATA_AXIS]
+        if batch_size % n_data:
+            raise ValueError(f"batch_size {batch_size} not divisible by "
+                             f"data axis {n_data}")
+        shards = list(zip(replicated(mesh, params), replicated(mesh, lora),
+                          mesh.shard_devices,
+                          [mesh.row(i) for i in range(n_data)]))
+    step = batch_size // len(shards)
     spec = image_input_spec(arch)
-
-    def put(a, dtype=None):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
 
     collate = fixed = None
     if encode_type == "image":
@@ -157,8 +169,7 @@ def _raw_sparse(examples, params, arch, tokenizer, template, encode_type,
                 [tokenizer.encode(prompt)] * batch_size, pad_to_multiple=16)
             pos = mrope_ids_for_batch(arch, ids, mask) \
                 if spec.needs_mrope else None
-            fixed = (put(ids, torch.long), put(mask),
-                     None if pos is None else put(pos, torch.long))
+            fixed = (ids, mask, pos)
 
     out = []
     with torch.inference_mode():
@@ -173,20 +184,32 @@ def _raw_sparse(examples, params, arch, tokenizer, template, encode_type,
                 ids, mask = tokenizer.pad_batch(
                     [tokenizer.encode(p) for p in prompts],
                     pad_to_multiple=16)
-                ids, mask = put(ids, torch.long), put(mask)
             elif collate is not None:
                 b = collate(batch)
-                ids, mask = put(b.image_ids, torch.long), put(b.image_mask)
-                pixels = ({k: put(v) for k, v in b.pixels.items()}
-                          if isinstance(b.pixels, dict) else put(b.pixels))
-                if b.image_pos_ids is not None:
-                    pos = put(b.image_pos_ids, torch.long)
+                ids, mask, pixels = b.image_ids, b.image_mask, b.pixels
+                pos = b.image_pos_ids
             else:
                 ids, mask, pos = fixed
-                pixels = put(np.stack([pixel_loader(e) for e in batch]))
-            s, _ = encode_any(params, arch, ids, mask, pixels,
-                              RepsLoc.BEFORE_PAD, lora, position_ids=pos)
-            out.append(s.float().cpu().numpy()[:valid])
+                pixels = np.stack([pixel_loader(e) for e in batch])
+            rows = []
+            for i, (p, l, dev, flash) in enumerate(shards):
+                lo, hi = i * step, (i + 1) * step
+
+                def put(a, dtype=None, axis=0):
+                    a = a[lo:hi] if axis == 0 else a[:, lo:hi]
+                    return torch.from_numpy(np.ascontiguousarray(a)).to(
+                        dev, dtype)
+
+                d_px = None if pixels is None else (
+                    {k: put(v) for k, v in pixels.items()}
+                    if isinstance(pixels, dict) else put(pixels))
+                # M-RoPE ids are [3, B, T]: the batch is their second axis
+                d_pos = None if pos is None else put(pos, torch.long, 1)
+                s, _ = encode_any(p, arch, put(ids, torch.long), put(mask),
+                                  d_px, RepsLoc.BEFORE_PAD, l,
+                                  position_ids=d_pos, allow_flash=flash)
+                rows.append(s.float().cpu().numpy())
+            out.append(np.concatenate(rows)[:valid])
     return np.concatenate(out) if out else \
         np.zeros((0, tokenizer.vocab_size), np.float32)
 

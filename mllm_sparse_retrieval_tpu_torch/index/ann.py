@@ -1,12 +1,14 @@
 """Approximate dense index: low-rank prefilter + exact rescore
-(``ops/ann.py``; the JAX package's ``index/ann.py``, one device).
+(``ops/ann.py``; the JAX package's ``index/ann.py``).
 
 ``DenseANNIndex`` is a :class:`DenseFlatIndex` (the same ``add`` /
 ``search_ids`` / ``batch_search`` and pickle artifacts) whose device
 placement and per-chunk program are swapped: a ``rank/d``-cost stage 1
 picks ``candidates`` rows per query, and a full-precision rescore gives
 their scores, so the results differ from the exact index's only where a
-true top-k row was not among the candidates.
+true top-k row was not among the candidates. Under a mesh the projected
+rows shard like the corpus rows and ``candidates`` applies per shard
+(``ops/ann.sharded_ann_topk``).
 """
 
 from __future__ import annotations
@@ -17,8 +19,10 @@ import numpy as np
 import torch
 
 from mllm_sparse_retrieval_tpu_torch.index.dense import DenseFlatIndex
-from mllm_sparse_retrieval_tpu_torch.ops.ann import (ann_topk_packed,
-                                                     ip_projection)
+from mllm_sparse_retrieval_tpu_torch.ops.ann import (
+    ann_topk_packed, ip_projection, sharded_ann_topk)
+from mllm_sparse_retrieval_tpu_torch.parallel.mesh import (
+    replicated, shard_batch)
 
 
 class DenseANNIndex(DenseFlatIndex):
@@ -56,18 +60,26 @@ class DenseANNIndex(DenseFlatIndex):
         self._proj_dev: Optional[torch.Tensor] = None
         self._corpus_r_dev: Optional[torch.Tensor] = None
 
-    def _materialize(self) -> None:
-        fresh = self._corpus_dev is None
-        super()._materialize()
+    def _materialize(self, capacity: Optional[int] = None,
+                     mesh=None) -> None:
+        fresh = self._corpus_dev is None or self._mesh is not mesh
+        super()._materialize(capacity, mesh)
         if not fresh and self._corpus_r_dev is not None:
             return
         corpus = self._host_corpus()
         if self._proj is None or self._proj.shape[0] != corpus.shape[1]:
             self._proj = ip_projection(corpus, self.rank, self.train_sample,
                                        self.seed)
-        self._corpus_r_dev = torch.from_numpy(
-            np.ascontiguousarray(corpus @ self._proj)).to(self.device)
-        self._proj_dev = torch.from_numpy(self._proj).to(self.device)
+        corpus_r = np.ascontiguousarray(corpus @ self._proj)
+        if mesh is None:
+            self._corpus_r_dev = torch.from_numpy(corpus_r).to(self.device)
+            self._proj_dev = torch.from_numpy(self._proj).to(self.device)
+            return
+        # the corpus' mesh padding rows project to zero rows
+        padded = np.zeros((self._n_pad, corpus_r.shape[1]), np.float32)
+        padded[:corpus_r.shape[0]] = corpus_r
+        self._corpus_r_dev = shard_batch(mesh, padded)
+        self._proj_dev = replicated(mesh, self._proj)
 
     def add(self, reps: np.ndarray, ids) -> None:
         super().add(reps, ids)
@@ -76,11 +88,17 @@ class DenseANNIndex(DenseFlatIndex):
         self._proj = None
         self._corpus_r_dev = None
 
-    def _dispatch_chunk(self, chunk: np.ndarray, depth: int,
-                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _dispatch_chunk(self, chunk: np.ndarray, depth: int, mask=None):
+        chunk = np.ascontiguousarray(chunk, np.float32)
+        if self._mesh is not None:
+            return sharded_ann_topk(
+                self._mesh,
+                [q.to(self.dtype) for q in replicated(self._mesh, chunk)],
+                self._corpus_dev, self._corpus_r_dev, self._proj_dev,
+                self._n_valid, depth, self.candidates, self.recall_target,
+                mask)
         k = min(depth, self._n_valid)
-        q = torch.from_numpy(np.ascontiguousarray(chunk, np.float32)).to(
-            self.device).to(self.dtype)
+        q = torch.from_numpy(chunk).to(self.device).to(self.dtype)
         c = max(min(self.candidates, self._n_valid), k)
         return ann_topk_packed(q, self._corpus_dev, self._corpus_r_dev,
                                self._proj_dev, k, c, self.recall_target,

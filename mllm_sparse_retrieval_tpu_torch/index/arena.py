@@ -1,6 +1,5 @@
 """Arena live indexes: add, replace and delete documents while serving, at
-the cost of a static search (the JAX package's ``index/arena.py``, one
-device).
+the cost of a static search (the JAX package's ``index/arena.py``).
 
 The device matrices of the static indexes are dense buffers that take
 writes in place; the arena keeps them that way:
@@ -38,7 +37,14 @@ Same serving surface as the segment classes (``index/live.py``):
 ``add_documents``, ``delete_documents``, ``search_rows``, ``compact``,
 ``num_docs``, ``num_segments`` (1), ``save``/``load``, ``close``,
 ``wait_compacted``; ``serving.service`` takes either through the
-``live_capable`` flag. Not ported: meshes (ROADMAP Queue 1 #9).
+``live_capable`` flag.
+
+Under a mesh (``search_rows(..., mesh=...)``) the capacity-padded matrix
+and corpus shard over its data axis like the static indexes' (doc columns,
+corpus rows): an add or a delete routes each triple or row to the shard
+that owns its column or row and writes it there in place, and a search
+under another mesh (or none) re-places the store first, under the write
+lock, as a fresh form does.
 """
 
 from __future__ import annotations
@@ -377,76 +383,81 @@ class ArenaImpactIndex(_ArenaBase):
 
     # -- search ------------------------------------------------------------------
     def search_rows(self, terms_list: Sequence[Dict], depth: int,
-                    backend: str = "auto", wire: str = "i32"
+                    backend: str = "auto", wire: str = "i32", mesh=None
                     ) -> Tuple[List[List[float]], List[List[str]]]:
         """Batch impact search over the live documents (the ragged-row
-        ``ImpactIndex.search`` contract). This is the static search
-        program, tombstones or not: deletes zeroed the dead doc columns
-        in place in every cached matrix, so no filter and no wire
-        downgrade."""
+        ``ImpactIndex.search`` contract), over ``mesh`` when one is given.
+        This is the static search program, tombstones or not: deletes
+        zeroed the dead doc columns in place in every cached matrix, so no
+        filter and no wire downgrade."""
         for _ in range(4):
-            if self._form_stale(backend):
+            if self._form_stale(backend, mesh):
                 # a fresh device matrix would be built from the stale CSR:
                 # fold the appended rows in and materialize it now, under
                 # the write lock, so later add-scatters cover it; it is
                 # built from a CSR that still holds tombstoned docs, so
                 # re-zero the dead columns (deletes never resurrect)
                 with self._rw.write():
-                    self._fold_and_materialize(backend)
+                    self._fold_and_materialize(backend, mesh)
             with self._rw.read():
                 if not self._inner.num_docs:
                     return ([[] for _ in terms_list],
                             [[] for _ in terms_list])
-                if self._form_stale(backend):
+                if self._form_stale(backend, mesh):
                     # a write between the check above and this read lock
                     # invalidated the matrix (an add with a weight >= 32768
                     # dropped the i16 form): building it here, under only
                     # the read lock, would skip the re-zero of tombstoned
                     # columns. Go round to the write-side path.
                     continue
-                return self._search_locked(terms_list, depth, backend, wire)
+                return self._search_locked(terms_list, depth, backend, wire,
+                                           mesh)
         # pathological writer churn: search exclusively
         with self._rw.write():
-            self._fold_and_materialize(backend)
+            self._fold_and_materialize(backend, mesh)
             if not self._inner.num_docs:
                 return [[] for _ in terms_list], [[] for _ in terms_list]
-            return self._search_locked(terms_list, depth, backend, wire)
+            return self._search_locked(terms_list, depth, backend, wire,
+                                       mesh)
 
-    def _fold_and_materialize(self, backend: str) -> None:
+    def _fold_and_materialize(self, backend: str, mesh=None) -> None:
         """Write-side preparation: fold appended rows into the CSR,
         materialize the matrix the search plan resolves to, and re-zero
         tombstoned columns on it. Caller holds the write lock."""
         if self._pend_count:
             self._fold_pending()
         if self._inner.num_docs:
-            self._inner._materialize(self._resolve_form(backend))
+            self._inner._materialize(self._resolve_form(backend, mesh), mesh)
             if self._tomb_count:
                 self._scatter_zeros(self._dead_positions())
 
-    def _search_locked(self, terms_list, depth, backend: str, wire: str):
+    def _search_locked(self, terms_list, depth, backend: str, wire: str,
+                       mesh=None):
         """The search body; caller holds the read or write lock and has
         checked that the device matrix is current."""
         inner = self._inner
         q_idx, q_w = inner.encode_queries(terms_list)
         return inner.search_encoded(q_idx, q_w, depth, backend=backend,
-                                    wire=wire)
+                                    wire=wire, mesh=mesh)
 
-    def _resolve_form(self, backend: str) -> str:
+    def _resolve_form(self, backend: str, mesh=None) -> str:
         """The cache key (``"i16"`` / ``"f32"``) of the matrix the search
         plan will use: ``ImpactIndex._search_plan``'s rule."""
         if backend == "auto":
-            backend = "taat" if self._inner.device.type == "cuda" \
-                else "matmul"
+            lead = self._inner.device if mesh is None else mesh.lead
+            backend = "taat" if lead.type == "cuda" else "matmul"
         return "i16" if backend == "taat" and self._inner._int16_exact() \
             else "f32"
 
-    def _form_stale(self, backend: str) -> bool:
+    def _form_stale(self, backend: str, mesh=None) -> bool:
         """True when ``search_encoded`` would build a device matrix rather
         than hit the cache, i.e. the add-scatters have not covered this
-        search. Appended but unfolded rows do not make a cached matrix
-        stale: the scatters already wrote them into it."""
-        dev = self._inner._dev
-        return dev is None or self._resolve_form(backend) not in dev
+        search: no cached form, another mesh's, or not this backend's.
+        Appended but unfolded rows do not make a cached matrix stale: the
+        scatters already wrote them into it."""
+        inner = self._inner
+        return (inner._dev is None or inner._mesh is not mesh
+                or self._resolve_form(backend, mesh) not in inner._dev)
 
     # -- persistence ------------------------------------------------------------
     def save(self, directory: str) -> None:
@@ -524,11 +535,16 @@ class ArenaDenseIndex(_ArenaBase):
         self._filter = None
 
     # -- device placement --------------------------------------------------------
-    def _ensure_dev(self) -> None:
-        """Place the capacity-padded corpus if it is not placed (caller
-        holds the write lock: the placement swaps inner device state)."""
-        if self._inner._corpus_dev is None:
-            self._inner._materialize(capacity=self._capacity)
+    def _placed(self, mesh) -> bool:
+        inner = self._inner
+        return inner._corpus_dev is not None and inner._mesh is mesh
+
+    def _ensure_dev(self, mesh=None) -> None:
+        """Place the capacity-padded corpus if it is not placed for
+        ``mesh`` (caller holds the write lock: the placement swaps inner
+        device state)."""
+        if not self._placed(mesh):
+            self._inner._materialize(capacity=self._capacity, mesh=mesh)
 
     # -- updates ---------------------------------------------------------------
     def add_documents(self, reps: np.ndarray, ids: Sequence[str]) -> None:
@@ -585,25 +601,29 @@ class ArenaDenseIndex(_ArenaBase):
 
     # -- search ------------------------------------------------------------------
     def search_rows(self, q_reps: np.ndarray, depth: int,
-                    batch_size: int = 128
+                    batch_size: int = 128, mesh=None
                     ) -> Tuple[List[List[float]], List[List[str]]]:
+        """Batch MIPS over the live documents, over ``mesh`` when one is
+        given; the live mask rides every search as a doc filter."""
         while True:
-            if self._inner._corpus_dev is None:
+            if not self._placed(mesh):
                 with self._rw.write():
                     if self._pos:
-                        self._ensure_dev()
+                        self._ensure_dev(mesh)
             with self._rw.read():
                 inner = self._inner
                 if not self._pos:
                     b = np.asarray(q_reps).shape[0]
                     return [[] for _ in range(b)], [[] for _ in range(b)]
-                if inner._corpus_dev is None:
-                    # a racing _grow dropped the placement: place it under
-                    # the write lock and go round
+                if not self._placed(mesh):
+                    # a racing _grow (or a search under another mesh)
+                    # dropped this placement: place it under the write
+                    # lock and go round
                     continue
                 return inner.search_ids(q_reps, depth,
                                         batch_size=batch_size,
-                                        doc_filter=self._live_filter())
+                                        doc_filter=self._live_filter(),
+                                        mesh=mesh)
 
     # -- persistence ------------------------------------------------------------
     def save(self, directory: str) -> None:

@@ -1,5 +1,5 @@
-"""Dense flat MIPS index on one device (the JAX package's
-``index/dense.py::DenseFlatIndex``; FAISS-flat equivalent).
+"""Dense flat MIPS index (the JAX package's ``index/dense.py::
+DenseFlatIndex``; FAISS-flat equivalent).
 
 The corpus matrix lives on ``device`` in f32, bf16 or int8 (SQ8) and is
 scored by ``ops/mips.py``; queries go in fixed-size chunks, up to three in
@@ -10,7 +10,15 @@ either package loads the other's. ``doc_filter`` (an
 docs it allows. ``_materialize(capacity=...)`` and ``write_rows`` are the
 arena live index's hooks (``index/arena.py``): a device corpus with zero
 rows reserved past the documents, and an in-place write of appended rows
-into them. Not ported: meshes (ROADMAP Queue 1 #9).
+into them.
+
+``mesh=`` (a ``parallel.mesh.Mesh``) on ``search`` / ``batch_search`` /
+``search_ids`` splits the corpus by contiguous row blocks over the mesh's
+data axis (``_materialize``): the corpus padded with zero rows to a shard
+multiple (SQ8: a multiple of ``Q8_ALIGN`` per shard), one block per shard
+on its device, scored by ``ops/mips.sharded_mips_topk`` and merged on the
+mesh's lead device. The mesh chunk programs return ``(scores, idx)``
+rather than a packed tensor. The placement is cached per mesh object.
 """
 
 from __future__ import annotations
@@ -25,9 +33,12 @@ import numpy as np
 import torch
 
 from mllm_sparse_retrieval_tpu_torch.ops.mips import (
-    DTYPES, Q8_ALIGN, mips_topk_packed, mips_topk_packed_q8)
+    DTYPES, Q8_ALIGN, mips_topk_packed, mips_topk_packed_q8,
+    sharded_mips_topk, sharded_mips_topk_q8)
 from mllm_sparse_retrieval_tpu_torch.ops.packing import unpack_topk
 from mllm_sparse_retrieval_tpu_torch.ops.stream import pipeline_dispatch
+from mllm_sparse_retrieval_tpu_torch.parallel.mesh import (
+    DATA_AXIS, replicated, shard_batch)
 
 
 class DenseFlatIndex:
@@ -61,8 +72,11 @@ class DenseFlatIndex:
         self.device = torch.device(device)
         self._chunks: List[np.ndarray] = []
         self.lookup: List[str] = []
-        self._corpus_dev: Optional[torch.Tensor] = None
-        self._row_scale_dev: Optional[torch.Tensor] = None
+        # one tensor, or under a mesh one block per data shard
+        self._corpus_dev = None
+        self._row_scale_dev = None
+        self._mesh = None
+        self._n_pad = 0        # placed rows, padding included
         self._n_valid = 0
         self._lookup_arr_src = None
 
@@ -102,35 +116,58 @@ class DenseFlatIndex:
         return np.concatenate(self._chunks) if len(self._chunks) != 1 \
             else self._chunks[0]
 
-    def _materialize(self, capacity: Optional[int] = None) -> None:
-        """Place the corpus on the device, once. With ``capacity`` (the
+    def _materialize(self, capacity: Optional[int] = None,
+                     mesh=None) -> None:
+        """Place the corpus on the device, once per mesh (a search under
+        another mesh, or none, re-places it). With ``capacity`` (the
         arena's reservation) the device corpus has ``max(size, capacity)``
         rows, the ones past the documents zero, and every row counts as
-        valid: the arena's live mask keeps the reserved ones out."""
-        if self._corpus_dev is not None:
+        valid: the arena's live mask keeps the reserved ones out. Under a
+        ``mesh`` the rows pad with zeros to a multiple of the data axis (of
+        ``data * Q8_ALIGN`` for SQ8) and split into one contiguous block
+        per shard on its device."""
+        if self._corpus_dev is not None and self._mesh is mesh:
             return
         corpus = self._host_corpus() if self._chunks else \
             np.zeros((0, self.dim or 0), np.float32)
         n = corpus.shape[0]
         rows = max(n, capacity or 0)
         self._n_valid = rows if capacity is not None else n
+        self._mesh = mesh
+        n_shards = 1 if mesh is None else mesh.shape[DATA_AXIS]
         if not self.q8:
-            dev = torch.from_numpy(corpus).to(self.device).to(self.dtype)
-            if rows > n:
-                dev = torch.cat([dev, dev.new_zeros((rows - n, dev.shape[1]))])
-            self._corpus_dev = dev
+            if mesh is None:
+                dev = torch.from_numpy(corpus).to(self.device).to(self.dtype)
+                if rows > n:
+                    dev = torch.cat([dev, dev.new_zeros((rows - n,
+                                                         dev.shape[1]))])
+                self._corpus_dev = dev
+                self._n_pad = rows
+                return
+            padded = np.zeros((-(-max(rows, 1) // n_shards) * n_shards,
+                               corpus.shape[1]), np.float32)
+            padded[:n] = corpus
+            self._corpus_dev = [s.to(self.dtype)
+                                for s in shard_batch(mesh, padded)]
+            self._n_pad = padded.shape[0]
             return
         q8, scale = self._quantize_rows(corpus)
         d = q8.shape[1]
-        padded = np.zeros((-(-max(rows, 1) // Q8_ALIGN) * Q8_ALIGN,
+        align = Q8_ALIGN * n_shards
+        padded = np.zeros((-(-max(rows, 1) // align) * align,
                            -(-max(d, 1) // Q8_ALIGN) * Q8_ALIGN), np.int8)
         padded[:n, :d] = q8
         scales = np.ones(padded.shape[0], np.float32)
         scales[:n] = scale
         if capacity is not None:
             self._n_valid = padded.shape[0]
-        self._corpus_dev = torch.from_numpy(padded).to(self.device)
-        self._row_scale_dev = torch.from_numpy(scales).to(self.device)
+        self._n_pad = padded.shape[0]
+        if mesh is None:
+            self._corpus_dev = torch.from_numpy(padded).to(self.device)
+            self._row_scale_dev = torch.from_numpy(scales).to(self.device)
+        else:
+            self._corpus_dev = shard_batch(mesh, padded)
+            self._row_scale_dev = shard_batch(mesh, scales)
 
     def write_rows(self, reps: np.ndarray, start: int) -> None:
         """Write ``reps [m, d]`` into device corpus rows ``start ..
@@ -141,60 +178,93 @@ class DenseFlatIndex:
             return
         reps = np.ascontiguousarray(reps, np.float32)
         m, d = reps.shape
-        if start + m > self._corpus_dev.shape[0]:
+        if start + m > self._n_pad:
             raise ValueError(f"rows {start}..{start + m} past the placed "
-                             f"corpus of {self._corpus_dev.shape[0]}")
-        if not self.q8:
-            self._corpus_dev[start:start + m] = torch.from_numpy(reps).to(
-                self.device).to(self.dtype)
-            return
-        q8, scale = self._quantize_rows(reps)
-        self._corpus_dev[start:start + m, :d] = torch.from_numpy(q8).to(
-            self.device)
-        self._row_scale_dev[start:start + m] = torch.from_numpy(scale).to(
-            self.device)
+                             f"corpus of {self._n_pad}")
+        if self.q8:
+            reps, scale = self._quantize_rows(reps)
+        blocks = self._corpus_dev if self._mesh is not None \
+            else [self._corpus_dev]
+        scales = self._row_scale_dev if self._mesh is not None \
+            else [self._row_scale_dev]
+        shard_rows = blocks[0].shape[0]
+        # a row range may straddle shards: write each shard's part
+        for b in range(start // shard_rows,
+                       (start + m - 1) // shard_rows + 1 if m else 0):
+            lo = max(start, b * shard_rows)
+            hi = min(start + m, (b + 1) * shard_rows)
+            dst = blocks[b]
+            part = torch.from_numpy(reps[lo - start:hi - start]).to(
+                dst.device)
+            local = slice(lo - b * shard_rows, hi - b * shard_rows)
+            dst[local, :d] = part.to(dst.dtype)
+            if self.q8:
+                scales[b][local] = torch.from_numpy(
+                    scale[lo - start:hi - start]).to(dst.device)
 
     # ---- search --------------------------------------------------------------
-    def _dispatch_chunk(self, chunk: np.ndarray, depth: int,
-                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Enqueue one chunk's scoring and return the packed ``[B, 2k]``
-        int32 device tensor, with no host sync. Queries travel in the
-        corpus dtype (half the bytes for bf16; SQ8 queries are quantized
-        per row on the host, a quarter). ``mask`` (a device bool ``[N]``
-        from ``DocFilter.device_mask``) scores excluded rows -inf."""
+    def _dispatch_chunk(self, chunk: np.ndarray, depth: int, mask=None):
+        """Enqueue one chunk's scoring with no host sync. Returns the
+        packed ``[B, 2k]`` int32 device tensor, or under the placement's
+        mesh ``(scores [B, k], idx [B, k])`` on its lead device. Queries
+        travel in the corpus dtype (half the bytes for bf16; SQ8 queries
+        are quantized per row on the host, a quarter). ``mask`` (from
+        ``DocFilter.device_mask``, per shard under a mesh) scores excluded
+        rows -inf."""
         chunk = np.ascontiguousarray(chunk, np.float32)
+        mesh = self._mesh
         if self.q8:
             q8, q_scale = self._quantize_rows(chunk)
-            width = self._corpus_dev.shape[1]
+            width = (self._corpus_dev[0] if mesh is not None
+                     else self._corpus_dev).shape[1]
             if q8.shape[1] < width:
                 q8 = np.pad(q8, ((0, 0), (0, width - q8.shape[1])))
+            q8 = np.ascontiguousarray(q8)
+            if mesh is not None:
+                return sharded_mips_topk_q8(
+                    mesh, replicated(mesh, q8), replicated(mesh, q_scale),
+                    self._corpus_dev, self._row_scale_dev, self._n_valid,
+                    depth, mask)
             return mips_topk_packed_q8(
-                torch.from_numpy(np.ascontiguousarray(q8)).to(self.device),
+                torch.from_numpy(q8).to(self.device),
                 torch.from_numpy(q_scale).to(self.device), self._corpus_dev,
                 self._row_scale_dev, depth, self._n_valid, mask)
+        if mesh is not None:
+            return sharded_mips_topk(
+                mesh, [q.to(self.dtype) for q in replicated(mesh, chunk)],
+                self._corpus_dev, self._n_valid, depth, mask)
         q = torch.from_numpy(chunk).to(self.device).to(self.dtype)
         return mips_topk_packed(q, self._corpus_dev, depth, mask)
 
-    def _mask(self, doc_filter) -> Optional[torch.Tensor]:
-        return None if doc_filter is None else doc_filter.device_mask(
-            self._corpus_dev.shape[0], self.device)
+    @staticmethod
+    def _resolve_chunk(out) -> Tuple[np.ndarray, np.ndarray]:
+        if isinstance(out, tuple):          # mesh form: (scores, idx)
+            return out[0].cpu().numpy(), out[1].cpu().numpy()
+        return unpack_topk(out.cpu().numpy())
 
-    def search(self, q_reps: np.ndarray, depth: int, doc_filter=None
-               ) -> Tuple[np.ndarray, np.ndarray]:
+    def _mask(self, doc_filter):
+        if doc_filter is None:
+            return None
+        return doc_filter.device_mask(
+            self._n_pad, self.device if self._mesh is None else self._mesh)
+
+    def search(self, q_reps: np.ndarray, depth: int, doc_filter=None,
+               mesh=None) -> Tuple[np.ndarray, np.ndarray]:
         """Exact top-``depth`` MIPS: (scores [B, k] f32, row indices
         [B, k]), ``k = min(depth, size)``. Rows ``doc_filter`` excludes
-        come back as score -inf (``search_ids`` drops them)."""
-        self._materialize()
-        return unpack_topk(self._dispatch_chunk(
-            np.asarray(q_reps, np.float32), depth,
-            self._mask(doc_filter)).cpu().numpy())
+        come back as score -inf (``search_ids`` drops them). ``mesh``
+        row-shards the corpus over its data axis."""
+        self._materialize(mesh=mesh)
+        return self._resolve_chunk(self._dispatch_chunk(
+            np.asarray(q_reps, np.float32), depth, self._mask(doc_filter)))
 
     def batch_search(self, q_reps: np.ndarray, depth: int,
                      batch_size: int = 128, lookahead: int = 3,
-                     doc_filter=None) -> Tuple[np.ndarray, np.ndarray]:
+                     doc_filter=None, mesh=None
+                     ) -> Tuple[np.ndarray, np.ndarray]:
         """``search`` in chunks of ``batch_size`` queries (the last one
         zero-padded to that size), up to ``lookahead`` chunks in flight."""
-        self._materialize()
+        self._materialize(mesh=mesh)
         q_reps = np.asarray(q_reps, dtype=np.float32)
         n = q_reps.shape[0]
         all_scores, all_idx = [], []
@@ -216,7 +286,7 @@ class DenseFlatIndex:
 
         def resolve(handle):
             out, valid = handle
-            scores, idx = unpack_topk(out.cpu().numpy())
+            scores, idx = self._resolve_chunk(out)
             all_scores.append(scores[:valid])
             all_idx.append(idx[:valid])
 
@@ -229,19 +299,19 @@ class DenseFlatIndex:
         return np.concatenate(all_scores), np.concatenate(all_idx)
 
     def search_ids(self, q_reps: np.ndarray, depth: int,
-                   batch_size: int = 128, doc_filter=None):
+                   batch_size: int = 128, doc_filter=None, mesh=None):
         """``batch_search`` with row indices mapped to lookup ids:
         (scores [B, k] f32, id rows). With ``doc_filter`` both are ragged
         lists: a row drops its -inf entries where fewer than ``depth``
         allowed docs exist (the sparse engine's zero-score rule)."""
-        scores, idx = self.batch_search(q_reps, depth, batch_size,
+        scores, idx = self.batch_search(q_reps, depth, batch_size, mesh=mesh,
                                         doc_filter=doc_filter)
         if self._lookup_arr_src is not self.lookup or \
                 len(self._lookup_arr) != len(self.lookup):
             self._lookup_arr = np.asarray(self.lookup)
             self._lookup_arr_src = self.lookup
         # a -inf fill entry (a filter allowing fewer than depth docs) may
-        # carry an SQ8 padding row; the keep mask below drops it
+        # carry a padding row; the keep mask below drops it
         idx = np.minimum(idx, len(self._lookup_arr) - 1)
         ids = self._lookup_arr[idx].tolist()
         if doc_filter is None:

@@ -1,5 +1,5 @@
 """Document filters: search scoped to a set of docs (the JAX package's
-``index/filter.py``, one device).
+``index/filter.py``).
 
 A filter is one ``[n_docs]`` bool operand per search call: the engines
 score every doc as usual, set the scores of excluded docs to -inf before
@@ -8,7 +8,9 @@ than ``depth`` allowed docs match. Any selectivity costs one masked pass.
 
 ``DocFilter`` is built once against one index's doc order and caches its
 padded device copy per ``(n_padded, device)``, so a reused filter uploads
-once.
+once. Given a ``parallel.mesh.Mesh`` in place of the device, the padded
+mask splits like the engines' doc columns: one contiguous piece per data
+shard on its shard's device, cached per ``(n_padded, mesh)``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,9 @@ from typing import Dict, Iterable, Tuple
 
 import numpy as np
 import torch
+
+from mllm_sparse_retrieval_tpu_torch.parallel.mesh import (
+    Mesh, canonical_device, shard_batch)
 
 
 class DocFilter:
@@ -34,7 +39,7 @@ class DocFilter:
                              f"{mask.dtype} {mask.shape}")
         self.mask = mask
         self.n_allowed = int(mask.sum())
-        self._device: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+        self._device: Dict[Tuple[int, object], object] = {}
 
     @classmethod
     def from_ids(cls, doc_ids, ids: Iterable, mode: str = "allow"
@@ -50,13 +55,17 @@ class DocFilter:
                           len(doc_ids))
         return cls(hit if mode == "allow" else ~hit)
 
-    def device_mask(self, n_padded: int, device="cuda") -> torch.Tensor:
+    def device_mask(self, n_padded: int, device="cuda"):
         """The mask padded to ``n_padded`` columns (pad columns False) as a
-        bool tensor on ``device``, cached per ``(n_padded, device)``."""
-        device = torch.device(device)
-        if device.type == "cuda" and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-        key = (int(n_padded), device)
+        bool tensor on ``device``, cached per ``(n_padded, device)``. With
+        a ``Mesh`` for ``device``: a list of ``mesh.shape[DATA_AXIS]``
+        equal pieces, piece ``d`` on ``mesh.shard_devices[d]``, cached per
+        ``(n_padded, mesh)`` (the mesh object, not its id)."""
+        if isinstance(device, Mesh):
+            key = (int(n_padded), device)
+        else:
+            device = canonical_device(device)
+            key = (int(n_padded), device)
         dev = self._device.get(key)
         if dev is not None:
             return dev
@@ -65,6 +74,9 @@ class DocFilter:
                              f"index has {n_padded} padded columns")
         padded = np.zeros(n_padded, np.bool_)
         padded[: self.mask.shape[0]] = self.mask
-        dev = torch.from_numpy(padded).to(device)
+        if isinstance(device, Mesh):
+            dev = shard_batch(device, padded)
+        else:
+            dev = torch.from_numpy(padded).to(device)
         self._device[key] = dev
         return dev

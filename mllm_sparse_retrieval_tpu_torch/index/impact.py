@@ -38,7 +38,15 @@ zeros: reserved columns score 0 and the resolve drops them, like docs that
 share no query term. ``scatter_append_triples`` writes added documents'
 (term, column, weight) triples, or zeros over deleted ones, into every
 cached matrix in place, so a search after an add reads the same storage.
-Not ported: sharding (ROADMAP Queue 1 #9).
+
+``mesh=`` (a ``parallel.mesh.Mesh``) on the search entry points splits the
+matrix by contiguous doc-column blocks over the mesh's data axis: one
+``[T'+1, shard_cols]`` tensor per shard on its shard's device, each padded
+to ``_DOC_TILE`` columns (``_materialize``). Every shard is scored by the
+same backend (the TAAT kernel once per shard on the card) and the per-shard
+top-k merge on the mesh's lead device (``ops/score_programs.py``); the
+``compact48`` wire stays single-device. The forms are cached per mesh
+object: a search under another mesh, or none, re-places them.
 """
 
 from __future__ import annotations
@@ -54,8 +62,11 @@ from mllm_sparse_retrieval_tpu_torch import hostops as _hostops
 from mllm_sparse_retrieval_tpu_torch.ops.packing import (
     unpack_topk, unpack_topk48)
 from mllm_sparse_retrieval_tpu_torch.ops.score_programs import (
-    _impact_topk, _impact_topk48, _scatter_block, _taat_topk, _taat_topk48)
+    _impact_topk, _impact_topk48, _scatter_block, _sharded_impact_topk,
+    _sharded_scatter, _sharded_taat_topk, _taat_topk, _taat_topk48)
 from mllm_sparse_retrieval_tpu_torch.ops.stream import pipeline_dispatch
+from mllm_sparse_retrieval_tpu_torch.parallel.mesh import (
+    DATA_AXIS, canonical_device, replicated)
 
 TermKey = Union[str, int]
 SparseVector = Mapping[TermKey, int]
@@ -74,6 +85,24 @@ _SCORE_MEMORY_FACTOR = 3
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def _cached_tensors(forms) -> List[Tuple[torch.device, int]]:
+    """(device, bytes) of every cached matrix; a mesh form's shards count
+    one by one."""
+    out = []
+    for form in forms.values():
+        for m in (form if isinstance(form, list) else [form]):
+            out.append((m.device, m.numel() * m.element_size()))
+    return out
+
+
+def _bytes_by_device(pairs) -> Dict[torch.device, int]:
+    total: Dict[torch.device, int] = {}
+    for dev, nbytes in pairs:
+        dev = canonical_device(dev)
+        total[dev] = total.get(dev, 0) + nbytes
+    return total
 
 
 def _flatten_term_rows(terms_list):
@@ -124,7 +153,10 @@ class ImpactIndex:
         self.csr_offsets: Optional[np.ndarray] = None  # int64 [T+1]
         self.csr_docs: Optional[np.ndarray] = None     # int32 [NNZ]
         self.csr_weights: Optional[np.ndarray] = None  # float32 [NNZ]
-        self._dev: Optional[Dict[str, torch.Tensor]] = None
+        # per-dtype device matrices: one tensor, or under a mesh one
+        # tensor per data shard (see _materialize)
+        self._dev: Optional[Dict[str, object]] = None
+        self._mesh = None
         self._n_valid = 0
         self._i16_ok: Optional[bool] = None
         # arena capacity (index/arena.py): when set, device matrices are
@@ -319,50 +351,75 @@ class ImpactIndex:
                 (w.max() < 32767.5 and np.all(w == np.rint(w))))
         return self._i16_ok
 
-    def _materialize(self, dtype: str = "f32") -> torch.Tensor:
+    def _materialize(self, dtype: str = "f32", mesh=None):
         """The dense ``[T'+1, N_pad]`` matrix on this index's device (int16
         for ``'i16'``, f32 for ``'f32'``), scattered from the CSR triples
         and cached per dtype. Row 0 stays zero. In capacity mode the matrix
         has ``max(T, term_capacity) + 1`` rows and at least
         ``doc_capacity`` columns, and every column counts as valid (the
-        reserved ones score 0 and are dropped at resolve)."""
+        reserved ones score 0 and are dropped at resolve).
+
+        Under a ``mesh`` the columns split into ``D`` contiguous blocks of
+        ``shard_cols = round_up(ceil(N / D), _DOC_TILE)`` (the JAX
+        package's kernel form pads each shard alike), returned as a list of
+        ``D`` tensors ``[T'+1, shard_cols]``, shard ``d`` on the mesh's
+        ``shard_devices[d]``. The cache is dropped when the mesh object
+        changes. The memory budget counts the bytes on each physical
+        device: shards that share a device add up."""
         self._ensure_finalized()
-        if self._dev is None:
+        if self._dev is None or self._mesh is not mesh:
             self._dev = {}
+            self._mesh = mesh
         if dtype in self._dev:
             return self._dev[dtype]
         n = self.doc_terms.shape[0]
         t = max(len(self.term_to_idx), self.term_capacity or 0)
-        n_pad = _round_up(max(n, self.doc_capacity or 0, 1), _DOC_TILE)
+        n_shards = 1 if mesh is None else mesh.shape[DATA_AXIS]
+        shard_cols = _round_up(-(-max(n, self.doc_capacity or 0, 1)
+                                 // n_shards), _DOC_TILE)
+        n_pad = shard_cols * n_shards
         self._n_valid = n_pad if self.doc_capacity is not None else n
         itemsize = 2 if dtype == "i16" else 4
-        need = (t + 1) * n_pad * itemsize
-        cached = sum(d.numel() * d.element_size() for d in self._dev.values())
-        if need + cached > self.hbm_budget_bytes:
+        devices = [self.device] if mesh is None else mesh.shard_devices
+        need = _bytes_by_device([(d, (t + 1) * shard_cols * itemsize)
+                                 for d in devices])
+        cached = _bytes_by_device(_cached_tensors(self._dev))
+        worst = max(need, key=lambda d: need[d] + cached.get(d, 0))
+        if need[worst] + cached.get(worst, 0) > self.hbm_budget_bytes:
             raise MemoryError(
-                f"impact matrix needs {need / 1e9:.1f} GB (terms={t}, "
-                f"docs_pad={n_pad}, {dtype}; {cached / 1e9:.1f} GB already "
-                f"cached — drop_device_cache() frees it), over the "
-                f"{self.hbm_budget_bytes / 1e9:.1f} GB budget of this index")
+                f"impact matrix needs {need[worst] / 1e9:.1f} GB on "
+                f"{worst} (terms={t}, docs_pad={n_pad}, {dtype}; "
+                f"{cached.get(worst, 0) / 1e9:.1f} GB already cached — "
+                f"drop_device_cache() frees it), over the "
+                f"{self.hbm_budget_bytes / 1e9:.1f} GB budget of this "
+                f"index; column-shard over a mesh of distinct devices "
+                f"(search(..., mesh=...))")
         torch_dtype = torch.int16 if dtype == "i16" else torch.float32
-        dev = torch.zeros((t + 1, n_pad), dtype=torch_dtype,
-                          device=self.device)
         counts = np.diff(self.csr_offsets)
         rows_all = np.repeat(np.arange(counts.size, dtype=np.int64),
                              counts) + 1
-        for i in range(0, rows_all.size, _PLACE_BLOCK):
-            j = min(i + _PLACE_BLOCK, rows_all.size)
-            _scatter_block(
-                dev, torch.from_numpy(rows_all[i:j]).to(self.device),
-                torch.from_numpy(self.csr_docs[i:j].astype(np.int64)).to(
-                    self.device),
-                torch.from_numpy(self.csr_weights[i:j]).to(self.device))
-        self._dev[dtype] = dev
-        return dev
+        cols_all = self.csr_docs.astype(np.int64)
+        shard_of = cols_all // shard_cols
+        out = []
+        for d, dev_d in enumerate(devices):
+            sel = slice(None) if mesh is None else shard_of == d
+            mat = torch.zeros((t + 1, shard_cols), dtype=torch_dtype,
+                              device=dev_d)
+            rows, cols = rows_all[sel], cols_all[sel] - d * shard_cols
+            vals = self.csr_weights[sel]
+            for i in range(0, rows.size, _PLACE_BLOCK):
+                j = min(i + _PLACE_BLOCK, rows.size)
+                _scatter_block(mat, torch.from_numpy(rows[i:j]).to(dev_d),
+                               torch.from_numpy(cols[i:j]).to(dev_d),
+                               torch.from_numpy(vals[i:j]).to(dev_d))
+            out.append(mat)
+        self._dev[dtype] = out[0] if mesh is None else out
+        return self._dev[dtype]
 
     def drop_device_cache(self) -> None:
         """Release the device matrices (rebuilt on the next search)."""
         self._dev = None
+        self._mesh = None
 
     def scatter_append_triples(self, term_idx, doc_pos, weights) -> None:
         """Write (term idx, doc column, weight) triples into every cached
@@ -375,6 +432,11 @@ class ImpactIndex:
         once."""
         if not self._dev:
             return
+        if self._mesh is not None:
+            self._scatter_triples_mesh(np.asarray(term_idx, np.int64) + 1,
+                                       np.asarray(doc_pos, np.int64),
+                                       np.asarray(weights, np.float32))
+            return
         rows = torch.from_numpy(
             np.asarray(term_idx, np.int64) + 1).to(self.device)
         cols = torch.from_numpy(np.asarray(doc_pos, np.int64)).to(self.device)
@@ -382,6 +444,24 @@ class ImpactIndex:
             self.device)
         for dev in self._dev.values():
             _scatter_block(dev, rows, cols, vals)
+
+    def _scatter_triples_mesh(self, rows, cols, vals) -> None:
+        """Route (row, col, value) triples to the shard owning each column
+        (``col // shard_cols``) and write every cached mesh form's shards in
+        place with their local columns (``_sharded_scatter``): O(triples)
+        per add or delete, never a re-placement."""
+        devices = self._mesh.shard_devices
+        for forms in self._dev.values():
+            shard_cols = forms[0].shape[1]
+            shard_of = cols // shard_cols
+            r, c, v = [], [], []
+            for d, dev_d in enumerate(devices):
+                sel = shard_of == d
+                r.append(torch.from_numpy(rows[sel]).to(dev_d))
+                c.append(torch.from_numpy(cols[sel] - d * shard_cols).to(
+                    dev_d))
+                v.append(torch.from_numpy(vals[sel]).to(dev_d))
+            _sharded_scatter(forms, r, c, v)
 
     # ---- query encoding ------------------------------------------------------
     def encode_queries(self, query_vectors: Sequence[SparseVector],
@@ -526,18 +606,18 @@ class ImpactIndex:
     # ---- search --------------------------------------------------------------
     def search_terms(self, terms_list: Sequence, depth: int,
                      canonical_map: Optional[np.ndarray] = None,
-                     backend: str = "auto", wire: str = "i32"
+                     backend: str = "auto", wire: str = "i32", mesh=None
                      ) -> Tuple[List[List[float]], List[List[str]]]:
         """Batch impact search straight from SelectedTerms (same result
         contract as ``search``)."""
         q_idx, q_w = self.encode_query_terms(terms_list, canonical_map)
-        return self.search_encoded(q_idx, q_w, depth, backend=backend,
-                                   wire=wire)
+        return self.search_encoded(q_idx, q_w, depth, mesh=mesh,
+                                   backend=backend, wire=wire)
 
     def search_terms_stream(self, term_batches, depth: int,
                             canonical_map: Optional[np.ndarray] = None,
                             backend: str = "auto", lookahead: int = 3,
-                            wire: str = "i32"):
+                            wire: str = "i32", mesh=None):
         """Pipelined search over a stream of SelectedTerms batches: one
         ``(scores, ids)`` pair per batch, the numpy encode of batch r+1
         overlapping batch r's device work (``search_encoded_stream``).
@@ -548,18 +628,21 @@ class ImpactIndex:
         with it."""
         encoded = (self.encode_query_terms(batch, canonical_map)
                    for batch in term_batches)
-        yield from self.search_encoded_stream(encoded, depth, backend=backend,
+        yield from self.search_encoded_stream(encoded, depth, mesh=mesh,
+                                              backend=backend,
                                               lookahead=lookahead, wire=wire)
 
     def search(self, query_vectors: Sequence[SparseVector], depth: int,
-               backend: str = "auto", wire: str = "i32", doc_filter=None
-               ) -> Tuple[List[List[float]], List[List[str]]]:
+               backend: str = "auto", wire: str = "i32", doc_filter=None,
+               mesh=None) -> Tuple[List[List[float]], List[List[str]]]:
         """Batch impact search: (score lists, ranked doc-id lists), one row
         per query; docs with zero score (and docs ``doc_filter`` excludes)
-        are never returned, so rows may be shorter than ``depth``."""
+        are never returned, so rows may be shorter than ``depth``.
+        ``mesh`` column-shards the matrix over its data axis."""
         q_idx, q_w = self.encode_queries(query_vectors)
-        return self.search_encoded(q_idx, q_w, depth, backend=backend,
-                                   wire=wire, doc_filter=doc_filter)
+        return self.search_encoded(q_idx, q_w, depth, mesh=mesh,
+                                   backend=backend, wire=wire,
+                                   doc_filter=doc_filter)
 
     def explain(self, terms: SparseVector, doc_id: str) -> Dict:
         """Score breakdown of one (query, doc) pair, on the host, by the
@@ -603,7 +686,7 @@ class ImpactIndex:
 
     def search_encoded(self, q_idx: np.ndarray, q_w: np.ndarray, depth: int,
                        backend: str = "auto", wire: str = "i32",
-                       doc_filter=None
+                       doc_filter=None, mesh=None
                        ) -> Tuple[List[List[float]], List[List[str]]]:
         """Search pre-encoded padded query arrays (see ``encode_queries``):
         term ids are this index's compact ids, padding has weight 0.
@@ -611,21 +694,22 @@ class ImpactIndex:
         only the docs it allows. ``wire='compact48'`` brings the results
         back in 6 bytes each instead of 8 (integer weights only). A batch
         wider than the chunk budget runs in chunks, up to three in
-        flight."""
+        flight. ``mesh`` column-shards the matrix over its data axis (i32
+        wire only)."""
         return next(self.search_encoded_stream(
-            [(q_idx, q_w)], depth, backend=backend, wire=wire,
+            [(q_idx, q_w)], depth, mesh=mesh, backend=backend, wire=wire,
             doc_filter=doc_filter))
 
     def search_encoded_stream(self, batches, depth: int,
                               backend: str = "auto", lookahead: int = 3,
-                              wire: str = "i32", doc_filter=None):
+                              wire: str = "i32", doc_filter=None, mesh=None):
         """Pipelined search: one ``(scores, ids)`` pair per input batch of
         ``(q_idx, q_w)`` arrays (``search_encoded``'s semantics, either
         wire), up to ``lookahead`` chunks in flight ahead of the consumer,
         so batch r+1's upload and scoring overlap batch r's copy back and
         resolve. A batch wider than the chunk budget goes through the same
         pipeline in chunks."""
-        plan = self._search_plan(backend, depth, wire, doc_filter)
+        plan = self._search_plan(backend, depth, wire, doc_filter, mesh)
 
         def submit():
             seq = 0
@@ -669,40 +753,53 @@ class ImpactIndex:
 
     # ---- search internals (plan / dispatch / resolve) ------------------------
     def _search_plan(self, backend: str, depth: int, wire: str = "i32",
-                     doc_filter=None) -> dict:
+                     doc_filter=None, mesh=None) -> dict:
         """Resolve backend + wire + device matrix + chunk budget (+ the
-        filter's padded device mask) once per search."""
+        filter's padded device mask) once per search; under a ``mesh`` the
+        matrix and the mask are per-shard lists."""
         if backend == "auto":
-            backend = "taat" if self.device.type == "cuda" else "matmul"
+            lead = self.device if mesh is None else mesh.lead
+            backend = "taat" if lead.type == "cuda" else "matmul"
         if backend not in ("taat", "matmul"):
             raise ValueError(
                 f"unknown impact backend {backend!r}: expected 'auto', "
                 f"'taat', or 'matmul'")
         if wire not in _WIRES:
             raise ValueError(f"unknown wire {wire!r}: 'i32' or 'compact48'")
+        if wire == "compact48" and mesh is not None:
+            raise ValueError("wire='compact48' is single-chip only "
+                             "(the sharded programs keep the i32 wire)")
         if wire == "compact48" and not self._int16_exact():
             raise ValueError(
                 "wire='compact48' needs integer doc weights < 2^15 "
                 "(scores must be integers for the 24-bit lane)")
         use_taat = backend == "taat"
         dtype = "i16" if use_taat and self._int16_exact() else "f32"
-        dev = self._materialize(dtype)
-        n_pad = dev.shape[1]
+        dev = self._materialize(dtype, mesh)
+        shards = dev if mesh is not None else [dev]
+        n_pad = sum(m.shape[1] for m in shards)
         if wire == "compact48" and n_pad >= 2 ** 23:
             # the wire's doc-position lane has 23 bits
             raise ValueError(
                 f"wire='compact48' supports < 2^23 doc columns (padded "
                 f"corpus has {n_pad}); use the i32 wire")
-        # the [B, N_pad] f32 score tensor and its top-k working set must fit
-        # beside every cached matrix; wide batches chunk
-        resident = sum(d.numel() * d.element_size()
-                       for d in self._dev.values())
-        score_budget = self.hbm_budget_bytes - resident
-        per_query = n_pad * 4 * _SCORE_MEMORY_FACTOR
-        max_b = max(8, int(score_budget // per_query) // 8 * 8)
-        mask = None if doc_filter is None else \
-            doc_filter.device_mask(n_pad, dev.device)
-        return dict(backend=backend, dev=dev, max_b=max_b,
+        # each shard's [B, shard_cols] f32 scores and their top-k working
+        # set must fit beside every cached matrix on its device; shards
+        # that share a device count together; wide batches chunk
+        resident = _bytes_by_device(_cached_tensors(self._dev))
+        cols = _bytes_by_device((m.device, m.shape[1]) for m in shards)
+        max_b = None
+        for d, n_cols in cols.items():
+            per_query = n_cols * 4 * _SCORE_MEMORY_FACTOR
+            fit = int((self.hbm_budget_bytes - resident.get(d, 0))
+                      // per_query)
+            max_b = fit if max_b is None else min(max_b, fit)
+        max_b = max(8, max_b // 8 * 8)
+        mask = None
+        if doc_filter is not None:
+            mask = doc_filter.device_mask(
+                n_pad, dev.device if mesh is None else mesh)
+        return dict(backend=backend, dev=dev, mesh=mesh, max_b=max_b,
                     k=min(depth, self._n_valid), wire=wire, mask=mask)
 
     def _check_wire(self, plan, q_w) -> None:
@@ -776,14 +873,21 @@ class ImpactIndex:
     def _dispatch_encoded(self, plan, q_idx, q_w) -> torch.Tensor:
         """Enqueue one chunk's scoring + top-k; returns the packed device
         tensor (``[B, 2k]`` int32 on the i32 wire, ``[B, 3k]`` int16 lanes
-        on compact48) without waiting for it."""
+        on compact48; on the mesh's lead device under a mesh) without
+        waiting for it."""
         compact = self._compact_queries(q_idx, q_w)
         if compact is None:
             compact = (np.ascontiguousarray(q_idx, np.int32),
                        np.ascontiguousarray(q_w, np.float32))
+        taat = plan["backend"] == "taat"
+        mesh = plan["mesh"]
+        if mesh is not None:
+            fn = _sharded_taat_topk if taat else _sharded_impact_topk
+            return fn(mesh, plan["dev"], replicated(mesh, compact[0]),
+                      replicated(mesh, compact[1]), self._n_valid,
+                      plan["k"], plan["mask"])
         d_idx, d_w = (torch.from_numpy(np.ascontiguousarray(a)).to(
             self.device) for a in compact)
-        taat = plan["backend"] == "taat"
         if plan["wire"] == "compact48":
             fn = _taat_topk48 if taat else _impact_topk48
         else:

@@ -1,5 +1,5 @@
 """Live (incrementally updatable) indexes: segments and tombstones (the
-JAX package's ``index/live.py``, one device).
+JAX package's ``index/live.py``).
 
 Documents can be added and deleted while the index serves queries, with
 Lucene's segments-and-tombstones design:
@@ -510,10 +510,12 @@ class LiveDenseIndex(_LiveBase):
 
     # -- search ------------------------------------------------------------------
     def search_rows(self, q_reps: np.ndarray, depth: int,
-                    batch_size: int = 128
+                    batch_size: int = 128, mesh=None
                     ) -> Tuple[List[List[float]], List[List[str]]]:
-        """Batch MIPS over all live documents: per-segment ``search_ids``,
-        host top-k merge, tombstones and pad rows dropped."""
+        """Batch MIPS over all live documents: per-segment ``search_ids``
+        (the base sharded over ``mesh``; deltas on one device, which they
+        fit by construction), host top-k merge, tombstones and pad rows
+        dropped."""
         segs = tuple(s for s in self._snapshot() if s.index.size)
         if not segs:
             b = np.asarray(q_reps).shape[0]
@@ -521,8 +523,9 @@ class LiveDenseIndex(_LiveBase):
 
         def search_one(pos, seg):
             d_f = _fetch_depth(depth, seg.drop_count, seg.index.size)
-            scores, ids = seg.index.search_ids(q_reps, d_f,
-                                               batch_size=batch_size)
+            scores, ids = seg.index.search_ids(
+                q_reps, d_f, batch_size=batch_size,
+                mesh=mesh if pos == 0 else None)
             return np.asarray(scores).tolist(), ids
 
         per_segment = self._search_segments(segs, search_one)
@@ -645,10 +648,11 @@ class LiveImpactIndex(_LiveBase):
 
     # -- search ------------------------------------------------------------------
     def search_rows(self, terms_list: Sequence[Dict], depth: int,
-                    backend: str = "auto", wire: str = "i32"
+                    backend: str = "auto", wire: str = "i32", mesh=None
                     ) -> Tuple[List[List[float]], List[List[str]]]:
         """Batch impact search over all live documents (ragged rows, zero-
-        score docs never returned — the ``ImpactIndex.search`` contract)."""
+        score docs never returned — the ``ImpactIndex.search`` contract);
+        the base sharded over ``mesh``, the deltas on one device."""
         segs = tuple(s for s in self._snapshot() if s.index.num_docs)
         if not segs:
             return [[] for _ in terms_list], [[] for _ in terms_list]
@@ -660,7 +664,8 @@ class LiveImpactIndex(_LiveBase):
             return idx.search_encoded(
                 q_idx, q_w, d_f,
                 backend=backend if pos == 0 else "matmul",
-                wire=wire if pos == 0 else "i32")
+                wire=wire if pos == 0 else "i32",
+                mesh=mesh if pos == 0 else None)
 
         per_segment = self._search_segments(segs, search_one)
         return _merge_rows(per_segment, segs, depth)

@@ -260,7 +260,8 @@ def flash_attention_eligible(seq_len: int, head_dim: int,
 
 def flash_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            attention_mask: torch.Tensor, *,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None,
+                           mesh=None) -> torch.Tensor:
     """Causal attention through the flash kernels, differentiable
     (``ops.flash_attention.FlashCausalAttention``). Key ``s`` is admissible
     for query ``t`` iff ``s <= t`` and ``attention_mask[b, s]`` is set,
@@ -269,6 +270,44 @@ def flash_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     average of ``v`` there).
 
     q: ``[B, T, Hq, Dh]``; k/v: ``[B, T, Hkv, Dh]`` (GQA read in place);
-    attention_mask: ``[B, T]``.
+    attention_mask: ``[B, T]``. ``mesh`` (a ``parallel.mesh.Mesh``) runs
+    the kernel once per shard (``_sharded_flash``).
     """
+    if mesh is not None:
+        return _sharded_flash(mesh, q, k, v, attention_mask, scale)
     return FA.FlashCausalAttention.apply(q, k, v, attention_mask, scale)
+
+
+def _sharded_flash(mesh, q, k, v, attention_mask, scale):
+    """The flash kernel once per shard of ``mesh``: the batch splits over
+    the data axis when it divides it, the kv heads (and their groups of q
+    heads, contiguous under GQA) over the model axis when ``hkv`` divides
+    it; an axis that does not split runs on its first device, as a
+    replicated computation does once. Shard ``(i, j)`` runs on
+    ``mesh.devices[i, j]``; its q / k / v slices are made contiguous
+    there (a head slice is strided, and the kernel's TMA descriptors need
+    dense rows), and the outputs are gathered back onto ``q``'s device.
+    Attention is independent per (batch row, head), so no other
+    communication is needed. Differentiable, as the copies and slices
+    are."""
+    from mllm_sparse_retrieval_tpu_torch.parallel.mesh import (
+        DATA_AXIS, MODEL_AXIS)
+
+    b, hq, hkv = q.shape[0], q.shape[2], k.shape[2]
+    n_data, n_model = mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS]
+    nb = n_data if n_data > 1 and b % n_data == 0 else 1
+    nh = n_model if n_model > 1 and hkv % n_model == 0 else 1
+    bs, qs, ks = b // nb, hq // nh, hkv // nh
+    rows = []
+    for i in range(nb):
+        heads = []
+        for j in range(nh):
+            dev = mesh.devices[i, j]
+            rb = slice(i * bs, (i + 1) * bs)
+            heads.append(FA.FlashCausalAttention.apply(
+                q[rb, :, j * qs:(j + 1) * qs].to(dev).contiguous(),
+                k[rb, :, j * ks:(j + 1) * ks].to(dev).contiguous(),
+                v[rb, :, j * ks:(j + 1) * ks].to(dev).contiguous(),
+                attention_mask[rb].to(dev), scale).to(q.device))
+        rows.append(torch.cat(heads, dim=2))
+    return torch.cat(rows, dim=0)

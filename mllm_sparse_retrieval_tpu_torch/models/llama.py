@@ -107,10 +107,11 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
 
 
 def _block(x, p, cfg: LlamaConfig, mask, cos, sin, lora=None,
-           flash_mask=None, lora_seed=None, *, lora_dropout: float = 0.0):
+           flash_mask=None, lora_seed=None, *, lora_dropout: float = 0.0,
+           flash_mesh=None):
     """One decoder block; ``flash_mask`` (the ``[B, T]`` padding mask) takes
     the flash kernel instead of ``attention`` over the ``[B, 1, T, T]``
-    ``mask``. ``lora`` is the block's adapter dict; with ``lora_seed`` and
+    ``mask``, once per shard of ``flash_mesh`` when one is given. ``lora`` is the block's adapter dict; with ``lora_seed`` and
     ``lora_dropout > 0`` each LoRA call site draws its dropout mask from a
     fresh generator seeded with ``fold_seed(lora_seed, site)``, sites in the
     JAX order q, k, v, o, gate, up, down: a pure function of integers, so a
@@ -137,7 +138,9 @@ def _block(x, p, cfg: LlamaConfig, mask, cos, sin, lora=None,
     k = L.apply_rope(k, cos, sin)
     if flash_mask is not None:
         with record_function("attention"):
-            attn = L.flash_causal_attention(q, k, v, flash_mask)
+            attn = L.flash_causal_attention(q, k, v, flash_mask) \
+                if flash_mesh is None else L.flash_causal_attention(
+                    q, k, v, flash_mask, mesh=flash_mesh)
     else:
         attn = L.attention(q, k, v, mask)
     attn = attn.reshape(b, t, cfg.num_heads * dh)
@@ -195,7 +198,8 @@ def apply(params: Dict, inputs_embeds: torch.Tensor,
     ``cfg.moe.aux_loss_coef``). Long sequences (anyres and tiled image
     prompts) take the flash kernels when ``layers.flash_attention_eligible``
     holds and never build the ``[B, 1, T, T]`` mask; ``allow_flash=False``
-    forces the plain masked attention. ``position_ids``: ``[B, T]`` or
+    forces the plain masked attention, and a ``parallel.mesh.Mesh`` runs
+    the flash kernel once per shard of it (``layers._sharded_flash``). ``position_ids``: ``[B, T]`` or
     ``[3, B, T]`` (M-RoPE) positions; None is ``arange(T)`` for every row.
 
     ``lora``: the text adapter tree ``{"blocks": [...]}``. ``remat=True``
@@ -207,7 +211,8 @@ def apply(params: Dict, inputs_embeds: torch.Tensor,
     t = inputs_embeds.shape[1]
     cos, sin = rope_tables(cfg, t, position_ids,
                            device=inputs_embeds.device)
-    use_flash = allow_flash and L.flash_attention_eligible(
+    flash_mesh = None if isinstance(allow_flash, bool) else allow_flash
+    use_flash = allow_flash is not False and L.flash_attention_eligible(
         t, cfg.head_dim, inputs_embeds.device)
     flash_mask = attention_mask if use_flash else None
     mask = None if use_flash else L.causal_padding_mask(attention_mask)
@@ -225,9 +230,9 @@ def apply(params: Dict, inputs_embeds: torch.Tensor,
         drop = lora_dropout if dropout_on else 0.0
         if remat:
             x = checkpoint(_block, *args, lora_dropout=drop,
-                           use_reentrant=False)
+                           flash_mesh=flash_mesh, use_reentrant=False)
         else:
-            x = _block(*args, lora_dropout=drop)
+            x = _block(*args, lora_dropout=drop, flash_mesh=flash_mesh)
         if moe_aux is not None:
             x, aux = x
             moe_aux = moe_aux + aux

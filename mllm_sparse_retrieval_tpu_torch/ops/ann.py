@@ -1,6 +1,6 @@
-"""Approximate MIPS on one device: a low-rank prefilter, then an exact
-rescore (the JAX package's ``ops/ann.py``, single-device programs; that
-package computes them outside any Pallas kernel too).
+"""Approximate MIPS: a low-rank prefilter, then an exact rescore (the JAX
+package's ``ops/ann.py``, on one device and over a mesh; that package
+computes them outside any Pallas kernel too).
 
 - Stage 1: queries and corpus are projected to ``rank`` dimensions with an
   inner-product-preserving basis (``ip_projection``: the top eigenvectors
@@ -16,19 +16,23 @@ package computes them outside any Pallas kernel too).
   f32 rounding and only the candidate set is approximate. Working set:
   ``B x candidates x d``.
 
-Not ported: the sharded programs (ROADMAP Queue 1 #9).
+``sharded_ann_topk`` runs the three stages on each block of a row-sharded
+corpus (``parallel/mesh.py``) with ``candidates`` PER SHARD, so the union
+pool grows with the mesh, and merges the shards' top-k on the mesh's lead
+device as ``ops/mips.sharded_mips_topk`` does, returning ``(scores,
+global row ids)``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from mllm_sparse_retrieval_tpu_torch.ops.packing import pack_topk
 from mllm_sparse_retrieval_tpu_torch.ops.score_programs import (
-    full_f32_matmul)
+    _merge_topk, full_f32_matmul)
 
 
 def ip_projection(reps: np.ndarray, rank: int, sample: int = 65536,
@@ -80,3 +84,49 @@ def ann_topk_packed(q: torch.Tensor, corpus: torch.Tensor,
         scores = scores.masked_fill(~mask[c_idx], float("-inf"))
     vals, pos = torch.topk(scores, k, dim=1)
     return pack_topk(vals, torch.gather(c_idx, 1, pos))
+
+
+def _ann_local(q, corpus, corpus_r, proj, base: int, n_valid: int,
+               k_local: int, candidates: int, mask=None):
+    """One shard's three stages: stage-1 scores of rows at or past global
+    ``n_valid`` and of rows ``mask`` excludes at -inf, ``candidates``
+    rows, their exact rescore (re-masked: a tiny shard's candidates may
+    include padding), the local top ``k_local`` with global ids."""
+    with full_f32_matmul():
+        s1 = (q.float() @ proj) @ corpus_r.T
+    rows = base + torch.arange(corpus_r.shape[0], device=s1.device)
+    allowed = rows < n_valid
+    if mask is not None:
+        allowed = allowed & mask
+    s1.masked_fill_(~allowed[None, :], float("-inf"))
+    c_idx = torch.topk(s1, candidates, dim=1).indices
+    scores = _rescore_exact(q, corpus, c_idx)
+    scores = scores.masked_fill(~allowed[c_idx], float("-inf"))
+    vals, pos = torch.topk(scores, k_local, dim=1)
+    return vals, torch.gather(c_idx, 1, pos) + base
+
+
+def sharded_ann_topk(mesh, q: Sequence[torch.Tensor],
+                     corpus_sharded: Sequence[torch.Tensor],
+                     corpus_r_sharded: Sequence[torch.Tensor],
+                     proj: Sequence[torch.Tensor], n_valid: int, k: int,
+                     candidates: int, recall_target: float = 0.95,
+                     mask_sharded: Optional[Sequence[torch.Tensor]] = None):
+    """Approximate MIPS over a row-sharded corpus -> (scores [B, k] f32,
+    global row ids [B, k] int32) on ``mesh.lead``. ``q`` and ``proj``: one
+    copy per shard; ``corpus_sharded`` / ``corpus_r_sharded``: one block
+    per shard; ``mask_sharded``: one bool piece per shard or None (stage-1
+    masking, so the candidates come from allowed rows only).
+    ``candidates`` applies per shard; the same padding / ``n_valid``
+    contract as ``sharded_mips_topk``."""
+    shard_rows = corpus_sharded[0].shape[0]
+    k = min(k, n_valid)
+    k_local = min(k, shard_rows)
+    candidates = max(min(candidates, shard_rows), k_local)
+    parts = [_ann_local(q[d], corpus_sharded[d], corpus_r_sharded[d],
+                        proj[d], d * shard_rows, n_valid, k_local,
+                        candidates,
+                        None if mask_sharded is None else mask_sharded[d])
+             for d in range(len(corpus_sharded))]
+    vals, gidx = _merge_topk(parts, k, mesh.lead)
+    return vals, gidx.to(torch.int32)

@@ -13,8 +13,8 @@ metrics sort stably), and invalid entries take no rank, as the host paths
 drop them: non-positive scores of impact runs (``positive``), non-finite
 scores of fused and filtered runs (``finite``), none of an unfiltered dense
 run (``all``), and the self doc under ``remove_query``.
-``ranks_from_parts`` (the mesh dense form) waits for sharding (ROADMAP
-Queue 1 #9).
+``ranks_from_parts`` takes the mesh dense programs' ``(scores, idx)``
+form (``ops/mips.sharded_mips_topk``).
 """
 
 from __future__ import annotations
@@ -65,3 +65,12 @@ def ranks_from_packed(packed: torch.Tensor, tgt: torch.Tensor,
     k = packed.shape[1] // 2
     scores = packed[:, :k].contiguous().view(torch.float32)
     return _ranks_core(scores, packed[:, k:], tgt, self_pos, rule)
+
+
+def ranks_from_parts(scores: torch.Tensor, idx: torch.Tensor,
+                     tgt: torch.Tensor, self_pos: torch.Tensor,
+                     rule: str = "finite") -> torch.Tensor:
+    """Target ranks from separate ``(scores [B, K], idx [B, K])`` tensors:
+    the mesh dense programs' output form."""
+    return _ranks_core(scores.float(), idx.to(torch.int32), tgt, self_pos,
+                       rule)

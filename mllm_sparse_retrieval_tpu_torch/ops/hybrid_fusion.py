@@ -21,8 +21,8 @@ The semantics of ``fuse`` that this reproduces exactly:
 
 Arithmetic is f32 here against float64 on the host, so fused scores agree
 to f32 rounding, and docs of equal score may come out in another order.
-``fused_topk_parts`` (the mesh dense form) waits for sharding (ROADMAP
-Queue 1 #9).
+``fused_topk_parts`` takes the dense run in the mesh programs' ``(scores,
+idx)`` form (``ops/mips.sharded_mips_topk``).
 """
 
 from __future__ import annotations
@@ -142,4 +142,16 @@ def fused_topk_packed(sparse_packed: torch.Tensor,
     ss, si = _unpack_dev(sparse_packed)
     ds, di = _unpack_dev(dense_packed)
     return pack_topk(*_fused_core(ss, si, ds, di, perm, self_idx,
+                                  w_dense, w_sparse, out_k))
+
+
+def fused_topk_parts(sparse_packed: torch.Tensor, dense_scores: torch.Tensor,
+                     dense_idx: torch.Tensor, perm: torch.Tensor,
+                     self_idx: torch.Tensor, w_dense: torch.Tensor,
+                     w_sparse: torch.Tensor, out_k: int) -> torch.Tensor:
+    """``fused_topk_packed`` with the dense run as separate ``(scores
+    [B, kd], idx [B, kd])`` tensors, the mesh dense programs' form."""
+    ss, si = _unpack_dev(sparse_packed)
+    return pack_topk(*_fused_core(ss, si, dense_scores.float(),
+                                  dense_idx.to(torch.int32), perm, self_idx,
                                   w_dense, w_sparse, out_k))

@@ -1,6 +1,6 @@
-"""Maximum-inner-product search on one device: a matmul and ``torch.topk``
-(the JAX package's ``ops/mips.py``, single-device f32, bf16 and int8
-programs; that package computes these outside any Pallas kernel too).
+"""Maximum-inner-product search: a matmul and ``torch.topk`` (the JAX
+package's ``ops/mips.py``: f32, bf16 and int8 programs, on one device and
+over a mesh; that package computes these outside any Pallas kernel too).
 
 Scores are f32 for every corpus dtype:
 
@@ -22,18 +22,27 @@ Scores are f32 for every corpus dtype:
 
 Given a bool ``mask``, each packed program restricts the search to the rows
 it allows (``index/filter.py``): excluded rows score -inf before the top-k.
-Not ported: the sharded programs (ROADMAP Queue 1 #9).
+
+The sharded programs (``sharded_mips_topk``, ``sharded_mips_topk_q8``)
+score a corpus split by contiguous row blocks over a mesh's data axis
+(``parallel/mesh.py``): each shard's block on its device, the queries
+copied to each, rows at or past ``n_valid`` and rows the shard's piece of
+``mask`` excludes at -inf, a local top ``min(k, shard_rows)``, then one
+top-k over all shards' candidates on the mesh's lead device. They return
+``(scores [B, k] f32, global row ids [B, k] int32)`` there, not a packed
+tensor: the JAX package's mesh form.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from mllm_sparse_retrieval_tpu_torch.ops.packing import pack_topk
 from mllm_sparse_retrieval_tpu_torch.ops.score_programs import (
-    _filtered, full_f32_matmul)
+    _filtered, _sharded_merge_topk, full_f32_matmul)
+from mllm_sparse_retrieval_tpu_torch.parallel.mesh import replicated
 
 DTYPES = (torch.float32, torch.bfloat16)
 # f32 bytes of the corpus rows a bf16 search widens at a time
@@ -131,3 +140,62 @@ def mips_topk_packed_q8(q8: torch.Tensor, q_scale: torch.Tensor,
     if n_valid < scores.shape[1]:
         scores[:, n_valid:] = float("-inf")
     return pack_topk(*torch.topk(scores, min(k, n_valid), dim=1))
+
+
+# ---- data-axis mesh programs ------------------------------------------------
+
+def _local_then_global_topk(shard_scores, shard_rows: int, n_valid: int,
+                            k: int, device: torch.device, masks=None):
+    """Each shard's scores cut to its candidates, then the merge
+    (``score_programs._sharded_merge_topk``); global row ids as int32."""
+    vals, gidx = _sharded_merge_topk(shard_scores, shard_rows, n_valid, k,
+                                     device, masks)
+    return vals, gidx.to(torch.int32)
+
+
+def _sharded_statics(corpus_shards: Sequence[torch.Tensor], n_valid: int,
+                     k: int) -> int:
+    rows = {c.shape[0] for c in corpus_shards}
+    if len(rows) != 1:
+        raise ValueError(f"corpus shards of unequal rows {sorted(rows)}: "
+                         f"pad the corpus to a shard multiple")
+    return min(k, n_valid)
+
+
+def sharded_mips_topk(mesh, queries, corpus_sharded: Sequence[torch.Tensor],
+                      n_valid: int, k: int,
+                      mask_sharded: Optional[Sequence[torch.Tensor]] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact MIPS over a row-sharded corpus -> (scores [B, k] f32, global
+    row ids [B, k] int32) on ``mesh.lead``, ``k = min(k, n_valid)``.
+
+    ``queries``: one ``[B, d]`` tensor (copied to each shard's device) or
+    one copy per shard; ``corpus_sharded``: one ``[shard_rows, d]`` block
+    per data shard (f32 or bf16), the corpus padded to a shard multiple,
+    padding rows excluded through ``n_valid``; ``mask_sharded``: one bool
+    ``[shard_rows]`` piece per shard or None."""
+    k = _sharded_statics(corpus_sharded, n_valid, k)
+    if isinstance(queries, torch.Tensor):
+        queries = replicated(mesh, queries)
+    scores = (mips_scores(q, c) for q, c in zip(queries, corpus_sharded))
+    return _local_then_global_topk(scores, corpus_sharded[0].shape[0],
+                                   n_valid, k, mesh.lead, mask_sharded)
+
+
+def sharded_mips_topk_q8(mesh, q8, q_scale,
+                         corpus8_sharded: Sequence[torch.Tensor],
+                         row_scale_sharded: Sequence[torch.Tensor],
+                         n_valid: int, k: int,
+                         mask_sharded: Optional[Sequence[torch.Tensor]] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SQ8 MIPS over a row-sharded int8 corpus with its row scales sharded
+    alike (the int8 form of ``sharded_mips_topk``, the same contract):
+    each shard's exact int8 product (``torch._int_mm`` on the card), its
+    dequantization, then the merge."""
+    k = _sharded_statics(corpus8_sharded, n_valid, k)
+    if isinstance(q8, torch.Tensor):
+        q8, q_scale = replicated(mesh, q8), replicated(mesh, q_scale)
+    scores = (_q8_scores(q, s, c, r) for q, s, c, r in
+              zip(q8, q_scale, corpus8_sharded, row_scale_sharded))
+    return _local_then_global_topk(scores, corpus8_sharded[0].shape[0],
+                                   n_valid, k, mesh.lead, mask_sharded)

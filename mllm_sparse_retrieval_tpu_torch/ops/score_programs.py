@@ -15,6 +15,18 @@
   it with the zero scores: impact scores are non-negative integers, so a
   masked doc can never outrank a matching one.
 
+The sharded programs (``_sharded_impact_topk``, ``_sharded_taat_topk``)
+score a matrix split by contiguous doc-column blocks over a mesh's data
+axis (``parallel/mesh.py``): one ``[T+1, shard_cols]`` tensor per shard on
+its shard's device, shard ``d``'s column ``c`` the global doc ``d *
+shard_cols + c``. Each shard runs the single-device scorer (the TAAT kernel
+once per shard on the card), masks its columns at or past ``n_valid`` and
+those the shard's piece of ``mask`` excludes, and keeps its own top
+``min(k, shard_cols)``; the candidates go to the mesh's lead device, where
+one top-k over them picks the global top-k (``_sharded_merge_topk``, the
+JAX package's all-gather merge). ``_sharded_scatter`` writes triples routed
+to their shards, local columns, into each shard in place.
+
 Query arrays may arrive as int16 (``ImpactIndex._compact_queries``, half
 the upload bytes); ``_safe_query`` widens them on the device.
 
@@ -30,6 +42,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -144,3 +157,86 @@ def _taat_topk48(matrix, q_idx, q_w, n_valid: int, k: int,
     """TAAT backend -> ``[B, 3k]`` compact48 lanes (integer scores)."""
     return pack_topk48(*_masked_topk(
         _taat_scores(matrix, q_idx, q_w), n_valid, k, mask))
+
+
+# ---- data-axis mesh programs ------------------------------------------------
+
+def _shard_topk(scores: torch.Tensor, base: int, n_valid: int, k: int):
+    """One shard's candidates: its columns at or past global ``n_valid``
+    score -inf (in place), then its top ``min(k, shard_cols)`` with global
+    ids ``base + local``."""
+    col = base + torch.arange(scores.shape[1], device=scores.device)
+    scores.masked_fill_(col[None, :] >= n_valid, float("-inf"))
+    lv, li = torch.topk(scores, min(k, scores.shape[1]), dim=1)
+    return lv, li + base
+
+
+def _merge_topk(parts, k: int, device: torch.device):
+    """The all-gather and global re-rank: every shard's ``[B, k_local]``
+    candidates copied to ``device`` (asynchronous where they live
+    elsewhere), concatenated, and one top-k -> (scores [B, k], global ids
+    [B, k] int64)."""
+    av = torch.cat([v.to(device, non_blocking=True) for v, _ in parts], 1)
+    ag = torch.cat([g.to(device, non_blocking=True) for _, g in parts], 1)
+    vals, pos = torch.topk(av, k, dim=1)
+    return vals, torch.gather(ag, 1, pos)
+
+
+def _sharded_merge_topk(shard_scores, shard_cols: int, n_valid: int, k: int,
+                        device: torch.device,
+                        masks: Optional[Sequence[torch.Tensor]] = None):
+    """Per-shard top-k of each ``[B, shard_cols]`` score block (shard
+    ``d``'s global ids ``d * shard_cols + local``; columns at or past
+    ``n_valid``, and those shard ``d``'s piece of ``masks`` excludes,
+    score -inf in place) merged into the global top ``k`` on ``device``.
+    ``shard_scores`` may be a generator: each shard is then cut to its
+    candidates before the next is scored."""
+    parts = []
+    for d, scores in enumerate(shard_scores):
+        if masks is not None:
+            _filtered(scores, masks[d])
+        parts.append(_shard_topk(scores, d * shard_cols, n_valid, k))
+    return _merge_topk(parts, k, device)
+
+
+def _sharded_topk(scorer, mesh, shards: Sequence[torch.Tensor],
+                  q_idx: Sequence[torch.Tensor], q_w: Sequence[torch.Tensor],
+                  n_valid: int, k: int,
+                  mask: Optional[Sequence[torch.Tensor]]) -> torch.Tensor:
+    scores = (scorer(m, q_idx[d], q_w[d]) for d, m in enumerate(shards))
+    return pack_topk(*_sharded_merge_topk(scores, shards[0].shape[1],
+                                          n_valid, k, mesh.lead, mask))
+
+
+def _sharded_impact_topk(mesh, shards: Sequence[torch.Tensor], q_idx, q_w,
+                         n_valid: int, k: int,
+                         mask: Optional[Sequence[torch.Tensor]] = None
+                         ) -> torch.Tensor:
+    """Doc-column-sharded matmul scoring + merge -> packed ``[B, 2k]``
+    int32 on ``mesh.lead``. ``shards``: one ``[T+1, shard_cols]`` f32
+    block per data shard; ``q_idx`` / ``q_w``: one copy per shard
+    (``parallel.mesh.replicated``); ``mask``: one ``[shard_cols]`` bool
+    piece per shard or None."""
+    return _sharded_topk(_scores_from_matrix, mesh, shards, q_idx, q_w,
+                         n_valid, k, mask)
+
+
+def _sharded_taat_topk(mesh, shards: Sequence[torch.Tensor], q_idx, q_w,
+                       n_valid: int, k: int,
+                       mask: Optional[Sequence[torch.Tensor]] = None
+                       ) -> torch.Tensor:
+    """Doc-column-sharded term-at-a-time scoring + merge: the TAAT kernel
+    runs once per shard on its block (int16 or f32), then as
+    ``_sharded_impact_topk``."""
+    return _sharded_topk(_taat_scores, mesh, shards, q_idx, q_w, n_valid, k,
+                         mask)
+
+
+def _sharded_scatter(shards: Sequence[torch.Tensor],
+                     rows: Sequence[torch.Tensor],
+                     cols: Sequence[torch.Tensor],
+                     vals: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Write each shard's own (row, LOCAL column, value) triples into it in
+    place; the host routed every triple to the shard owning its column."""
+    return [_scatter_block(m, r, c, v)
+            for m, r, c, v in zip(shards, rows, cols, vals)]

@@ -1,5 +1,5 @@
 """Offline corpus and query encoding (the JAX package's
-``pipelines/encode.py``, one device).
+``pipelines/encode.py``).
 
 ``make_text_ds_encode`` / ``make_image_ds_encode`` return a plain function
 (PyTorch runs eagerly; the JAX package jits the same body) that runs the
@@ -14,8 +14,13 @@ collator use these pieces directly.
 ``encode_examples`` drives them over a list of examples: fixed device
 batches (the last one padded by repeating its last example), host
 preparation on a prefetch thread, two batches in flight
-(``ops/stream.py``). ``write_artifacts`` writes the reference's artifact
-formats, which either package reads:
+(``ops/stream.py``). Under a ``mesh`` every batch splits over its data
+axis: shard ``i`` runs the same function on ``mesh.shard_devices[i]``
+with its own copy of the parameters (one per distinct device) and the
+flash kernel once per model-axis device of its row (``allow_flash=
+mesh.row(i)``), and the shards' packed results are gathered on the mesh's
+lead device for one copy to the host. ``write_artifacts`` writes the
+reference's artifact formats, which either package reads:
 
 - dense: ``corpus_{shard}.pkl`` / ``query.pkl`` = pickled
   ``(np.ndarray float32 [N, d], ids list)``;
@@ -53,6 +58,8 @@ from mllm_sparse_retrieval_tpu_torch.ops.select import (
     candidate_topk, filtered_topk, pad_candidates, vocab_topk)
 from mllm_sparse_retrieval_tpu_torch.ops.stream import (
     pipeline_dispatch, prefetch_thread)
+from mllm_sparse_retrieval_tpu_torch.parallel.mesh import (
+    DATA_AXIS, replicated)
 from mllm_sparse_retrieval_tpu_torch.sparse.term_selection import (
     SelectedTerms, doc_string_vector, get_filtered_ids, quantize_weights,
     query_string_weights, select_image_terms, select_text_terms,
@@ -110,16 +117,18 @@ def _pad_batch_examples(batch: Sequence[Example], size: int) -> List[Example]:
 
 def make_text_ds_encode(arch, reps_loc, k_text_full: int, exp_k: int):
     """``(fn, spec_fn)``: ``fn(params, lora, ids, mask, cand_ids, cand_mask,
-    fmask)`` (``lora`` an adapter tree or None) packs (full-vocab top-k,
-    candidate top-k [+ expansion top-k], L2-normalized dense) into one
-    int32 tensor; ``spec_fn(cand_w)`` gives the matching ``unpack_blocks``
-    spec. ``fmask`` is the filtered-vocab bool mask when ``exp_k > 0``, else
-    None."""
+    fmask, allow_flash=True)`` (``lora`` an adapter tree or None) packs
+    (full-vocab top-k, candidate top-k [+ expansion top-k], L2-normalized
+    dense) into one int32 tensor; ``spec_fn(cand_w)`` gives the matching
+    ``unpack_blocks`` spec. ``fmask`` is the filtered-vocab bool mask when
+    ``exp_k > 0``, else None; ``allow_flash`` as in ``encode_any``."""
     hidden = arch.text.hidden_size
 
     @torch.inference_mode()
-    def _fn(p, lora, ids, mask, cand_ids, cand_mask, fmask):
-        sparse, dense = encode_any(p, arch, ids, mask, None, reps_loc, lora)
+    def _fn(p, lora, ids, mask, cand_ids, cand_mask, fmask,
+            allow_flash=True):
+        sparse, dense = encode_any(p, arch, ids, mask, None, reps_loc, lora,
+                                   allow_flash=allow_flash)
         with record_function("term_select"):
             fv, fi = vocab_topk(sparse, k_text_full)
             cv, ci, cnt = candidate_topk(sparse, cand_ids, cand_mask, 128)
@@ -148,7 +157,7 @@ def make_text_ds_encode(arch, reps_loc, k_text_full: int, exp_k: int):
 
 def make_image_ds_encode(arch, reps_loc, k_image: int, exp_k: int):
     """Image counterpart of ``make_text_ds_encode``: ``fn(params, lora, ids,
-    mask, pixels, pos, fmask)`` packs (full-vocab top-k [+ expansion
+    mask, pixels, pos, fmask, allow_flash=True)`` packs (full-vocab top-k [+ expansion
     top-k], L2-normalized dense); ``spec_fn()`` is shape-static (image
     selection has no candidate set: the reference takes the top
     ``sparse_length`` vocab terms). ``pixels`` is a pixel tensor or the
@@ -157,9 +166,10 @@ def make_image_ds_encode(arch, reps_loc, k_image: int, exp_k: int):
     hidden = arch.text.hidden_size
 
     @torch.inference_mode()
-    def _fn(p, lora, ids, mask, pixels, pos, fmask):
+    def _fn(p, lora, ids, mask, pixels, pos, fmask, allow_flash=True):
         sparse, dense = encode_any(p, arch, ids, mask, pixels, reps_loc,
-                                   lora, position_ids=pos)
+                                   lora, position_ids=pos,
+                                   allow_flash=allow_flash)
         with record_function("term_select"):
             fv, fi = vocab_topk(sparse, k_image)
             blocks = [(fv, True), (fi, False)]
@@ -182,15 +192,17 @@ def make_image_ds_encode(arch, reps_loc, k_image: int, exp_k: int):
 
 def make_plain_encode(arch, reps_loc):
     """``(fn, spec_fn)`` of the host route: ``fn(params, lora, ids, mask,
-    pixels, pos)`` (``pixels`` None for text) packs the full-vocabulary
+    pixels, pos, fmask=None, allow_flash=True)`` (``pixels`` None for text;
+    ``fmask`` unused) packs the full-vocabulary
     sparse logits and the L2-normalized dense vectors into one int32
     tensor; the host then selects terms from each ``[V]`` row
     (``select_text_terms`` / ``select_image_terms``)."""
 
     @torch.inference_mode()
-    def _fn(p, lora, ids, mask, pixels, pos):
+    def _fn(p, lora, ids, mask, pixels, pos, fmask=None, allow_flash=True):
         sparse, dense = encode_any(p, arch, ids, mask, pixels, reps_loc,
-                                   lora, position_ids=pos)
+                                   lora, position_ids=pos,
+                                   allow_flash=allow_flash)
         return pack_blocks([(sparse, True), (normalize(dense), True)])
 
     def _spec():
@@ -331,6 +343,7 @@ def encode_examples(
     seq_pad_multiple: int = 16,
     device_select: bool = True,
     device="cuda",
+    mesh=None,
 ) -> EncodeResult:
     """Encode examples into dense vectors and selected terms on ``device``
     (where ``params`` live).
@@ -352,10 +365,21 @@ def encode_examples(
     families, raw ``[H, W, 3]`` in [0, 1] for the variable ones; the
     default loaders decode the example's image file (``data/imageio.py``)
     and make seeded synthetic pixels for an absent one.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``) splits every batch over its data
+    axis (``batch_size`` must divide by it) and replaces ``device``; see
+    the module docstring.
     """
     if encode_type not in ("text", "image"):
         raise ValueError(f"encode_type must be 'text' or 'image', "
                          f"got {encode_type!r}")
+    n_data = 1
+    if mesh is not None:
+        n_data = mesh.shape[DATA_AXIS]
+        if batch_size % n_data != 0:
+            raise ValueError(f"batch_size {batch_size} not divisible by "
+                             f"data axis {n_data}")
+        device = mesh.lead
     device = torch.device(device)
     vocab = tokenizer.get_vocab()
     id_to_token = {v: k for k, v in vocab.items()}
@@ -398,16 +422,43 @@ def encode_examples(
         fm[filtered_ids] = True
         fmask = torch.from_numpy(fm).to(device)
     if not device_select:
-        plain_fn, spec_fn = make_plain_encode(arch, reps_loc)
+        encode_fn, spec_fn = make_plain_encode(arch, reps_loc)
     elif encode_type == "text":
         encode_fn, spec_fn = make_text_ds_encode(arch, reps_loc,
                                                  k_text_full, exp_k)
     else:
         encode_fn, spec_fn = make_image_ds_encode(arch, reps_loc, k_image,
                                                   exp_k)
+    if mesh is None:
+        # one shard: (params, lora, fmask, device, allow_flash)
+        shards = [(params, lora, fmask, device, True)]
+    else:
+        shards = list(zip(replicated(mesh, params), replicated(mesh, lora),
+                          replicated(mesh, fmask), mesh.shard_devices,
+                          [mesh.row(i) for i in range(n_data)]))
 
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    def run_shard(shard, host, lo, hi):
+        """One shard's program on rows ``lo:hi`` of the host batch."""
+        p, l, fm, dev, flash = shard
+
+        def put(a, axis=0):
+            a = a[lo:hi] if axis == 0 else a[:, lo:hi]
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        if encode_type == "text":
+            ids, mask, cand_ids, cand_mask = host
+            if not device_select:
+                return encode_fn(p, l, put(ids).long(), put(mask), None,
+                                 None, allow_flash=flash)
+            return encode_fn(p, l, put(ids).long(), put(mask), put(cand_ids),
+                             put(cand_mask), fm, allow_flash=flash)
+        ids, mask, pixels, pos = host
+        d_px = ({k: put(v) for k, v in pixels.items()}
+                if isinstance(pixels, dict) else put(pixels))
+        # M-RoPE ids are [3, B, T]: the batch is their second axis
+        d_pos = None if pos is None else put(pos, axis=1).long()
+        return encode_fn(p, l, put(ids).long(), put(mask), d_px, d_pos, fm,
+                         allow_flash=flash)
 
     def host_prep(batch):
         """Tokenization, candidates, image preprocessing of one padded
@@ -443,27 +494,16 @@ def encode_examples(
             yield batch, len(raw), host_prep(batch)
 
     def dispatch(item):
-        """Enqueue one batch's program; no host sync."""
+        """Enqueue one batch's program (per shard under a mesh, gathered
+        on the lead device); no host sync."""
         batch, valid, host = item
-        if encode_type == "text":
-            ids, mask, cand_ids, cand_mask = host
-            if not device_select:
-                packed = plain_fn(params, lora, put(ids).long(), put(mask),
-                                  None, None)
-                return item, packed, spec_fn()
-            packed = encode_fn(params, lora, put(ids).long(), put(mask),
-                               put(cand_ids), put(cand_mask), fmask)
-            return item, packed, spec_fn(cand_ids.shape[1])
-        ids, mask, pixels, pos = host
-        d_px = ({k: put(v) for k, v in pixels.items()}
-                if isinstance(pixels, dict) else put(pixels))
-        d_pos = None if pos is None else put(pos).long()
-        if not device_select:
-            packed = plain_fn(params, lora, put(ids).long(), put(mask),
-                              d_px, d_pos)
-        else:
-            packed = encode_fn(params, lora, put(ids).long(), put(mask),
-                               d_px, d_pos, fmask)
+        step = batch_size // n_data
+        packs = [run_shard(shard, host, i * step, (i + 1) * step)
+                 for i, shard in enumerate(shards)]
+        packed = packs[0] if mesh is None else torch.cat(
+            [pk.to(device, non_blocking=True) for pk in packs])
+        if encode_type == "text" and device_select:
+            return item, packed, spec_fn(host[2].shape[1])
         return item, packed, spec_fn()
 
     result = EncodeResult(is_query=is_query,

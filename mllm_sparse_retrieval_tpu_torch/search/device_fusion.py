@@ -1,5 +1,5 @@
 """Hybrid dense + sparse search fused on the device, one copy to the host
-per chunk (the JAX package's ``search/device_fusion.py``, one device).
+per chunk (the JAX package's ``search/device_fusion.py``).
 
 ``FusedHybridSearcher`` drives both engines chunk by chunk through the
 dispatch-ahead pipeline (``ops/stream.py``): per chunk it enqueues the
@@ -9,6 +9,9 @@ between them, and the host copies one packed ``[B, 2 * out_depth]`` fused
 result. The host route (``search/engine.run_search``, ``fusion_mode=
 "host"``) copies two depth-sized runs instead and fuses them in Python;
 the fused scores agree with its ``search.fusion.fuse`` to f32 rounding.
+Under a ``mesh`` both engines shard over its data axis, their merged top-k
+land on the mesh's lead device, and the fusion runs there
+(``fused_topk_parts``: the mesh dense form is ``(scores, idx)``).
 """
 
 from __future__ import annotations
@@ -22,48 +25,37 @@ from torch.profiler import record_function
 from mllm_sparse_retrieval_tpu_torch.index.dense import DenseFlatIndex
 from mllm_sparse_retrieval_tpu_torch.index.impact import ImpactIndex
 from mllm_sparse_retrieval_tpu_torch.ops.hybrid_fusion import (
-    fused_topk_packed)
+    fused_topk_packed, fused_topk_parts)
 from mllm_sparse_retrieval_tpu_torch.ops.packing import unpack_topk
 from mllm_sparse_retrieval_tpu_torch.ops.stream import pipeline_dispatch
+from mllm_sparse_retrieval_tpu_torch.parallel.mesh import canonical_device
 from mllm_sparse_retrieval_tpu_torch.search.runs import Run
-
-
-def _canonical(device) -> torch.device:
-    """One spelling per device: ``cpu:0`` is ``cpu``, and a CUDA device
-    with no index is the current one (``cuda`` is ``cuda:0`` there)."""
-    device = torch.device(device)
-    if device.type == "cpu":
-        return torch.device("cpu")
-    if device.type == "cuda" and device.index is None:
-        return torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 class FusedHybridSearcher:
     """Hybrid dense + sparse retrieval with the runs fused on the device.
 
     Both indexes must cover one corpus (every impact doc id in the dense
-    index) and live on one device; construction raises otherwise. The doc
-    permutation is built once, so growing either index afterwards makes
-    every search raise: build a fresh searcher.
+    index) and, without a mesh, live on one device; construction raises
+    otherwise. Under a ``mesh`` both shard over it and the fusion runs on
+    its lead device. The doc permutation is built once, so growing either
+    index afterwards makes every search raise: build a fresh searcher.
     """
 
     def __init__(self, dense_index: DenseFlatIndex,
                  impact_index: ImpactIndex, alpha: float = 0.5, mesh=None,
                  backend: str = "auto"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the port's hybrid search runs on one device: meshes wait "
-                "for sharding (ROADMAP Queue 1 #9)")
-        if _canonical(dense_index.device) != _canonical(impact_index.device):
+        if mesh is None and canonical_device(dense_index.device) != \
+                canonical_device(impact_index.device):
             raise ValueError(f"the dense index is on {dense_index.device}, "
                              f"the impact index on {impact_index.device}; "
                              f"hybrid fusion needs one device")
         self.dense = dense_index
         self.impact = impact_index
         self.alpha = float(alpha)
+        self.mesh = mesh
         self.backend = backend
-        self.device = impact_index.device
+        self.device = impact_index.device if mesh is None else mesh.lead
         # impact-local doc order -> dense-local doc order, once per pair
         dense_pos = {d: i for i, d in enumerate(dense_index.lookup)}
         self._dense_pos = dense_pos
@@ -117,13 +109,18 @@ class FusedHybridSearcher:
             sparse_packed = self.impact._dispatch_encoded(plan, chunk_i,
                                                           chunk_w)
         with record_function("dense_search"):
-            dense_packed = self.dense._dispatch_chunk(dense_chunk, plan["k"])
+            dense_out = self.dense._dispatch_chunk(dense_chunk, plan["k"])
         with record_function("fusion"):
             if self._perm_dev is None:
                 self._perm_dev = torch.from_numpy(self._perm_host).to(
                     self.device)
             self_dev = torch.from_numpy(self_chunk).to(self.device)
-            return fused_topk_packed(sparse_packed, dense_packed,
+            if isinstance(dense_out, tuple):        # mesh dense form
+                return fused_topk_parts(
+                    sparse_packed, dense_out[0], dense_out[1],
+                    self._perm_dev, self_dev, self._w_dense, self._w_sparse,
+                    out_k)
+            return fused_topk_packed(sparse_packed, dense_out,
                                      self._perm_dev, self_dev, self._w_dense,
                                      self._w_sparse, out_k)
 
@@ -143,8 +140,8 @@ class FusedHybridSearcher:
         return out_scores, out_ids
 
     def _prep(self, depth: int, out_depth: Optional[int]):
-        self.dense._materialize()
-        plan = self.impact._search_plan(self.backend, depth)
+        self.dense._materialize(mesh=self.mesh)
+        plan = self.impact._search_plan(self.backend, depth, mesh=self.mesh)
         k_dense = min(depth, self.dense._n_valid)
         out_k = min(out_depth if out_depth is not None else depth,
                     plan["k"] + k_dense)

@@ -1,5 +1,5 @@
 """Search engine: encode queries, search the dense and impact indexes,
-fuse, evaluate (the JAX package's ``search/engine.py``, one device).
+fuse, evaluate (the JAX package's ``search/engine.py``).
 
 ``run_search`` encodes the queries with ``encode_examples``, searches the
 dense flat index and/or the impact index (the TAAT kernel on the card),
@@ -10,9 +10,8 @@ and computes recall@k and, on request, MRR/nDCG/MAP on the host. With
 from target ranks computed on the device (``eval/device_eval.py``), and no
 run is copied to the host. ``impact_wire="compact48"`` brings the sparse
 leg's results back in 6 bytes each instead of 8; the device-fused route
-keeps the i32 wire inside the device.
-
-Not ported: meshes (ROADMAP Queue 1 #9).
+keeps the i32 wire inside the device. ``mesh=`` runs the query encode
+and every search over a ``parallel.mesh.Mesh`` (data-axis sharding).
 """
 
 from __future__ import annotations
@@ -125,6 +124,7 @@ def run_search(
     metrics: Sequence[str] = (),
     eval_mode: str = "host",
     device="cuda",
+    mesh=None,
 ) -> SearchOutput:
     """Encode queries on ``device`` and search the given indexes.
 
@@ -141,7 +141,9 @@ def run_search(
     ranks on the device and fills no run. ``impact_wire="compact48"``
     brings the host routes' sparse results back on the 6-byte wire
     (integer weights only); the device routes never copy the sparse run,
-    so they keep the i32 wire.
+    so they keep the i32 wire. ``mesh`` (a ``parallel.mesh.Mesh``)
+    encodes the queries with their batches split over its data axis and
+    shards both indexes over it; it replaces ``device``.
     """
     if fusion_mode not in ("host", "device"):
         raise ValueError(f"fusion_mode must be 'host' or 'device', "
@@ -179,18 +181,18 @@ def run_search(
         queries, params, arch, tokenizer, template,
         encode_type=query_type, sparse_cfg=sparse_cfg, reps_loc=reps_loc,
         batch_size=batch_size, is_query=True, lora=lora,
-        pixel_loader=pixel_loader, device=device)
+        pixel_loader=pixel_loader, device=device, mesh=mesh)
 
     if eval_mode == "device":
         return _device_eval(out, enc, tokenizer, sparse_cfg, search_cfg,
                             dense_index, impact_index, get_target, ks,
-                            impact_backend, fusion_mode, metrics)
+                            impact_backend, fusion_mode, metrics, mesh)
 
     if fusion_mode == "device":
         q_idx, q_w = _encode_sparse_queries(impact_index, enc, tokenizer,
                                             sparse_cfg)
         searcher = FusedHybridSearcher(dense_index, impact_index,
-                                       alpha=search_cfg.alpha,
+                                       alpha=search_cfg.alpha, mesh=mesh,
                                        backend=impact_backend)
         out.fusion_run = searcher.search_run(
             enc.dense, q_idx, q_w, enc.ids, search_cfg.depth,
@@ -205,7 +207,7 @@ def run_search(
     if dense_index is not None:
         scores, id_rows = dense_index.search_ids(
             enc.dense, search_cfg.depth,
-            batch_size=max(search_cfg.batch_size, 1))
+            batch_size=max(search_cfg.batch_size, 1), mesh=mesh)
         out.dense_run = ArrayRun(enc.ids, scores.tolist(), id_rows,
                                  remove_query=search_cfg.remove_query,
                                  scores_sorted=True)
@@ -214,7 +216,7 @@ def run_search(
         q_idx, q_w = _encode_sparse_queries(impact_index, enc, tokenizer,
                                             sparse_cfg)
         s_scores, s_ids = impact_index.search_encoded(
-            q_idx, q_w, search_cfg.depth, backend=impact_backend,
+            q_idx, q_w, search_cfg.depth, mesh=mesh, backend=impact_backend,
             wire=impact_wire)
         out.sparse_run = ArrayRun(enc.ids, s_scores, s_ids,
                                   remove_query=search_cfg.remove_query,
@@ -240,7 +242,7 @@ def run_search(
 
 def _device_eval(out: SearchOutput, enc, tokenizer, sparse_cfg, search_cfg,
                  dense_index, impact_index, get_target, ks, impact_backend,
-                 fusion_mode, metrics) -> SearchOutput:
+                 fusion_mode, metrics, mesh=None) -> SearchOutput:
     """``eval_mode="device"``: recall (and the requested metrics) from
     target ranks computed on the device. No run is copied to the host, so
     the run dicts of ``SearchOutput`` stay empty; the values equal the host
@@ -252,7 +254,7 @@ def _device_eval(out: SearchOutput, enc, tokenizer, sparse_cfg, search_cfg,
         tgt, ntg, _ = build_target_arrays(enc.ids, get_target,
                                           dense_doc_pos(dense_index))
         searcher = FusedHybridSearcher(dense_index, impact_index,
-                                       alpha=search_cfg.alpha,
+                                       alpha=search_cfg.alpha, mesh=mesh,
                                        backend=impact_backend)
         ranks = searcher.eval_ranks(
             enc.dense, q_idx, q_w, tgt, search_cfg.depth,
@@ -269,7 +271,8 @@ def _device_eval(out: SearchOutput, enc, tokenizer, sparse_cfg, search_cfg,
             remove_query=search_cfg.remove_query)
         ranks = dense_eval_ranks(dense_index, enc.dense, tgt, selfp,
                                  search_cfg.depth,
-                                 batch_size=max(search_cfg.batch_size, 1))
+                                 batch_size=max(search_cfg.batch_size, 1),
+                                 mesh=mesh)
         out.dense_recall, extras = metrics_from_ranks(enc.ids, ranks, ntg,
                                                       ks, which)
         if which:
@@ -282,7 +285,8 @@ def _device_eval(out: SearchOutput, enc, tokenizer, sparse_cfg, search_cfg,
             enc.ids, get_target, impact_doc_pos(impact_index),
             remove_query=search_cfg.remove_query)
         ranks = impact_eval_ranks(impact_index, q_idx, q_w, tgt, selfp,
-                                  search_cfg.depth, backend=impact_backend)
+                                  search_cfg.depth, mesh=mesh,
+                                  backend=impact_backend)
         out.sparse_recall, extras = metrics_from_ranks(enc.ids, ranks, ntg,
                                                        ks, which)
         if which:

@@ -32,6 +32,13 @@ one: a search landing between the two may fuse a doc from one engine
 only, which ``fuse``'s missing-run rule scores as a transiently lower
 score, never an error. A static service swaps in freshly built indexes
 with ``reload_indexes`` without dropping requests.
+
+``mesh=`` (a ``parallel.mesh.Mesh``) serves the indexes sharded over the
+mesh's data axis: the impact matrix by doc columns, the dense corpus by
+rows, per-shard top-k merged on the mesh's lead device (the TAAT kernel
+once per shard per micro-batch on the card); a live arena's adds and
+deletes write the owning shard in place, and a segment index shards its
+base. The query encoder stays on its own device.
 """
 
 from __future__ import annotations
@@ -91,7 +98,7 @@ class RetrievalService:
                  depth_levels: Sequence[int] = (10, 100, 1000),
                  default_depth: int = 10,
                  candidate_depth: Optional[int] = None,
-                 backend: str = "auto", wire: str = "i32",
+                 backend: str = "auto", wire: str = "i32", mesh=None,
                  max_batch: int = 256,
                  max_wait_ms: float = 4.0,
                  device_batch: Optional[int] = None, query_encoder=None,
@@ -131,6 +138,7 @@ class RetrievalService:
         # the request's
         self.candidate_depth = candidate_depth
         self.backend = backend
+        self.mesh = mesh
         if wire not in ("i32", "compact48"):
             raise ValueError(f"unknown wire {wire!r}: 'i32' or 'compact48'")
         self.wire = wire
@@ -153,7 +161,8 @@ class RetrievalService:
         if self.mode == "hybrid":
             if fusion_rule != "rrf" and not self.live:
                 self._fused = FusedHybridSearcher(
-                    dense_index, impact_index, alpha=alpha, backend=backend)
+                    dense_index, impact_index, alpha=alpha, mesh=mesh,
+                    backend=backend)
             # host-fused hybrid (live indexes, filtered requests, rrf) runs
             # the sparse engine on this thread, so the two engines' work
             # overlaps
@@ -287,7 +296,7 @@ class RetrievalService:
         new_fused = None
         if self.mode == "hybrid" and self.fusion_rule != "rrf":
             new_fused = FusedHybridSearcher(
-                dense_index, impact_index, alpha=self.alpha,
+                dense_index, impact_index, alpha=self.alpha, mesh=self.mesh,
                 backend=self.backend)
         # the canonical map follows the sparse index's query_canonical flag
         new_cmap = self._build_cmap(impact_index)
@@ -561,10 +570,10 @@ class RetrievalService:
         if self._dense_live:
             return self.dense_index.search_rows(
                 self._padded_dense(reqs), depth,
-                batch_size=self.device_batch)
+                batch_size=self.device_batch, mesh=self.mesh)
         scores, ids = self.dense_index.search_ids(
             self._padded_dense(reqs), depth, batch_size=self.device_batch,
-            doc_filter=None if flt is None else flt["dense"])
+            mesh=self.mesh, doc_filter=None if flt is None else flt["dense"])
         if flt is not None:
             return scores, ids          # already ragged lists
         return scores.tolist(), ids
@@ -573,13 +582,13 @@ class RetrievalService:
         if self._impact_live:
             return self.impact_index.search_rows(
                 self._padded_terms(reqs), depth, backend=self.backend,
-                wire=self.wire)
+                wire=self.wire, mesh=self.mesh)
         q_idx, q_w = self.impact_index.encode_queries(self._padded_terms(reqs))
         # the wire holds under filters too: on compact48 an excluded doc's
         # -inf clamps to score 0, which the resolve drops
         return self.impact_index.search_encoded(
-            q_idx, q_w, depth, backend=self.backend, wire=self.wire,
-            doc_filter=None if flt is None else flt["sparse"])
+            q_idx, q_w, depth, mesh=self.mesh, backend=self.backend,
+            wire=self.wire, doc_filter=None if flt is None else flt["sparse"])
 
     def _hybrid_rows_host(self, reqs, depth, flt=None):
         """Host-fused hybrid: each engine's candidate rows at the candidate

@@ -4,7 +4,8 @@
 L2-normalised text and image reps, the similarity of every item against the
 batch of the other modality divided by tau, cross-entropy against the
 diagonal, averaged over both directions. The cross-device form
-(``sharded_info_nce_loss``) waits for sharding (ROADMAP Queue 1 #9).
+(``sharded_info_nce_loss``) waits for training over a mesh (ROADMAP
+Queue 1 #9b).
 """
 
 from __future__ import annotations

@@ -34,7 +34,8 @@
   finetune over a quantized tree raises ``ValueError``, as in the JAX
   package.
 
-Not ported: meshes (ROADMAP Queue 1 #9, sharding); they raise.
+Not ported: meshes (ROADMAP Queue 1 #9b, training over a mesh); they
+raise.
 """
 
 from __future__ import annotations
@@ -170,8 +171,8 @@ class ContrastiveTrainer:
                  reps_loc: RepsLoc = RepsLoc.BEFORE_PAD, device="cuda"):
         if mesh is not None:
             raise NotImplementedError(
-                "the port trains on one device: meshes wait for sharding "
-                "(ROADMAP Queue 1 #9, parallel/*)")
+                "the port trains on one device: training over a mesh "
+                "waits for ROADMAP Queue 1 #9b")
         if (cfg.train_full or adapters is None) and quantized_leaves(params):
             raise ValueError(
                 "full finetune over a k-bit quantized tree is not "

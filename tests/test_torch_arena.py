@@ -208,8 +208,8 @@ def test_impact_arena_race_invalidated_form_does_not_resurrect():
     orig = arena._form_stale
     raced = []
 
-    def racing(backend):
-        ans = orig(backend)
+    def racing(backend, mesh=None):
+        ans = orig(backend, mesh)
         if not raced:
             raced.append(True)
             arena._inner.drop_device_cache()

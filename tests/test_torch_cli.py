@@ -291,7 +291,9 @@ def test_search_cli_device_fusion_matches_jax_library(
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--mesh"], "Queue 1 #9"),
+    # --mesh runs (tests/test_torch_mesh_serving.py); a model axis that
+    # does not divide the devices is refused, as by the JAX make_mesh
+    (["--mesh", "--model-parallel", "2"], "not divisible by model_parallel"),
     # a checkpoint that ships no tokenizer: the port cannot read one
     # without transformers' tokenizer files (#8b)
     (["--family", "llava_next_llama3", "--checkpoint-path", "CKPT"],
@@ -311,7 +313,8 @@ def test_cli_refuses_mesh_and_checkpoints(data_root, tmp_path, flags, match):
             pickle.dump(host, f)
         (ckpt / "arch.json").write_text(json.dumps(arch_to_manifest(arch)))
         flags = [str(ckpt) if f == "CKPT" else f for f in flags]
-    with pytest.raises(NotImplementedError, match=match):
+    error = ValueError if "--mesh" in flags else NotImplementedError
+    with pytest.raises(error, match=match):
         cli_encode.main(_common(data_root) + flags + [
             "--dense-output-dir", str(tmp_path / "d"),
             "--sparse-output-dir", str(tmp_path / "s")])

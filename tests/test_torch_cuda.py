@@ -1074,3 +1074,61 @@ def test_scatter_from_another_thread_never_returns_a_deleted_id():
     t.join(120)
     assert not t.is_alive() and errors == [] and searches > 0
 
+
+
+def test_sharded_taat_on_a_repeated_device_mesh_equals_the_cpu():
+    """The impact index over 4 shards of one card (the TAAT kernel once per
+    shard) against the same index unsharded on the CPU (the plain scores):
+    equal scores exactly, equal doc sets up to docs tied at the cut,
+    filtered too; a shard with no kernel would raise, never fall back."""
+    dev = _card()
+    from mllm_sparse_retrieval_tpu_torch.index import DocFilter, ImpactIndex
+    from mllm_sparse_retrieval_tpu_torch.parallel import make_mesh
+
+    rng = np.random.default_rng(12)
+    idx = {}
+    for where in ("cpu", dev):
+        idx[where] = ImpactIndex(device=where)
+    for i in range(3000):
+        terms = rng.choice(400, size=int(rng.integers(4, 40)), replace=False)
+        vec = {f"t{t}": int(rng.integers(1, 350)) for t in terms}
+        for x in idx.values():
+            x.add(f"d{i}", vec)
+    queries = [{f"t{t}": int(rng.integers(1, 9)) for t in
+                rng.choice(400, size=12, replace=False)} for _ in range(8)]
+    mesh = make_mesh(4, devices=[dev] * 4)
+    flt = {w: DocFilter.from_ids(x.doc_ids,
+                                 [f"d{i}" for i in range(0, 3000, 7)])
+           for w, x in idx.items()}
+    for f in (False, True):
+        K.reset_launch_count()
+        gs, gi = idx[dev].search(queries, 50, backend="taat", mesh=mesh,
+                                 doc_filter=flt[dev] if f else None)
+        assert K.launch_count() == 4
+        cs, ci = idx["cpu"].search(queries, 50, backend="taat",
+                                   doc_filter=flt["cpu"] if f else None)
+        for a, b, c, d in zip(gs, gi, cs, ci):
+            assert a == c
+            above = [x for x, s in zip(b, a) if s > a[-1]]
+            assert set(above) == {x for x, s in zip(d, c) if s > c[-1]}
+
+
+def test_sharded_flash_at_g4_equals_the_unsharded_kernel():
+    """``flash_causal_attention(mesh=)`` on a 2 x 2 mesh of one card: the
+    batch split over the data axis, the 8 kv heads (and their 32 q heads,
+    G = 4) over the model axis, one launch per shard, each shard's slices
+    made contiguous; every (row, head) the kernel computes alone, so the
+    result equals the unsharded kernel's bit for bit."""
+    dev = _card()
+    from mllm_sparse_retrieval_tpu_torch.models import layers as L
+    from mllm_sparse_retrieval_tpu_torch.parallel import make_mesh
+
+    q, k, v, mask = _flash_inputs(4, 4, 1024, 32, 8, (1024, 700, 513, 0),
+                                  dev)
+    mesh = make_mesh(2, 2, devices=[dev] * 4)
+    before = FA.launch_count()
+    got = L.flash_causal_attention(q, k, v, mask, mesh=mesh)
+    assert FA.launch_count() == before + 4
+    want = L.flash_causal_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

@@ -30,6 +30,7 @@ from mllm_sparse_retrieval_tpu_torch.eval.metrics import ranking_metrics
 from mllm_sparse_retrieval_tpu_torch.eval.recall import recall_at_k
 from mllm_sparse_retrieval_tpu_torch.index import DenseFlatIndex, ImpactIndex
 from mllm_sparse_retrieval_tpu_torch.ops import eval_ranks as er
+from mllm_sparse_retrieval_tpu_torch.parallel import make_mesh
 from mllm_sparse_retrieval_tpu_torch.search.device_fusion import (
     FusedHybridSearcher)
 from mllm_sparse_retrieval_tpu_torch.search.runs import make_run
@@ -231,8 +232,11 @@ def test_dense_eval_ranks_match_jax_and_host(remove_query):
                    scores_sorted=True)
     _assert_metrics(de.metrics_from_ranks(qids, ranks, ntg, KS, WHICH),
                     _host_metrics(run, get_target))
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
-        de.dense_eval_ranks(dense, q_reps, tgt, selfp, depth, mesh=object())
+    # over a 2-shard mesh: the (scores, idx) mesh form, the same ranks
+    mesh = make_mesh(2, devices=["cpu"] * 2)
+    np.testing.assert_array_equal(
+        de.dense_eval_ranks(dense, q_reps, tgt, selfp, depth, batch_size=5,
+                            mesh=mesh), ranks)
 
 
 @pytest.mark.parametrize("remove_query", [False, True])

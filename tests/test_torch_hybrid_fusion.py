@@ -23,6 +23,7 @@ from mllm_sparse_retrieval_tpu.search.device_fusion import (
 from mllm_sparse_retrieval_tpu_torch.index import DenseFlatIndex, ImpactIndex
 from mllm_sparse_retrieval_tpu_torch.ops import hybrid_fusion as hf
 from mllm_sparse_retrieval_tpu_torch.ops.packing import unpack_topk
+from mllm_sparse_retrieval_tpu_torch.parallel import make_mesh
 from mllm_sparse_retrieval_tpu_torch.search.device_fusion import (
     FusedHybridSearcher)
 from mllm_sparse_retrieval_tpu_torch.search.fusion import fuse
@@ -323,11 +324,15 @@ def test_searcher_refuses_two_corpora_a_mutation_and_a_mesh():
     other.add(np.zeros((3, dense.dim), np.float32), ["d0", "d1", "x"])
     with pytest.raises(ValueError, match="one corpus"):
         FusedHybridSearcher(other, impact)
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
-        FusedHybridSearcher(dense, impact, mesh=object())
     searcher = FusedHybridSearcher(dense, impact)
     q_idx, q_w = impact.encode_queries(q_dicts)
-    searcher.search_encoded(q_reps, q_idx, q_w, 5)
+    single = searcher.search_encoded(q_reps, q_idx, q_w, 5)
+    # a mesh is no longer refused: over 2 shards, the same fused rows
+    meshed = FusedHybridSearcher(
+        dense, impact, mesh=make_mesh(2, devices=["cpu"] * 2))
+    for a, b, c, d in zip(*single, *meshed.search_encoded(q_reps, q_idx,
+                                                          q_w, 5)):
+        _same_up_to_ties(list(zip(b, a)), list(zip(d, c)))
     dense.add(np.zeros((1, dense.dim), np.float32), ["extra"])
     with pytest.raises(RuntimeError, match="membership changed"):
         searcher.search_encoded(q_reps, q_idx, q_w, 5)

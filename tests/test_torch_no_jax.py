@@ -65,8 +65,9 @@ CHAT = ("models.qwen_vl", "models.internvl", "data.tiling",
 # training and analysis entry points, and the host helpers
 TRAIN = ("hostops", "cli.train", "cli.prepare_data", "cli.stats",
          "data.prep", "eval.statistics", "train.trainer")
-# k-bit base weights (QLoRA) and the mixture-of-experts FFN
-QLORA = ("models.quantization", "parallel", "parallel.ep")
+# k-bit base weights (QLoRA), the mixture-of-experts FFN, and the meshes
+# of search, encode and serve
+QLORA = ("models.quantization", "parallel", "parallel.ep", "parallel.mesh")
 
 
 def _env():
