@@ -108,10 +108,19 @@ analysis entry points run: ``cli.prepare_data`` on a Karpathy JSON,
 ``term_weight_statistics`` of the trained model. The offline phase's
 runs and fusion and the live segments' merge must go through ``hostops``,
 whose C results are held to the Python bodies on the offline runs, which
-``fusion_provenance_statistics`` also ranks. After the LoRA steps, QLoRA
+``fusion_provenance_statistics`` also ranks. After the LoRA steps,
+training over a mesh (``phase_mesh_train``): the first LoRA step again
+through ``ContrastiveTrainer(mesh=make_mesh(2, 2, devices=[cuda:0] *
+4))`` (ZeRO-1 moments, the flash kernels once per shard and layer: 256
+forward, 128 dq and 128 dkv launches), held to the unsharded step 0; an
+FSDP full finetune over four data shards of a copy cut to two decoder
+blocks, held to the copy's no-grad forward; ``apply_sequence_parallel``
+(ring attention over a model axis of 4) and ``apply_pipelined`` with
+LoRA (4 stages of 2 blocks) on full-width blocks, held to ``llama.apply``;
+and ``parallel.dryrun.dryrun_multichip(8)`` on the card. Then QLoRA
 on the same LLaVA-NeXT-Llama3-8B: the base quantized on the card to nf4
 (one decoder block byte-equal to the CPU's), ``cli.train.run --load-kbit 4
---quant-format nf4`` for three steps (flash forward and backward, the base
+--quant-format nf4`` for two steps (flash forward and backward, the base
 dequantized per use), the flash-vs-plain gradient check on that base, and
 8 images encoded over the quantized tree and over its dequantized copy;
 then a mixture-of-experts decoder at Mixtral-8x7B's published widths (2 of
@@ -195,15 +204,49 @@ BWD_RTOL = 2.0 ** -6
 # and the QLoRA phases, pays for that phase within the 600 s target)
 TRAIN_B, TRAIN_STEPS, TRAIN_LR = 4, 3, 1e-4
 LORA_RANK, LORA_ALPHA, LORA_DROPOUT, TAU = 8, 16, 0.1, 0.05
+# training over a mesh, after the training phase on the same model (the
+# main path of slice 16): (a) one ContrastiveTrainer step on a MESH_TRAIN
+# data x model mesh of the one card (ZeRO-1, remat, dropout as above) from
+# the training phase's starting adapters on its first batch: the loss within
+# MESH_TRAIN_LOSS_REL of step 0's, the gradient's cosine with step 0's (read
+# from Adam's first moment, 0.1 x the clipped gradient) at least
+# GRAD_COS_FLOOR (bf16 through 32 layers; the H100 gave 0.99939) and the
+# adapter update's at least MESH_TRAIN_COS (the flash kernels compute each
+# (row, head) alone; the shards' bf16 GEMMs have other shapes; Adam's first
+# update is g / (|g| + 1e-8), +-lr wherever |g| >> 1e-8, so rounding flips
+# the sign of the smallest gradient elements: the H100 gave 0.977-0.978
+# beside losses 1.2e-4 and 5.6e-4 apart); (b) an
+# FSDP full
+# finetune over FSDP_SHARDS data shards of a copy of the tree cut to
+# FSDP_LAYERS decoder blocks (embeddings, LM head, ViT and projector kept),
+# its loss within MESH_TRAIN_LOSS_REL of a no-grad forward of the unsharded
+# copy; (c) apply_sequence_parallel over a model axis of SP_MODEL on
+# SP_LAYERS full-width blocks, SP_B rows of the image prompt length (one
+# half padding), against llama.apply with plain attention: the real
+# positions' normwise error within SP_REL, row cosine >= SP_COS (bf16
+# rounding: the ring sums its probabilities in f32, the reference in bf16);
+# (d) apply_pipelined with LoRA over PP_STAGES stages of PP_PER_STAGE
+# blocks, PP_B text rows of PP_T tokens in PP_MICRO microbatches: forward
+# within SP_REL and SP_COS, LoRA gradients' cosine >= PP_GRAD_COS against the
+# unpipelined decoder; (e) dryrun_multichip(DRYRUN_DEVICES) on the card
+MESH_TRAIN, MESH_TRAIN_LOSS_REL, MESH_TRAIN_COS = (2, 2), 2e-3, 0.95
+FSDP_SHARDS, FSDP_LAYERS = 4, 2
+SP_MODEL, SP_LAYERS, SP_B, SP_REL, SP_COS = 4, 2, 2, 2.0 ** -5, 0.999
+PP_STAGES, PP_PER_STAGE, PP_B, PP_T, PP_MICRO = 4, 2, 8, 64, 4
+PP_GRAD_COS, DRYRUN_DEVICES = 0.99, 8
 # QLoRA, after the training phase on the same full-width model: the base
 # quantized on the card to QLORA_BITS-bit QLORA_FORMAT (one decoder block
 # byte-equal to the CPU's quantization), cli.train.run --load-kbit for
-# TRAIN_STEPS steps of TRAIN_B pairs (LoRA, dropout and remat as above), the
+# QLORA_STEPS steps of TRAIN_B pairs (LoRA, dropout and remat as above), the
 # gradient check on the quantized base, and QLORA_IMAGES images encoded over
 # the quantized tree and over its dequantized copy (the same weights, the
 # same dtypes: expected bit-equal; dense reps within QLORA_ENC_TOL, terms
 # equal)
 QLORA_BITS, QLORA_FORMAT, QLORA_IMAGES, QLORA_ENC_TOL = 4, "nf4", 8, 1e-6
+# (QLORA_STEPS was TRAIN_STEPS, 3, until the mesh-training phase came: one
+# QLoRA step, one chat-family training step each and one cli.train.run step
+# less pay for that phase within the 600 s target)
+QLORA_STEPS = 2
 # mixture of experts at Mixtral-8x7B-v0.1's published widths (config.json:
 # hidden 4,096, FFN 14,336, 32 / 8 heads of 128, 8 experts top-2, vocab
 # 32,000, rope_theta 1e6), MOE_LAYERS of its 32 layers, bf16 weights drawn
@@ -306,7 +349,7 @@ INTERNVL_HEADS = (28, 4)
 # CLI_IMAGES images (OFF_CAPS captions each; half train or restval), a
 # few-shot CSV of CLI_PAIRS images, cli.train.run for one epoch on them at
 # batch TRAIN_B, and term_weight_statistics of the trained model on them
-CHAT_TRAIN_STEPS, CLI_IMAGES, CLI_PAIRS = 2, 32, 8
+CHAT_TRAIN_STEPS, CLI_IMAGES, CLI_PAIRS = 1, 32, 4
 # live indexes and the HTTP front end: arena copies of the impact index and
 # the hybrid phase's dense rows with the default LIVE_HEADROOM reserved
 # columns and rows; LIVE_POSTS adds of LIVE_POST_DOCS new docs over HTTP
@@ -1235,8 +1278,11 @@ def phase_train(params, arch, tok, tmpl, lexicon, rng, seq):
     steps of ``ContrastiveTrainer.train_on_batch`` on ``TRAIN_B`` seeded
     image-caption pairs each (image prompts of ``seq`` tokens on the flash
     route), the last one profiled. Returns the trainer, the collated
-    batches, the launch counts of the run and ``(mean host ms of the steps
-    after the first, peak GB above what was allocated before a step)``."""
+    batches, the launch counts of the run, ``(mean host ms of the steps
+    after the first, peak GB above what was allocated before a step)`` and
+    step 0's record for the mesh-training phase: ``(starting adapter tree,
+    its leaves, the leaves and Adam's first moments after step 0, step 0's
+    loss and host ms)``."""
     import numpy as np
     import torch
 
@@ -1273,6 +1319,7 @@ def phase_train(params, arch, tok, tmpl, lexicon, rng, seq):
                       remat=True, seed=SEED)
     trainer = ContrastiveTrainer(params, arch, adapters, cfg, device=DEVICE)
     start = [x.detach().clone() for x in lora.tree_leaves(adapters)]
+    start_tree = clone_tree(adapters)
     layers = arch.text.num_layers
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1296,6 +1343,10 @@ def phase_train(params, arch, tok, tmpl, lexicon, rng, seq):
             loss = trainer.train_on_batch(batch)
         torch.cuda.synchronize()
         ms = (time.monotonic() - t_step) * 1e3
+        if i == 0:      # the mesh-training phase repeats this step
+            after0 = [x.detach().clone() for x in lora.tree_leaves(adapters)]
+            mu0 = [m.detach().clone() for m in trainer.opt_state["mu"]]
+            step0 = (start_tree, start, after0, mu0, loss, ms)
         above = max(above, (torch.cuda.max_memory_allocated() - resident)
                     / 1e9)
         launched = {k: FA.launch_count(k) - before[k] for k in FA.KERNELS}
@@ -1335,7 +1386,17 @@ def phase_train(params, arch, tok, tmpl, lexicon, rng, seq):
              f"{names['flash_bwd_dq']:.1f} ms, dkv "
              f"{names['flash_bwd_dkv']:.1f} ms (backward kernels "
              f"{bwd_ms / busy:.3f} of the step's device time)")
-    return trainer, batches, launches, (float(np.mean(plain)), above)
+    return trainer, batches, launches, (float(np.mean(plain)), above), step0
+
+
+def clone_tree(tree):
+    """A copy of a tree of tensors (dicts and lists), every tensor cloned
+    and detached."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [clone_tree(v) for v in tree]
+    return tree.detach().clone()
 
 
 def grad_check(trainer, batch):
@@ -5029,11 +5090,286 @@ def phase_chat_cli(params, arch, tmpl, ctok, lexicon, card):
     return train, stats_flash
 
 
+def rel_cos(got, want, mask=None):
+    """``(||got - want|| / ||want||, smallest row cosine)`` over the last
+    dim of two ``[..., H]`` tensors, at the positions ``mask`` keeps."""
+    import torch.nn.functional as F
+
+    g, w = got.float(), want.float()
+    if mask is not None:
+        keep = mask.bool()
+        g, w = g[keep], w[keep]
+    rel = float((g - w).norm() / w.norm())
+    cos = float(F.cosine_similarity(g.reshape(-1, g.shape[-1]),
+                                    w.reshape(-1, w.shape[-1]), dim=-1).min())
+    return rel, cos
+
+
+def phase_mesh_train(params, arch, batches, step0, card):
+    """Training over a mesh on the full-width model (the legs of
+    MESH_TRAIN's comment): (a) one ``ContrastiveTrainer(mesh=...)`` LoRA
+    step on a 2 x 2 mesh of the one card against the training phase's step
+    0, (b) an FSDP full finetune of a cut copy, (c) the sequence-parallel
+    decoder, (d) the pipelined decoder with LoRA, (e) ``dryrun_multichip``.
+    Each leg prints its seconds, peak GB and checks. Returns the flash
+    launches of the legs by kernel and the dry run's TAAT launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from mllm_sparse_retrieval_tpu_torch.configs import RepsLoc, TrainConfig
+    from mllm_sparse_retrieval_tpu_torch.models import llama, lora
+    from mllm_sparse_retrieval_tpu_torch.models.api import encode_any
+    from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
+    from mllm_sparse_retrieval_tpu_torch.ops import impact_kernel as K
+    from mllm_sparse_retrieval_tpu_torch.parallel import Sharded, make_mesh
+    from mllm_sparse_retrieval_tpu_torch.parallel import pp, sp
+    from mllm_sparse_retrieval_tpu_torch.parallel.dryrun import (
+        dryrun_multichip)
+    from mllm_sparse_retrieval_tpu_torch.parallel.fsdp import (
+        assert_fsdp_sharded)
+    from mllm_sparse_retrieval_tpu_torch.train.contrastive import (
+        info_nce_loss)
+    from mllm_sparse_retrieval_tpu_torch.train.trainer import (
+        ContrastiveTrainer)
+
+    start_tree, start, after0, mu0, loss0, ms0 = step0
+    layers = arch.text.num_layers
+    total = dict.fromkeys(FA.KERNELS, 0)
+
+    def leg(name):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return (time.monotonic(), torch.cuda.memory_allocated(),
+                {k: FA.launch_count(k) for k in FA.KERNELS})
+
+    def done(mark):
+        torch.cuda.synchronize()
+        t0, resident, before = mark
+        launched = {k: FA.launch_count(k) - before[k] for k in FA.KERNELS}
+        for k in FA.KERNELS:
+            total[k] += launched[k]
+        return (time.monotonic() - t0, torch.cuda.max_memory_allocated()
+                / 1e9, (torch.cuda.max_memory_allocated() - resident) / 1e9,
+                launched)
+
+    # (a) the mesh step against step 0
+    mark = leg("mesh")
+    mesh = make_mesh(*MESH_TRAIN, devices=[DEVICE] * (MESH_TRAIN[0]
+                                                      * MESH_TRAIN[1]))
+    adapters = clone_tree(start_tree)
+    cfg = TrainConfig(learning_rate=TRAIN_LR, tau=TAU, lora_rank=LORA_RANK,
+                      lora_alpha=LORA_ALPHA, lora_dropout=LORA_DROPOUT,
+                      remat=True, seed=SEED)
+    trainer = ContrastiveTrainer(params, arch, adapters, cfg, mesh=mesh,
+                                 device=DEVICE)
+    split = sum(isinstance(m, Sharded) for m in trainer.opt_state["mu"])
+    t_step = time.monotonic()
+    loss = trainer.train_on_batch(batches[0])
+    torch.cuda.synchronize()
+    step_ms = (time.monotonic() - t_step) * 1e3
+    secs, peak, above, launched = done(mark)
+    n_cells = MESH_TRAIN[0] * MESH_TRAIN[1]
+    want = {"fwd": 2 * n_cells * layers, "dq": n_cells * layers,
+            "dkv": n_cells * layers}
+    upd = torch.cat([(x.detach() - y).flatten().float() for x, y in zip(
+        lora.tree_leaves(adapters), start)])
+    upd0 = torch.cat([(x - y).flatten().float()
+                      for x, y in zip(after0, start)])
+    cos = float(F.cosine_similarity(upd, upd0, dim=0))
+    gcos = float(F.cosine_similarity(
+        torch.cat([(m.gather(DEVICE) if isinstance(m, Sharded) else m)
+                   .flatten().float() for m in trainer.opt_state["mu"]]),
+        torch.cat([m.flatten().float() for m in mu0]), dim=0))
+    rel = abs(loss - loss0) / abs(loss0)
+    progress("mesh_train", f"(a) ContrastiveTrainer on a {MESH_TRAIN[0]} x "
+             f"{MESH_TRAIN[1]} mesh of {DEVICE} (ZeRO-1: {split} of "
+             f"{len(trainer.opt_state['mu'])} moments split; remat; dropout "
+             f"{LORA_DROPOUT}), {TRAIN_B} pairs of the training phase's first"
+             f" batch: loss {loss:.6f} against step 0's {loss0:.6f} "
+             f"(relative {rel:.3g}, tolerance {MESH_TRAIN_LOSS_REL}); "
+             f"gradient cosine with step 0's {gcos:.6f} (floor "
+             f"{GRAD_COS_FLOOR}); update cosine {cos:.6f} (floor "
+             f"{MESH_TRAIN_COS}), norms {float(upd.norm()):.5g} / "
+             f"{float(upd0.norm()):.5g}; step {step_ms:.1f} ms host clock "
+             f"(step 0 unsharded {ms0:.1f}); leg {secs:.1f} s, peak "
+             f"{peak:.2f} GB ({above:.2f} above the resident tree); flash "
+             f"launches {launched} (want {want}); card {card}")
+    if launched != want or not np.isfinite(loss) or rel > \
+            MESH_TRAIN_LOSS_REL or not cos >= MESH_TRAIN_COS or not \
+            gcos >= GRAD_COS_FLOOR or not split:
+        raise AssertionError(f"mesh step: launches {launched}, loss {loss} "
+                             f"vs {loss0}, gradient cosine {gcos}, update "
+                             f"cosine {cos}, {split} split moments")
+    del trainer, adapters, upd, upd0, mu0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) FSDP full finetune of a cut copy
+    mark = leg("fsdp")
+    cut = dict(params)
+    cut["text"] = dict(params["text"],
+                       blocks=params["text"]["blocks"][:FSDP_LAYERS])
+    cut = clone_tree(cut)
+    arch_cut = dataclasses.replace(arch, text=dataclasses.replace(
+        arch.text, num_layers=FSDP_LAYERS))
+    n_params = sum(x.numel() for _, x in tree_leaves(cut))
+    b0 = batches[0]
+
+    def put(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE, dtype)
+
+    px = ({k: put(v) for k, v in b0.pixels.items()}
+          if isinstance(b0.pixels, dict) else put(b0.pixels))
+    with torch.no_grad():
+        _, t_emb = encode_any(cut, arch_cut, put(b0.text_ids, torch.long),
+                              put(b0.text_mask), None, RepsLoc.BEFORE_PAD)
+        _, i_emb = encode_any(cut, arch_cut, put(b0.image_ids, torch.long),
+                              put(b0.image_mask), px, RepsLoc.BEFORE_PAD)
+        ref_loss = float(info_nce_loss(t_emb, i_emb, TAU))
+    del t_emb, i_emb
+    fmesh = make_mesh(FSDP_SHARDS, 1, devices=[DEVICE] * FSDP_SHARDS)
+    fcfg = TrainConfig(learning_rate=TRAIN_LR, tau=TAU, train_full=True,
+                       shard_params_data_axis=True, remat=True, seed=SEED)
+    ftrainer = ContrastiveTrainer(cut, arch_cut, None, fcfg, mesh=fmesh,
+                                  device=DEVICE)
+    del cut
+    n_split = assert_fsdp_sharded(ftrainer.params, fmesh)
+    probe = [p for p in ftrainer._leaves() if isinstance(p, Sharded)][:4]
+    before_w = [p.gather(DEVICE).detach().clone() for p in probe]
+    floss = ftrainer.train_on_batch(b0)
+    moved = max(float((p.gather(DEVICE).detach() - w).abs().max())
+                for p, w in zip(probe, before_w))
+    secs, peak, above, launched = done(mark)
+    frel = abs(floss - ref_loss) / abs(ref_loss)
+    progress("mesh_train", f"(b) FSDP full finetune over {FSDP_SHARDS} data "
+             f"shards of {DEVICE}: a copy with {FSDP_LAYERS} of {layers} "
+             f"decoder blocks (embeddings, LM head, ViT, projector kept), "
+             f"{n_params:,} weights, {n_split} leaves split; loss "
+             f"{floss:.6f} against the unsharded copy's no-grad forward "
+             f"{ref_loss:.6f} (relative {frel:.3g}, tolerance "
+             f"{MESH_TRAIN_LOSS_REL}); split leaves moved by up to "
+             f"{moved:.3g}; leg {secs:.1f} s, peak {peak:.2f} GB ({above:.2f}"
+             f" above what was resident); flash launches {launched}")
+    if not np.isfinite(floss) or frel > MESH_TRAIN_LOSS_REL or not \
+            moved > 0 or not n_split:
+        raise AssertionError(f"FSDP: loss {floss} vs {ref_loss}, moved "
+                             f"{moved}, {n_split} split leaves")
+    del ftrainer, probe, before_w
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) sequence parallelism over the model axis
+    mark = leg("sp")
+    t_sp = b0.image_ids.shape[1]
+    sp_cfg = dataclasses.replace(arch.text, num_layers=SP_LAYERS)
+    sp_tree = {"blocks": params["text"]["blocks"][:SP_LAYERS],
+               "final_norm": params["text"]["final_norm"]}
+    rng = np.random.default_rng(SEED + 30)
+    ids = torch.from_numpy(rng.integers(5, arch.text.vocab_size,
+                                        size=(SP_B, t_sp))).to(DEVICE)
+    sp_mask = torch.ones((SP_B, t_sp), dtype=torch.int32, device=DEVICE)
+    sp_mask[1, t_sp // 2:] = 0
+    x = llama.embed_tokens(params["text"], ids)
+    with torch.no_grad():
+        t0 = time.monotonic()
+        out = sp.apply_sequence_parallel(
+            sp_tree, x, sp_mask, sp_cfg,
+            make_mesh(1, SP_MODEL, devices=[DEVICE] * SP_MODEL))
+        torch.cuda.synchronize()
+        sp_s = time.monotonic() - t0
+        ref = llama.apply(sp_tree, x, sp_mask, sp_cfg, allow_flash=False)
+    srel, scos = rel_cos(out, ref, sp_mask)
+    secs, peak, above, launched = done(mark)
+    progress("mesh_train", f"(c) apply_sequence_parallel over a model axis "
+             f"of {SP_MODEL} ({t_sp // SP_MODEL}-token chunks), {SP_LAYERS} "
+             f"full-width blocks, {SP_B} rows of {t_sp} tokens (one half "
+             f"padding), {sp_s * 1e3:.1f} ms: against llama.apply with plain"
+             f" attention, the real positions' normwise error {srel:.3g} "
+             f"(tolerance {SP_REL:.3g}), row cosine >= {scos:.6f} "
+             f"(floor {SP_COS}); leg {secs:.1f} s, peak {peak:.2f} GB "
+             f"({above:.2f} above); flash launches {launched}")
+    if srel > SP_REL or not scos >= SP_COS or any(launched.values()):
+        raise AssertionError(f"sequence parallel: rel {srel}, cos {scos}, "
+                             f"flash launches {launched}")
+    del out, ref, x
+    torch.cuda.empty_cache()
+
+    # (d) the pipelined decoder with LoRA
+    mark = leg("pp")
+    n_pp = PP_STAGES * PP_PER_STAGE
+    pp_cfg = dataclasses.replace(arch.text, num_layers=n_pp)
+    pp_tree = {"blocks": params["text"]["blocks"][:n_pp],
+               "final_norm": params["text"]["final_norm"]}
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 31)
+    lblocks = clone_tree(start_tree["text"]["blocks"][:n_pp])
+    for blk in lblocks:                  # adapters that do something
+        for entry in blk.values():
+            entry["b"].normal_(0.0, 0.01, generator=gen)
+    lleaves = lora.tree_leaves(lblocks)
+    for t in lleaves:
+        t.requires_grad_(True)
+    ids = torch.from_numpy(rng.integers(5, arch.text.vocab_size,
+                                        size=(PP_B, PP_T))).to(DEVICE)
+    pp_mask = torch.ones((PP_B, PP_T), dtype=torch.int32, device=DEVICE)
+    pp_mask[1, PP_T // 2:] = 0
+    pp_mask[6, 5:] = 0
+    x = llama.embed_tokens(params["text"], ids)
+    probe = torch.randn(x.shape, generator=gen, device=DEVICE)
+    pp_mesh = pp.make_pp_mesh(PP_STAGES, 1, devices=[DEVICE] * PP_STAGES)
+    t0 = time.monotonic()
+    out = pp.apply_pipelined(pp_tree, x, pp_mask, pp_cfg, pp_mesh, PP_MICRO,
+                             lora={"blocks": lblocks})
+    g_pp = torch.autograd.grad((out.float() * probe).sum(), lleaves)
+    torch.cuda.synchronize()
+    pp_s = time.monotonic() - t0
+    ref = llama.apply(pp_tree, x, pp_mask, pp_cfg, lora={"blocks": lblocks},
+                      allow_flash=False)
+    g_ref = torch.autograd.grad((ref.float() * probe).sum(), lleaves)
+    prel, pcos = rel_cos(out.detach(), ref.detach(), pp_mask)
+    gcos = float(F.cosine_similarity(
+        torch.cat([g.flatten().float() for g in g_pp]),
+        torch.cat([g.flatten().float() for g in g_ref]), dim=0))
+    secs, peak, above, launched = done(mark)
+    progress("mesh_train", f"(d) apply_pipelined with LoRA over {PP_STAGES} "
+             f"stages of {PP_PER_STAGE} full-width blocks, {PP_B} text rows "
+             f"of {PP_T} tokens in {PP_MICRO} microbatches, forward and LoRA"
+             f" gradients {pp_s * 1e3:.1f} ms: against the unpipelined "
+             f"decoder, the real positions' normwise error {prel:.3g} "
+             f"(tolerance {SP_REL:.3g}), row cosine >= {pcos:.6f} (floor "
+             f"{SP_COS}); LoRA gradient cosine"
+             f" {gcos:.6f} (floor {PP_GRAD_COS}) over "
+             f"{sum(g.numel() for g in g_pp):,} values; leg {secs:.1f} s, "
+             f"peak {peak:.2f} GB ({above:.2f} above)")
+    if prel > SP_REL or not pcos >= SP_COS or not gcos >= PP_GRAD_COS:
+        raise AssertionError(f"pipeline: rel {prel}, cos {pcos}, gradient "
+                             f"cosine {gcos}")
+    del out, ref, g_pp, g_ref, lblocks, lleaves, x, probe
+    torch.cuda.empty_cache()
+
+    # (e) the dry run of every parallel form
+    mark = leg("dryrun")
+    taat0 = K.launch_count()
+    line = dryrun_multichip(DRYRUN_DEVICES, device=DEVICE)
+    dry_taat = K.launch_count() - taat0
+    secs, peak, above, launched = done(mark)
+    progress("mesh_train", f"(e) {line}; leg {secs:.1f} s, peak {peak:.2f} "
+             f"GB; TAAT launches {dry_taat}, flash launches {launched}")
+    if not dry_taat:
+        raise AssertionError("the dry run's sharded search never launched "
+                             "the TAAT kernel")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total, dry_taat
+
+
 def phase_qlora(params, arch, tok, tmpl, lexicon, batches, lora_step, card):
     """QLoRA on the full-width LLaVA-NeXT-Llama3-8B: the base quantized on
     the card (nf4, double-quantized scales; one decoder block's bytes equal
     to the CPU's), then ``cli.train.run --load-kbit 4 --quant-format nf4``
-    for ``TRAIN_STEPS`` steps of ``TRAIN_B`` pairs (the base quantized and
+    for ``QLORA_STEPS`` steps of ``TRAIN_B`` pairs (the base quantized and
     dequantized per use, remat, flash forward and backward), its adapters
     loaded back from ``lora.pkl``; the flash-vs-plain gradient check on
     the quantized base; and ``QLORA_IMAGES`` images encoded over the
@@ -5084,7 +5420,7 @@ def phase_qlora(params, arch, tok, tmpl, lexicon, batches, lora_step, card):
              f"(ratio {q_bytes / fp_bytes:.4f}); decoder block 0 quantized on "
              f"the CPU in {cpu_s:.2f} s, byte-equal")
 
-    n = TRAIN_B * TRAIN_STEPS
+    n = TRAIN_B * QLORA_STEPS
     if CLI_IMAGES // 2 < n:
         raise AssertionError(f"{CLI_IMAGES // 2} train images for {n} pairs")
     steps = []
@@ -5149,7 +5485,7 @@ def phase_qlora(params, arch, tok, tmpl, lexicon, batches, lora_step, card):
     moved = max(float(blk[name]["b"].detach().abs().max())
                 for blk in trainer.adapters["text"]["blocks"] for name in blk)
     qleaves = quantized_leaves(trainer.params)
-    if len(steps) != TRAIN_STEPS or bad or len(losses) != TRAIN_STEPS \
+    if len(steps) != QLORA_STEPS or bad or len(losses) != QLORA_STEPS \
             or not all(np.isfinite(losses)) or not moved > 0:
         raise AssertionError(f"QLoRA: {len(steps)} steps, flash launches "
                              f"{bad or want} per step, losses {losses}, "
@@ -5163,7 +5499,7 @@ def phase_qlora(params, arch, tok, tmpl, lexicon, batches, lora_step, card):
     step_ms = float(np.mean([s[0] for s in steps[1:]]))
     above = max(s[1] for s in steps)
     progress("qlora", f"cli.train.run --load-kbit {QLORA_BITS} "
-             f"--quant-format {QLORA_FORMAT} --remat: {TRAIN_STEPS} steps "
+             f"--quant-format {QLORA_FORMAT} --remat: {QLORA_STEPS} steps "
              f"of {TRAIN_B} pairs in {run_s:.1f} s, losses "
              f"{[round(x, 5) for x in losses]}; steps after the first "
              f"{step_ms:.1f} ms mean (bf16 LoRA {lora_step[0]:.1f}); peak "
@@ -5778,12 +6114,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 12. contrastive LoRA training; flash against plain gradients --------
-    trainer, batches, train_launches, lora_step = phase_train(
+    trainer, batches, train_launches, lora_step, step0 = phase_train(
         params, arch_img, tok, tmpl, lexicon, rng, seq)
     grad_check(trainer, batches[0])
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
+
+    # ---- 12a. training over a mesh: ZeRO-1, FSDP, sp, pp, the dry run ---
+    mesh_train, dry_taat = phase_mesh_train(params, arch_img, batches,
+                                            step0, card)
+    del step0
 
     # ---- 12b. QLoRA: the same model on an nf4 base -------------------------
     qlora = phase_qlora(params, arch_img, tok, tmpl, lexicon, batches,
@@ -5811,7 +6152,7 @@ def main() -> int:
              replaces="mllm_sparse_retrieval_tpu/ops/impact_kernel.py:115",
              launches=files_taat + text_taat + img_taat + hyb_taat
              + tier_taat + mesh_taat + live_taat + off_taat + fam_taat
-             + chat_taat,
+             + chat_taat + dry_taat,
              max_abs_err=max_err,
              ms=served["ms"], plain_ms=served["plain_ms"],
              bound_ms=served["bound_ms"], bound_by=served["bound_by"],
@@ -5824,7 +6165,7 @@ def main() -> int:
              + mesh_flash + live_flash + off_flash + train_launches["fwd"]
              + fam_flash
              + chat_flash + chat_train["fwd"] + stats_flash + qlora["fwd"]
-             + moe["fwd"],
+             + moe["fwd"] + mesh_train["fwd"],
              **flash,
              at_g7=dict(shape=f"B={FLASH_B} T={internvl_seq} Hq/Hkv="
                         f"{INTERNVL_HEADS[0]}/{INTERNVL_HEADS[1]}",
@@ -5833,7 +6174,7 @@ def main() -> int:
              source="mllm_sparse_retrieval_tpu_torch/csrc/flash_attn_bwd.cu",
              replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:941",
              launches=train_launches["dkv"] + chat_train["dkv"]
-             + qlora["dkv"] + moe["dkv"],
+             + qlora["dkv"] + moe["dkv"] + mesh_train["dkv"],
              **dkv_kernel,
              at_g7=dict(shape=f"B={TRAIN_B} T={internvl_seq} Hq/Hkv="
                         f"{INTERNVL_HEADS[0]}/{INTERNVL_HEADS[1]}",
@@ -5842,7 +6183,7 @@ def main() -> int:
              source="mllm_sparse_retrieval_tpu_torch/csrc/flash_attn_bwd.cu",
              replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
              launches=train_launches["dq"] + chat_train["dq"] + qlora["dq"]
-             + moe["dq"], **dq_kernel,
+             + moe["dq"] + mesh_train["dq"], **dq_kernel,
              at_g7=dict(shape=f"B={TRAIN_B} T={internvl_seq} Hq/Hkv="
                         f"{INTERNVL_HEADS[0]}/{INTERNVL_HEADS[1]}",
                         launches=chat_train["dq"], **dq_g7)),

@@ -1,5 +1,5 @@
-"""Few-shot contrastive LoRA fine-tuning (the JAX package's ``cli/train.py``
-on one device).
+"""Few-shot contrastive LoRA fine-tuning (the JAX package's
+``cli/train.py``).
 
 Trains LoRA adapters on a few-shot train split (``{dataset}_train_{N}.csv``
 under ``--data-root``, as ``cli.prepare_data few-shot`` writes it) with the
@@ -19,11 +19,16 @@ params) path.
 device before training (``models.quantization.quantize_params``: nf4 or
 linear int4 at 4 bits, ``--quant-format``; linear int8 at 8), dequantized
 per use, and only the adapters train; with ``--train-full`` or ``--merge``
-it is a usage error, as in the JAX CLI. ``--mesh`` raises (training over
-a mesh is ROADMAP Queue 1 #9b); ``--fsdp`` and ``--no-zero1`` only set their
-``TrainConfig`` fields, which act under a mesh, as in the JAX CLI without
-one. ``run(args, model=...)`` trains a model the caller already holds,
-``(params, arch, tokenizer, template)``.
+it is a usage error, as in the JAX CLI. ``--mesh`` trains over
+``cli.common.mesh_from_args``' mesh (every card for a CUDA ``--device``,
+``--model-parallel`` the model axis; ``--device cpu`` a 1x1 mesh of the
+CPU): the global-batch loss over the data shards, ZeRO-1 optimizer state
+unless ``--no-zero1``, FSDP parameters with ``--train-full --fsdp``,
+``--no-gather-gradient`` for the sharded loss (``train/trainer.py``).
+Without a mesh those three flags only set their ``TrainConfig`` fields, as
+in the JAX CLI. A data axis across processes (``WORLD_SIZE`` > 1) is ROADMAP
+Queue 1 #9c: ``--mesh`` then raises. ``run(args, model=...)`` trains a
+model the caller already holds, ``(params, arch, tokenizer, template)``.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ import pickle
 import torch
 
 from mllm_sparse_retrieval_tpu_torch.cli.common import (
-    Profiler, StepTimer, add_common_args, get_logger, model_config_from_args)
+    Profiler, StepTimer, add_common_args, get_logger, mesh_from_args,
+    model_config_from_args)
 from mllm_sparse_retrieval_tpu_torch.configs import RepsLoc, TrainConfig
 from mllm_sparse_retrieval_tpu_torch.data.karpathy import CrossModalCorpus
 from mllm_sparse_retrieval_tpu_torch.models import build_model
@@ -103,11 +109,11 @@ def run(args, model=None):
     """Train as the CLI does; ``model`` is ``(params, arch, tokenizer,
     template)`` on ``args.device``, else ``build_model`` makes it. Returns
     ``(path printed by the CLI, trainer)``."""
-    if args.mesh:
+    if args.mesh and int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError(
-            "--mesh: training over a mesh is not ported (ROADMAP Queue 1 "
-            "#9b: tp, fsdp, zero1 and the sharded loss on "
-            "torch.distributed)")
+            "--mesh under a launch of several processes: a data axis across "
+            "processes is ROADMAP Queue 1 #9c (the port's mesh lives in one "
+            "process)")
     if args.load_kbit:
         if args.train_full:
             build_parser().error("--load-kbit pairs with LoRA (QLoRA); "
@@ -119,6 +125,7 @@ def run(args, model=None):
     logger = get_logger("train")
     timer = StepTimer(logger)
     timer.phase("setup")
+    mesh = mesh_from_args(args)
     corpus = CrossModalCorpus(args.dataset, "train", args.data_root,
                               few_shot_sum=args.few_shot_sum)
     if model is None:
@@ -161,7 +168,9 @@ def run(args, model=None):
 
     if args.train_full:
         adapters = None
-        logger.info("full finetune on %s", args.device)
+        logger.info("full finetune on %s (%s)", args.device,
+                    "FSDP param sharding" if args.fsdp and mesh is not None
+                    else "whole params")
     else:
         gen = torch.Generator(device=args.device).manual_seed(args.seed)
         adapters = lora_lib.init_lora(
@@ -170,7 +179,7 @@ def run(args, model=None):
             train_projector=tcfg.train_projector_lora, device=args.device)
         logger.info("LoRA params: %d", lora_lib.num_lora_params(adapters))
 
-    trainer = ContrastiveTrainer(params, arch, adapters, tcfg,
+    trainer = ContrastiveTrainer(params, arch, adapters, tcfg, mesh=mesh,
                                  reps_loc=RepsLoc(args.reps_loc),
                                  device=args.device)
     collate = make_collator(tok, template, arch)
@@ -189,7 +198,7 @@ def run(args, model=None):
     if args.train_full:
         out_path = os.path.join(args.output_dir, "params.pkl")
         with open(out_path, "wb") as f:
-            pickle.dump(lora_lib.to_numpy(trainer.params), f)
+            pickle.dump(lora_lib.to_numpy(trainer.merged_params()), f)
         logger.info("full params -> %s", out_path)
     else:
         out_path = os.path.join(args.output_dir, "lora.pkl")

@@ -28,7 +28,7 @@ def encode_any(params, arch, input_ids, attention_mask, vision_input=None,
                reps_loc: RepsLoc = RepsLoc.BEFORE_PAD, lora=None,
                position_ids=None, remat: bool = False,
                allow_flash: bool = True, lora_seed: Optional[int] = None,
-               lora_dropout: float = 0.0):
+               lora_dropout: float = 0.0, lora_rows=None):
     """``(sparse [B, V], dense [B, H])`` for any family, in the JAX
     package's argument order. ``vision_input`` is a fixed-grid pixel tensor,
     the anyres dict (``mllm.forward_hidden``), InternVL's ``[B, tiles, S,
@@ -37,23 +37,24 @@ def encode_any(params, arch, input_ids, attention_mask, vision_input=None,
     family, and the other families ignore them, as in the JAX package.
     ``remat`` checkpoints the decoder blocks; ``lora_seed`` +
     ``lora_dropout`` enable train-time dropout on the decoder adapters
-    (``models/llama.py``); inference callers pass neither."""
+    (``models/llama.py``; ``lora_rows`` for a data shard's rows of a
+    batch); inference callers pass neither."""
     if isinstance(arch, QwenVLConfig):
         return qwen_vl.encode(params, arch, input_ids, attention_mask,
                               patches=vision_input,
                               position_ids=position_ids,
                               reps_loc=reps_loc, lora=lora, remat=remat,
                               allow_flash=allow_flash, lora_seed=lora_seed,
-                              lora_dropout=lora_dropout)
+                              lora_dropout=lora_dropout, lora_rows=lora_rows)
     if isinstance(arch, InternVLConfig):
         return internvl.encode(params, arch, input_ids, attention_mask,
                                vision_input, reps_loc, lora, remat=remat,
                                allow_flash=allow_flash, lora_seed=lora_seed,
-                               lora_dropout=lora_dropout)
+                               lora_dropout=lora_dropout, lora_rows=lora_rows)
     return mllm.encode(params, arch, input_ids, attention_mask,
                        vision_input, reps_loc, lora, remat=remat,
                        allow_flash=allow_flash, lora_seed=lora_seed,
-                       lora_dropout=lora_dropout)
+                       lora_dropout=lora_dropout, lora_rows=lora_rows)
 
 
 @dataclass(frozen=True)

@@ -203,7 +203,8 @@ def encode(params: Dict, cfg: InternVLConfig, input_ids: torch.Tensor,
            reps_loc: RepsLoc = RepsLoc.BEFORE_PAD,
            lora: Optional[Dict] = None, remat: bool = False,
            allow_flash: bool = True, lora_seed: Optional[int] = None,
-           lora_dropout: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+           lora_dropout: float = 0.0, lora_rows=None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(sparse_weights [B, V] f32, dense_embs [B, H])``.
 
     ``pixel_values``: ``[B, S, S, 3]`` (one tile an image) or
@@ -232,7 +233,7 @@ def encode(params: Dict, cfg: InternVLConfig, input_ids: torch.Tensor,
         hidden = llama.apply(params["text"], embeds, attention_mask,
                              cfg.text, lget("text"), remat=remat,
                              allow_flash=allow_flash, lora_seed=lora_seed,
-                             lora_dropout=lora_dropout)
+                             lora_dropout=lora_dropout, lora_rows=lora_rows)
     with record_function("lm_head"):
         head = llama.lm_head_weight(params["text"], cfg.text)
         return R.extract_reps(hidden, attention_mask, head, reps_loc)

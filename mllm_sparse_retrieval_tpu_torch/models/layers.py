@@ -20,12 +20,14 @@ import torch
 from mllm_sparse_retrieval_tpu_torch.models.quantization import (
     QuantizedWeight, dequantize_weight)
 from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
+from mllm_sparse_retrieval_tpu_torch.parallel.mesh import (
+    MODEL_AXIS, Sharded, as_tensor)
 
 
 def dense(x: torch.Tensor, p: Dict[str, torch.Tensor],
           lora: Optional[Dict[str, torch.Tensor]] = None,
           lora_generator: Optional[torch.Generator] = None,
-          lora_dropout: float = 0.0) -> torch.Tensor:
+          lora_dropout: float = 0.0, lora_rows=None) -> torch.Tensor:
     """``x @ w (+ LoRA low-rank path) (+ bias)``, as the JAX package computes
     it.
 
@@ -33,6 +35,11 @@ def dense(x: torch.Tensor, p: Dict[str, torch.Tensor],
     materialised delta-W. ``lora_generator`` + ``lora_dropout > 0`` apply
     train-time dropout to the adapter input only (``keep / (1 - p)``); the
     base path is untouched, and inference passes no generator.
+    ``lora_rows=(offset, total)`` says that ``x`` holds rows ``offset :
+    offset + len(x)`` of a batch of ``total`` rows split over a mesh: the
+    mask is then those rows of the whole batch's draw, so a sharded step
+    drops what the unsharded step drops (JAX's jit over a mesh gives its
+    unsharded result).
 
     dtype rule (a deviation from the JAX package): the adapter path runs in
     the adapters' dtype and its output is cast to the base output's dtype
@@ -44,18 +51,45 @@ def dense(x: torch.Tensor, p: Dict[str, torch.Tensor],
     ``p["w"]`` may be a ``QuantizedWeight`` (k-bit base weights, QLoRA): it
     is dequantized per use into ``x``'s dtype, as in the JAX package, so
     one layer's weight at a time exists in the compute dtype. It never
-    requires a gradient.
+    requires a gradient. It may be a ``parallel.mesh.Sharded``: split over
+    the data axis (FSDP) it is gathered onto ``x``'s device here, per use
+    (a recompute under remat gathers again); split over the model axis
+    (tensor parallelism) it runs in the megatron form, each piece on its
+    device: a column split computes each device's output columns and
+    concatenates them, a row split multiplies each device's slice of the
+    input and sums the partial products on ``x``'s device.
     """
     w = p["w"]
-    if isinstance(w, QuantizedWeight):
-        w = dequantize_weight(w, x.dtype)
-    y = x @ w
+    if isinstance(w, Sharded) and w.axis == MODEL_AXIS:
+        if w.dim == 1:
+            y = torch.cat([(x.to(d) @ as_tensor(piece, d)).to(x.device)
+                           for piece, d in zip(w.pieces, w.devices)], dim=-1)
+        else:
+            step = w.shape[0] // len(w.pieces)
+            y = None
+            for j, (piece, d) in enumerate(zip(w.pieces, w.devices)):
+                part = (x[..., j * step:(j + 1) * step].to(d)
+                        @ as_tensor(piece, d)).to(x.device)
+                y = part if y is None else y + part
+    else:
+        if isinstance(w, Sharded):
+            w = w.gather(x.device)
+        elif isinstance(w, QuantizedWeight):
+            w = dequantize_weight(w, x.dtype)
+        y = x @ w
     if lora is not None:
         a = lora["a"]
         xl = x.to(a.dtype)
         if lora_generator is not None and lora_dropout > 0.0:
-            keep = torch.rand(x.shape, generator=lora_generator,
-                              device=x.device) < 1.0 - lora_dropout
+            if lora_rows is None:
+                u = torch.rand(x.shape, generator=lora_generator,
+                               device=x.device)
+            else:
+                offset, total = lora_rows
+                u = torch.rand((total,) + tuple(x.shape[1:]),
+                               generator=lora_generator,
+                               device=x.device)[offset:offset + x.shape[0]]
+            keep = u < 1.0 - lora_dropout
             xl = torch.where(keep, xl / (1.0 - lora_dropout),
                              torch.zeros((), dtype=a.dtype, device=x.device))
         y = y + (((xl @ a) @ lora["b"]) * lora["scale"]).to(y.dtype)

@@ -108,15 +108,20 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
 
 def _block(x, p, cfg: LlamaConfig, mask, cos, sin, lora=None,
            flash_mask=None, lora_seed=None, *, lora_dropout: float = 0.0,
-           flash_mesh=None):
+           flash_mesh=None, lora_rows=None, attn_impl=None):
     """One decoder block; ``flash_mask`` (the ``[B, T]`` padding mask) takes
     the flash kernel instead of ``attention`` over the ``[B, 1, T, T]``
-    ``mask``, once per shard of ``flash_mesh`` when one is given. ``lora`` is the block's adapter dict; with ``lora_seed`` and
+    ``mask``, once per shard of ``flash_mesh`` when one is given.
+    ``attn_impl(q, k, v) -> [B, T, Hq, Dh]`` replaces the attention (the
+    ring attention of ``parallel/sp.py``); it owns the masking, and
+    ``mask`` / ``flash_mask`` are then unused. ``lora`` is the block's
+    adapter dict; with ``lora_seed`` and
     ``lora_dropout > 0`` each LoRA call site draws its dropout mask from a
     fresh generator seeded with ``fold_seed(lora_seed, site)``, sites in the
     JAX order q, k, v, o, gate, up, down: a pure function of integers, so a
-    recompute under ``remat`` draws the same masks. An MoE block returns
-    ``(x, aux)``: its experts are no adapter targets."""
+    recompute under ``remat`` draws the same masks (``lora_rows``: see
+    ``layers.dense``). An MoE block returns ``(x, aux)``: its experts are
+    no adapter targets."""
     b, t, _ = x.shape
     dh = cfg.head_dim
     site = [0]
@@ -128,7 +133,7 @@ def _block(x, p, cfg: LlamaConfig, mask, cos, sin, lora=None,
                 L.fold_seed(lora_seed, site[0]))
         site[0] += 1
         return L.dense(y, p[name], lora.get(name) if lora else None, gen,
-                       lora_dropout)
+                       lora_dropout, lora_rows)
 
     y = L.rmsnorm(x, p["attn_norm"], cfg.rms_eps)
     q = ld(y, "q").view(b, t, cfg.num_heads, dh)
@@ -136,7 +141,9 @@ def _block(x, p, cfg: LlamaConfig, mask, cos, sin, lora=None,
     v = ld(y, "v").view(b, t, cfg.num_kv_heads, dh)
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin)
-    if flash_mask is not None:
+    if attn_impl is not None:
+        attn = attn_impl(q, k, v)
+    elif flash_mask is not None:
         with record_function("attention"):
             attn = L.flash_causal_attention(q, k, v, flash_mask) \
                 if flash_mesh is None else L.flash_causal_attention(
@@ -191,7 +198,7 @@ def apply(params: Dict, inputs_embeds: torch.Tensor,
           lora: Optional[Dict] = None,
           position_ids: Optional[torch.Tensor] = None, remat: bool = False,
           allow_flash: bool = True, lora_seed: Optional[int] = None,
-          lora_dropout: float = 0.0):
+          lora_dropout: float = 0.0, lora_rows=None):
     """Run the decoder stack; returns final-norm hidden states
     ``[B, T, H]``, or ``(hidden, moe_aux_loss)`` when ``cfg.moe`` is set
     (the blocks' load-balance losses summed, for the trainer to weight with
@@ -206,7 +213,9 @@ def apply(params: Dict, inputs_embeds: torch.Tensor,
     checkpoints each block (``torch.utils.checkpoint``, non-reentrant):
     activations are recomputed in the backward pass. ``lora_seed`` +
     ``lora_dropout`` enable train-time dropout on the LoRA paths, block
-    ``i`` seeded with ``fold_seed(lora_seed, i)``. Differentiable; serving
+    ``i`` seeded with ``fold_seed(lora_seed, i)``; ``lora_rows=(offset,
+    total)`` draws the masks of rows ``offset:`` of a ``total``-row batch
+    (a data shard's, ``layers.dense``). Differentiable; serving
     callers run it under ``torch.inference_mode()``."""
     t = inputs_embeds.shape[1]
     cos, sin = rope_tables(cfg, t, position_ids,
@@ -230,9 +239,11 @@ def apply(params: Dict, inputs_embeds: torch.Tensor,
         drop = lora_dropout if dropout_on else 0.0
         if remat:
             x = checkpoint(_block, *args, lora_dropout=drop,
-                           flash_mesh=flash_mesh, use_reentrant=False)
+                           flash_mesh=flash_mesh, lora_rows=lora_rows,
+                           use_reentrant=False)
         else:
-            x = _block(*args, lora_dropout=drop, flash_mesh=flash_mesh)
+            x = _block(*args, lora_dropout=drop, flash_mesh=flash_mesh,
+                       lora_rows=lora_rows)
         if moe_aux is not None:
             x, aux = x
             moe_aux = moe_aux + aux

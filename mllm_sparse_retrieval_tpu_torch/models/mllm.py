@@ -147,7 +147,8 @@ def forward_hidden(params: Dict, cfg: MLLMConfig, input_ids: torch.Tensor,
                    attention_mask: torch.Tensor, pixel_values=None,
                    lora: Optional[Dict] = None, remat: bool = False,
                    allow_flash: bool = True, lora_seed: Optional[int] = None,
-                   lora_dropout: float = 0.0) -> torch.Tensor:
+                   lora_dropout: float = 0.0, lora_rows=None
+                   ) -> torch.Tensor:
     """Final-layer hidden states ``[B, T, H]`` for text or image+text inputs.
 
     ``pixel_values``: ``[B, H, W, 3]`` for fixed-grid families, or the
@@ -182,7 +183,8 @@ def forward_hidden(params: Dict, cfg: MLLMConfig, input_ids: torch.Tensor,
     with record_function("tower"):
         return llama.apply(params["text"], embeds, attention_mask, cfg.text,
                            lget("text"), remat=remat, allow_flash=allow_flash,
-                           lora_seed=lora_seed, lora_dropout=lora_dropout)
+                           lora_seed=lora_seed, lora_dropout=lora_dropout,
+                           lora_rows=lora_rows)
 
 
 def encode(params: Dict, cfg: MLLMConfig, input_ids: torch.Tensor,
@@ -190,7 +192,8 @@ def encode(params: Dict, cfg: MLLMConfig, input_ids: torch.Tensor,
            reps_loc: RepsLoc = RepsLoc.BEFORE_PAD,
            lora: Optional[Dict] = None, remat: bool = False,
            allow_flash: bool = True, lora_seed: Optional[int] = None,
-           lora_dropout: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+           lora_dropout: float = 0.0, lora_rows=None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(sparse_weights [B, V] f32, dense_embs [B, H])`` for text or
     image+text inputs, in the JAX package's argument order (``pixel_values``
     as in ``forward_hidden``). Differentiable with respect to ``lora`` (and
@@ -200,7 +203,7 @@ def encode(params: Dict, cfg: MLLMConfig, input_ids: torch.Tensor,
     hidden = forward_hidden(params, cfg, input_ids, attention_mask,
                             pixel_values, lora, remat=remat,
                             allow_flash=allow_flash, lora_seed=lora_seed,
-                            lora_dropout=lora_dropout)
+                            lora_dropout=lora_dropout, lora_rows=lora_rows)
     with record_function("lm_head"):
         head = llama.lm_head_weight(params["text"], cfg.text)
         return R.extract_reps(hidden, attention_mask, head, reps_loc)

@@ -605,7 +605,8 @@ def encode(params: Dict, cfg: QwenVLConfig, input_ids: torch.Tensor,
            reps_loc: RepsLoc = RepsLoc.BEFORE_PAD,
            lora: Optional[Dict] = None, remat: bool = False,
            allow_flash: bool = True, lora_seed: Optional[int] = None,
-           lora_dropout: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+           lora_dropout: float = 0.0, lora_rows=None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(sparse_weights [B, V] f32, dense_embs [B, H])``. ``patches``:
     ``[B, S, patch_dim]`` (fixed grid) or ``batch_native``'s dict as
     tensors (native resolution). ``position_ids``: the ``[3, B, T]`` M-RoPE
@@ -630,7 +631,7 @@ def encode(params: Dict, cfg: QwenVLConfig, input_ids: torch.Tensor,
                              cfg.text, lget("text"),
                              position_ids=position_ids, remat=remat,
                              allow_flash=allow_flash, lora_seed=lora_seed,
-                             lora_dropout=lora_dropout)
+                             lora_dropout=lora_dropout, lora_rows=lora_rows)
     with record_function("lm_head"):
         head = llama.lm_head_weight(params["text"], cfg.text)
         return R.extract_reps(hidden, attention_mask, head, reps_loc)

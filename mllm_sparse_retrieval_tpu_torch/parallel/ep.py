@@ -30,8 +30,13 @@ The JAX function's rules, all kept:
   ``p_e``;
 - there is no mask: pad tokens are routed and take seats.
 
-Sharding the experts over a mesh (the JAX package's ``moe_shardings`` /
-``shard_moe_params``) waits for the port's meshes.
+Expert parallelism (the JAX package's ``moe_shardings`` /
+``shard_moe_params``): the expert stacks split on dim 0 over a mesh axis
+(``parallel.mesh.Sharded``, the model axis by default), the router whole.
+``moe_ffn`` on such a tree routes on the input's device as before and runs
+each device's experts on its slice of the capacity buckets there; the
+expert outputs come back to the input's device for the combine, where the
+JAX package's dispatch and combine einsums become all-to-alls under GSPMD.
 """
 
 from __future__ import annotations
@@ -42,6 +47,9 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from mllm_sparse_retrieval_tpu_torch.parallel.mesh import (
+    MODEL_AXIS, Mesh, Sharded, split)
 
 
 @dataclass(frozen=True)
@@ -142,9 +150,47 @@ def moe_ffn(x: torch.Tensor, p: Dict,
     slot = (r.expert * capacity + r.seat).reshape(-1)[keep]
     xs = xf.new_zeros(e * capacity, h).index_copy(0, slot, xf[token])
     xs = xs.view(e, capacity, h)
-    hid = F.silu(torch.bmm(xs, p["gate"])) * torch.bmm(xs, p["up"])
-    ys = torch.bmm(hid, p["down"]).view(e * capacity, h)
+    ys = _experts(xs, p).view(e * capacity, h)
     w = r.gate.reshape(-1)[keep].to(x.dtype)
     rows = w.float()[:, None] * ys[slot].float()
     y = xf.new_zeros(n, h, dtype=torch.float32).index_add(0, token, rows)
     return y.to(x.dtype).view(*lead, h), r.aux
+
+
+def _experts(xs: torch.Tensor, p: Dict) -> torch.Tensor:
+    """The stacked SwiGLU experts on their ``[E, C, H]`` buckets; split
+    stacks run each piece's experts on its device."""
+    if not isinstance(p["gate"], Sharded):
+        hid = F.silu(torch.bmm(xs, p["gate"])) * torch.bmm(xs, p["up"])
+        return torch.bmm(hid, p["down"])
+    gate, up, down = p["gate"], p["up"], p["down"]
+    step = xs.shape[0] // len(gate.pieces)
+    out = []
+    for j, dev in enumerate(gate.devices):
+        xj = xs[j * step:(j + 1) * step].to(dev)
+        hid = F.silu(torch.bmm(xj, gate.pieces[j])) \
+            * torch.bmm(xj, up.pieces[j])
+        out.append(torch.bmm(hid, down.pieces[j]).to(xs.device))
+    return torch.cat(out)
+
+
+def moe_shardings(p: Dict, mesh: Mesh, axis: str = MODEL_AXIS) -> Dict:
+    """Spec tuples placing the expert dim over ``axis``: the router whole
+    (every token needs it), each expert stack split on dim 0."""
+    return {k: () if k == "router" else (axis,) + (None,) * (v.dim() - 1)
+            for k, v in p.items()}
+
+
+def shard_moe_params(p: Dict, mesh: Mesh, axis: str = MODEL_AXIS) -> Dict:
+    """A new MoE tree with ``moe_shardings``' placement: each device of
+    ``axis`` (in the mesh's first data row) holds ``num_experts / n`` of
+    every stack, as new tensors; the router is the caller's."""
+    n = mesh.shape[axis]
+    if p["gate"].shape[0] % n != 0:
+        raise ValueError(
+            f"num_experts {p['gate'].shape[0]} not divisible by mesh axis "
+            f"'{axis}' of size {n}")
+    specs = moe_shardings(p, mesh, axis)
+    devices = mesh.axis_devices(axis)
+    return {k: v if k == "router" else split(v, 0, devices, specs[k])
+            for k, v in p.items()}

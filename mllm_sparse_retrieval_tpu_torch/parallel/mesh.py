@@ -1,9 +1,12 @@
 """Device meshes for one process (the JAX package's ``parallel/mesh.py``).
 
-A ``Mesh`` is a ``[data, model]`` array of torch devices. One Python
-process drives every shard: a "sharded" tensor is a list of per-shard
-tensors, shard ``i`` of the data axis on ``mesh.devices[i, 0]``, each its
-own contiguous tensor. The JAX package's ``shard_map`` becomes a loop over
+A ``Mesh`` is an array of torch devices with named axes (``[data,
+model]`` from ``make_mesh``). One Python process drives every shard: a
+data-sharded batch is a list of per-shard tensors, shard ``i`` on
+``mesh.shard_devices[i]``, each its own contiguous tensor, and a leaf
+split over an axis (a parameter under tensor parallelism or FSDP, an
+optimizer moment under ZeRO-1) is a ``Sharded``: its pieces, their
+devices and its spec. The JAX package's ``shard_map`` becomes a loop over
 the shards that runs the local function on each shard's device (CUDA
 launches are asynchronous, so shards on distinct cards overlap), and its
 ``all_gather`` becomes copies of each shard's small result to the mesh's
@@ -19,7 +22,7 @@ distinct device, so repeated shards share it.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,24 +43,31 @@ def canonical_device(device) -> torch.device:
 
 
 class Mesh:
-    """A ``[data, model]`` grid of devices.
+    """A grid of devices with named axes (the JAX package's
+    ``jax.sharding.Mesh``): ``(data, model)`` from ``make_mesh``, ``(data,
+    pipe)`` and ``(data, pipe, model)`` from ``parallel/pp.py``.
 
-    ``shape`` maps ``{DATA_AXIS: d, MODEL_AXIS: m}`` as a JAX mesh's does.
-    Shard ``i`` of a data-sharded tensor lives on ``shard_devices[i]``
-    (``devices[i, 0]``); merged results land on ``lead``
-    (``devices[0, 0]``). Equality is identity, as caches keyed on a mesh
+    ``shape`` maps each axis name to its size, as a JAX mesh's does. Shard
+    ``i`` of a data-sharded tensor lives on ``shard_devices[i]`` (the first
+    device of data index ``i``); merged results land on ``lead`` (the first
+    device of the grid). Equality is identity, as caches keyed on a mesh
     expect."""
 
-    def __init__(self, devices: np.ndarray):
-        if devices.ndim != 2:
-            raise ValueError(f"mesh devices must be [data, model], got "
-                             f"shape {devices.shape}")
+    def __init__(self, devices: np.ndarray,
+                 axis_names: Sequence[str] = (DATA_AXIS, MODEL_AXIS)):
+        axis_names = tuple(axis_names)
+        if devices.ndim != len(axis_names):
+            raise ValueError(f"mesh devices of shape {devices.shape} do not "
+                             f"match the axes {axis_names}")
+        if axis_names[0] != DATA_AXIS:
+            raise ValueError(f"the first mesh axis is {DATA_AXIS!r}, got "
+                             f"{axis_names}")
         self.devices = devices
+        self.axis_names = axis_names
 
     @property
-    def shape(self):
-        return {DATA_AXIS: self.devices.shape[0],
-                MODEL_AXIS: self.devices.shape[1]}
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.devices.shape))
 
     @property
     def size(self) -> int:
@@ -65,23 +75,130 @@ class Mesh:
 
     @property
     def lead(self) -> torch.device:
-        return self.devices[0, 0]
+        return self.devices.flat[0]
 
     @property
     def shard_devices(self) -> List[torch.device]:
-        return [self.devices[i, 0] for i in range(self.devices.shape[0])]
+        rest = (0,) * (self.devices.ndim - 1)
+        return [self.devices[(i,) + rest]
+                for i in range(self.devices.shape[0])]
+
+    def axis_devices(self, axis: str, at: Optional[Dict[str, int]] = None
+                     ) -> List[torch.device]:
+        """The devices along ``axis`` with every other axis at its index in
+        ``at`` (0 where ``at`` does not name it)."""
+        at = at or {}
+        k = self.axis_names.index(axis)
+        out = []
+        for j in range(self.devices.shape[k]):
+            idx = tuple(j if n == axis else at.get(n, 0)
+                        for n in self.axis_names)
+            out.append(self.devices[idx])
+        return out
 
     def row(self, i: int) -> "Mesh":
-        """The ``1 x model`` mesh of data shard ``i`` (its model-axis
-        devices), cached so a row is one object across calls."""
+        """The mesh of data shard ``i`` (its other axes' devices, the data
+        axis of size 1), cached so a row is one object across calls."""
         rows = self.__dict__.setdefault("_rows", {})
         if i not in rows:
-            rows[i] = Mesh(self.devices[i:i + 1])
+            rows[i] = Mesh(self.devices[i:i + 1], self.axis_names)
         return rows[i]
 
     def __repr__(self) -> str:
         return (f"Mesh({dict(self.shape)}, "
                 f"{[str(d) for d in self.devices.flat]})")
+
+
+def grid(devices: Sequence, shape: Sequence[int]) -> np.ndarray:
+    """``devices`` (canonical spellings) as an object array of ``shape``."""
+    out = np.empty(len(devices), dtype=object)
+    out[:] = [canonical_device(d) for d in devices]
+    return out.reshape(tuple(shape))
+
+
+class Sharded:
+    """A tensor split over one mesh axis: the counterpart of a JAX array
+    placed with a ``NamedSharding``.
+
+    ``pieces[j]`` is the ``j``-th of equal contiguous pieces along ``dim``
+    and lives on ``devices[j]``; ``spec`` is the whole tensor's
+    ``PartitionSpec`` read as a tuple (``(None, "model")``: dim 1 split over
+    the model axis). A piece may itself be ``Sharded`` over another axis
+    (FSDP on a tensor-parallel leaf). The pieces are the tensors that
+    autograd and the optimizer see; ``gather(device)`` concatenates them
+    there, differentiably, so gradients land on the pieces. Never changed
+    in place by the functions that make it."""
+
+    def __init__(self, pieces: Sequence, devices: Sequence, dim: int,
+                 spec: Tuple):
+        self.pieces = list(pieces)
+        self.devices = [canonical_device(d) for d in devices]
+        self.dim = dim
+        self.spec = tuple(spec)
+
+    @property
+    def axis(self) -> str:
+        """The mesh axis ``dim`` is split over."""
+        return self.spec[self.dim]
+
+    @property
+    def shape(self) -> torch.Size:
+        first = self.pieces[0]
+        s = list(first.shape)
+        s[self.dim] *= len(self.pieces)
+        return torch.Size(s)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.pieces[0].dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def tensors(self) -> List[torch.Tensor]:
+        """The tensors that hold the data, pieces of pieces flattened."""
+        return [t for p in self.pieces for t in
+                (p.tensors() if isinstance(p, Sharded) else [p])]
+
+    def gather(self, device) -> torch.Tensor:
+        """The whole tensor on ``device`` (differentiable)."""
+        return torch.cat([as_tensor(p, device) for p in self.pieces],
+                         dim=self.dim)
+
+    def __repr__(self) -> str:
+        return (f"Sharded({tuple(self.shape)}, {self.dtype}, spec="
+                f"{self.spec}, on {[str(d) for d in self.devices]})")
+
+
+def as_tensor(x, device) -> torch.Tensor:
+    """``x`` (a tensor or ``Sharded``) whole on ``device``."""
+    if isinstance(x, Sharded):
+        return x.gather(device)
+    return x.to(device)
+
+
+def split(x: torch.Tensor, dim: int, devices: Sequence,
+          spec: Tuple) -> Sharded:
+    """``x`` cut into ``len(devices)`` equal pieces along ``dim`` (over the
+    axis ``spec[dim]``), piece ``j`` a new contiguous tensor on
+    ``devices[j]``: the caller's tensor is never aliased, so updating a
+    piece in place leaves it as it was."""
+    n = len(devices)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {n} devices of {spec[dim]!r}")
+    step = x.shape[dim] // n
+    with torch.no_grad():
+        pieces = [x.narrow(dim, j * step, step).to(d, copy=True)
+                  .contiguous() for j, d in enumerate(devices)]
+    return Sharded(pieces, devices, dim, spec)
+
+
+def spec_axes(spec: Tuple) -> set:
+    """The mesh axes a spec tuple uses."""
+    return {a for e in spec if e is not None
+            for a in (e if isinstance(e, tuple) else (e,))}
 
 
 def make_mesh(data_parallel: int = -1, model_parallel: int = 1,
@@ -110,9 +227,7 @@ def make_mesh(data_parallel: int = -1, model_parallel: int = 1,
         raise ValueError(
             f"data_parallel*model_parallel = {data_parallel * model_parallel} "
             f"!= {n} devices")
-    grid = np.empty(n, dtype=object)
-    grid[:] = devices
-    return Mesh(grid.reshape(data_parallel, model_parallel))
+    return Mesh(grid(devices, (data_parallel, model_parallel)))
 
 
 def shard_batch(mesh: Mesh, array, axis: int = 0) -> List[torch.Tensor]:
@@ -154,3 +269,29 @@ def replicated(mesh: Mesh, tree) -> list:
             copies[dev] = tree_to(tree, dev)
         out.append(copies[dev])
     return out
+
+
+def tree_map(fn, tree, path: Tuple = ()):
+    """``fn(path, leaf)`` over a tree of dicts and lists (tuples become
+    lists); ``path`` holds the dict keys and list indices down to the
+    leaf, as ``jax.tree_util.tree_map_with_path`` gives them."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, path + (i,)) for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def tree_at(tree, path: Tuple):
+    """The subtree of ``tree`` at ``path`` (as ``tree_map`` gives it)."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def leaf_spec(x) -> Tuple:
+    """A leaf's spec padded to its rank: a ``Sharded``'s own, else every
+    dim unsplit."""
+    ndim = len(getattr(x, "shape", ()))
+    spec = tuple(x.spec) if isinstance(x, Sharded) else ()
+    return spec + (None,) * (ndim - len(spec))

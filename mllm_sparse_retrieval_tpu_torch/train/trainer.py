@@ -1,5 +1,5 @@
-"""Contrastive LoRA trainer on one device (the JAX package's
-``train/trainer.py`` without a mesh).
+"""Contrastive LoRA trainer on one device or over a mesh (the JAX
+package's ``train/trainer.py``).
 
 - Base params are frozen (``requires_grad=False``); the LoRA adapters are
   the trainable tree, every leaf of it (``a``, ``b`` and ``scale``, as the
@@ -34,8 +34,28 @@
   finetune over a quantized tree raises ``ValueError``, as in the JAX
   package.
 
-Not ported: meshes (ROADMAP Queue 1 #9b, training over a mesh); they
-raise.
+- Over a ``parallel.mesh.Mesh`` (one process, as the JAX package's
+  single controller): each data shard runs its rows of the batch on
+  ``mesh.shard_devices[i]``, its decoder's flash kernels once per device
+  of its row (``allow_flash=mesh.row(i)``: the heads split over the model
+  axis). The trainable leaves live once on ``mesh.lead`` and each shard
+  reads them through ``.to(device)``: the same tensor on a repeated
+  device, a differentiable copy on another card, so autograd sums the
+  shards' gradients onto the lead leaves (the JAX program's all-reduce).
+  The loss is ``info_nce_loss`` of the gathered global batch, or with
+  ``gather_save_gradient=False`` ``sharded_info_nce_loss`` (gradients
+  only through each shard's own rows). LoRA dropout draws each shard's
+  rows of the whole batch's masks, so a mesh step equals the unsharded
+  step. ZeRO-1 (``shard_optimizer_state``, the default): each Adam moment
+  whose dim 0 the data axis divides is split on it, each shard updates its
+  rows of the moments and the parameters on its device, and the rows are
+  copied back to the lead leaves; clipping by the global norm stays global.
+  FSDP (a full finetune with ``shard_params_data_axis``,
+  ``parallel/fsdp.py``): the parameters and their moments are split per
+  leaf, gathered where used, and updated piece by piece on their devices.
+  Base parameters split over the model axis (``parallel/tp.py``) run in the
+  megatron form. Checkpoints hold whole tensors in every case, so a run
+  resumes with or without a mesh.
 """
 
 from __future__ import annotations
@@ -56,10 +76,14 @@ from mllm_sparse_retrieval_tpu_torch.models.api import (
     encode_any, image_input_spec, mrope_ids_for_batch)
 from mllm_sparse_retrieval_tpu_torch.models.layers import FLASH_MIN_SEQ
 from mllm_sparse_retrieval_tpu_torch.models.quantization import (
-    quantized_leaves)
+    QuantizedWeight, quantized_leaves, tree_to)
+from mllm_sparse_retrieval_tpu_torch.parallel import fsdp
+from mllm_sparse_retrieval_tpu_torch.parallel.mesh import (
+    DATA_AXIS, Mesh, Sharded, split, tree_map)
 from mllm_sparse_retrieval_tpu_torch.pipelines.encode import (
     default_pixel_loader, default_raw_image_loader)
-from mllm_sparse_retrieval_tpu_torch.train.contrastive import info_nce_loss
+from mllm_sparse_retrieval_tpu_torch.train.contrastive import (
+    info_nce_loss, sharded_info_nce_loss)
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8     # optax.adam defaults
 CHECKPOINT_FILE = "checkpoint.pt"
@@ -138,12 +162,59 @@ def make_collator(tokenizer, template, arch,
     return collate
 
 
-def _map(fn, tree: Any):
+def zero1_shardings(tree, mesh: Mesh):
+    """ZeRO-1 spec tuples: a leaf's dim 0 over ``"data"`` when the data
+    axis divides it, whole (``()``) otherwise."""
+    n = mesh.shape[DATA_AXIS]
+
+    def leaf(_, x):
+        shape = tuple(getattr(x, "shape", ()))
+        if shape and shape[0] % n == 0 and shape[0] > 0:
+            return (DATA_AXIS,)
+        return ()
+
+    return tree_map(leaf, tree)
+
+
+def _leaves(tree) -> list:
+    """Leaves of a tree in tree order, a ``Sharded`` as one leaf, a
+    ``QuantizedWeight`` as its stored tensors."""
+    if isinstance(tree, QuantizedWeight):
+        return tree.tensors()
     if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
+        return [x for v in tree.values() for x in _leaves(v)]
     if isinstance(tree, (list, tuple)):
-        return [_map(fn, v) for v in tree]
-    return fn(tree)
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _tensors(leaf) -> List[torch.Tensor]:
+    return leaf.tensors() if isinstance(leaf, Sharded) else [leaf]
+
+
+def _gathered(tree, device):
+    """``tree`` with every ``Sharded`` leaf whole on ``device``."""
+    return tree_map(lambda _, x: x.gather(device) if isinstance(x, Sharded)
+                    else x, tree)
+
+
+def _zeros_like(x):
+    """Zeros shaped and placed like ``x`` (a tensor or a ``Sharded``)."""
+    if isinstance(x, Sharded):
+        return Sharded([_zeros_like(p) for p in x.pieces], x.devices, x.dim,
+                       x.spec)
+    return torch.zeros_like(x, requires_grad=False)
+
+
+def _assign(dst, src: torch.Tensor) -> None:
+    """Copy the whole tensor ``src`` into ``dst`` (a tensor, or the pieces
+    of a ``Sharded``)."""
+    if not isinstance(dst, Sharded):
+        dst.copy_(src)
+        return
+    step = src.shape[dst.dim] // len(dst.pieces)
+    for j, piece in enumerate(dst.pieces):
+        _assign(piece, src.narrow(dst.dim, j * step, step))
 
 
 def _linear(init: float, end: float, steps: int, count: int) -> float:
@@ -167,12 +238,14 @@ class ContrastiveTrainer:
         return per_epoch * num_epochs
 
     def __init__(self, params: Dict, arch, adapters: Optional[Dict],
-                 cfg: TrainConfig, mesh=None,
+                 cfg: TrainConfig, mesh: Optional[Mesh] = None,
                  reps_loc: RepsLoc = RepsLoc.BEFORE_PAD, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the port trains on one device: training over a mesh "
-                "waits for ROADMAP Queue 1 #9b")
+        """``mesh`` (a ``parallel.mesh.Mesh``) trains over its data shards
+        and replaces ``device`` by ``mesh.lead``; see the module
+        docstring."""
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
         if (cfg.train_full or adapters is None) and quantized_leaves(params):
             raise ValueError(
                 "full finetune over a k-bit quantized tree is not "
@@ -185,31 +258,69 @@ class ContrastiveTrainer:
         if cfg.lr_schedule in ("linear", "cosine") and cfg.total_steps <= 0:
             raise ValueError(f"lr_schedule={cfg.lr_schedule!r} needs "
                              f"total_steps")
+        self.mesh = mesh
+        self.full_finetune = cfg.train_full or adapters is None
+        if mesh is not None:
+            device = mesh.lead
+            if self.full_finetune and cfg.shard_params_data_axis:
+                params = fsdp.shard_params_fsdp(params, mesh)
+            elif self.full_finetune:
+                params = tree_to(params, device)
+            else:
+                adapters = tree_to(adapters, device)
         self.params = params
         self.arch = arch
         self.cfg = cfg
         self.reps_loc = reps_loc
         self.device = torch.device(device)
-        self.full_finetune = cfg.train_full or adapters is None
         self.adapters = None if self.full_finetune else adapters
         self.step = 0
         self.loss_history: List[float] = []
-        for x in lora_lib.tree_leaves(params):
-            x.requires_grad_(self.full_finetune and x.is_floating_point())
-        leaves = self._trainable_leaves()
-        for x in leaves:
+        for x in _leaves(params):
+            for t in _tensors(x):
+                t.requires_grad_(self.full_finetune and t.is_floating_point())
+        for x in self._trainable_leaves():
             x.requires_grad_(True)
-        self.opt_state = {
-            "count": 0,
-            "mu": [torch.zeros_like(x, requires_grad=False) for x in leaves],
-            "nu": [torch.zeros_like(x, requires_grad=False) for x in leaves]}
+        self.opt_state = {"count": 0,
+                          "mu": [self._moment(x) for x in self._leaves()],
+                          "nu": [self._moment(x) for x in self._leaves()]}
+        # frozen base params as each data shard reads them (one copy per
+        # distinct device)
+        self._base = None
+        if mesh is not None and not self.full_finetune:
+            views = {}
+            for d in mesh.shard_devices:
+                if d not in views:
+                    views[d] = fsdp.local_view(params, d)
+            self._base = [views[d] for d in mesh.shard_devices]
 
     def _trainable(self):
         return self.params if self.full_finetune else self.adapters
 
+    def _leaves(self) -> list:
+        """The trainable leaves, a ``Sharded`` (FSDP) as one leaf."""
+        return [x for x in _leaves(self._trainable())
+                if x.dtype.is_floating_point]
+
     def _trainable_leaves(self) -> List[torch.Tensor]:
-        return [x for x in lora_lib.tree_leaves(self._trainable())
-                if x.is_floating_point()]
+        """The tensors that take gradients: the leaves, a ``Sharded``'s
+        pieces in its place."""
+        return [t for x in self._leaves() for t in _tensors(x)]
+
+    def _moment(self, x):
+        """A zero Adam moment for leaf ``x``: split like it under FSDP
+        (whole beside a whole leaf, as the JAX package's FSDP specs of the
+        moments give), on dim 0 over the data shards under ZeRO-1 when they
+        divide it, else beside it."""
+        if isinstance(x, Sharded):
+            return _zeros_like(x)
+        zeros = torch.zeros_like(x, requires_grad=False)
+        mesh = self.mesh
+        fsdp_on = self.full_finetune and self.cfg.shard_params_data_axis
+        if mesh is None or not self.cfg.shard_optimizer_state or fsdp_on \
+                or zero1_shardings(x, mesh) == ():
+            return zeros
+        return split(zeros, 0, mesh.shard_devices, (DATA_AXIS,))
 
     def learning_rate(self, count: int) -> float:
         """The schedule at update count ``count`` (0 for the first step), as
@@ -232,10 +343,12 @@ class ContrastiveTrainer:
 
     # ---- one step ------------------------------------------------------------
 
-    def _to_device(self, batch: TrainBatch, lo: int, hi: int):
+    def _to_device(self, batch: TrainBatch, lo: int, hi: int, device=None):
+        device = self.device if device is None else device
+
         def put(a, dtype=None):
             t = torch.from_numpy(np.ascontiguousarray(a[lo:hi]))
-            return t.to(self.device, dtype)
+            return t.to(device, dtype)
 
         pixels = batch.pixels
         if isinstance(pixels, dict):
@@ -245,26 +358,61 @@ class ContrastiveTrainer:
         pos = batch.image_pos_ids
         if pos is not None:          # [3, B, T]: the batch axis is the 2nd
             pos = torch.from_numpy(np.ascontiguousarray(
-                pos[:, lo:hi])).to(self.device, torch.long)
+                pos[:, lo:hi])).to(device, torch.long)
         return (put(batch.text_ids, torch.long), put(batch.text_mask),
                 put(batch.image_ids, torch.long), put(batch.image_mask),
                 pixels, pos)
 
-    def _loss(self, t_ids, t_mask, i_ids, i_mask, pixels, pos,
-              seed: int) -> torch.Tensor:
+    def _encode(self, params, adapters, t_ids, t_mask, i_ids, i_mask,
+                pixels, pos, seed: int, allow_flash=True, lora_rows=None):
+        """The text and image embeddings of one (shard of a) micro-batch."""
         cfg = self.cfg
         dropout = 0.0 if self.full_finetune else cfg.lora_dropout
         t_seed = i_seed = None
         if dropout > 0.0:
             t_seed, i_seed = L.fold_seed(seed, 0), L.fold_seed(seed, 1)
-        _, t_emb = encode_any(self.params, self.arch, t_ids, t_mask, None,
-                              self.reps_loc, self.adapters, remat=cfg.remat,
-                              lora_seed=t_seed, lora_dropout=dropout)
-        _, i_emb = encode_any(self.params, self.arch, i_ids, i_mask, pixels,
-                              self.reps_loc, self.adapters,
+        _, t_emb = encode_any(params, self.arch, t_ids, t_mask, None,
+                              self.reps_loc, adapters, remat=cfg.remat,
+                              allow_flash=allow_flash, lora_seed=t_seed,
+                              lora_dropout=dropout, lora_rows=lora_rows)
+        _, i_emb = encode_any(params, self.arch, i_ids, i_mask, pixels,
+                              self.reps_loc, adapters,
                               position_ids=pos, remat=cfg.remat,
-                              lora_seed=i_seed, lora_dropout=dropout)
-        return info_nce_loss(t_emb, i_emb, cfg.tau)
+                              allow_flash=allow_flash, lora_seed=i_seed,
+                              lora_dropout=dropout, lora_rows=lora_rows)
+        return t_emb, i_emb
+
+    def _loss(self, t_ids, t_mask, i_ids, i_mask, pixels, pos,
+              seed: int) -> torch.Tensor:
+        t_emb, i_emb = self._encode(self.params, self.adapters, t_ids,
+                                    t_mask, i_ids, i_mask, pixels, pos, seed)
+        return info_nce_loss(t_emb, i_emb, self.cfg.tau)
+
+    def _mesh_loss(self, batch: TrainBatch, lo: int, hi: int,
+                   seed: int) -> torch.Tensor:
+        """The loss of rows ``lo:hi`` split over the data shards."""
+        mesh = self.mesh
+        per = (hi - lo) // mesh.shape[DATA_AXIS]
+        t_embs, i_embs = [], []
+        for i, dev in enumerate(mesh.shard_devices):
+            if self.full_finetune:
+                params, adapters = fsdp.local_view(self.params, dev), None
+            else:
+                params = self._base[i]
+                adapters = tree_to(self.adapters, dev)
+            t_emb, i_emb = self._encode(
+                params, adapters,
+                *self._to_device(batch, lo + i * per, lo + (i + 1) * per,
+                                 dev),
+                seed, allow_flash=mesh.row(i), lora_rows=(i * per, hi - lo))
+            t_embs.append(t_emb)
+            i_embs.append(i_emb)
+        if not self.cfg.gather_save_gradient:
+            return sharded_info_nce_loss(mesh, t_embs, i_embs, self.cfg.tau,
+                                         gather_save_gradient=False)
+        return info_nce_loss(torch.cat([t.to(mesh.lead) for t in t_embs]),
+                             torch.cat([x.to(mesh.lead) for x in i_embs]),
+                             self.cfg.tau)
 
     def train_on_batch(self, batch: TrainBatch) -> float:
         """One optimizer step on a collated batch; returns the loss."""
@@ -281,13 +429,20 @@ class ContrastiveTrainer:
                 f"this family's pixels are a dict of "
                 f"{sorted(batch.pixels)}")
         m = b // accum
+        n_data = 1 if self.mesh is None else self.mesh.shape[DATA_AXIS]
+        if m % n_data:
+            raise ValueError(f"micro-batch of {m} rows does not split over "
+                             f"{n_data} data shards")
         leaves = self._trainable_leaves()
         step_seed = L.fold_seed(self.cfg.seed, self.step)
         total = loss_sum = None
         for i in range(accum):
             seed = step_seed if accum == 1 else L.fold_seed(step_seed, i)
-            loss = self._loss(*self._to_device(batch, i * m, (i + 1) * m),
-                              seed)
+            if self.mesh is None:
+                loss = self._loss(*self._to_device(batch, i * m,
+                                                   (i + 1) * m), seed)
+            else:
+                loss = self._mesh_loss(batch, i * m, (i + 1) * m, seed)
             g = torch.autograd.grad(loss, leaves, allow_unused=True)
             g = [torch.zeros_like(x) if gi is None else gi
                  for x, gi in zip(leaves, g)]
@@ -314,20 +469,39 @@ class ContrastiveTrainer:
         st = self.opt_state
         max_norm = cfg.max_grad_norm
         if max_norm and max_norm > 0:
-            norm = sum((g * g).sum() for g in grads).sqrt()
+            norm = sum((g * g).sum().to(self.device) for g in grads).sqrt()
             keep = norm < max_norm
-            grads = [torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm)
+            grads = [torch.where(keep.to(g.device), g,
+                                 (g / norm.to(g.device, g.dtype)) * max_norm)
                      for g in grads]
         lr = self.learning_rate(st["count"])
         count = st["count"] + 1
         c1, c2 = 1 - ADAM_B1 ** count, 1 - ADAM_B2 ** count
-        for x, g, mu, nu in zip(leaves, grads, st["mu"], st["nu"]):
+
+        def adam(x, g, mu, nu):
             mu.copy_((1 - ADAM_B1) * g + ADAM_B1 * mu)
             nu.copy_((1 - ADAM_B2) * (g * g) + ADAM_B2 * nu)
             u = (mu / c1) / (torch.sqrt(nu / c2) + ADAM_EPS)
             if cfg.weight_decay > 0:
                 u = u + cfg.weight_decay * x
             x.add_((u * -lr).to(x.dtype))
+
+        grads = iter(grads)
+        for leaf, mu, nu in zip(self._leaves(), st["mu"], st["nu"]):
+            if isinstance(leaf, Sharded):        # FSDP: piece by piece
+                for x, m, v in zip(leaf.tensors(), mu.tensors(),
+                                   nu.tensors()):
+                    adam(x, next(grads), m, v)
+            elif isinstance(mu, Sharded):        # ZeRO-1: rows per shard
+                g = next(grads)
+                step = leaf.shape[0] // len(mu.pieces)
+                for j, dev in enumerate(mu.devices):
+                    rows = slice(j * step, (j + 1) * step)
+                    x = leaf[rows].to(dev)
+                    adam(x, g[rows].to(dev), mu.pieces[j], nu.pieces[j])
+                    leaf[rows].copy_(x)
+            else:
+                adam(leaf, next(grads), mu, nu)
         st["count"] = count
 
     # ---- epochs, merge -------------------------------------------------------
@@ -361,21 +535,28 @@ class ContrastiveTrainer:
         return self.loss_history
 
     def merged_params(self) -> Dict:
-        """Fold trained adapters into the base params (inference form)."""
+        """Fold trained adapters into the base params (inference form);
+        split leaves come back whole on the trainer's device."""
+        params = _gathered(self.params, self.device)
         if self.full_finetune:
-            return self.params
-        return lora_lib.merge_lora(self.params, self.adapters)
+            return params
+        return lora_lib.merge_lora(params, self.adapters)
 
     # ---- checkpoints ---------------------------------------------------------
 
     def save_checkpoint(self, directory: str) -> None:
         """``<directory>/step_<n>/checkpoint.pt`` (the trainable tree and the
-        optimizer state) and ``<directory>/latest``."""
+        optimizer state, every tensor whole) and ``<directory>/latest``."""
         path = os.path.join(directory, f"step_{self.step}")
         os.makedirs(path, exist_ok=True)
-        cpu = (lambda x: x.detach().cpu())
+
+        def cpu(x):
+            return (x.gather("cpu") if isinstance(x, Sharded)
+                    else x).detach().cpu()
+
         st = self.opt_state
-        torch.save({"adapters": _map(cpu, self._trainable()),
+        torch.save({"adapters": tree_map(lambda _, x: cpu(x),
+                                         self._trainable()),
                     "opt_state": {"count": st["count"],
                                   "mu": [cpu(x) for x in st["mu"]],
                                   "nu": [cpu(x) for x in st["nu"]]}},
@@ -387,24 +568,25 @@ class ContrastiveTrainer:
     def restore_checkpoint(self, directory: str,
                            step: Optional[int] = None) -> int:
         """Load ``step`` (default: ``latest``) into this trainer's trainable
-        tensors and optimizer state, in place; returns the step."""
+        tensors and optimizer state, in place (split leaves piece by
+        piece); returns the step."""
         if step is None:
             with open(os.path.join(directory, "latest")) as f:
                 step = int(f.read().strip())
         saved = torch.load(
             os.path.join(directory, f"step_{step}", CHECKPOINT_FILE),
-            map_location=self.device, weights_only=True)
-        mine = lora_lib.tree_leaves(self._trainable())
+            map_location="cpu", weights_only=True)
+        mine = _leaves(self._trainable())
         theirs = lora_lib.tree_leaves(saved["adapters"])
         if [tuple(x.shape) for x in mine] != [tuple(x.shape) for x in theirs]:
             raise ValueError(f"checkpoint at step {step} does not match the "
                              f"trainable tree")
         for x, y in zip(mine, theirs):
-            x.copy_(y)
+            _assign(x, y)
         st = self.opt_state
         st["count"] = int(saved["opt_state"]["count"])
         for key in ("mu", "nu"):
             for x, y in zip(st[key], saved["opt_state"][key]):
-                x.copy_(y)
+                _assign(x, y)
         self.step = step
         return step

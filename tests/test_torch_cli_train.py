@@ -211,10 +211,13 @@ def test_adapter_files_load_in_both_packages(tmp_path):
     (("--load-kbit", "4", "--merge"), "--merge cannot fold adapters"),
 ])
 def test_train_cli_refuses_what_is_not_ported(data_root, tmp_path, capsys,
-                                              flag, match):
-    """``--mesh`` is not ported; ``--load-kbit`` is (QLoRA, trained in
-    ``test_torch_quantization.py``), and with ``--merge`` it is the JAX
-    CLI's usage error."""
+                                              monkeypatch, flag, match):
+    """``--mesh`` trains over a mesh of one process
+    (``test_torch_mesh_train.py``); a data axis across the processes of a
+    launch (``WORLD_SIZE`` > 1) is not ported (#9c). ``--load-kbit`` is
+    (QLoRA, trained in ``test_torch_quantization.py``), and with
+    ``--merge`` it is the JAX CLI's usage error."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
     args = cli_train.build_parser().parse_args(
         _args(data_root, "tiny_debug", tmp_path, "--device", "cpu", *flag))
     if "--load-kbit" in flag:

@@ -1132,3 +1132,88 @@ def test_sharded_flash_at_g4_equals_the_unsharded_kernel():
     want = L.flash_causal_attention(q, k, v, mask)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def test_mesh_training_step_on_a_repeated_card_equals_the_unsharded_step():
+    """``ContrastiveTrainer(mesh=make_mesh(2, 2, devices=[cuda:0] * 4))``
+    (ZeRO-1, remat, LoRA dropout 0.1) on 1,024-token image prompts, which
+    take the flash kernels: once per shard and layer forward (twice with
+    the remat recompute), dq and dkv once, and the step's loss, gradient
+    (Adam's first moment, 0.1 x the clipped gradient) and adapter update
+    equal the unsharded trainer's on the same batch within bf16 GEMM
+    rounding: loss within 2e-3 relative, gradient cosine >= 0.999, update
+    cosine >= 0.95 (the flash kernels compute each (row, head) alone, the
+    shards' GEMMs have other shapes; Adam's first update is ``g / (|g| +
+    1e-8)``, so rounding flips the sign of the smallest elements)."""
+    dev = _card()
+    import torch.nn.functional as F
+
+    from mllm_sparse_retrieval_tpu_torch.configs import TrainConfig
+    from mllm_sparse_retrieval_tpu_torch.models import lora, mllm
+    from mllm_sparse_retrieval_tpu_torch.models.llama import LlamaConfig
+    from mllm_sparse_retrieval_tpu_torch.models.mllm import MLLMConfig
+    from mllm_sparse_retrieval_tpu_torch.models.vit import ViTConfig
+    from mllm_sparse_retrieval_tpu_torch.parallel import Sharded, make_mesh
+    from mllm_sparse_retrieval_tpu_torch.train.trainer import (
+        ContrastiveTrainer, TrainBatch)
+
+    arch = MLLMConfig(
+        vision=ViTConfig(image_size=32, patch_size=16, hidden_size=64,
+                         num_layers=2, num_heads=4, feature_layer=-2),
+        text=LlamaConfig(vocab_size=512, hidden_size=512, num_layers=2,
+                         num_heads=4, num_kv_heads=2, intermediate_size=1024,
+                         rope_theta=10000.0),
+        image_token_id=4)
+    params = mllm.init_params(arch, torch.Generator(dev).manual_seed(0),
+                              dev, torch.bfloat16)
+    rng = np.random.default_rng(0)
+    b, t = 4, 1024
+    t_ids = rng.integers(5, 512, size=(b, 16)).astype(np.int32)
+    i_ids = rng.integers(5, 512, size=(b, t)).astype(np.int32)
+    i_ids[:, 1:1 + arch.num_image_tokens] = arch.image_token_id
+    i_mask = np.zeros((b, t), np.int32)
+    for r, n in enumerate((1024, 900, 700, 1024)):
+        i_mask[r, :n] = 1
+    batch = TrainBatch(t_ids, np.ones((b, 16), np.int32), i_ids, i_mask,
+                       rng.normal(size=(b, 32, 32, 3)).astype(np.float32))
+    cfg = TrainConfig(learning_rate=1e-3, tau=0.05, lora_rank=8,
+                      lora_alpha=16, lora_dropout=0.1, remat=True, seed=3)
+    start = lora.init_lora(torch.Generator(dev).manual_seed(1), params,
+                           arch, rank=8, alpha=16, device=dev)
+    for blk in start["text"]["blocks"]:
+        for entry in blk.values():
+            entry["b"].normal_(0.0, 0.01, generator=torch.Generator(
+                dev).manual_seed(2))
+    out = {}
+    for name, mesh in (("one", None),
+                       ("mesh", make_mesh(2, 2, devices=[dev] * 4))):
+        ad = _clone_tree(start)
+        trainer = ContrastiveTrainer(params, arch, ad, cfg, mesh=mesh,
+                                     device=dev)
+        FA.reset_launch_count()
+        loss = trainer.train_on_batch(batch)
+        torch.cuda.synchronize()
+        launches = {k: FA.launch_count(k) for k in FA.KERNELS}
+        update = torch.cat([
+            (x.detach() - y).flatten().float()
+            for x, y in zip(lora.tree_leaves(ad), lora.tree_leaves(start))])
+        grad = torch.cat([(m.gather(dev) if isinstance(m, Sharded) else m)
+                          .flatten().float() for m in trainer.opt_state["mu"]])
+        out[name] = (loss, launches, update, grad)
+    layers = arch.text.num_layers
+    assert out["one"][1] == {"fwd": 2 * layers, "dq": layers, "dkv": layers}
+    assert out["mesh"][1] == {"fwd": 8 * layers, "dq": 4 * layers,
+                              "dkv": 4 * layers}
+    assert abs(out["mesh"][0] - out["one"][0]) <= 2e-3 * abs(out["one"][0])
+    assert float(F.cosine_similarity(out["mesh"][3], out["one"][3],
+                                     dim=0)) >= 0.999
+    assert float(F.cosine_similarity(out["mesh"][2], out["one"][2],
+                                     dim=0)) >= 0.95
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone_tree(v) for v in tree]
+    return tree.detach().clone()

@@ -221,10 +221,13 @@ def test_cli_serve_mesh_refuses_compact48(capsys):
 
 
 def test_encode_search_stats_clis_over_a_mesh(data_root, jax_weights,
-                                              tmp_path, capsys):
+                                              tmp_path, capsys, monkeypatch):
     """Each CLI under ``--mesh`` (a 1x1 mesh of the CPU here) gives its run
     without it; ``--model-parallel 2`` on one device is make_mesh's
-    error; ``cli.train --mesh`` still raises, naming #9b."""
+    error; ``cli.train --mesh`` trains over a mesh
+    (``test_torch_mesh_train.py``) and raises, naming #9c, under a launch
+    of several processes, whose data axis the one-process mesh cannot
+    span."""
     outs = {}
     for tag, flag in (("one", []), ("mesh", ["--mesh"])):
         out = tmp_path / tag
@@ -261,5 +264,6 @@ def test_encode_search_stats_clis_over_a_mesh(data_root, jax_weights,
     args = cli_train.build_parser().parse_args(
         train_args(data_root, "tiny_debug", tmp_path, "--device", "cpu",
                    "--mesh"))
-    with pytest.raises(NotImplementedError, match="#9b"):
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="#9c"):
         cli_train.run(args)

@@ -8,7 +8,9 @@ modules, the search tiers' SQ8, ANN, compact48 and stream modules, and
 the live indexes, the HTTP front ends and the server CLIs, and the
 chat-template families' Qwen2.5-VL, InternVL2.5, tiling and template
 modules, and the training and analysis CLIs with ``data.prep``,
-``eval.statistics`` and ``hostops`` included) imports with JAX blocked (and, Qwen's native
+``eval.statistics`` and ``hostops`` included, and the mesh-training
+modules ``parallel.{fsdp,tp,sp,pp,multihost,dryrun}``) imports with JAX
+blocked (and, Qwen's native
 resolution and InternVL's tiling among them, with Pillow blocked),
 checkpoints convert and load with ``transformers`` and ``safetensors``
 blocked too, and the smoke check refuses to report a result without a
@@ -68,6 +70,10 @@ TRAIN = ("hostops", "cli.train", "cli.prepare_data", "cli.stats",
 # k-bit base weights (QLoRA), the mixture-of-experts FFN, and the meshes
 # of search, encode and serve
 QLORA = ("models.quantization", "parallel", "parallel.ep", "parallel.mesh")
+# training over a mesh: FSDP, tensor, sequence and pipeline parallelism, the
+# process group, the dry run and the sharded loss
+MESH_TRAIN = ("parallel.fsdp", "parallel.tp", "parallel.sp", "parallel.pp",
+              "parallel.multihost", "parallel.dryrun", "train.contrastive")
 
 
 def _env():
@@ -84,7 +90,7 @@ def test_port_and_chip_smoke_import_without_jax():
     assert int(proc.stdout.split()[-1]) >= 20
     imported = set(proc.stdout.splitlines()[-2].split())
     missing = {m for m in OFFLINE + HYBRID + TIERS + LIVE + CHAT + TRAIN
-               + QLORA
+               + QLORA + MESH_TRAIN
                if f"mllm_sparse_retrieval_tpu_torch.{m}" not in imported}
     assert missing == set()
 
@@ -100,7 +106,7 @@ def test_no_import_statement_names_jax_or_the_jax_package():
                if f.is_relative_to(PORT)}
     assert {m.replace(".", "/") + ".py"
             for m in OFFLINE + HYBRID + TIERS + LIVE + CHAT + QLORA
-            if m not in ("index.native", "index", "parallel")} | {
+            + MESH_TRAIN if m not in ("index.native", "index", "parallel")} | {
                 "index/native/__init__.py", "index/__init__.py",
                 "parallel/__init__.py"} <= scanned
     hits = [f"{f}: {m.group(0).strip()}" for f in files
@@ -309,6 +315,21 @@ def test_moe_and_qlora_entry_points_default_to_the_card():
         "cuda"
     args = train.build_parser().parse_args(["--load-kbit", "4"])
     assert (args.device, args.quant_format) == ("cuda", "nf4")
+
+
+def test_mesh_training_entry_points_default_to_the_card():
+    """The dry run and the process group take the card unless asked; the
+    train CLI's ``--mesh`` spans the cards of its ``cuda`` device."""
+    import inspect
+
+    from mllm_sparse_retrieval_tpu_torch.cli import train
+    from mllm_sparse_retrieval_tpu_torch.parallel import dryrun, multihost
+
+    for fn in (dryrun.dryrun_multichip, dryrun.dryrun_devices,
+               multihost.initialize_multihost):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    args = train.build_parser().parse_args(["--mesh"])
+    assert (args.device, args.mesh) == ("cuda", True)
 
 
 def test_qwen_checkpoint_converts_with_jax_and_transformers_blocked(

@@ -290,7 +290,9 @@ def test_trainer_learning_rates_match_optax(tiny):
 
 def test_trainer_refuses_what_is_not_ported(tiny):
     (jparams, jarch, _, _), (params, arch, _, _) = tiny
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # meshes are ported (test_torch_mesh_train.py); a mesh of another kind
+    # (the JAX package's) is refused
+    with pytest.raises(TypeError, match="mesh"):
         ContrastiveTrainer(params, arch, None, TrainConfig(), mesh=object(),
                            device="cpu")
     # k-bit bases are ported (QLoRA, test_torch_quantization.py); a full
