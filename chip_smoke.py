@@ -24,8 +24,16 @@ written as a Hugging Face llava_next checkpoint (bf16 safetensors shards
 in the hub's key layout, kept in RAM, an index, ``config.json`` and the
 committed Llama-3-layout ``tokenizer.json`` fixture, ``<image>`` at the
 arch's id), converted by ``models.convert.convert_hf_dir`` and loaded by
-``build_model``, every tensor bit-equal to the drawn one and the tokenizer
-read by the port's ``tokenizer.json`` reader. On that converted directory
+``build_model``, every tensor
+bit-equal to the drawn one and the tokenizer read by the port's
+``tokenizer.json`` reader. While it converts, two child processes of this
+script train across processes on the same card (``MultiprocessTrain``):
+joined over ``gloo``, each draws the same full-width weights, and the first
+LoRA step over a data axis of the two (2 of 4 pairs each, the 3,072-token
+image prompts through the flash kernels forward and backward) is held to
+the unsharded step on the same batch, then an FSDP full finetune of a
+2-block copy over the two processes to its no-grad forward. On that
+converted directory
 the files phase runs the reference's job from real files with no Pillow
 or ``transformers``: the committed JPEG fixtures (the eight served sizes,
 baseline and progressive, 4:2:0 and 4:4:4) decoded by the port's own
@@ -33,7 +41,10 @@ codec to the SHA-256 of Pillow's decode pinned beside them, the reader's
 ids equal to ``transformers``' pinned ids, then ``cli.encode`` of a
 flickr-layout corpus of those JPEGs and PNGs written here (the flash
 kernel), ``cli.index`` and ``cli.search`` (the TAAT kernel, its sparse
-scores equal to the matmul backend's) through their ``main(argv)``, and
+scores equal to the matmul backend's) through their ``main(argv)``, the
+same with text through a copy of the directory that ships only a
+sentencepiece ``tokenizer.model`` (the committed Llama-2-shaped fixture,
+its ids equal to ``transformers``' pinned ids), and
 ``image_b64`` queries over HTTP equal to the service's in-process results
 on the decoded pixels. It drives the
 port's five paths end to end on that loaded model: text
@@ -43,7 +54,7 @@ queries through anyres preprocessing, the 24-layer ViT-L/14-336 on five
 the flash kernel (both paths select terms on the device and score an impact
 index of 25,010 synthetic docs with the TAAT kernel; every served result
 must equal the matmul backend's on the same terms); offline evaluation, a
-flickr-layout CSV of 40 seeded images and 200 captions read by
+flickr-layout CSV of 24 seeded images and 120 captions read by
 ``CrossModalCorpus``, encoded by ``encode_examples`` as documents and as
 queries (the image prompts take the flash kernel), written as artifacts,
 indexed by both impact-index builders (layouts equal) and the dense flat
@@ -88,7 +99,8 @@ training, a few ``ContrastiveTrainer.train_on_batch`` steps on seeded
 image-caption pairs whose 3,072-token image prompts take the flash kernels
 forward and backward. The whole tower is also run, and differentiated,
 with the flash kernels and with plain attention, and the two compared.
-Last, LLaVA-1.6-Vicuna-7B (anyres, the flash kernel at G = 1) and
+Beside the checkpoint's conversion (after the two processes' training),
+LLaVA-1.6-Vicuna-7B (anyres, the flash kernel at G = 1) and
 LLaVA-1.5-7B (fixed 336 px grid, prompts short enough for plain
 attention) are drawn at full width, one after the other, and serve 8 text
 and 8 image queries each, every result equal to the matmul backend's; and
@@ -122,11 +134,12 @@ on the same LLaVA-NeXT-Llama3-8B: the base quantized on the card to nf4
 (one decoder block byte-equal to the CPU's), ``cli.train.run --load-kbit 4
 --quant-format nf4`` for two steps (flash forward and backward, the base
 dequantized per use), the flash-vs-plain gradient check on that base, and
-8 images encoded over the quantized tree and over its dequantized copy;
-then a mixture-of-experts decoder at Mixtral-8x7B's published widths (2 of
-its 32 layers): ``moe_ffn`` on 4,096 tokens held to a float64 per-token
-reference, and ``llama.apply`` forward and backward through the flash
-kernels against plain attention.
+8 images encoded over the quantized tree and over its dequantized copy.
+Beside the conversion too, before the other families: a mixture-of-experts
+decoder at Mixtral-8x7B's published widths (2 of its 32 layers):
+``moe_ffn`` on 4,096 tokens held to a float64 per-token reference, and
+``llama.apply`` forward and backward through the flash kernels against
+plain attention.
 
 Each phase prints one progress line with the seconds since start. The last
 lines are a JSON object describing the kernels, the card's name and power
@@ -234,6 +247,31 @@ FSDP_SHARDS, FSDP_LAYERS = 4, 2
 SP_MODEL, SP_LAYERS, SP_B, SP_REL, SP_COS = 4, 2, 2, 2.0 ** -5, 0.999
 PP_STAGES, PP_PER_STAGE, PP_B, PP_T, PP_MICRO = 4, 2, 8, 64, 4
 PP_GRAD_COS, DRYRUN_DEVICES = 0.99, 8
+# training across processes (slice 17), while the checkpoint converts (host
+# and disk work, the parent's drawn tree released): MP_PROCESSES children
+# of this script on the one card, joined over gloo (NCCL refuses two ranks
+# on one card), each on a 1x1 local mesh, the global data axis
+# MP_PROCESSES. Each draws the full-width, full-depth LLaVA-NeXT-Llama3-8B
+# from SEED on the card (the checksums of MP_LEAVES equal the parent's
+# drawn tree's) and the training phase's LoRA adapters, and runs a LoRA
+# step with its rows (TRAIN_B / MP_PROCESSES pairs) of a seeded batch,
+# held as the mesh phase's (a) holds its step (to rank 0's unsharded step
+# on the same batch), then an FSDP full finetune of the FSDP_LAYERS-block
+# copy over the processes, held as its (b); the children die with the
+# phase (MP_TIMEOUT_S from their start)
+MP_PROCESSES, MP_TIMEOUT_S = 2, 420
+# the conversion runs in a child process beside the card's work
+# (``python -c CONVERT_CHILD HF_DIR OUT_DIR``), which prints its own seconds
+CONVERT_TIMEOUT_S = 600
+CONVERT_CHILD = ("import sys, time\n"
+                 "from mllm_sparse_retrieval_tpu_torch.models.convert import "
+                 "convert_hf_dir\n"
+                 "t0 = time.monotonic()\n"
+                 "convert_hf_dir(sys.argv[1], sys.argv[2])\n"
+                 "print('convert_hf_dir_s', time.monotonic() - t0)\n")
+MP_LEAVES = (("text", "embed"), ("text", "blocks", 0, "q", "w"),
+             ("text", "blocks", -1, "o", "w"), ("text", "lm_head", "w"),
+             ("projector", "fc1", "w"), ("image_newline",))
 # QLoRA, after the training phase on the same full-width model: the base
 # quantized on the card to QLORA_BITS-bit QLORA_FORMAT (one decoder block
 # byte-equal to the CPU's quantization), cli.train.run --load-kbit for
@@ -281,7 +319,9 @@ GRAD_CHECK_B, GRAD_COS_FLOOR = 2, 0.996
 # batch OFF_BATCH as documents and as queries, searched both ways at depth
 # OFF_DEPTH. Dense scores must lie within OFF_DENSE_TOL of a float64 product
 # of the same f32 vectors (the card sums 4,096 products in f32, TF32 off)
-OFF_IMAGES, OFF_CAPS, OFF_BATCH, OFF_DEPTH = 40, 5, 8, 100
+# (OFF_IMAGES was 64, then 40 until the two-process phase came: 24 images,
+# 3 batches, pay for the files phase's `tokenizer.model` leg)
+OFF_IMAGES, OFF_CAPS, OFF_BATCH, OFF_DEPTH = 24, 5, 8, 100
 OFF_KS, OFF_DENSE_TOL, OFF_ALPHA = (1, 5, 10, 100), 1e-5, 0.5
 # hybrid serving: a dense flat index of the impact index's N_DOCS doc ids at
 # the model's dense width (4,096), f32 (and one bf16 pass); per served query
@@ -1072,13 +1112,17 @@ def profiled(fn, by_name=(), stages=STAGES):
     ``by_name``). A stage's time is that of the kernels that start inside
     the device-side spans of its ``record_function`` ranges: the flash
     kernels, launched through ctypes outside any aten op, are linked to no
-    CPU-side range but run inside the ``attention`` spans."""
+    CPU-side range but run inside the ``attention`` spans. Without
+    ``stages`` the profiler records the card alone (no CPU-side ops: a
+    training step's ~200,000 of them made its profiled step 8x slower)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if stages:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     spans, kernels = [], []
@@ -2020,6 +2064,13 @@ def hybrid_breakdown(dense, index, cmap, enc):
 
     ms = host_ms(search, 20)
     busy, n, stage, _ = profiled_again(search, stages=HYB_STAGES)
+    if min(stage.values()) <= 0.0:
+        # CUPTI may miss a ctypes launch (one run of this script on an H100
+        # saw the TAAT kernel in the text breakdown and none in the
+        # impact_search range here): profile the call once more
+        progress("hybrid", f"the profiler saw no device time in a range "
+                 f"({stage}); profiling the call again")
+        busy, n, stage, _ = profiled(search, stages=HYB_STAGES)
     if busy <= 0.0 or min(stage.values()) <= 0.0:
         raise AssertionError(f"the profiler saw no device time in a hybrid "
                              f"range: {stage}")
@@ -3850,9 +3901,11 @@ def ram_file(directory, name):
     linked into the directory by name through ``/proc``. Closing it frees
     them. The converter's f32 ``params.pkl`` alone is 33.4 GB; keeping the
     16.7 GB of bf16 shards it reads in RAM holds the script's disk writes
-    under 45 GiB, a per-run cap some card hosts set."""
+    under 45 GiB, a per-run cap some card hosts set. The link goes through
+    ``/proc/self``, so a child process that inherits the descriptor
+    (``pass_fds``) reads the file by the same name."""
     fd = os.memfd_create(name)
-    os.symlink(f"/proc/{os.getpid()}/fd/{fd}", os.path.join(directory, name))
+    os.symlink(f"/proc/self/fd/{fd}", os.path.join(directory, name))
     return os.fdopen(fd, "w+b")
 
 
@@ -4384,6 +4437,9 @@ def phase_files(ckpt_dir, params, arch, tok, tmpl, card):
                  f"equal to the matmul backend's on the same encoded "
                  f"queries; {n_trec} sparse run lines")
 
+        # ---- a checkpoint that ships only tokenizer.model ----------------
+        spm_leg(ckpt_dir, tmp, common, card)
+
         # ---- image_b64 over HTTP against the service in process ----------
         corpus = CrossModalCorpus("flickr", "test", root)
         sparse_cfg = SparseConfig()
@@ -4464,17 +4520,139 @@ def phase_files(ckpt_dir, params, arch, tok, tmpl, card):
     return taat, flash
 
 
-def phase_checkpoint(spec, card):
+def spm_leg(ckpt_dir, tmp, common, card):
+    """The files phase's checkpoint that ships a sentencepiece
+    ``tokenizer.model`` alone (the original Vicuna and LLaVA repositories):
+    a copy of the converted directory with the committed Llama-2-shaped
+    ``llama2_spm/`` files and no ``tokenizer.json`` (``params.pkl`` linked,
+    not copied). The reader's ids of the pinned texts equal
+    ``transformers``' pinned ones; ``cli.encode --encode-type text`` and
+    ``cli.search`` run through the copy, every TAAT score equal to the
+    matmul backend's on the same encoded queries."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    from mllm_sparse_retrieval_tpu_torch.cli import encode as cli_encode
+    from mllm_sparse_retrieval_tpu_torch.cli import index as cli_index
+    from mllm_sparse_retrieval_tpu_torch.cli import search as cli_search
+    from mllm_sparse_retrieval_tpu_torch.index import ImpactIndex
+    from mllm_sparse_retrieval_tpu_torch.models.hf_tokenizer import (
+        HFJsonTokenizer)
+    from mllm_sparse_retrieval_tpu_torch.ops import impact_kernel as K
+
+    spm_dir = os.path.join(tmp, "spm_ckpt")
+    os.makedirs(spm_dir)
+    os.symlink(os.path.join(ckpt_dir, "params.pkl"),
+               os.path.join(spm_dir, "params.pkl"))
+    shutil.copyfile(os.path.join(ckpt_dir, "arch.json"),
+                    os.path.join(spm_dir, "arch.json"))
+    for name in ("tokenizer.model", "tokenizer_config.json"):
+        shutil.copyfile(os.path.join(FIXTURES, "llama2_spm", name),
+                        os.path.join(spm_dir, name))
+    t0 = time.perf_counter()
+    tok = HFJsonTokenizer.from_dir(spm_dir)
+    read_s = time.perf_counter() - t0
+    with open(os.path.join(FIXTURES, "spm_ids.json")) as f:
+        pinned = json.load(f)
+    bad = [t for t, with_sp, without in pinned["texts"]
+           if tok.encode(t) != with_sp
+           or tok.encode(t, add_special_tokens=False) != without]
+    if bad or tok.vocab_size != pinned["vocab_size"]:
+        raise AssertionError(f"tokenizer.model reader: {len(bad)} texts "
+                             f"differ from the pinned ids ({bad[:2]}), "
+                             f"vocab {tok.vocab_size}")
+    spm_common = list(common)
+    spm_common[spm_common.index("--checkpoint-path") + 1] = spm_dir
+    out = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        cli_encode.main(spm_common + [
+            "--encode-type", "text",
+            "--dense-output-dir", os.path.join(tmp, "spm_dense"),
+            "--sparse-output-dir", os.path.join(tmp, "spm_sparse")])
+    encode_s = time.monotonic() - t0
+    _, sparse_dir = out.getvalue().split()[-2:]
+    gc.collect()
+    torch.cuda.empty_cache()
+    with open(os.path.join(sparse_dir, "corpus_0.jsonl")) as f:
+        docs = [json.loads(ln) for ln in f]
+    if not docs or not all(d["vector"] for d in docs):
+        raise AssertionError(f"cli.encode through tokenizer.model: "
+                             f"{len(docs)} docs, empty vectors among them")
+    idx_dir = os.path.join(tmp, "spm_idx")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli_index.main(["--input", sparse_dir, "--index", idx_dir,
+                        "--device", DEVICE])
+    recorded = []
+    real_search = ImpactIndex.search_encoded
+
+    def recording_search(self, q_idx, q_w, depth, *a, **k):
+        res = real_search(self, q_idx, q_w, depth, *a, **k)
+        recorded.append((self, q_idx, q_w, depth, res))
+        return res
+
+    taat0 = K.launch_count()
+    ImpactIndex.search_encoded = recording_search
+    t0 = time.monotonic()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli_search.main(spm_common + [
+                "--query-type", "text", "--sparse-index", idx_dir,
+                "--depth", str(DEPTH), "--impact-backend", "taat"])
+    finally:
+        ImpactIndex.search_encoded = real_search
+    search_s = time.monotonic() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    taat = K.launch_count() - taat0
+    if taat < 1 or len(recorded) != 1:
+        raise AssertionError(f"cli.search through tokenizer.model: {taat} "
+                             f"TAAT launches, {len(recorded)} searches")
+    index, q_idx, q_w, depth, (s_scores, s_ids) = recorded[0]
+    ref_s, ref_i = index.search_encoded(q_idx, q_w, depth, backend="matmul")
+    hits = 0
+    for q, (s_row, i_row, rs, ri) in enumerate(zip(s_scores, s_ids, ref_s,
+                                                   ref_i)):
+        hits += sum(1 for x in s_row if x > 0)
+        if not same_up_to_ties(list(zip(i_row, s_row)), list(zip(ri, rs))):
+            raise AssertionError(f"tokenizer.model cli.search query {q}: "
+                                 f"taat {list(zip(i_row, s_row))} != matmul "
+                                 f"{list(zip(ri, rs))}")
+    if not hits:
+        raise AssertionError("tokenizer.model cli.search scored no doc")
+    progress("files", f"tokenizer.model alone ({spm_dir}: the converted "
+             f"params.pkl linked, the committed Llama-2-shaped sentencepiece "
+             f"model and Vicuna's tokenizer_config.json, no tokenizer.json): "
+             f"read and converted in {read_s:.2f} s, vocab {tok.vocab_size},"
+             f" {len(pinned['texts'])} pinned texts give transformers' ids;"
+             f" cli.encode --encode-type text {encode_s:.2f} s ({len(docs)} "
+             f"caption docs, every vector non-empty), cli.index, cli.search "
+             f"--query-type text {search_s:.2f} s (each with the checkpoint "
+             f"load): {len(s_scores)} queries, {taat} TAAT launch(es), "
+             f"{hits} positive scores, every sparse score equal to the "
+             f"matmul backend's; card {card}")
+
+
+def phase_checkpoint(spec, card, multi_train, beside):
     """The main path's model from a checkpoint: LLaVA-NeXT-Llama3-8B drawn
     at full width and depth on the card (bf16), written as an HF llava_next
     checkpoint with the committed Llama-3-layout tokenizer files (its
     shards in RAM, ``ram_file``; the f32 ``params.pkl`` on disk), converted
     by ``convert_hf_dir`` and loaded by ``build_model``; every loaded
     tensor equal to its drawn one bit for bit, the manifest's arch equal to
-    the registry's, the tokenizer read from its ``tokenizer.json``. Then,
-    before the converted directory goes, ``phase_files`` on it. Returns
-    ``(params, arch, files)``: the loaded tree and ``phase_files``'
-    result."""
+    the registry's, the tokenizer read from its ``tokenizer.json``. While
+    ``convert_hf_dir`` runs in a process of its own (host and disk work;
+    the drawn tree released), ``multi_train`` (a ``MultiprocessTrain``)
+    trains across two processes on the card, its children drawing the same
+    weights (the checksums of MP_LEAVES held to the drawn tree's), and
+    then ``beside()`` runs. Then, before the converted directory goes,
+    ``phase_files`` on it. Returns ``(params, arch, files, multi, side)``:
+    the loaded tree, ``phase_files``' result, the children's flash
+    launches and ``beside()``'s result."""
+    import contextlib
     import resource
     import shutil
     import tempfile
@@ -4491,12 +4669,14 @@ def phase_checkpoint(spec, card):
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     drawn = mllm.init_params(spec.arch, gen, DEVICE, torch.bfloat16)
     want = checksums(drawn)
+    multi_train.want_sums = leaf_sums(drawn)
     config = hf_config(spec.arch)
     if arch_from_hf_config(config) != spec.arch:
         raise AssertionError("the written config.json does not give the "
                              "registry's arch")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
-    shards = []
+    shards, conv = [], None
+    stack = contextlib.ExitStack()
     try:
         hf_dir, out_dir = os.path.join(tmp, "hf"), os.path.join(tmp, "conv")
         os.makedirs(hf_dir)
@@ -4515,12 +4695,34 @@ def phase_checkpoint(spec, card):
                  f"shards (in RAM, linked by name), {written / 1e9:.3f} GB "
                  f"in {write_s:.2f} s, and the tokenizer files "
                  f"{', '.join(tok_files)}")
+        multi_train.start()
         t0 = time.monotonic()
-        convert_hf_dir(hf_dir, out_dir)
-        convert_s = time.monotonic() - t0
+        conv_log = stack.enter_context(
+            open(os.path.join(tmp, "convert.log"), "w+"))
+        here = os.path.dirname(os.path.abspath(__file__))
+        conv = subprocess.Popen(
+            [sys.executable, "-c", CONVERT_CHILD, hf_dir, out_dir],
+            env=dict(os.environ, PYTHONPATH=here + os.pathsep
+                     + os.environ.get("PYTHONPATH", "")), cwd=here,
+            stdout=conv_log, stderr=subprocess.STDOUT,
+            pass_fds=[f.fileno() for f in shards])
+        multi = multi_train.finish()
+        side = beside()
+        t_wait = time.monotonic()
+        code = conv.wait(timeout=CONVERT_TIMEOUT_S)
+        waited = time.monotonic() - t_wait
+        conv_log.seek(0)
+        out = conv_log.read()
+        if code != 0:
+            raise AssertionError(f"convert_hf_dir exited {code}:\n"
+                                 f"{out[-4000:]}")
+        convert_s = float(out.split("convert_hf_dir_s")[-1])
         pkl_bytes = os.path.getsize(os.path.join(out_dir, "params.pkl"))
-        progress("checkpoint", f"convert_hf_dir {convert_s:.2f} s: "
-                 f"params.pkl {pkl_bytes / 1e9:.3f} GB f32 on disk")
+        progress("checkpoint", f"convert_hf_dir {convert_s:.2f} s in a "
+                 f"process of its own, beside the phases above ("
+                 f"{time.monotonic() - t0:.2f} s from its start to the "
+                 f"phases' end and its own, {waited:.2f} s of it waited for "
+                 f"it): params.pkl {pkl_bytes / 1e9:.3f} GB f32 on disk")
         split_gb, split = pickle_split(hf_dir, tmp)
         progress("checkpoint", f"pickling {split_gb:.3f} GB of f32 ("
                  f"{PICKLE_SPLIT_LAYERS} decoder blocks): _TreePickler to "
@@ -4541,6 +4743,11 @@ def phase_checkpoint(spec, card):
             raise AssertionError(f"the checkpoint's tokenizer: {tok}")
         files = phase_files(out_dir, params, arch, tok, tmpl, card)
     finally:
+        multi_train.stop()
+        if conv is not None and conv.poll() is None:
+            conv.kill()
+            conv.wait()
+        stack.close()
         for f in shards:
             f.close()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4559,7 +4766,7 @@ def phase_checkpoint(spec, card):
              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB; all "
              f"{len(got)} loaded tensors equal the drawn ones bit for bit, "
              f"arch equal to the registry's; card {card}")
-    return params, arch, files
+    return params, arch, files, multi, side
 
 
 def phase_families(tok, tmpl, lexicon, index, cmap, card):
@@ -5365,6 +5572,376 @@ def phase_mesh_train(params, arch, batches, step0, card):
     return total, dry_taat
 
 
+def leaf_sums(params):
+    """``checksums`` of the MP_LEAVES the tree has, keyed by their paths."""
+    picked = {}
+    for path in MP_LEAVES:
+        node = params
+        for k in path:
+            node = node.get(k) if isinstance(node, dict) else node[k]
+            if node is None:
+                break
+        if node is not None:
+            picked[repr(path)] = node
+    return {p: v for p, v in checksums(picked).items()}
+
+
+def multiprocess_batch(tok, tmpl, arch):
+    """The two-process phase's batch: TRAIN_B seeded image-caption pairs
+    collated as the training phase collates its own (image prompts on the
+    flash route), from a seed of their own."""
+    import numpy as np
+
+    from mllm_sparse_retrieval_tpu_torch.data.karpathy import Example
+    from mllm_sparse_retrieval_tpu_torch.train.trainer import make_collator
+
+    rng = np.random.default_rng(SEED + 40)
+    lexicon = synthetic_lexicon(rng, 2000)
+    raw = {f"i{i}": rng.integers(0, 256, size=IMAGE_SIZES[(3 * i) % len(
+        IMAGE_SIZES)] + (3,), dtype=np.uint8).astype(np.float32) / 255.0
+        for i in range(TRAIN_B)}
+    examples = [Example(c, f"/nonexistent/mp_{i}.jpg", f"t{i}", f"i{i}")
+                for i, c in enumerate(captions(rng, lexicon, TRAIN_B, 8, 14))]
+    return make_collator(tok, tmpl, arch,
+                         pixel_loader=lambda e: raw[e.img_id])(examples)
+
+
+class MultiprocessTrain:
+    """Training across processes on the one card (MP_PROCESSES's comment),
+    run while the checkpoint phase converts (the card idle, the parent's
+    drawn tree released): ``start`` writes the children's inputs and
+    starts them (``train_child``); ``finish`` waits for them, prints their
+    lines and holds their numbers to the gates. A child that fails fails
+    the phase, and no child outlives it."""
+
+    def __init__(self, draw_arch, arch, batch, card):
+        self.draw_arch, self.arch, self.batch = draw_arch, arch, batch
+        self.card, self.want_sums = card, None
+        self.procs, self.logs, self.work, self.t0 = [], [], None, None
+
+    def start(self):
+        import socket
+        import tempfile
+
+        import torch
+
+        self.t0 = time.monotonic()
+        self.work = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+        torch.save({"draw_arch": self.draw_arch, "arch": self.arch,
+                    "batch": self.batch, "device": DEVICE},
+                   os.path.join(self.work, "inputs.pt"))
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        here = os.path.dirname(os.path.abspath(__file__))
+        # one CPU thread each: the card does their work, and the
+        # conversion beside them is host work
+        env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=here
+                   + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        for rank in range(MP_PROCESSES):
+            self.logs.append(os.path.join(self.work, f"rank{rank}.log"))
+            with open(self.logs[rank], "w") as log:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--train-child", str(rank), str(port), self.work],
+                    env=env, cwd=here, stdout=log,
+                    stderr=subprocess.STDOUT))
+        progress("multiprocess", f"{MP_PROCESSES} children started on "
+                 f"{DEVICE} (gloo), beside the checkpoint conversion")
+
+    def stop(self):
+        """Kill the children still running."""
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    def finish(self):
+        """Returns the children's flash launches by kernel."""
+        import shutil
+
+        import numpy as np
+        import torch
+
+        from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
+
+        t_wait = time.monotonic()
+        deadline = self.t0 + MP_TIMEOUT_S
+        try:
+            # a child that fails ends the phase at once (the others would
+            # wait for it in a collective until the deadline)
+            while any(p.poll() is None for p in self.procs) and \
+                    all(p.poll() in (None, 0) for p in self.procs) and \
+                    time.monotonic() < deadline:
+                time.sleep(0.5)
+            codes = [p.poll() for p in self.procs]
+        finally:
+            self.stop()
+        waited = time.monotonic() - t_wait
+        for log in self.logs:
+            with open(log) as f:
+                for line in f:
+                    if line.startswith("[child"):
+                        print(line.rstrip(), flush=True)
+        if codes != [0] * MP_PROCESSES:
+            tails = []
+            for rank, log in enumerate(self.logs):
+                with open(log) as f:
+                    tails.append(f"child {rank} ({codes[rank]}):\n"
+                                 + f.read()[-3000:])
+            raise AssertionError(f"the children did not all exit 0 within "
+                                 f"{MP_TIMEOUT_S} s: {codes}\n"
+                                 + "\n".join(tails))
+        res = [torch.load(os.path.join(self.work, f"rank{r}.pt"),
+                          weights_only=False) for r in range(MP_PROCESSES)]
+        shutil.rmtree(self.work, ignore_errors=True)
+        wall = time.monotonic() - self.t0
+        layers = self.arch.text.num_layers
+        r0 = res[0]
+        want = {"fwd": 2 * layers, "dq": layers, "dkv": layers}
+        launches = dict.fromkeys(FA.KERNELS, 0)
+        for r in res:
+            for k in FA.KERNELS:
+                launches[k] += r["launched"][k] + r["fsdp_launched"][k]
+        same = all(r["sums"] == self.want_sums for r in res)
+        losses = [r["loss"] for r in res]
+        rel = abs(r0["loss"] - r0["loss0"]) / abs(r0["loss0"])
+        fsdp_rel = abs(r0["fsdp_loss"] - r0["ref_loss"]) / abs(
+            r0["ref_loss"])
+        for r in res:
+            progress("multiprocess", f"rank {r['rank']} of {MP_PROCESSES} "
+                     f"(gloo, {r['device']}): weights drawn on the card in "
+                     f"{r['draw_s']:.2f} s, checksums of {len(r['sums'])} "
+                     f"leaves {'equal' if r['sums'] == self.want_sums else 'DIFFER from'}"
+                     f" the parent's; LoRA step on {r['rows']} of {TRAIN_B} "
+                     f"pairs: loss {r['loss']:.6f}, {r['ms']:.1f} ms host "
+                     f"clock, collectives {r['coll_ms']:.1f} ms host clock "
+                     f"in {r['coll_n']} calls ({r['coll']}), peak "
+                     f"{r['peak_gb']:.2f} GB, flash launches {r['launched']};"
+                     f" FSDP leg loss {r['fsdp_loss']:.6f}, "
+                     f"{r['fsdp_ms']:.1f} ms, collectives "
+                     f"{r['fsdp_coll_ms']:.1f} ms in {r['fsdp_coll_n']} "
+                     f"calls, peak {r['fsdp_peak_gb']:.2f} GB, flash "
+                     f"launches {r['fsdp_launched']}")
+        progress("multiprocess", f"{MP_PROCESSES} processes on {self.card},"
+                 f" a 1x1 local mesh each, global data axis "
+                 f"{r0['data_size']} (ZeRO-1: {r0['split']} of "
+                 f"{r0['n_moments']} moments split over it); the LoRA step "
+                 f"from rank 0's unsharded step 0 on the same batch and "
+                 f"adapters (one process, {r0['ms0']:.1f} ms, before the "
+                 f"others stepped): loss {r0['loss']:.6f} against "
+                 f"{r0['loss0']:.6f} (relative {rel:.3g}, tolerance "
+                 f"{MESH_TRAIN_LOSS_REL}); gradient cosine (Adam's first "
+                 f"moment, float64) {r0['gcos']:.6f} (floor "
+                 f"{GRAD_COS_FLOOR}); update cosine {r0['cos']:.6f} (floor "
+                 f"{MESH_TRAIN_COS}), norms {r0['upd_norm']:.5g} / "
+                 f"{r0['upd0_norm']:.5g}; FSDP over the processes "
+                 f"({r0['fsdp_split']} leaves split, {FSDP_LAYERS}-block "
+                 f"copy): loss {r0['fsdp_loss']:.6f} against its no-grad "
+                 f"forward {r0['ref_loss']:.6f} (relative {fsdp_rel:.3g}), "
+                 f"split leaves moved by up to {r0['moved']:.3g}; phase "
+                 f"{wall:.1f} s from the children's start, {waited:.1f} s "
+                 f"of it the parent's wait for them beside the conversion")
+        if not same or len(set(losses)) != 1 or \
+                rel > MESH_TRAIN_LOSS_REL or \
+                not r0["gcos"] >= GRAD_COS_FLOOR or \
+                not r0["cos"] >= MESH_TRAIN_COS or \
+                any(r["launched"] != want for r in res) or \
+                not r0["split"] or fsdp_rel > MESH_TRAIN_LOSS_REL or \
+                not r0["moved"] > 0 or not r0["fsdp_split"] or \
+                not np.isfinite(r0["loss"]):
+            raise AssertionError(
+                f"across processes: checksums equal {same}, losses {losses}"
+                f" vs {r0['loss0']}, gradient cosine {r0['gcos']}, update "
+                f"cosine {r0['cos']}, launches "
+                f"{[r['launched'] for r in res]} (want {want}), "
+                f"{r0['split']} split moments, FSDP {r0['fsdp_loss']} vs "
+                f"{r0['ref_loss']} moved {r0['moved']}")
+        return launches
+
+
+def train_child(rank, port, work):
+    """One process of ``MultiprocessTrain``: joins the gloo group, draws
+    the weights from SEED and LoRA adapters from SEED + 5, and runs the
+    LoRA step and the FSDP leg with its rows of the batch. Rank 0 first
+    runs the unsharded step on the whole batch from the same adapters (the
+    others wait at a barrier) and holds the two-process step to it. Writes
+    its numbers to ``work/rank<rank>.pt``; prints ``[child r]`` lines."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from mllm_sparse_retrieval_tpu_torch.configs import RepsLoc, TrainConfig
+    from mllm_sparse_retrieval_tpu_torch.models import lora, mllm
+    from mllm_sparse_retrieval_tpu_torch.models.api import encode_any
+    from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
+    from mllm_sparse_retrieval_tpu_torch.parallel import (
+        Sharded, make_mesh, multihost)
+    from mllm_sparse_retrieval_tpu_torch.parallel.fsdp import (
+        assert_fsdp_sharded)
+    from mllm_sparse_retrieval_tpu_torch.train.contrastive import (
+        info_nce_loss)
+    from mllm_sparse_retrieval_tpu_torch.train.trainer import (
+        ContrastiveTrainer)
+
+    def say(msg):
+        print(f"[child {rank} {time.monotonic() - T0:8.2f}s] {msg}",
+              flush=True)
+
+    inputs = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
+    arch, batch0, device = inputs["arch"], inputs["batch"], inputs["device"]
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def empty_cache():
+        if cuda:
+            torch.cuda.empty_cache()
+
+    multihost.initialize_multihost(f"localhost:{port}", MP_PROCESSES, rank,
+                                   device=device, backend="gloo")
+    t0 = time.monotonic()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = mllm.init_params(inputs["draw_arch"], gen, device,
+                              torch.bfloat16)
+    sums = leaf_sums(params)
+    start = lora.init_lora(torch.Generator(device=device).manual_seed(
+        SEED + 5), params, arch, rank=LORA_RANK, alpha=LORA_ALPHA,
+        device=device)
+    sync()
+    draw_s = time.monotonic() - t0
+    say(f"joined the gloo group; weights and adapters drawn in "
+        f"{draw_s:.2f} s")
+
+    # the collectives, timed on the host clock (the card synchronised
+    # around each, so the time is the collective's own)
+    timed = {"ms": 0.0, "n": 0, "by": {}}
+
+    def timing(name, fn):
+        def wrapped(*a, **k):
+            sync()
+            t = time.monotonic()
+            out = fn(*a, **k)
+            sync()
+            timed["ms"] += (time.monotonic() - t) * 1e3
+            timed["n"] += 1
+            timed["by"][name] = timed["by"].get(name, 0) + 1
+            return out
+        return wrapped
+
+    for name in ("all_gather_rows", "all_reduce_", "all_gather_each",
+                 "global_sum"):
+        setattr(multihost, name, timing(name, getattr(multihost, name)))
+
+    def run(trainer):
+        timed.update(ms=0.0, n=0, by={})
+        FA.reset_launch_count()
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t = time.monotonic()
+        loss = trainer.train_on_batch(batch0)
+        sync()
+        return (loss, (time.monotonic() - t) * 1e3,
+                {k: FA.launch_count(k) for k in FA.KERNELS},
+                torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0,
+                timed["ms"], timed["n"], dict(timed["by"]))
+
+    def flat(tensors):
+        return torch.cat([(x.gather(device) if isinstance(x, Sharded) else x)
+                          .detach().flatten().double() for x in tensors])
+
+    cfg = TrainConfig(learning_rate=TRAIN_LR, tau=TAU, lora_rank=LORA_RANK,
+                      lora_alpha=LORA_ALPHA, lora_dropout=LORA_DROPOUT,
+                      remat=True, seed=SEED)
+    start_flat = flat(lora.tree_leaves(start))
+    out = {}
+    if rank == 0:               # step 0, unsharded, in this process alone
+        ad = clone_tree(start)
+        ref = ContrastiveTrainer(params, arch, ad, cfg, device=device)
+        loss0, ms0, launched0, _, _, _, _ = run(ref)
+        after0 = flat(lora.tree_leaves(ad)) - start_flat
+        mu0 = flat(ref.opt_state["mu"])
+        say(f"unsharded step 0: loss {loss0:.6f}, {ms0:.1f} ms, flash "
+            f"{launched0}")
+        del ref, ad
+        empty_cache()
+    multihost.barrier()
+
+    mesh = make_mesh(devices=[device])
+    adapters = clone_tree(start)
+    trainer = ContrastiveTrainer(params, arch, adapters, cfg, mesh=mesh,
+                                 device=device)
+    split = sum(isinstance(m, Sharded) for m in trainer.opt_state["mu"])
+    loss, ms, launched, peak, coll_ms, coll_n, coll = run(trainer)
+    mu = flat(trainer.opt_state["mu"])        # gathered: every rank calls
+    out.update(rank=rank, device=str(mesh.lead), data_size=mesh.data_size,
+               rows=batch0.text_ids.shape[0] // mesh.data_size, sums=sums,
+               draw_s=draw_s, loss=loss, ms=ms, launched=launched,
+               peak_gb=peak, coll_ms=coll_ms, coll_n=coll_n, coll=coll,
+               split=split, n_moments=len(trainer.opt_state["mu"]))
+    if rank == 0:
+        upd = flat(lora.tree_leaves(adapters)) - start_flat
+        out.update(loss0=loss0, ms0=ms0,
+                   gcos=float(F.cosine_similarity(mu, mu0, dim=0)),
+                   cos=float(F.cosine_similarity(upd, after0, dim=0)),
+                   upd_norm=float(upd.norm()), upd0_norm=float(after0.norm()))
+        del upd, after0, mu0
+    say(f"LoRA step: loss {loss:.6f}, {ms:.1f} ms, flash {launched}")
+    del trainer, adapters, mu, start
+    gc.collect()
+    empty_cache()
+
+    # FSDP full finetune of the cut copy over the processes
+    cut = dict(params)
+    cut["text"] = dict(params["text"],
+                       blocks=params["text"]["blocks"][:FSDP_LAYERS])
+    del params
+    gc.collect()
+    empty_cache()
+    arch_cut = dataclasses.replace(arch, text=dataclasses.replace(
+        arch.text, num_layers=FSDP_LAYERS))
+
+    def put(a, dtype=None):
+        return torch.from_numpy(a).to(device, dtype)
+
+    px = ({k: put(v) for k, v in batch0.pixels.items()}
+          if isinstance(batch0.pixels, dict) else put(batch0.pixels))
+    with torch.no_grad():
+        _, t_emb = encode_any(cut, arch_cut, put(batch0.text_ids, torch.long),
+                              put(batch0.text_mask), None, RepsLoc.BEFORE_PAD)
+        _, i_emb = encode_any(cut, arch_cut,
+                              put(batch0.image_ids, torch.long),
+                              put(batch0.image_mask), px, RepsLoc.BEFORE_PAD)
+        ref_loss = float(info_nce_loss(t_emb, i_emb, TAU))
+    del t_emb, i_emb, px
+    fcfg = TrainConfig(learning_rate=TRAIN_LR, tau=TAU, train_full=True,
+                       shard_params_data_axis=True, remat=True, seed=SEED)
+    ftrainer = ContrastiveTrainer(cut, arch_cut, None, fcfg,
+                                  mesh=make_mesh(devices=[device]),
+                                  device=device)
+    del cut
+    n_split = assert_fsdp_sharded(ftrainer.params, ftrainer.mesh)
+    probe = [p for p in ftrainer._leaves() if isinstance(p, Sharded)][:4]
+    before = [p.gather(device).detach().clone() for p in probe]
+    floss, fms, flaunched, fpeak, fcoll_ms, fcoll_n, _ = run(ftrainer)
+    moved = max(float((p.gather(device).detach() - w).abs().max())
+                for p, w in zip(probe, before))
+    out.update(fsdp_loss=floss, ref_loss=ref_loss, fsdp_ms=fms,
+               fsdp_launched=flaunched, fsdp_peak_gb=fpeak,
+               fsdp_coll_ms=fcoll_ms, fsdp_coll_n=fcoll_n,
+               fsdp_split=n_split, moved=moved)
+    say(f"FSDP leg: loss {floss:.6f} (no-grad forward {ref_loss:.6f}), "
+        f"{fms:.1f} ms, flash {flaunched}")
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    multihost.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
 def phase_qlora(params, arch, tok, tmpl, lexicon, batches, lora_step, card):
     """QLoRA on the full-width LLaVA-NeXT-Llama3-8B: the base quantized on
     the card (nf4, double-quantized scales; one decoder block's bytes equal
@@ -5894,43 +6471,19 @@ def main() -> int:
     train_lengths = [image_prompt_len[(3 * i) % len(IMAGE_SIZES)]
                      for i in range((TRAIN_STEPS - 1) * TRAIN_B,
                                     TRAIN_STEPS * TRAIN_B)]
-    flash = phase_flash(image_prompt_len[:FLASH_B - 1] + [0], seq)
-    phase_flash(train_lengths, seq)
-    # LLaVA-1.6-Vicuna's image shape: its 32 KV heads give G = 1
-    phase_flash(image_prompt_len[:FLASH_B - 1] + [0], seq, VICUNA_HEADS,
-                VICUNA_HEADS)
-    dq_kernel, dkv_kernel = phase_flash_bwd(
-        image_prompt_len[:TRAIN_B - 1] + [0], seq)
-    phase_flash_bwd(train_lengths, seq)
     # InternVL2.5-8B's image shape: 28 query heads on 4 KV heads (G = 7),
     # prompts of 13 tiles padded to 3,584 tokens
     ctok = ChatTokenizer(tok)
     _, internvl_arch, internvl_tmpl = chat_family_archs(ctok)[0]
     internvl_len, internvl_seq = internvl_prompt_lengths(
         ctok, internvl_arch, internvl_tmpl, IMAGE_SIZES[:FLASH_B - 1])
-    flash_g7 = phase_flash(internvl_len + [0], internvl_seq,
-                           *INTERNVL_HEADS)
     # and its backward at the chat-family training shape: the first
     # training batch's prompt lengths, one all-pad row
     train_g7, _ = internvl_prompt_lengths(
         ctok, internvl_arch, internvl_tmpl, chat_train_sizes(TRAIN_B - 1))
-    dq_g7, dkv_g7 = phase_flash_bwd(train_g7 + [0], internvl_seq,
-                                    *INTERNVL_HEADS)
 
-    # ---- 4. the model, from a checkpoint, and the index -----------------------
-    params, arch, (files_taat, files_flash) = phase_checkpoint(spec, card)
-    t, v = arch.text, arch.vision
-    vis = param_count(params) - param_count(params["text"])
-    progress("slice", f"LLaVA-NeXT-Llama3-8B: {param_count(params['text']):,}"
-             f" bf16 text-tower weights ({t.num_layers} layers, hidden "
-             f"{t.hidden_size}, {t.num_heads}/{t.num_kv_heads} heads, FFN "
-             f"{t.intermediate_size}, vocab {t.vocab_size}) and {vis:,} of "
-             f"ViT ({v.num_layers} layers, hidden {v.hidden_size}, "
-             f"{v.num_heads} heads, {v.image_size} px / {v.patch_size}), "
-             f"projector and image_newline, loaded from the converted "
-             f"checkpoint; {torch.cuda.memory_allocated() / 1e9:.2f} GB "
-             f"allocated")
-
+    # the impact index of the served phases (built here, before the
+    # checkpoint, for the families beside its conversion)
     p = zipf_p(word_ids.size)
     doc_tok = rng.choice(word_ids, size=(N_DOCS, DOC_K), p=p)
     doc_w = rng.integers(1, 350, size=(N_DOCS, DOC_K))
@@ -5943,6 +6496,61 @@ def main() -> int:
     progress("slice", f"impact index: {index.num_docs} docs x {DOC_K} "
              f"terms, {index.num_terms} distinct terms, int16 exact: "
              f"{index._int16_exact()}")
+
+
+    def beside_convert():
+        """Work for the card while the checkpoint converts (after the
+        children have left it), none of it on the checkpoint's model: the
+        flash kernels against their plain versions, the mixture-of-experts
+        decoder and the other families, each with weights of its own."""
+        out = {"flash": phase_flash(image_prompt_len[:FLASH_B - 1] + [0],
+                                    seq)}
+        phase_flash(train_lengths, seq)
+        # LLaVA-1.6-Vicuna's image shape: its 32 KV heads give G = 1
+        phase_flash(image_prompt_len[:FLASH_B - 1] + [0], seq, VICUNA_HEADS,
+                    VICUNA_HEADS)
+        out["dq"], out["dkv"] = phase_flash_bwd(
+            image_prompt_len[:TRAIN_B - 1] + [0], seq)
+        phase_flash_bwd(train_lengths, seq)
+        out["flash_g7"] = phase_flash(internvl_len + [0], internvl_seq,
+                                      *INTERNVL_HEADS)
+        out["dq_g7"], out["dkv_g7"] = phase_flash_bwd(
+            train_g7 + [0], internvl_seq, *INTERNVL_HEADS)
+        # a mixture-of-experts decoder at Mixtral-8x7B's widths
+        out["moe"] = phase_moe(card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # LLaVA-1.6-Vicuna-7B and LLaVA-1.5-7B at full width
+        out["fam"] = phase_families(tok, tmpl, lexicon, index, cmap, card)
+        # InternVL2.5-8B and Qwen2.5-VL-7B at full width
+        out["chat"] = phase_chat_families(ctok, lexicon, index, cmap, card)
+        gc.collect()            # before the checkpoint's model loads
+        torch.cuda.empty_cache()
+        return out
+
+    # ---- 4. the model, from a checkpoint (training across two processes,
+    # then the flash kernels, the MoE decoder and the other families on the
+    # card while it converts) --------------------------------------------
+    multi_train = MultiprocessTrain(
+        spec.arch, arch_img, multiprocess_batch(tok, tmpl, arch_img), card)
+    params, arch, (files_taat, files_flash), multi, side = phase_checkpoint(
+        spec, card, multi_train, beside_convert)
+    flash, dq_kernel, dkv_kernel, moe = (side["flash"], side["dq"],
+                                         side["dkv"], side["moe"])
+    flash_g7, dq_g7, dkv_g7 = side["flash_g7"], side["dq_g7"], side["dkv_g7"]
+    fam_taat, fam_flash = side["fam"]
+    chat_taat, chat_flash, chat_train, stats_flash = side["chat"]
+    t, v = arch.text, arch.vision
+    vis = param_count(params) - param_count(params["text"])
+    progress("slice", f"LLaVA-NeXT-Llama3-8B: {param_count(params['text']):,}"
+             f" bf16 text-tower weights ({t.num_layers} layers, hidden "
+             f"{t.hidden_size}, {t.num_heads}/{t.num_kv_heads} heads, FFN "
+             f"{t.intermediate_size}, vocab {t.vocab_size}) and {vis:,} of "
+             f"ViT ({v.num_layers} layers, hidden {v.hidden_size}, "
+             f"{v.num_heads} heads, {v.image_size} px / {v.patch_size}), "
+             f"projector and image_newline, loaded from the converted "
+             f"checkpoint; {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+             f"allocated")
 
     # ---- 5. text queries through the service ----------------------------------
     hostops.reset_call_counts()
@@ -6133,17 +6741,6 @@ def main() -> int:
     gc.collect()                # the closed services still hold the weights
     torch.cuda.empty_cache()
 
-    # ---- 12c. a mixture-of-experts decoder at Mixtral-8x7B's widths --------
-    moe = phase_moe(card)
-
-    # ---- 13. LLaVA-1.6-Vicuna-7B and LLaVA-1.5-7B at full width ------------
-    fam_taat, fam_flash = phase_families(tok, tmpl, lexicon, index, cmap,
-                                         card)
-
-    # ---- 14. InternVL2.5-8B and Qwen2.5-VL-7B at full width ---------------
-    chat_taat, chat_flash, chat_train, stats_flash = phase_chat_families(
-        ctok, lexicon, index, cmap, card)
-
     max_err = max(bench["i16"]["max_abs_err"], bench["f32"]["max_abs_err"],
                   served["max_abs_err"])
     kernels = [
@@ -6165,7 +6762,7 @@ def main() -> int:
              + mesh_flash + live_flash + off_flash + train_launches["fwd"]
              + fam_flash
              + chat_flash + chat_train["fwd"] + stats_flash + qlora["fwd"]
-             + moe["fwd"] + mesh_train["fwd"],
+             + moe["fwd"] + mesh_train["fwd"] + multi["fwd"],
              **flash,
              at_g7=dict(shape=f"B={FLASH_B} T={internvl_seq} Hq/Hkv="
                         f"{INTERNVL_HEADS[0]}/{INTERNVL_HEADS[1]}",
@@ -6174,7 +6771,8 @@ def main() -> int:
              source="mllm_sparse_retrieval_tpu_torch/csrc/flash_attn_bwd.cu",
              replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:941",
              launches=train_launches["dkv"] + chat_train["dkv"]
-             + qlora["dkv"] + moe["dkv"] + mesh_train["dkv"],
+             + qlora["dkv"] + moe["dkv"] + mesh_train["dkv"]
+             + multi["dkv"],
              **dkv_kernel,
              at_g7=dict(shape=f"B={TRAIN_B} T={internvl_seq} Hq/Hkv="
                         f"{INTERNVL_HEADS[0]}/{INTERNVL_HEADS[1]}",
@@ -6183,7 +6781,7 @@ def main() -> int:
              source="mllm_sparse_retrieval_tpu_torch/csrc/flash_attn_bwd.cu",
              replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
              launches=train_launches["dq"] + chat_train["dq"] + qlora["dq"]
-             + moe["dq"] + mesh_train["dq"], **dq_kernel,
+             + moe["dq"] + mesh_train["dq"] + multi["dq"], **dq_kernel,
              at_g7=dict(shape=f"B={TRAIN_B} T={internvl_seq} Hq/Hkv="
                         f"{INTERNVL_HEADS[0]}/{INTERNVL_HEADS[1]}",
                         launches=chat_train["dq"], **dq_g7)),
@@ -6197,4 +6795,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:2] == ["--train-child"]:      # MultiprocessTrain's
+        sys.exit(train_child(int(sys.argv[2]), int(sys.argv[3]),
+                             sys.argv[4]))
     sys.exit(main())

@@ -121,7 +121,7 @@ def build_everything(args):
     """``(corpus, params, arch, tokenizer, template, mesh, lora)`` on
     ``args.device`` (``mesh`` None without ``--mesh``, see
     ``mesh_from_args``). Raises ``NotImplementedError`` for a checkpoint
-    without a tokenizer the port can read (its ``tokenizer.json``)."""
+    without a tokenizer file (``tokenizer.json`` or ``tokenizer.model``)."""
     mesh = mesh_from_args(args)
     corpus = CrossModalCorpus(args.dataset, args.split, args.data_root)
     cfg = model_config_from_args(args)
@@ -129,9 +129,9 @@ def build_everything(args):
         cfg, captions=list(corpus.text_dict.values()), device=args.device)
     if tok is None:
         raise NotImplementedError(
-            f"{args.checkpoint_path} has no tokenizer the port can load: it "
-            f"needs the checkpoint's tokenizer.json (a sentencepiece "
-            f"tokenizer.model alone is ROADMAP Queue 1 #8c)")
+            f"{args.checkpoint_path} has no tokenizer: the port reads the "
+            f"checkpoint's tokenizer.json, or its sentencepiece "
+            f"tokenizer.model")
     lora = load_lora(cfg.lora_path, args.device) if cfg.lora_path else None
     return corpus, params, arch, tok, template, mesh, lora
 

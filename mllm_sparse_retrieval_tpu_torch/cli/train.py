@@ -26,9 +26,17 @@ CPU): the global-batch loss over the data shards, ZeRO-1 optimizer state
 unless ``--no-zero1``, FSDP parameters with ``--train-full --fsdp``,
 ``--no-gather-gradient`` for the sharded loss (``train/trainer.py``).
 Without a mesh those three flags only set their ``TrainConfig`` fields, as
-in the JAX CLI. A data axis across processes (``WORLD_SIZE`` > 1) is ROADMAP
-Queue 1 #9c: ``--mesh`` then raises. ``run(args, model=...)`` trains a
-model the caller already holds, ``(params, arch, tokenizer, template)``.
+in the JAX CLI. Under a launch of several processes (``WORLD_SIZE`` > 1,
+as ``torchrun`` sets it with ``MASTER_ADDR``, ``MASTER_PORT`` and ``RANK``)
+``--mesh`` joins the process group (``parallel.multihost``: ``nccl`` for a
+CUDA ``--device``, ``gloo`` for the CPU) and trains a data axis across the
+processes, each on its own cards; a missing launcher variable raises
+``ValueError`` rather than train alone. Only the primary process writes
+the outputs and prints the path. ``run(args, model=...)`` trains a model
+the caller already holds, ``(params, arch, tokenizer, template)``.
+
+    torchrun --nproc-per-node 2 -m mllm_sparse_retrieval_tpu_torch.cli.train \\
+        --mesh ... [--device cpu]
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from mllm_sparse_retrieval_tpu_torch.models import build_model
 from mllm_sparse_retrieval_tpu_torch.models import lora as lora_lib
 from mllm_sparse_retrieval_tpu_torch.models.quantization import (
     quantize_params, quantized_bytes)
+from mllm_sparse_retrieval_tpu_torch.parallel import multihost
 from mllm_sparse_retrieval_tpu_torch.train.trainer import (
     ContrastiveTrainer, make_collator)
 
@@ -110,10 +119,14 @@ def run(args, model=None):
     template)`` on ``args.device``, else ``build_model`` makes it. Returns
     ``(path printed by the CLI, trainer)``."""
     if args.mesh and int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "--mesh under a launch of several processes: a data axis across "
-            "processes is ROADMAP Queue 1 #9c (the port's mesh lives in one "
-            "process)")
+        missing = [k for k in ("MASTER_ADDR", "MASTER_PORT", "RANK")
+                   if not os.environ.get(k)]
+        if missing:
+            raise ValueError(
+                f"--mesh under WORLD_SIZE={os.environ['WORLD_SIZE']} needs "
+                f"the launcher's {', '.join(missing)} to join the other "
+                f"processes")
+        multihost.initialize_multihost(device=args.device)
     if args.load_kbit:
         if args.train_full:
             build_parser().error("--load-kbit pairs with LoRA (QLoRA); "
@@ -135,9 +148,9 @@ def run(args, model=None):
     params, arch, tok, template = model
     if tok is None:
         raise NotImplementedError(
-            f"{args.checkpoint_path} has no tokenizer the port can load: it "
-            f"needs the checkpoint's tokenizer.json (a sentencepiece "
-            f"tokenizer.model alone is ROADMAP Queue 1 #8c)")
+            f"{args.checkpoint_path} has no tokenizer: the port reads the "
+            f"checkpoint's tokenizer.json, or its sentencepiece "
+            f"tokenizer.model")
     if args.load_kbit:
         fp_bytes = quantized_bytes(params)
         mode = args.quant_format if args.load_kbit == 4 else "linear"
@@ -194,28 +207,39 @@ def run(args, model=None):
                       seed=args.seed)
 
     timer.phase("save")
-    os.makedirs(args.output_dir, exist_ok=True)
+    # every process gathers what is split over the processes; the primary
+    # one writes
+    write = multihost.is_primary_host()
+    if write:
+        os.makedirs(args.output_dir, exist_ok=True)
     if args.train_full:
         out_path = os.path.join(args.output_dir, "params.pkl")
-        with open(out_path, "wb") as f:
-            pickle.dump(lora_lib.to_numpy(trainer.merged_params()), f)
-        logger.info("full params -> %s", out_path)
+        merged = lora_lib.to_numpy(trainer.merged_params())
+        if write:
+            with open(out_path, "wb") as f:
+                pickle.dump(merged, f)
+            logger.info("full params -> %s", out_path)
     else:
         out_path = os.path.join(args.output_dir, "lora.pkl")
-        lora_lib.save_lora(trainer.adapters, out_path)
-        logger.info("adapters -> %s", out_path)
+        if write:
+            lora_lib.save_lora(trainer.adapters, out_path)
+            logger.info("adapters -> %s", out_path)
         if args.merge:
-            merged = trainer.merged_params()
-            with open(os.path.join(args.output_dir, "params.pkl"), "wb") as f:
-                pickle.dump(lora_lib.to_numpy(merged), f)
-            logger.info("merged params -> %s/params.pkl", args.output_dir)
+            merged = lora_lib.to_numpy(trainer.merged_params())
+            if write:
+                with open(os.path.join(args.output_dir, "params.pkl"),
+                          "wb") as f:
+                    pickle.dump(merged, f)
+                logger.info("merged params -> %s/params.pkl",
+                            args.output_dir)
     timer.close()
     return out_path, trainer
 
 
 def main(argv=None):
     out_path, _ = run(build_parser().parse_args(argv))
-    print(out_path)
+    if multihost.is_primary_host():
+        print(out_path)
 
 
 if __name__ == "__main__":

@@ -601,7 +601,10 @@ _EMBED_KEYS = ("language_model.model.embed_tokens.weight",
 def convert_hf_dir(hf_dir: str, out_dir: str) -> None:
     """Convert a local HF checkpoint directory of any supported family and
     size into a framework checkpoint dir: ``params.pkl`` + ``arch.json``
-    (dims from ``config.json``) + the tokenizer files present."""
+    (dims from ``config.json``) + the tokenizer files present, and, for a
+    sentencepiece ``tokenizer.model`` without ``tokenizer.json``, the
+    ``tokenizer.json`` ``transformers`` converts it to (the JAX
+    converter's ``save_pretrained`` writes the same dict)."""
     with open(os.path.join(hf_dir, "config.json")) as f:
         hf_cfg = json.load(f)
     arch = arch_from_hf_config(hf_cfg)
@@ -632,6 +635,17 @@ def convert_hf_dir(hf_dir: str, out_dir: str) -> None:
         src = os.path.join(hf_dir, name)
         if os.path.exists(src):
             shutil.copyfile(src, os.path.join(out_dir, name))
+    if os.path.exists(os.path.join(hf_dir, "tokenizer.model")) and \
+            not os.path.exists(os.path.join(hf_dir, "tokenizer.json")):
+        from mllm_sparse_retrieval_tpu_torch.models.hf_tokenizer import (
+            _read_json, tokenizer_json_of_dir)
+
+        data = tokenizer_json_of_dir(
+            hf_dir, _read_json(os.path.join(hf_dir, "tokenizer_config.json")),
+            _read_json(os.path.join(hf_dir, "special_tokens_map.json")))
+        with open(os.path.join(out_dir, "tokenizer.json"), "w",
+                  encoding="utf-8") as f:
+            json.dump(data, f, ensure_ascii=False, indent=2)
 
 
 def _to_device(tree, device: torch.device, dtype: torch.dtype):
@@ -656,10 +670,10 @@ def _to_device(tree, device: torch.device, dtype: torch.dtype):
 def _hf_tokenizer(ckpt_dir: str):
     """The directory's tokenizer: an ``HFJsonTokenizer`` over its
     ``tokenizer.json`` (with ``tokenizer_config.json``,
-    ``special_tokens_map.json`` and ``chat_template.jinja``), or None when
-    it has no tokenizer file at all. A directory with tokenizer files but
-    no ``tokenizer.json`` (a sentencepiece ``tokenizer.model`` alone)
-    raises ``FileNotFoundError``."""
+    ``special_tokens_map.json`` and ``chat_template.jinja``), or over the
+    ``tokenizer.json`` its sentencepiece ``tokenizer.model`` converts to
+    where it has no ``tokenizer.json`` (``models/sentencepiece.py``); None
+    when it has no tokenizer file at all, as in the JAX package."""
     if not any(os.path.exists(os.path.join(ckpt_dir, n))
                for n in _TOKENIZER_FILES):
         return None
@@ -678,8 +692,9 @@ def load_converted(checkpoint_path: str, spec=None,
     ``(params, tokenizer_or_None, arch_or_None)``: the tree of tensors on
     ``device`` in the port's layout (the JAX tree's, as
     ``convert_jax.from_jax_params`` gives it), the tokenizer when the
-    directory has one (read from its ``tokenizer.json`` by
-    ``hf_tokenizer.HFJsonTokenizer``, no ``transformers``), and the
+    directory has one (read from its ``tokenizer.json``, or its
+    sentencepiece ``tokenizer.model``, by ``hf_tokenizer.HFJsonTokenizer``,
+    no ``transformers``), and the
     manifest's arch, which carries the checkpoint's true dims. ``spec`` is unused, as
     in the JAX package."""
     params_file = checkpoint_path if checkpoint_path.endswith(".pkl") \

@@ -29,9 +29,10 @@ What it covers is what the supported families' tokenizers use:
 Any other component raises ``NotImplementedError`` naming it. The regexes
 are Oniguruma's: ``\\p{L}``-style classes and ``\\s`` are rewritten into
 explicit classes built once from ``unicodedata`` (``\\s`` as Unicode
-White_Space) and compiled with the standard ``re``. A directory with only
-``tokenizer.model`` (a sentencepiece model) raises: this reader needs
-``tokenizer.json``.
+White_Space) and compiled with the standard ``re``. A directory with a
+sentencepiece ``tokenizer.model`` and no ``tokenizer.json`` (the original
+Vicuna and LLaVA repositories) is read through the ``tokenizer.json`` that
+``models/sentencepiece.py`` converts it to, as ``transformers`` does.
 """
 
 from __future__ import annotations
@@ -458,6 +459,34 @@ _SPECIAL_ATTRS = ("bos_token", "eos_token", "unk_token", "sep_token",
 # add_bos_token / add_eos_token when it loads (LlamaTokenizerFast)
 _LLAMA_CLASSES = ("LlamaTokenizer", "LlamaTokenizerFast",
                   "CodeLlamaTokenizer", "CodeLlamaTokenizerFast")
+# LlamaTokenizerFast's defaults for the special tokens a config leaves out
+_LLAMA_DEFAULTS = {"bos_token": "<s>", "eos_token": "</s>",
+                   "unk_token": "<unk>"}
+
+
+def tokenizer_json_of_dir(path: str, config: dict,
+                          special_tokens_map: dict) -> dict:
+    """A directory's ``tokenizer.json`` dict: the file, else its
+    ``tokenizer.model`` converted with the directory's
+    ``tokenizer_config.json`` (``config``) and ``special_tokens_map.json``
+    (a legacy ``added_tokens.json`` beside it raises: the conversion does
+    not read one)."""
+    tj = os.path.join(path, "tokenizer.json")
+    if os.path.exists(tj):
+        with open(tj, encoding="utf-8") as f:
+            return json.load(f)
+    spm = os.path.join(path, "tokenizer.model")
+    if not os.path.exists(spm):
+        raise FileNotFoundError(f"{path}: no tokenizer.json or "
+                                f"tokenizer.model")
+    if os.path.exists(os.path.join(path, "added_tokens.json")):
+        raise NotImplementedError(
+            f"{path}: added_tokens.json beside a tokenizer.model (a legacy "
+            f"slow-tokenizer file the conversion does not read)")
+    from mllm_sparse_retrieval_tpu_torch.models import sentencepiece
+
+    return sentencepiece.llama_tokenizer_json(
+        sentencepiece.read_model_file(spm), config, special_tokens_map)
 
 
 class HFJsonTokenizer:
@@ -496,17 +525,19 @@ class HFJsonTokenizer:
         self._norm_rx = self._added_regex(list(self._norm_forms))
 
         # special tokens as transformers resolves them: the config first,
-        # then special_tokens_map.json
+        # then special_tokens_map.json, then the class's defaults
+        llama = config.get("tokenizer_class") in _LLAMA_CLASSES
         tokens = {}
         for name in _SPECIAL_ATTRS + ("additional_special_tokens",):
-            value = config.get(name, special_tokens_map.get(name))
+            value = config.get(name, special_tokens_map.get(
+                name, _LLAMA_DEFAULTS.get(name) if llama else None))
             if name == "additional_special_tokens":
                 if value:
                     tokens[name] = [_token_content(v) for v in value]
             elif _token_content(value) is not None:
                 tokens[name] = _token_content(value)
         self.special_tokens_map = tokens
-        if config.get("tokenizer_class") in _LLAMA_CLASSES:
+        if llama:
             self._post = self._llama_post_processor(config)
         unk = tokens.get("unk_token")
         unk_id = self._vocab.get(unk) if unk is not None else None
@@ -520,21 +551,13 @@ class HFJsonTokenizer:
     # ---- construction -----------------------------------------------------
     @classmethod
     def from_dir(cls, path: str) -> "HFJsonTokenizer":
-        """Read a directory's tokenizer files. Raises
-        ``FileNotFoundError`` without ``tokenizer.json`` (a directory with
-        only a sentencepiece ``tokenizer.model`` included)."""
-        tj = os.path.join(path, "tokenizer.json")
-        if not os.path.exists(tj):
-            has_spm = os.path.exists(os.path.join(path, "tokenizer.model"))
-            raise FileNotFoundError(
-                f"{path}: no tokenizer.json"
-                + (" (only a sentencepiece tokenizer.model, which this "
-                   "reader does not read)" if has_spm else "")
-                + "; the port's tokenizer reader needs tokenizer.json")
-        with open(tj, encoding="utf-8") as f:
-            data = json.load(f)
+        """Read a directory's tokenizer files: ``tokenizer.json``, else a
+        sentencepiece ``tokenizer.model`` converted as ``transformers``
+        converts it (``sentencepiece.llama_tokenizer_json``). Raises
+        ``FileNotFoundError`` without either."""
         config = _read_json(os.path.join(path, "tokenizer_config.json"))
         smap = _read_json(os.path.join(path, "special_tokens_map.json"))
+        data = tokenizer_json_of_dir(path, config, smap)
         template = config.get("chat_template")
         jinja_file = os.path.join(path, "chat_template.jinja")
         if os.path.exists(jinja_file):

@@ -1,8 +1,8 @@
-"""Parallel layers for one process: device meshes and leaves split over
-their axes (``mesh.py``), FSDP (``fsdp.py``), tensor (``tp.py``),
-sequence (``sp.py``), pipeline (``pp.py``) and expert (``ep.py``)
-parallelism, the process group (``multihost.py``) and the dry run of all
-of them (``dryrun.py``)."""
+"""Parallel layers: device meshes and leaves split over their axes
+(``mesh.py``; a data axis may span processes), FSDP (``fsdp.py``), tensor
+(``tp.py``), sequence (``sp.py``), pipeline (``pp.py``) and expert
+(``ep.py``) parallelism, the process group and its collectives
+(``multihost.py``) and the dry run of all of them (``dryrun.py``)."""
 
 from mllm_sparse_retrieval_tpu_torch.parallel.mesh import (
     DATA_AXIS, MODEL_AXIS, Mesh, Sharded, make_mesh, replicated,

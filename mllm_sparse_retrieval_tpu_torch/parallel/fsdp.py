@@ -10,7 +10,11 @@ gathers the other split leaves (embeddings, the LM head, patch embeddings)
 once per step and shard; gradients land on the pieces through the gather.
 The specs are those of the JAX package, ``PartitionSpec`` read as a tuple.
 A leaf already split over the model axis (tensor parallelism) keeps that
-split and gains the data axis on another dim when one divides.
+split and gains the data axis on another dim when one divides. Over a data
+axis that spans processes (``Mesh.processes`` > 1) the split counts the
+global data axis and each process keeps its own pieces; a gather is then a
+collective (``multihost.all_gather_rows``) whose backward reduce-scatters
+the gradient onto the pieces.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ def fsdp_shardings(tree, mesh: Mesh, min_size: int = MIN_SHARD_SIZE):
     """Per-leaf spec tuples: the largest data-divisible dim over
     ``"data"``, the rest unsplit (``()`` for a leaf left whole). A leaf's
     existing split over another axis is kept."""
-    n = mesh.shape[DATA_AXIS]
+    n = mesh.data_size
 
     def leaf(_, x):
         shape = tuple(getattr(x, "shape", ()))
@@ -72,9 +76,9 @@ def shard_params_fsdp(params, mesh: Mesh, min_size: int = MIN_SHARD_SIZE):
         if isinstance(x, Sharded):      # tensor-parallel: split each piece
             return Sharded(
                 [split(p, d, mesh.axis_devices(DATA_AXIS, {MODEL_AXIS: j}),
-                       spec) for j, p in enumerate(x.pieces)],
+                       spec, mesh) for j, p in enumerate(x.pieces)],
                 x.devices, x.dim, spec)
-        return split(x, d, mesh.shard_devices, spec)
+        return split(x, d, mesh.shard_devices, spec, mesh)
 
     return tree_map(place, params)
 
@@ -106,7 +110,7 @@ def assert_fsdp_sharded(params, mesh: Mesh,
     """Check that every large leaf ``fsdp_shardings`` would split is split
     over the data axis; returns how many are. Leaves whose only divisible
     dims are taken by another axis are skipped, as in the JAX package."""
-    n = mesh.shape[DATA_AXIS]
+    n = mesh.data_size
     count = 0
 
     def check(path, x):

@@ -18,6 +18,19 @@ kernel launches. That runs the sharded code path on a machine with one
 card (the counterpart of the JAX tests' virtual CPU devices); it does not
 exercise copies between distinct cards. ``replicated`` places one copy per
 distinct device, so repeated shards share it.
+
+Under a process group (``parallel.multihost.initialize_multihost``),
+``make_mesh`` builds a mesh whose data axis spans the processes, as the JAX
+package's global mesh spans its hosts: each process holds the grid of its
+own devices (``devices``, ``shape``, ``shard_devices`` and ``row(i)`` are
+local), ``process_index`` and ``processes`` place it in the group,
+``data_size`` is the global data axis (processes x local data shards) and
+``data_offset`` the global index of the process's first data shard. The
+model axis stays inside a process. A ``Sharded`` split over such a data
+axis holds the process's own pieces and gathers the rest through
+``multihost.all_gather_rows``. Only the trainer (``train/trainer.py``) and
+the sharded loss read the global axis; the other sharded programs run on
+the process's local grid.
 """
 
 from __future__ import annotations
@@ -51,10 +64,12 @@ class Mesh:
     ``i`` of a data-sharded tensor lives on ``shard_devices[i]`` (the first
     device of data index ``i``); merged results land on ``lead`` (the first
     device of the grid). Equality is identity, as caches keyed on a mesh
-    expect."""
+    expect. ``process_index`` / ``processes`` place the grid in a data axis
+    across processes (see the module docstring)."""
 
     def __init__(self, devices: np.ndarray,
-                 axis_names: Sequence[str] = (DATA_AXIS, MODEL_AXIS)):
+                 axis_names: Sequence[str] = (DATA_AXIS, MODEL_AXIS),
+                 process_index: int = 0, processes: int = 1):
         axis_names = tuple(axis_names)
         if devices.ndim != len(axis_names):
             raise ValueError(f"mesh devices of shape {devices.shape} do not "
@@ -64,6 +79,18 @@ class Mesh:
                              f"{axis_names}")
         self.devices = devices
         self.axis_names = axis_names
+        self.process_index = process_index
+        self.processes = processes
+
+    @property
+    def data_size(self) -> int:
+        """The global data axis: the processes' data shards together."""
+        return int(self.devices.shape[0]) * self.processes
+
+    @property
+    def data_offset(self) -> int:
+        """The global index of this process's first data shard."""
+        return int(self.devices.shape[0]) * self.process_index
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -105,8 +132,10 @@ class Mesh:
         return rows[i]
 
     def __repr__(self) -> str:
+        across = "" if self.processes == 1 else (
+            f", process {self.process_index} of {self.processes}")
         return (f"Mesh({dict(self.shape)}, "
-                f"{[str(d) for d in self.devices.flat]})")
+                f"{[str(d) for d in self.devices.flat]}{across})")
 
 
 def grid(devices: Sequence, shape: Sequence[int]) -> np.ndarray:
@@ -127,14 +156,23 @@ class Sharded:
     (FSDP on a tensor-parallel leaf). The pieces are the tensors that
     autograd and the optimizer see; ``gather(device)`` concatenates them
     there, differentiably, so gradients land on the pieces. Never changed
-    in place by the functions that make it."""
+    in place by the functions that make it.
+
+    Split over a data axis across processes (``processes`` > 1), ``pieces``
+    are this process's: global pieces ``process_index * len(pieces)`` on.
+    ``gather`` then concatenates them on the first piece's device, gathers
+    every process's block there (``multihost.all_gather_rows``: each
+    piece's gradient summed over the processes lands on it) and moves the
+    whole to ``device``; every process gathers in the same order."""
 
     def __init__(self, pieces: Sequence, devices: Sequence, dim: int,
-                 spec: Tuple):
+                 spec: Tuple, process_index: int = 0, processes: int = 1):
         self.pieces = list(pieces)
         self.devices = [canonical_device(d) for d in devices]
         self.dim = dim
         self.spec = tuple(spec)
+        self.process_index = process_index
+        self.processes = processes
 
     @property
     def axis(self) -> str:
@@ -145,7 +183,7 @@ class Sharded:
     def shape(self) -> torch.Size:
         first = self.pieces[0]
         s = list(first.shape)
-        s[self.dim] *= len(self.pieces)
+        s[self.dim] *= len(self.pieces) * self.processes
         return torch.Size(s)
 
     @property
@@ -161,14 +199,29 @@ class Sharded:
         return [t for p in self.pieces for t in
                 (p.tensors() if isinstance(p, Sharded) else [p])]
 
+    @property
+    def piece_offset(self) -> int:
+        """The global index of ``pieces[0]``."""
+        return self.process_index * len(self.pieces)
+
     def gather(self, device) -> torch.Tensor:
         """The whole tensor on ``device`` (differentiable)."""
-        return torch.cat([as_tensor(p, device) for p in self.pieces],
-                         dim=self.dim)
+        if self.processes == 1:
+            return torch.cat([as_tensor(p, device) for p in self.pieces],
+                             dim=self.dim)
+        from mllm_sparse_retrieval_tpu_torch.parallel.multihost import (
+            all_gather_rows)
+
+        here = self.devices[0]
+        local = torch.cat([as_tensor(p, here) for p in self.pieces],
+                          dim=self.dim)
+        return all_gather_rows(local, self.dim).to(device)
 
     def __repr__(self) -> str:
+        across = "" if self.processes == 1 else (
+            f", process {self.process_index} of {self.processes}")
         return (f"Sharded({tuple(self.shape)}, {self.dtype}, spec="
-                f"{self.spec}, on {[str(d) for d in self.devices]})")
+                f"{self.spec}, on {[str(d) for d in self.devices]}{across})")
 
 
 def as_tensor(x, device) -> torch.Tensor:
@@ -179,20 +232,27 @@ def as_tensor(x, device) -> torch.Tensor:
 
 
 def split(x: torch.Tensor, dim: int, devices: Sequence,
-          spec: Tuple) -> Sharded:
+          spec: Tuple, mesh: Optional[Mesh] = None) -> Sharded:
     """``x`` cut into ``len(devices)`` equal pieces along ``dim`` (over the
     axis ``spec[dim]``), piece ``j`` a new contiguous tensor on
     ``devices[j]``: the caller's tensor is never aliased, so updating a
-    piece in place leaves it as it was."""
-    n = len(devices)
+    piece in place leaves it as it was. Over the data axis of a ``mesh``
+    that spans processes, ``x`` (the same whole tensor in every process)
+    is cut into ``len(devices) * mesh.processes`` pieces and this process
+    keeps its own."""
+    procs, index = 1, 0
+    if mesh is not None and spec[dim] == DATA_AXIS:
+        procs, index = mesh.processes, mesh.process_index
+    n = len(devices) * procs
     if x.shape[dim] % n:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
                          f"over {n} devices of {spec[dim]!r}")
     step = x.shape[dim] // n
+    first = index * len(devices)
     with torch.no_grad():
-        pieces = [x.narrow(dim, j * step, step).to(d, copy=True)
+        pieces = [x.narrow(dim, (first + j) * step, step).to(d, copy=True)
                   .contiguous() for j, d in enumerate(devices)]
-    return Sharded(pieces, devices, dim, spec)
+    return Sharded(pieces, devices, dim, spec, index, procs)
 
 
 def spec_axes(spec: Tuple) -> set:
@@ -208,26 +268,48 @@ def make_mesh(data_parallel: int = -1, model_parallel: int = 1,
     ``devices=None`` takes every CUDA device (one card gives a 1x1 mesh,
     on which every sharded program still runs); ``data_parallel=-1``
     takes all devices not consumed by ``model_parallel``. ``devices`` may
-    repeat a device (see the module docstring)."""
+    repeat a device (see the module docstring).
+
+    Under an initialised process group the data axis spans the processes:
+    ``devices`` are this process's (``None``: its cards,
+    ``multihost.local_devices``), ``data_parallel`` counts the global data
+    axis (processes x local data shards), and the model axis must fit in
+    one process's devices, as the JAX package's ``(data, model)`` reshape
+    keeps a model row's devices together."""
+    from mllm_sparse_retrieval_tpu_torch.parallel.multihost import (
+        local_devices, process_view)
+
+    view = process_view()
     if devices is None:
-        n_cuda = torch.cuda.device_count()
-        if n_cuda == 0:
+        if torch.cuda.device_count() == 0:
             raise RuntimeError("make_mesh: no CUDA device; pass devices=")
-        devices = [torch.device("cuda", i) for i in range(n_cuda)]
+        devices = (local_devices() if view.world_size > 1 else
+                   [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())])
     devices = [canonical_device(d) for d in devices]
     n = len(devices)
+    procs = view.world_size
     if model_parallel <= 0:
         raise ValueError("model_parallel must be >= 1")
+    if procs > 1 and n % model_parallel:
+        raise ValueError(
+            f"model_parallel={model_parallel} does not fit in the {n} "
+            f"devices of one process: the model axis stays inside a "
+            f"process")
     if data_parallel == -1:
         if n % model_parallel != 0:
             raise ValueError(
                 f"{n} devices not divisible by model_parallel={model_parallel}")
-        data_parallel = n // model_parallel
-    if data_parallel * model_parallel != n:
+        data_parallel = n // model_parallel * procs
+    if data_parallel % procs:
+        raise ValueError(f"a data axis of {data_parallel} does not split "
+                         f"over {procs} processes")
+    if data_parallel // procs * model_parallel != n:
         raise ValueError(
             f"data_parallel*model_parallel = {data_parallel * model_parallel} "
-            f"!= {n} devices")
-    return Mesh(grid(devices, (data_parallel, model_parallel)))
+            f"!= {n * procs} devices")
+    return Mesh(grid(devices, (data_parallel // procs, model_parallel)),
+                process_index=view.rank, processes=procs)
 
 
 def shard_batch(mesh: Mesh, array, axis: int = 0) -> List[torch.Tensor]:

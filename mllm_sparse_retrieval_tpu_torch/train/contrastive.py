@@ -16,7 +16,7 @@ from typing import Sequence
 import torch
 
 from mllm_sparse_retrieval_tpu_torch.models.reps import normalize
-from mllm_sparse_retrieval_tpu_torch.parallel.mesh import DATA_AXIS
+from mllm_sparse_retrieval_tpu_torch.parallel import multihost
 
 
 def _symmetric_ce(i2t_sim: torch.Tensor, t2i_sim: torch.Tensor,
@@ -50,28 +50,57 @@ def sharded_info_nce_loss(mesh, text_reps: Sequence[torch.Tensor],
     ``info_nce_loss`` of the concatenated batch; ``False`` detaches the
     gathered copies of the other shards' reps and keeps the shard's own
     rows differentiable (the reference's detach-and-reinsert): the same
-    loss, gradients only through each shard's own rows."""
-    n = mesh.shape[DATA_AXIS]
+    loss, gradients only through each shard's own rows.
+
+    Over a data axis that spans processes (``mesh.processes`` > 1) the
+    shards are this process's, the other processes' rows come through
+    ``multihost.all_gather_rows`` (differentiable with the gather, detached
+    without it) and the labels are offset by the global row. The value is
+    the global loss in every process; the gradient is this process's share
+    of it (its rows' terms over the global shard count), so the sum of the
+    processes' gradients (the trainer's all-reduce) is the global loss's."""
+    n = len(mesh.shard_devices)
     if len(text_reps) != n or len(img_reps) != n:
         raise ValueError(f"{len(text_reps)} / {len(img_reps)} shards for a "
                          f"data axis of {n}")
     t_norm = [normalize(t) for t in text_reps]
     i_norm = [normalize(i) for i in img_reps]
+    lead = mesh.lead
+    if mesh.processes > 1:
+        # every shard's rows in global order, the local ones on the lead
+        t_here = torch.cat([t.to(lead) for t in t_norm])
+        i_here = torch.cat([x.to(lead) for x in i_norm])
+        if not gather_save_gradient:
+            t_here, i_here = t_here.detach(), i_here.detach()
+        t_glob = multihost.all_gather_rows(t_here)
+        i_glob = multihost.all_gather_rows(i_here)
+        t_parts = list(t_glob.chunk(mesh.data_size))
+        i_parts = list(i_glob.chunk(mesh.data_size))
+        if gather_save_gradient:
+            # the gathered rows carry the gradient, own rows included
+            t_norm = t_parts[mesh.data_offset:mesh.data_offset + n]
+            i_norm = i_parts[mesh.data_offset:mesh.data_offset + n]
+    else:
+        t_parts, i_parts = t_norm, i_norm
+    total = len(t_parts)
     losses = []
-    offset = 0
+    offset = sum(p.shape[0] for p in t_parts[:mesh.data_offset])
     for s, dev in enumerate(mesh.shard_devices):
         t_loc, i_loc = t_norm[s], i_norm[s]
         b = t_loc.shape[0]
+        own = mesh.data_offset + s
 
-        def gathered(parts, own):
-            return torch.cat([own if r == s else (
+        def gathered(parts, mine):
+            return torch.cat([mine if r == own else (
                 parts[r] if gather_save_gradient else parts[r].detach()
-            ).to(dev) for r in range(n)])
+            ).to(dev) for r in range(total)])
 
-        t_all, i_all = gathered(t_norm, t_loc), gathered(i_norm, i_loc)
+        t_all, i_all = gathered(t_parts, t_loc), gathered(i_parts, i_loc)
         labels = torch.arange(b, device=dev) + offset
         loss = _symmetric_ce((i_loc @ t_all.T) / tau,
                              (t_loc @ i_all.T) / tau, labels)
-        losses.append(loss.to(mesh.lead))
+        losses.append(loss.to(lead))
         offset += b
-    return torch.stack(losses).mean()
+    if mesh.processes == 1:
+        return torch.stack(losses).mean()
+    return multihost.global_sum(torch.stack(losses).sum() / total)

@@ -56,6 +56,24 @@ package's ``train/trainer.py``).
   Base parameters split over the model axis (``parallel/tp.py``) run in the
   megatron form. Checkpoints hold whole tensors in every case, so a run
   resumes with or without a mesh.
+
+- Over a mesh whose data axis spans processes (``parallel.mesh.make_mesh``
+  under ``parallel.multihost.initialize_multihost``; the JAX package's mesh
+  over DCN): every process collates the same global batch, as every JAX
+  process feeds the same global array, and runs its data shards' rows of
+  each micro-batch (``lora_rows`` carries the global row, so dropout equals
+  the one-process mesh's). The loss is ``sharded_info_nce_loss`` over the
+  processes: its value the global loss, its gradient this process's share,
+  so the all-reduced (summed) gradients of the whole leaves are the global
+  loss's; FSDP pieces get theirs reduce-scattered by the gather's
+  backward. Clipping takes the global norm. ZeRO-1 moments are split over
+  the global data axis: each process updates its rows, then the leaf's
+  rows are all-gathered. FSDP pieces are updated where they live.
+  Checkpoints are gathered whole by every process and written by the
+  primary one alone; ``merged_params`` gathers in every process. The
+  collectives of a step run in autograd's order, which is the same in
+  every process only with one device per process: an FSDP split over
+  processes with several local devices raises.
 """
 
 from __future__ import annotations
@@ -77,7 +95,7 @@ from mllm_sparse_retrieval_tpu_torch.models.api import (
 from mllm_sparse_retrieval_tpu_torch.models.layers import FLASH_MIN_SEQ
 from mllm_sparse_retrieval_tpu_torch.models.quantization import (
     QuantizedWeight, quantized_leaves, tree_to)
-from mllm_sparse_retrieval_tpu_torch.parallel import fsdp
+from mllm_sparse_retrieval_tpu_torch.parallel import fsdp, multihost
 from mllm_sparse_retrieval_tpu_torch.parallel.mesh import (
     DATA_AXIS, Mesh, Sharded, split, tree_map)
 from mllm_sparse_retrieval_tpu_torch.pipelines.encode import (
@@ -163,9 +181,9 @@ def make_collator(tokenizer, template, arch,
 
 
 def zero1_shardings(tree, mesh: Mesh):
-    """ZeRO-1 spec tuples: a leaf's dim 0 over ``"data"`` when the data
-    axis divides it, whole (``()``) otherwise."""
-    n = mesh.shape[DATA_AXIS]
+    """ZeRO-1 spec tuples: a leaf's dim 0 over ``"data"`` when the
+    (global) data axis divides it, whole (``()``) otherwise."""
+    n = mesh.data_size
 
     def leaf(_, x):
         shape = tuple(getattr(x, "shape", ()))
@@ -192,6 +210,12 @@ def _tensors(leaf) -> List[torch.Tensor]:
     return leaf.tensors() if isinstance(leaf, Sharded) else [leaf]
 
 
+def _spans_processes(leaf) -> bool:
+    """A ``Sharded`` split over processes (or holding such pieces)."""
+    return isinstance(leaf, Sharded) and (
+        leaf.processes > 1 or any(_spans_processes(p) for p in leaf.pieces))
+
+
 def _gathered(tree, device):
     """``tree`` with every ``Sharded`` leaf whole on ``device``."""
     return tree_map(lambda _, x: x.gather(device) if isinstance(x, Sharded)
@@ -202,19 +226,20 @@ def _zeros_like(x):
     """Zeros shaped and placed like ``x`` (a tensor or a ``Sharded``)."""
     if isinstance(x, Sharded):
         return Sharded([_zeros_like(p) for p in x.pieces], x.devices, x.dim,
-                       x.spec)
+                       x.spec, x.process_index, x.processes)
     return torch.zeros_like(x, requires_grad=False)
 
 
 def _assign(dst, src: torch.Tensor) -> None:
     """Copy the whole tensor ``src`` into ``dst`` (a tensor, or the pieces
-    of a ``Sharded``)."""
+    of a ``Sharded``: this process's own)."""
     if not isinstance(dst, Sharded):
         dst.copy_(src)
         return
-    step = src.shape[dst.dim] // len(dst.pieces)
+    step = src.shape[dst.dim] // (len(dst.pieces) * dst.processes)
     for j, piece in enumerate(dst.pieces):
-        _assign(piece, src.narrow(dst.dim, j * step, step))
+        _assign(piece, src.narrow(dst.dim, (dst.piece_offset + j) * step,
+                                  step))
 
 
 def _linear(init: float, end: float, steps: int, count: int) -> float:
@@ -260,6 +285,13 @@ class ContrastiveTrainer:
                              f"total_steps")
         self.mesh = mesh
         self.full_finetune = cfg.train_full or adapters is None
+        self.processes = 1 if mesh is None else mesh.processes
+        if self.processes > 1 and self.full_finetune and \
+                cfg.shard_params_data_axis and len(set(mesh.devices.flat)) > 1:
+            raise ValueError(
+                "FSDP over processes gathers in autograd's order, which "
+                "is one order in every process only with one device per "
+                f"process; this process has {len(set(mesh.devices.flat))}")
         if mesh is not None:
             device = mesh.lead
             if self.full_finetune and cfg.shard_params_data_axis:
@@ -320,7 +352,7 @@ class ContrastiveTrainer:
         if mesh is None or not self.cfg.shard_optimizer_state or fsdp_on \
                 or zero1_shardings(x, mesh) == ():
             return zeros
-        return split(zeros, 0, mesh.shard_devices, (DATA_AXIS,))
+        return split(zeros, 0, mesh.shard_devices, (DATA_AXIS,), mesh)
 
     def learning_rate(self, count: int) -> float:
         """The schedule at update count ``count`` (0 for the first step), as
@@ -390,9 +422,10 @@ class ContrastiveTrainer:
 
     def _mesh_loss(self, batch: TrainBatch, lo: int, hi: int,
                    seed: int) -> torch.Tensor:
-        """The loss of rows ``lo:hi`` split over the data shards."""
+        """The loss of rows ``lo:hi`` split over the (global) data shards:
+        this process runs its own."""
         mesh = self.mesh
-        per = (hi - lo) // mesh.shape[DATA_AXIS]
+        per = (hi - lo) // mesh.data_size
         t_embs, i_embs = [], []
         for i, dev in enumerate(mesh.shard_devices):
             if self.full_finetune:
@@ -400,16 +433,17 @@ class ContrastiveTrainer:
             else:
                 params = self._base[i]
                 adapters = tree_to(self.adapters, dev)
+            row = (mesh.data_offset + i) * per
             t_emb, i_emb = self._encode(
                 params, adapters,
-                *self._to_device(batch, lo + i * per, lo + (i + 1) * per,
-                                 dev),
-                seed, allow_flash=mesh.row(i), lora_rows=(i * per, hi - lo))
+                *self._to_device(batch, lo + row, lo + row + per, dev),
+                seed, allow_flash=mesh.row(i), lora_rows=(row, hi - lo))
             t_embs.append(t_emb)
             i_embs.append(i_emb)
-        if not self.cfg.gather_save_gradient:
-            return sharded_info_nce_loss(mesh, t_embs, i_embs, self.cfg.tau,
-                                         gather_save_gradient=False)
+        if self.processes > 1 or not self.cfg.gather_save_gradient:
+            return sharded_info_nce_loss(
+                mesh, t_embs, i_embs, self.cfg.tau,
+                gather_save_gradient=self.cfg.gather_save_gradient)
         return info_nce_loss(torch.cat([t.to(mesh.lead) for t in t_embs]),
                              torch.cat([x.to(mesh.lead) for x in i_embs]),
                              self.cfg.tau)
@@ -429,7 +463,7 @@ class ContrastiveTrainer:
                 f"this family's pixels are a dict of "
                 f"{sorted(batch.pixels)}")
         m = b // accum
-        n_data = 1 if self.mesh is None else self.mesh.shape[DATA_AXIS]
+        n_data = 1 if self.mesh is None else self.mesh.data_size
         if m % n_data:
             raise ValueError(f"micro-batch of {m} rows does not split over "
                              f"{n_data} data shards")
@@ -457,6 +491,12 @@ class ContrastiveTrainer:
             # f32 sums over the micro-batches, averaged, in the leaves' dtype
             grads = [(a / accum).to(x.dtype) for a, x in zip(total, leaves)]
             loss_sum = loss_sum / accum
+        if self.processes > 1:
+            # each process holds its share of the global loss's gradient
+            # for the whole leaves; FSDP pieces already hold the sum
+            owners = [x for x in self._leaves() for _ in _tensors(x)]
+            multihost.all_reduce_([g for x, g in zip(owners, grads)
+                                   if not _spans_processes(x)])
         self._update(leaves, grads)
         self.step += 1
         loss = float(loss_sum)
@@ -469,7 +509,16 @@ class ContrastiveTrainer:
         st = self.opt_state
         max_norm = cfg.max_grad_norm
         if max_norm and max_norm > 0:
-            norm = sum((g * g).sum().to(self.device) for g in grads).sqrt()
+            owners = [x for x in self._leaves() for _ in _tensors(x)]
+            sq = [((g * g).sum().to(self.device), _spans_processes(x))
+                  for x, g in zip(owners, grads)]
+            norm = sum(q for q, span in sq if not span)
+            pieces = [q for q, span in sq if span]
+            if pieces:                   # FSDP pieces over processes
+                pieces = torch.stack(pieces).sum()
+                multihost.all_reduce_([pieces])
+                norm = norm + pieces
+            norm = norm.sqrt()
             keep = norm < max_norm
             grads = [torch.where(keep.to(g.device), g,
                                  (g / norm.to(g.device, g.dtype)) * max_norm)
@@ -487,6 +536,7 @@ class ContrastiveTrainer:
             x.add_((u * -lr).to(x.dtype))
 
         grads = iter(grads)
+        spread = []          # (leaf, its rows here) of ZeRO-1 over processes
         for leaf, mu, nu in zip(self._leaves(), st["mu"], st["nu"]):
             if isinstance(leaf, Sharded):        # FSDP: piece by piece
                 for x, m, v in zip(leaf.tensors(), mu.tensors(),
@@ -494,14 +544,22 @@ class ContrastiveTrainer:
                     adam(x, next(grads), m, v)
             elif isinstance(mu, Sharded):        # ZeRO-1: rows per shard
                 g = next(grads)
-                step = leaf.shape[0] // len(mu.pieces)
+                step = leaf.shape[0] // (len(mu.pieces) * mu.processes)
                 for j, dev in enumerate(mu.devices):
-                    rows = slice(j * step, (j + 1) * step)
+                    k = mu.piece_offset + j
+                    rows = slice(k * step, (k + 1) * step)
                     x = leaf[rows].to(dev)
                     adam(x, g[rows].to(dev), mu.pieces[j], nu.pieces[j])
                     leaf[rows].copy_(x)
+                if mu.processes > 1:
+                    spread.append((leaf, leaf[mu.piece_offset * step:(
+                        mu.piece_offset + len(mu.pieces)) * step]))
             else:
                 adam(leaf, next(grads), mu, nu)
+        if spread:                           # every process's rows
+            for (leaf, _), whole in zip(spread, multihost.all_gather_each(
+                    [r for _, r in spread])):
+                leaf.copy_(whole)
         st["count"] = count
 
     # ---- epochs, merge -------------------------------------------------------
@@ -546,23 +604,26 @@ class ContrastiveTrainer:
 
     def save_checkpoint(self, directory: str) -> None:
         """``<directory>/step_<n>/checkpoint.pt`` (the trainable tree and the
-        optimizer state, every tensor whole) and ``<directory>/latest``."""
-        path = os.path.join(directory, f"step_{self.step}")
-        os.makedirs(path, exist_ok=True)
-
+        optimizer state, every tensor whole) and ``<directory>/latest``.
+        Over processes every process calls it (split leaves are gathered)
+        and the primary one writes; it returns once the files are there."""
         def cpu(x):
             return (x.gather("cpu") if isinstance(x, Sharded)
                     else x).detach().cpu()
 
         st = self.opt_state
-        torch.save({"adapters": tree_map(lambda _, x: cpu(x),
-                                         self._trainable()),
-                    "opt_state": {"count": st["count"],
-                                  "mu": [cpu(x) for x in st["mu"]],
-                                  "nu": [cpu(x) for x in st["nu"]]}},
-                   os.path.join(path, CHECKPOINT_FILE))
-        with open(os.path.join(directory, "latest"), "w") as f:
-            f.write(str(self.step))
+        state = {"adapters": tree_map(lambda _, x: cpu(x), self._trainable()),
+                 "opt_state": {"count": st["count"],
+                               "mu": [cpu(x) for x in st["mu"]],
+                               "nu": [cpu(x) for x in st["nu"]]}}
+        if multihost.is_primary_host():
+            path = os.path.join(directory, f"step_{self.step}")
+            os.makedirs(path, exist_ok=True)
+            torch.save(state, os.path.join(path, CHECKPOINT_FILE))
+            with open(os.path.join(directory, "latest"), "w") as f:
+                f.write(str(self.step))
+        if self.processes > 1:
+            multihost.barrier()
 
     @torch.no_grad()
     def restore_checkpoint(self, directory: str,

@@ -43,6 +43,7 @@ from mllm_sparse_retrieval_tpu_torch.configs import ModelConfig
 from mllm_sparse_retrieval_tpu_torch.models import mllm
 from mllm_sparse_retrieval_tpu_torch.models.convert import arch_to_manifest
 from mllm_sparse_retrieval_tpu_torch.models.convert_jax import from_jax_params
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 WORDS = ["dog", "cat", "red", "bus", "man", "kite", "boat", "lake", "snow",
          "child", "bird", "wire", "grass", "city", "tree", "ball"]
@@ -294,10 +295,11 @@ def test_search_cli_device_fusion_matches_jax_library(
     # --mesh runs (tests/test_torch_mesh_serving.py); a model axis that
     # does not divide the devices is refused, as by the JAX make_mesh
     (["--mesh", "--model-parallel", "2"], "not divisible by model_parallel"),
-    # a checkpoint that ships no tokenizer: the port cannot read one
-    # without transformers' tokenizer files (#8b)
+    # a checkpoint that ships no tokenizer file at all (neither
+    # tokenizer.json nor a sentencepiece tokenizer.model)
     (["--family", "llava_next_llama3", "--checkpoint-path", "CKPT"],
-     "Queue 1 #8"),
+     "has no tokenizer: the port reads the checkpoint's tokenizer.json, "
+     "or its sentencepiece tokenizer.model"),
 ])
 def test_cli_refuses_mesh_and_checkpoints(data_root, tmp_path, flags, match):
     if "CKPT" in flags:

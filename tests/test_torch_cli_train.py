@@ -32,6 +32,7 @@ from mllm_sparse_retrieval_tpu_torch.data import prep
 from mllm_sparse_retrieval_tpu_torch.models import lora
 from mllm_sparse_retrieval_tpu_torch.models.convert_jax import (
     from_jax_lora, from_jax_params)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 STEP_TOL = dict(atol=1e-4, rtol=1e-4)
 WORDS = ["dog", "cat", "red", "bus", "man", "kite", "boat", "lake", "snow",
@@ -207,17 +208,20 @@ def test_adapter_files_load_in_both_packages(tmp_path):
 
 
 @pytest.mark.parametrize("flag,match", [
-    (("--mesh",), "Queue 1 #9"),
+    (("--mesh",), "needs the launcher's MASTER_ADDR, MASTER_PORT, RANK"),
     (("--load-kbit", "4", "--merge"), "--merge cannot fold adapters"),
 ])
 def test_train_cli_refuses_what_is_not_ported(data_root, tmp_path, capsys,
                                               monkeypatch, flag, match):
-    """``--mesh`` trains over a mesh of one process
-    (``test_torch_mesh_train.py``); a data axis across the processes of a
-    launch (``WORLD_SIZE`` > 1) is not ported (#9c). ``--load-kbit`` is
-    (QLoRA, trained in ``test_torch_quantization.py``), and with
-    ``--merge`` it is the JAX CLI's usage error."""
+    """``--mesh`` under a launch of several processes (``WORLD_SIZE`` > 1)
+    trains a data axis across them (``test_torch_multiprocess_train.py``),
+    and without the launcher's address, port and rank it raises rather than
+    train alone. ``--load-kbit`` is ported (QLoRA, trained in
+    ``test_torch_quantization.py``), and with ``--merge`` it is the JAX
+    CLI's usage error."""
     monkeypatch.setenv("WORLD_SIZE", "2")
+    for name in ("MASTER_ADDR", "MASTER_PORT", "RANK"):
+        monkeypatch.delenv(name, raising=False)
     args = cli_train.build_parser().parse_args(
         _args(data_root, "tiny_debug", tmp_path, "--device", "cpu", *flag))
     if "--load-kbit" in flag:
@@ -225,6 +229,6 @@ def test_train_cli_refuses_what_is_not_ported(data_root, tmp_path, capsys,
             cli_train.run(args)
         assert match in capsys.readouterr().err
     else:
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(ValueError, match=match):
             cli_train.run(args)
     assert not (tmp_path / "lora.pkl").exists()

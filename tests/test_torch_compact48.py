@@ -29,6 +29,7 @@ from mllm_sparse_retrieval_tpu_torch.index import impact as impact_mod
 from mllm_sparse_retrieval_tpu_torch.ops import packing
 from mllm_sparse_retrieval_tpu_torch.ops import score_programs as SP
 from mllm_sparse_retrieval_tpu_torch.serving import RetrievalService
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 N_DOCS, N_TERMS, DOC_K, B, Q = 300, 60, 8, 8, 64
 

@@ -37,6 +37,7 @@ from mllm_sparse_retrieval_tpu_torch.models import convert
 from mllm_sparse_retrieval_tpu_torch.models import mllm, registry, templates
 from mllm_sparse_retrieval_tpu_torch.models.hf_tokenizer import (
     HFJsonTokenizer)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 transformers = pytest.importorskip("transformers")
 safetensors_torch = pytest.importorskip("safetensors.torch")

@@ -7,9 +7,10 @@ dense search's peak memory, the SQ8 int8 product's padding, the compact48
 wire through the TAAT kernel and the ANN tier, a converted checkpoint
 loaded onto the card, the arena live index's in-place writes into the
 TAAT kernel's matrix, tiny InternVL2.5 and Qwen2.5-VL encodes on the
-card against the CPU, and the ``hostops`` extension built on the card's
-machine against the Python bodies (the tolerances of all but the kernels
-are in their docstrings). Marked ``cuda``; each test skips
+card against the CPU, the ``hostops`` extension built on the card's
+machine against the Python bodies, and a training step over a mesh of the
+one card and across two ``gloo`` processes on it against the unsharded
+step (the tolerances of all but the kernels are in their docstrings). Marked ``cuda``; each test skips
 where no card is present (decided inside the test, so every pytest worker
 collects the same tests). This file
 imports nothing of JAX, so it also runs where JAX is absent:
@@ -1134,28 +1135,17 @@ def test_sharded_flash_at_g4_equals_the_unsharded_kernel():
     assert torch.equal(got, want)
 
 
-def test_mesh_training_step_on_a_repeated_card_equals_the_unsharded_step():
-    """``ContrastiveTrainer(mesh=make_mesh(2, 2, devices=[cuda:0] * 4))``
-    (ZeRO-1, remat, LoRA dropout 0.1) on 1,024-token image prompts, which
-    take the flash kernels: once per shard and layer forward (twice with
-    the remat recompute), dq and dkv once, and the step's loss, gradient
-    (Adam's first moment, 0.1 x the clipped gradient) and adapter update
-    equal the unsharded trainer's on the same batch within bf16 GEMM
-    rounding: loss within 2e-3 relative, gradient cosine >= 0.999, update
-    cosine >= 0.95 (the flash kernels compute each (row, head) alone, the
-    shards' GEMMs have other shapes; Adam's first update is ``g / (|g| +
-    1e-8)``, so rounding flips the sign of the smallest elements)."""
-    dev = _card()
-    import torch.nn.functional as F
-
+def _mesh_step_case(dev):
+    """A 2-layer LLaVA with 512-wide text (4/2 heads of 128), its weights,
+    a batch of 4 pairs with 1,024-token image prompts (the flash route),
+    the config (ZeRO-1, remat, LoRA dropout 0.1) and starting adapters, all
+    drawn from fixed seeds on ``dev``."""
     from mllm_sparse_retrieval_tpu_torch.configs import TrainConfig
     from mllm_sparse_retrieval_tpu_torch.models import lora, mllm
     from mllm_sparse_retrieval_tpu_torch.models.llama import LlamaConfig
     from mllm_sparse_retrieval_tpu_torch.models.mllm import MLLMConfig
     from mllm_sparse_retrieval_tpu_torch.models.vit import ViTConfig
-    from mllm_sparse_retrieval_tpu_torch.parallel import Sharded, make_mesh
-    from mllm_sparse_retrieval_tpu_torch.train.trainer import (
-        ContrastiveTrainer, TrainBatch)
+    from mllm_sparse_retrieval_tpu_torch.train.trainer import TrainBatch
 
     arch = MLLMConfig(
         vision=ViTConfig(image_size=32, patch_size=16, hidden_size=64,
@@ -1184,31 +1174,128 @@ def test_mesh_training_step_on_a_repeated_card_equals_the_unsharded_step():
         for entry in blk.values():
             entry["b"].normal_(0.0, 0.01, generator=torch.Generator(
                 dev).manual_seed(2))
-    out = {}
-    for name, mesh in (("one", None),
-                       ("mesh", make_mesh(2, 2, devices=[dev] * 4))):
-        ad = _clone_tree(start)
-        trainer = ContrastiveTrainer(params, arch, ad, cfg, mesh=mesh,
-                                     device=dev)
-        FA.reset_launch_count()
-        loss = trainer.train_on_batch(batch)
-        torch.cuda.synchronize()
-        launches = {k: FA.launch_count(k) for k in FA.KERNELS}
-        update = torch.cat([
-            (x.detach() - y).flatten().float()
-            for x, y in zip(lora.tree_leaves(ad), lora.tree_leaves(start))])
-        grad = torch.cat([(m.gather(dev) if isinstance(m, Sharded) else m)
-                          .flatten().float() for m in trainer.opt_state["mu"]])
-        out[name] = (loss, launches, update, grad)
-    layers = arch.text.num_layers
-    assert out["one"][1] == {"fwd": 2 * layers, "dq": layers, "dkv": layers}
-    assert out["mesh"][1] == {"fwd": 8 * layers, "dq": 4 * layers,
-                              "dkv": 4 * layers}
-    assert abs(out["mesh"][0] - out["one"][0]) <= 2e-3 * abs(out["one"][0])
-    assert float(F.cosine_similarity(out["mesh"][3], out["one"][3],
-                                     dim=0)) >= 0.999
-    assert float(F.cosine_similarity(out["mesh"][2], out["one"][2],
-                                     dim=0)) >= 0.95
+    return arch, params, batch, cfg, start
+
+
+def _step_record(case, mesh, dev):
+    """One ``train_on_batch`` of ``_mesh_step_case``'s trainer over
+    ``mesh``: ``(loss, flash launches, adapter update, Adam's first moment
+    gathered)``, the last two flat f32 on the host."""
+    from mllm_sparse_retrieval_tpu_torch.models import lora
+    from mllm_sparse_retrieval_tpu_torch.parallel import Sharded
+    from mllm_sparse_retrieval_tpu_torch.train.trainer import (
+        ContrastiveTrainer)
+
+    arch, params, batch, cfg, start = case
+    ad = _clone_tree(start)
+    trainer = ContrastiveTrainer(params, arch, ad, cfg, mesh=mesh,
+                                 device=dev)
+    FA.reset_launch_count()
+    loss = trainer.train_on_batch(batch)
+    torch.cuda.synchronize()
+    launches = {k: FA.launch_count(k) for k in FA.KERNELS}
+    update = torch.cat([
+        (x.detach() - y).flatten().float()
+        for x, y in zip(lora.tree_leaves(ad), lora.tree_leaves(start))])
+    grad = torch.cat([(m.gather(dev) if isinstance(m, Sharded) else m)
+                      .flatten().float() for m in trainer.opt_state["mu"]])
+    return loss, launches, update.cpu(), grad.cpu()
+
+
+def _assert_step_close(got, ref, launches):
+    """A sharded step against the unsharded one within bf16 GEMM rounding
+    (the mesh tests' docstrings)."""
+    import torch.nn.functional as F
+
+    assert got[1] == launches
+    assert abs(got[0] - ref[0]) <= 2e-3 * abs(ref[0])
+    assert float(F.cosine_similarity(got[3], ref[3], dim=0)) >= 0.999
+    assert float(F.cosine_similarity(got[2], ref[2], dim=0)) >= 0.95
+
+
+def test_mesh_training_step_on_a_repeated_card_equals_the_unsharded_step():
+    """``ContrastiveTrainer(mesh=make_mesh(2, 2, devices=[cuda:0] * 4))``
+    (ZeRO-1, remat, LoRA dropout 0.1) on 1,024-token image prompts, which
+    take the flash kernels: once per shard and layer forward (twice with
+    the remat recompute), dq and dkv once, and the step's loss, gradient
+    (Adam's first moment, 0.1 x the clipped gradient) and adapter update
+    equal the unsharded trainer's on the same batch within bf16 GEMM
+    rounding: loss within 2e-3 relative, gradient cosine >= 0.999, update
+    cosine >= 0.95 (the flash kernels compute each (row, head) alone, the
+    shards' GEMMs have other shapes; Adam's first update is ``g / (|g| +
+    1e-8)``, so rounding flips the sign of the smallest elements)."""
+    dev = _card()
+    from mllm_sparse_retrieval_tpu_torch.parallel import make_mesh
+
+    case = _mesh_step_case(dev)
+    one = _step_record(case, None, dev)
+    mesh = _step_record(case, make_mesh(2, 2, devices=[dev] * 4), dev)
+    layers = case[0].text.num_layers
+    assert one[1] == {"fwd": 2 * layers, "dq": layers, "dkv": layers}
+    _assert_step_close(mesh, one, {"fwd": 8 * layers, "dq": 4 * layers,
+                                   "dkv": 4 * layers})
+
+
+_TWO_PROCESS_STEP = """
+import importlib.util
+import sys
+import torch
+from mllm_sparse_retrieval_tpu_torch.parallel import make_mesh, multihost
+rank, port, out, here = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+spec = importlib.util.spec_from_file_location("card_tests", here)
+card_tests = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(card_tests)
+_mesh_step_case, _step_record = card_tests._mesh_step_case, card_tests._step_record
+multihost.initialize_multihost(f"localhost:{port}", 2, rank, device="cuda",
+                               backend="gloo")
+dev = torch.device("cuda", 0)
+mesh = make_mesh(devices=[dev])
+assert (mesh.processes, mesh.data_size) == (2, 2), mesh
+torch.save(_step_record(_mesh_step_case(dev), mesh, dev),
+           f"{out}/rank{rank}.pt")
+torch.distributed.destroy_process_group()
+"""
+
+
+def test_two_process_training_step_on_one_card_equals_the_unsharded_step(
+        tmp_path):
+    """Two processes on ``cuda:0`` joined over ``gloo`` (``nccl`` refuses
+    two ranks on one card), each a 1x1 local mesh, the data axis global
+    over the two: each process runs its 2 of the 4 pairs through the flash
+    kernels (once a layer, twice with the remat recompute) and their step
+    equals the unsharded one as the mesh step does."""
+    dev = _card()
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(repo) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _TWO_PROCESS_STEP, str(rank), str(port),
+         str(tmp_path), __file__], cwd=repo, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=600)
+            assert p.returncode == 0, out[-4000:]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    one = _step_record(_mesh_step_case(dev), None, dev)
+    layers = 2
+    for rank in range(2):
+        got = torch.load(tmp_path / f"rank{rank}.pt", weights_only=False)
+        _assert_step_close(got, one, {"fwd": 2 * layers, "dq": layers,
+                                      "dkv": layers})
 
 
 def _clone_tree(tree):

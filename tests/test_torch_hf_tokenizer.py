@@ -314,10 +314,17 @@ def test_llama_tokenizer_class_rebuilds_its_post_processor(tmp_path):
 
 
 def test_unsupported_layouts_raise(tmp_path, toks, monkeypatch):
+    # a sentencepiece model is converted (test_torch_sentencepiece.py), but
+    # one empty piece with proto2's default model type is a Unigram model;
+    # a directory with neither file has nothing to read
     (tmp_path / "spm").mkdir()
     (tmp_path / "spm" / "tokenizer.model").write_bytes(b"\x0a\x00")
-    with pytest.raises(FileNotFoundError, match="needs tokenizer.json"):
+    with pytest.raises(NotImplementedError, match="Unigram"):
         HFJsonTokenizer.from_dir(str(tmp_path / "spm"))
+    (tmp_path / "none").mkdir()
+    with pytest.raises(FileNotFoundError, match="no tokenizer.json or "
+                                                "tokenizer.model"):
+        HFJsonTokenizer.from_dir(str(tmp_path / "none"))
     data = {"model": {"type": "Unigram", "vocab": []}}
     with pytest.raises(NotImplementedError, match="Unigram"):
         HFJsonTokenizer(data)

@@ -33,6 +33,7 @@ from mllm_sparse_retrieval_tpu_torch.pipelines import encode as pencode
 from mllm_sparse_retrieval_tpu_torch.sparse import term_selection as ts
 from tests.test_torch_offline_encode import (  # noqa: F401 (fixture)
     BATCH, raw_loader, setup)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CFGS = [dict(), dict(is_filtered=False),
         dict(sparse_manual=True, sparse_length=16),

@@ -45,6 +45,7 @@ from mllm_sparse_retrieval_tpu_torch.serving import (
     OnlineQueryEncoder, RetrievalService)
 from mllm_sparse_retrieval_tpu_torch.sparse import (
     SelectedTerms, canonical_id_map)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 DEPTH = 10
 VIT = dict(image_size=28, patch_size=14, hidden_size=32, num_layers=2,

@@ -36,6 +36,7 @@ from mllm_sparse_retrieval_tpu_torch.models.convert_jax import from_jax_params
 from tests.test_torch_chat_templates import (
     MODEL_VOCAB, SIZES, assert_encode_examples_equal, assert_served_equal,
     chat_tokenizers, family_setup, images, noisy, port_arch)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 TEXT = dict(vocab_size=MODEL_VOCAB, hidden_size=64, num_layers=2,

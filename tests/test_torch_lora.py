@@ -48,6 +48,7 @@ from mllm_sparse_retrieval_tpu_torch.models.llama import LlamaConfig
 from mllm_sparse_retrieval_tpu_torch.models.mllm import MLLMConfig
 from mllm_sparse_retrieval_tpu_torch.models.registry import tiny_debug_arch
 from mllm_sparse_retrieval_tpu_torch.models.vit import ViTConfig
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 GRAD_TOL = dict(atol=1e-4, rtol=1e-4)

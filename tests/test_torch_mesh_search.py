@@ -59,6 +59,7 @@ from mllm_sparse_retrieval_tpu_torch.parallel import (
 from mllm_sparse_retrieval_tpu_torch.pipelines import encode as pencode
 from mllm_sparse_retrieval_tpu_torch.search import engine
 from test_torch_offline_encode import BATCH, raw_loader, setup  # noqa: F401
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 N_DOCS, N_TERMS, N_Q, DIM = 300, 60, 9, 24
 SHARDS = (2, 4)

@@ -40,6 +40,7 @@ from test_torch_cli import (  # noqa: F401 — fixtures
     _common, _leaf, data_root, jax_model, jax_weights)
 from test_torch_cli_train import _args as train_args
 from test_torch_http import _Server, _request
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 N_DOCS, DIM, N_TERMS = 64, 8, 40
 
@@ -225,9 +226,9 @@ def test_encode_search_stats_clis_over_a_mesh(data_root, jax_weights,
     """Each CLI under ``--mesh`` (a 1x1 mesh of the CPU here) gives its run
     without it; ``--model-parallel 2`` on one device is make_mesh's
     error; ``cli.train --mesh`` trains over a mesh
-    (``test_torch_mesh_train.py``) and raises, naming #9c, under a launch
-    of several processes, whose data axis the one-process mesh cannot
-    span."""
+    (``test_torch_mesh_train.py``), across the processes of a launch too
+    (``test_torch_multiprocess_train.py``), and under a launch without the
+    launcher's address it raises ``ValueError`` naming the variable."""
     outs = {}
     for tag, flag in (("one", []), ("mesh", ["--mesh"])):
         out = tmp_path / tag
@@ -265,5 +266,7 @@ def test_encode_search_stats_clis_over_a_mesh(data_root, jax_weights,
         train_args(data_root, "tiny_debug", tmp_path, "--device", "cpu",
                    "--mesh"))
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="#9c"):
+    for name in ("MASTER_ADDR", "MASTER_PORT", "RANK"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(ValueError, match="MASTER_ADDR"):
         cli_train.run(args)

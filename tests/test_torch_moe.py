@@ -37,6 +37,7 @@ from mllm_sparse_retrieval_tpu_torch.models.llama import LlamaConfig
 from mllm_sparse_retrieval_tpu_torch.models.mllm import MLLMConfig
 from mllm_sparse_retrieval_tpu_torch.models.vit import ViTConfig
 from mllm_sparse_retrieval_tpu_torch.parallel import ep
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 EXACT_TOL = dict(atol=1e-6, rtol=1e-6)
 TOL = dict(atol=1e-5, rtol=1e-5)

@@ -9,7 +9,8 @@ the live indexes, the HTTP front ends and the server CLIs, and the
 chat-template families' Qwen2.5-VL, InternVL2.5, tiling and template
 modules, and the training and analysis CLIs with ``data.prep``,
 ``eval.statistics`` and ``hostops`` included, and the mesh-training
-modules ``parallel.{fsdp,tp,sp,pp,multihost,dryrun}``) imports with JAX
+modules ``parallel.{fsdp,tp,sp,pp,multihost,dryrun}``, and the
+sentencepiece conversion ``models.sentencepiece``) imports with JAX
 blocked (and, Qwen's native
 resolution and InternVL's tiling among them, with Pillow blocked),
 checkpoints convert and load with ``transformers`` and ``safetensors``
@@ -74,6 +75,9 @@ QLORA = ("models.quantization", "parallel", "parallel.ep", "parallel.mesh")
 # process group, the dry run and the sharded loss
 MESH_TRAIN = ("parallel.fsdp", "parallel.tp", "parallel.sp", "parallel.pp",
               "parallel.multihost", "parallel.dryrun", "train.contrastive")
+# a tokenizer.model-only checkpoint: the sentencepiece conversion and the
+# reader it feeds
+SPM = ("models.sentencepiece", "models.hf_tokenizer")
 
 
 def _env():
@@ -90,7 +94,7 @@ def test_port_and_chip_smoke_import_without_jax():
     assert int(proc.stdout.split()[-1]) >= 20
     imported = set(proc.stdout.splitlines()[-2].split())
     missing = {m for m in OFFLINE + HYBRID + TIERS + LIVE + CHAT + TRAIN
-               + QLORA + MESH_TRAIN
+               + QLORA + MESH_TRAIN + SPM
                if f"mllm_sparse_retrieval_tpu_torch.{m}" not in imported}
     assert missing == set()
 
@@ -106,7 +110,7 @@ def test_no_import_statement_names_jax_or_the_jax_package():
                if f.is_relative_to(PORT)}
     assert {m.replace(".", "/") + ".py"
             for m in OFFLINE + HYBRID + TIERS + LIVE + CHAT + QLORA
-            + MESH_TRAIN if m not in ("index.native", "index", "parallel")} | {
+            + MESH_TRAIN + SPM if m not in ("index.native", "index", "parallel")} | {
                 "index/native/__init__.py", "index/__init__.py",
                 "parallel/__init__.py"} <= scanned
     hits = [f"{f}: {m.group(0).strip()}" for f in files

@@ -54,6 +54,7 @@ from mllm_sparse_retrieval_tpu_torch.models.tokenizer import (
     WordPieceLiteTokenizer)
 from mllm_sparse_retrieval_tpu_torch.models.vit import ViTConfig
 from mllm_sparse_retrieval_tpu_torch.pipelines import encode as pencode
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(tiny_vocab_size=256, tiny_hidden_size=64, tiny_num_layers=2,
             tiny_num_heads=4)

@@ -44,6 +44,7 @@ from mllm_sparse_retrieval_tpu_torch.parallel.mesh import make_mesh
 from mllm_sparse_retrieval_tpu_torch.parallel.multihost import (
     initialize_multihost, is_primary_host)
 from mllm_sparse_retrieval_tpu_torch.train.trainer import zero1_shardings
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 GRAD_TOL = dict(atol=1e-4, rtol=1e-4)

@@ -26,6 +26,7 @@ from mllm_sparse_retrieval_tpu_torch.models import llama
 from mllm_sparse_retrieval_tpu_torch.models.llama import LlamaConfig
 from mllm_sparse_retrieval_tpu_torch.parallel import pp
 from mllm_sparse_retrieval_tpu_torch.train.contrastive import info_nce_loss
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CPU8 = ["cpu"] * 8
 

@@ -50,6 +50,7 @@ from mllm_sparse_retrieval_tpu_torch.train.trainer import ContrastiveTrainer
 from test_torch_cli_train import _args, _close, data_root  # noqa: F401
 from test_torch_train import (CAPTIONS, STEP_TOL, TINY, TOL, _adapters,
                               _examples, _np_tree, _port_batch, tiny)  # noqa
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SCALE_RTOL = 2.0 ** -18
 BF16_TOL = dict(atol=2.0 ** -5, rtol=2.0 ** -5)

@@ -37,6 +37,7 @@ from tests.test_torch_chat_templates import (
     MODEL_VOCAB, SIZES, assert_encode_examples_equal, assert_served_equal,
     chat_tokenizers, family_setup, images, noisy, port_arch)
 from tests.test_torch_internvl import _assert_trees_byte_equal, _torch_sd
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 FACTOR = 28

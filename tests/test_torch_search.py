@@ -58,6 +58,7 @@ from mllm_sparse_retrieval_tpu_torch.pipelines import encode as pencode
 from mllm_sparse_retrieval_tpu_torch.search import engine, fusion, runs
 from mllm_sparse_retrieval_tpu_torch.sparse import (
     SelectedTerms, canonical_id_map)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 KS = (1, 3, 5, 10, 100)
 DEPTH = 100

@@ -58,6 +58,7 @@ from mllm_sparse_retrieval_tpu_torch.serving import OnlineQueryEncoder
 from mllm_sparse_retrieval_tpu_torch.train import contrastive
 from mllm_sparse_retrieval_tpu_torch.train.trainer import (
     ContrastiveTrainer, TrainBatch, make_collator)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 STEP_TOL = dict(atol=1e-4, rtol=1e-4)

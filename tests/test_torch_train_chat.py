@@ -46,6 +46,7 @@ from tests.test_torch_chat_templates import (
     CAPTIONS, SIZES, chat_tokenizers, images, noisy, port_arch)
 from tests.test_torch_internvl import _jarch as _internvl_jarch
 from tests.test_torch_qwen_vl import _jarch as _qwen_jarch
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 STEP_TOL = dict(atol=1e-4, rtol=1e-4)
