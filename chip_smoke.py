@@ -46,8 +46,15 @@ same with text through a copy of the directory that ships only a
 sentencepiece ``tokenizer.model`` (the committed Llama-2-shaped fixture,
 its ids equal to ``transformers``' pinned ids), and
 ``image_b64`` queries over HTTP equal to the service's in-process results
-on the decoded pixels. It drives the
-port's five paths end to end on that loaded model: text
+on the decoded pixels; beside the files phase a child of the script runs
+two of the port's runbooks (``mllm_sparse_retrieval_tpu_torch.tools``) on
+the tiny family: ``train_retrieve_e2e`` at its full recipe on a seeded
+200-pair few-shot CSV, whose recall@1 lift gate must hold, and
+``corpus_e2e`` at Flickr30k-test scale (5,000 captions, 1,000 images).
+Then ``reproduce_recall`` runs on the loaded model (``model=``) over the
+files phase's corpus at depth 1,000 and alpha 0.5 in both directions, its
+sparse runs equal to the matmul backend's (``phase_runbooks``). It drives
+the port's five paths end to end on that loaded model: text
 queries through ``RetrievalService`` and the 32-layer text tower; image
 queries through anyres preprocessing, the 24-layer ViT-L/14-336 on five
 336 px tiles, the projector and the 3,072-token decoder, whose attention is
@@ -390,6 +397,16 @@ INTERNVL_HEADS = (28, 4)
 # few-shot CSV of CLI_PAIRS images, cli.train.run for one epoch on them at
 # batch TRAIN_B, and term_weight_statistics of the trained model on them
 CHAT_TRAIN_STEPS, CLI_IMAGES, CLI_PAIRS = 1, 32, 4
+# the runbooks (phase_runbooks): reproduce_recall at the reference's
+# search recipe (depth RB_DEPTH, alpha RB_ALPHA) on the files phase's
+# corpus; train_retrieve_e2e at its full recipe (RB_FEW_SHOT of
+# RB_TRAIN_IMAGES seeded train images, RB_EPOCHS epochs at batch RB_TRAIN_B
+# and learning rate RB_LR, the recall@1 lift gate RB_MIN_LIFT); corpus_e2e
+# on RB_TEST_IMAGES images of OFF_CAPS captions (Flickr30k's test split)
+RB_DEPTH, RB_ALPHA = 1000, 0.5
+RB_FEW_SHOT, RB_TRAIN_IMAGES, RB_EPOCHS, RB_TRAIN_B = 200, 240, 24, 16
+RB_LR, RB_MIN_LIFT, RB_TEST_IMAGES = 3e-3, 0.3, 1000
+RB_CHILD_TIMEOUT_S = 300
 # live indexes and the HTTP front end: arena copies of the impact index and
 # the hybrid phase's dense rows with the default LIVE_HEADROOM reserved
 # columns and rows; LIVE_POSTS adds of LIVE_POST_DOCS new docs over HTTP
@@ -4081,6 +4098,17 @@ def png_file(pixels, interlace=False, alpha=False):
             + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
+def fixture_pixels():
+    """{name: pixels} of the committed JPEG fixtures, decoded by the port's
+    codec."""
+    from mllm_sparse_retrieval_tpu_torch.data import imageio
+
+    with open(os.path.join(FIXTURES, "images.json")) as f:
+        names = sorted(json.load(f)["files"])
+    return {name: imageio.load_rgb(os.path.join(FIXTURES, "jpeg", name))
+            for name in names}
+
+
 def files_check():
     """Every committed JPEG fixture decoded by the port's codec (built by
     this machine's g++) against the SHA-256 of Pillow's decode pinned
@@ -4097,13 +4125,10 @@ def files_check():
     build_s = time.monotonic() - t0
     with open(os.path.join(FIXTURES, "images.json")) as f:
         meta = json.load(f)
-    pixels, bad = {}, []
-    for name, want in sorted(meta["files"].items()):
-        img = imageio.load_rgb(os.path.join(FIXTURES, "jpeg", name))
-        if (list(img.shape) != want["shape"] or hashlib.sha256(
-                img.tobytes()).hexdigest() != want["sha256"]):
-            bad.append(name)
-        pixels[name] = img
+    pixels = fixture_pixels()
+    bad = [name for name, want in sorted(meta["files"].items())
+           if list(pixels[name].shape) != want["shape"] or hashlib.sha256(
+               pixels[name].tobytes()).hexdigest() != want["sha256"]]
     if bad:
         raise AssertionError(f"decodes differ from Pillow's pinned hashes: "
                              f"{bad}")
@@ -4251,6 +4276,54 @@ def rate_from_files(pixels, tmp, params, arch, tok, tmpl, sparse_cfg):
     return rates, decode_batch_ms
 
 
+def files_corpus(tmp, pixels):
+    """The files phase's flickr-layout corpus under ``tmp/data``: four of
+    the JPEG fixtures as they are, PNGs written from four others (RGB and
+    RGBA, plain and Adam7; each decodes back to its pixels), two seeded
+    captions an image. ``pixels`` maps fixture names to their decoded
+    pixels. Returns ``(data root, image directory, file names)``."""
+    import numpy as np
+
+    from mllm_sparse_retrieval_tpu_torch.data.imageio import (
+        decode_image_bytes)
+
+    with open(os.path.join(FIXTURES, "ids.json")) as f:
+        words = sorted({w for t, _, _ in json.load(f)["texts"][:24]
+                        for w in t.split()})
+    rng = np.random.default_rng(SEED + 8)
+    root = os.path.join(tmp, "data")
+    img_dir = os.path.join(root, "flickr", "flickr30k-images")
+    os.makedirs(img_dir)
+    sized = sorted(n for n in pixels if not n.startswith("480x640_"))
+    names = sized[4:]               # four JPEG files as they are
+    for name in names:
+        with open(os.path.join(FIXTURES, "jpeg", name), "rb") as f:
+            data = f.read()
+        with open(os.path.join(img_dir, name), "wb") as f:
+            f.write(data)
+    # PNGs written here from the other four decoded fixtures: RGB and
+    # RGBA, plain and Adam7; each must decode back to its pixels
+    for i, name in enumerate(sized[:4]):
+        data = png_file(pixels[name], interlace=i % 2 == 1,
+                        alpha=i >= 2)
+        if not np.array_equal(decode_image_bytes(data), pixels[name]):
+            raise AssertionError(f"PNG of {name} ({i}) does not decode "
+                                 f"to its pixels")
+        png = name.replace(".jpg", f"_{'adam7' if i % 2 else 'plain'}"
+                           f"_{'rgba' if i >= 2 else 'rgb'}.png")
+        with open(os.path.join(img_dir, png), "wb") as f:
+            f.write(data)
+        names.append(png)
+    lines = ["imgid,filename,caption,sentid"]
+    for i, name in enumerate(names):
+        for c in range(2):
+            cap = " ".join(rng.choice(words, int(rng.integers(6, 12))))
+            lines.append(f"{i},{name},{cap},{2 * i + c}")
+    with open(os.path.join(root, "flickr", "flickr_test.csv"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return root, img_dir, names
+
+
 def phase_files(ckpt_dir, params, arch, tok, tmpl, card):
     """Real files on the card: the JPEG fixtures decoded to Pillow's pinned
     hashes, the checkpoint's ``tokenizer.json`` read to ``transformers``'
@@ -4279,8 +4352,7 @@ def phase_files(ckpt_dir, params, arch, tok, tmpl, card):
     from mllm_sparse_retrieval_tpu_torch.cli.ingest import _post
     from mllm_sparse_retrieval_tpu_torch.configs import SparseConfig
     from mllm_sparse_retrieval_tpu_torch.data import CrossModalCorpus
-    from mllm_sparse_retrieval_tpu_torch.data.imageio import (
-        decode_image_bytes, load_rgb)
+    from mllm_sparse_retrieval_tpu_torch.data.imageio import load_rgb
     from mllm_sparse_retrieval_tpu_torch.index import ImpactIndex
     from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
     from mllm_sparse_retrieval_tpu_torch.ops import impact_kernel as K
@@ -4294,41 +4366,8 @@ def phase_files(ckpt_dir, params, arch, tok, tmpl, card):
     K.reset_launch_count()
     pixels, decode_ms = files_check()
     tok_rate = tokenizer_check(tok, ckpt_dir)
-    with open(os.path.join(FIXTURES, "ids.json")) as f:
-        words = sorted({w for t, _, _ in json.load(f)["texts"][:24]
-                        for w in t.split()})
-    rng = np.random.default_rng(SEED + 8)
     with tempfile.TemporaryDirectory() as tmp:
-        root = os.path.join(tmp, "data")
-        img_dir = os.path.join(root, "flickr", "flickr30k-images")
-        os.makedirs(img_dir)
-        sized = sorted(n for n in pixels if not n.startswith("480x640_"))
-        names = sized[4:]               # four JPEG files as they are
-        for name in names:
-            with open(os.path.join(FIXTURES, "jpeg", name), "rb") as f:
-                data = f.read()
-            with open(os.path.join(img_dir, name), "wb") as f:
-                f.write(data)
-        # PNGs written here from the other four decoded fixtures: RGB and
-        # RGBA, plain and Adam7; each must decode back to its pixels
-        for i, name in enumerate(sized[:4]):
-            data = png_file(pixels[name], interlace=i % 2 == 1,
-                            alpha=i >= 2)
-            if not np.array_equal(decode_image_bytes(data), pixels[name]):
-                raise AssertionError(f"PNG of {name} ({i}) does not decode "
-                                     f"to its pixels")
-            png = name.replace(".jpg", f"_{'adam7' if i % 2 else 'plain'}"
-                               f"_{'rgba' if i >= 2 else 'rgb'}.png")
-            with open(os.path.join(img_dir, png), "wb") as f:
-                f.write(data)
-            names.append(png)
-        lines = ["imgid,filename,caption,sentid"]
-        for i, name in enumerate(names):
-            for c in range(2):
-                cap = " ".join(rng.choice(words, int(rng.integers(6, 12))))
-                lines.append(f"{i},{name},{cap},{2 * i + c}")
-        with open(os.path.join(root, "flickr", "flickr_test.csv"), "w") as f:
-            f.write("\n".join(lines) + "\n")
+        root, img_dir, names = files_corpus(tmp, pixels)
         common = ["--dataset", "flickr", "--data-root", root, "--family",
                   "llava_next_llama3", "--checkpoint-path", ckpt_dir,
                   "--dtype", "bfloat16", "--batch-size", str(OFF_BATCH),
@@ -4636,7 +4675,7 @@ def spm_leg(ckpt_dir, tmp, common, card):
              f"matmul backend's; card {card}")
 
 
-def phase_checkpoint(spec, card, multi_train, beside):
+def phase_checkpoint(spec, card, multi_train, beside, runbooks):
     """The main path's model from a checkpoint: LLaVA-NeXT-Llama3-8B drawn
     at full width and depth on the card (bf16), written as an HF llava_next
     checkpoint with the committed Llama-3-layout tokenizer files (its
@@ -4649,9 +4688,10 @@ def phase_checkpoint(spec, card, multi_train, beside):
     trains across two processes on the card, its children drawing the same
     weights (the checksums of MP_LEAVES held to the drawn tree's), and
     then ``beside()`` runs. Then, before the converted directory goes,
-    ``phase_files`` on it. Returns ``(params, arch, files, multi, side)``:
-    the loaded tree, ``phase_files``' result, the children's flash
-    launches and ``beside()``'s result."""
+    ``phase_files`` on it, with ``runbooks`` (a ``RunbookChild``) running
+    beside it. Returns ``((params, arch, tokenizer, template), files,
+    multi, side)``: the loaded model, ``phase_files``' result, the
+    children's flash launches and ``beside()``'s result."""
     import contextlib
     import resource
     import shutil
@@ -4741,9 +4781,12 @@ def phase_checkpoint(spec, card, multi_train, beside):
         if not isinstance(tok, HFJsonTokenizer) or \
                 tok.get_vocab().get("<image>") != spec.arch.image_token_id:
             raise AssertionError(f"the checkpoint's tokenizer: {tok}")
+        runbooks.start()
         files = phase_files(out_dir, params, arch, tok, tmpl, card)
+        runbooks.finish()
     finally:
         multi_train.stop()
+        runbooks.stop()
         if conv is not None and conv.poll() is None:
             conv.kill()
             conv.wait()
@@ -4766,7 +4809,7 @@ def phase_checkpoint(spec, card, multi_train, beside):
              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB; all "
              f"{len(got)} loaded tensors equal the drawn ones bit for bit, "
              f"arch equal to the registry's; card {card}")
-    return params, arch, files, multi, side
+    return (params, arch, tok, tmpl), files, multi, side
 
 
 def phase_families(tok, tmpl, lexicon, index, cmap, card):
@@ -5158,15 +5201,15 @@ def phase_chat_train(name, params, arch, tmpl, ctok, lexicon, card):
     return total
 
 
-def write_karpathy_json(path, rng, lexicon):
-    """A seeded Karpathy ``dataset.json`` of ``CLI_IMAGES`` images (absent
-    files) with ``OFF_CAPS`` captions each, split train / restval / val /
-    test in turn."""
+def write_karpathy_json(path, rng, lexicon, n_images=CLI_IMAGES,
+                        splits=("train", "restval", "val", "test")):
+    """A seeded Karpathy ``dataset.json`` of ``n_images`` images (absent
+    files) with ``OFF_CAPS`` captions each, in ``splits`` in turn."""
     images, sent = [], 0
-    for i in range(CLI_IMAGES):
+    for i in range(n_images):
         caps = captions(rng, lexicon, OFF_CAPS, 8, 14)
         images.append({"imgid": i, "filename": f"cli_{i}.jpg",
-                       "split": ("train", "restval", "val", "test")[i % 4],
+                       "split": splits[i % len(splits)],
                        "sentences": [{"raw": c, "sentid": sent + j}
                                      for j, c in enumerate(caps)]})
         sent += len(caps)
@@ -6377,6 +6420,286 @@ def phase_moe(card):
     return launched
 
 
+def runbook_main(main, argv, model=None):
+    """A runbook's ``main(argv, model)`` with its output captured, the
+    launch counts set to 0 just before it and read just after: ``(result,
+    output lines, seconds, TAAT launches, flash launches)``."""
+    import contextlib
+    import io
+
+    import torch
+
+    from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
+    from mllm_sparse_retrieval_tpu_torch.ops import impact_kernel as K
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    K.reset_launch_count()
+    FA.reset_launch_count()
+    t0 = time.monotonic()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = main(argv, model=model)
+        torch.cuda.synchronize()
+    finally:
+        for line in buf.getvalue().splitlines():
+            print(f"    | {line}", flush=True)
+    return (out, buf.getvalue().splitlines(), time.monotonic() - t0,
+            K.launch_count(), FA.launch_count())
+
+
+def phase_runbooks(model, child, card):
+    """The three runbooks of ``mllm_sparse_retrieval_tpu_torch.tools``
+    through their ``main`` on the card, the launch counts taken around each
+    alone: ``runbook_recall`` here on ``model`` (the checkpoint's
+    LLaVA-NeXT-Llama3-8B with its tokenizer and template), and the launches
+    of ``runbook_train`` and ``runbook_corpus`` on the tiny family, which
+    ``child`` (a finished ``RunbookChild``) ran beside the files phase.
+    Returns ``(TAAT launches, flash launches)`` of the three together."""
+    taat, flash = runbook_recall(model, card)
+    progress("runbooks", f"TAAT launches {taat} + {child.taat} (the "
+             f"child's), flash launches {flash} + {child.flash}; card "
+             f"{card}")
+    return taat + child.taat, flash + child.flash
+
+
+class RunbookChild:
+    """``runbook_train`` and ``runbook_corpus`` in a child of the script
+    (``chip_smoke.py --runbook-child DIR``, ``runbook_child``), started
+    before the files phase, whose checkpoint loads are host work that
+    leaves the card idle: ``start`` starts it, ``finish`` waits for it,
+    prints its lines and reads its launches (``taat``, ``flash``); a child
+    that fails fails the phase, and ``stop`` kills one still running."""
+
+    def __init__(self):
+        self.proc = self.work = self.t0 = None
+        self.taat = self.flash = 0
+
+    def start(self):
+        import tempfile
+
+        self.t0 = time.monotonic()
+        self.work = tempfile.mkdtemp(prefix="chip_smoke_rb_")
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=here + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        with open(os.path.join(self.work, "child.log"), "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--runbook-child", self.work], env=env, cwd=here,
+                stdout=log, stderr=subprocess.STDOUT)
+        progress("runbooks", "child started: train_retrieve_e2e and "
+                 "corpus_e2e beside the files phase")
+
+    def stop(self):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def finish(self):
+        import shutil
+
+        t_wait = time.monotonic()
+        try:
+            code = self.proc.wait(timeout=max(
+                1.0, self.t0 + RB_CHILD_TIMEOUT_S - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            code = None
+        finally:
+            self.stop()
+        waited = time.monotonic() - t_wait
+        with open(os.path.join(self.work, "child.log")) as f:
+            for line in f:
+                print(f"[child runbooks] {line.rstrip()}", flush=True)
+        result = os.path.join(self.work, "launches.json")
+        if code != 0 or not os.path.exists(result):
+            raise AssertionError(f"the runbook child exited {code}")
+        with open(result) as f:
+            self.taat, self.flash = json.load(f)
+        shutil.rmtree(self.work, ignore_errors=True)
+        progress("runbooks", f"child done {time.monotonic() - self.t0:.2f} "
+                 f"s after its start, {waited:.2f} s of it waited for")
+
+
+def runbook_child(work):
+    """The body of ``chip_smoke.py --runbook-child WORK``: ``runbook_train``
+    and ``runbook_corpus`` on the card, their summed launches written to
+    ``WORK/launches.json``."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        return 2
+    card = smi()
+    lexicon = synthetic_lexicon(np.random.default_rng(SEED + 20),
+                                VOCAB_WORDS)
+    launches = [runbook_train(lexicon, card),
+                runbook_corpus(lexicon, card)]
+    with open(os.path.join(work, "launches.json"), "w") as f:
+        json.dump([sum(x) for x in zip(*launches)], f)
+    return 0
+
+
+def runbook_recall(model, card):
+    """(a) ``reproduce_recall`` on ``model`` (passed as ``model=``) over the
+    files phase's corpus of JPEG and PNG files, both directions at depth
+    RB_DEPTH and alpha RB_ALPHA: the flash forward on every image batch
+    (corpus and queries), one TAAT launch a direction, every sparse run
+    equal to the matmul backend's on the same encoded queries as a set of
+    (id, score) (the depth is above both corpora: no cut); the table and
+    each leg's seconds printed. Returns ``(TAAT, flash)`` launches."""
+    import tempfile
+
+    from mllm_sparse_retrieval_tpu_torch.index import ImpactIndex
+    from mllm_sparse_retrieval_tpu_torch.tools import reproduce_recall
+
+    arch = model[1]
+    legs, recorded = [], []
+    real = {name: getattr(reproduce_recall, name) for name in (
+        "_encode_side", "_build_indexes", "_search_direction")}
+    real_search = ImpactIndex.search_encoded
+
+    def timed(name):
+        def leg(*a, **k):
+            import torch
+
+            t = time.monotonic()
+            out = real[name](*a, **k)
+            torch.cuda.synchronize()
+            label = {"_encode_side": lambda: f"encode {k['encode_type']} "
+                     f"{'queries' if k['is_query'] else 'corpus'}",
+                     "_build_indexes": lambda: "index build",
+                     "_search_direction": lambda: f"search {a[0]}"}[name]()
+            legs.append(f"{label} {time.monotonic() - t:.3f} s")
+            return out
+        return leg
+
+    def recording_search(self, q_idx, q_w, depth, *a, **k):
+        res = real_search(self, q_idx, q_w, depth, *a, **k)
+        recorded.append((self, q_idx, q_w, depth, res))
+        return res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root, _, names = files_corpus(tmp, fixture_pixels())
+        batches = -(-len(names) // OFF_BATCH)
+        want_flash = 2 * arch.text.num_layers * batches
+        md = os.path.join(tmp, "rows.md")
+        for name in real:
+            setattr(reproduce_recall, name, timed(name))
+        ImpactIndex.search_encoded = recording_search
+        try:
+            results, _, secs, taat_a, flash_a = runbook_main(
+                reproduce_recall.main,
+                ["--data-root", root, "--family", "llava_next_llama3",
+                 "--depth", str(RB_DEPTH), "--alpha", str(RB_ALPHA),
+                 "--batch-size", str(OFF_BATCH), "--out", md,
+                 "--device", DEVICE], model=model)
+        finally:
+            for name, fn in real.items():
+                setattr(reproduce_recall, name, fn)
+            ImpactIndex.search_encoded = real_search
+        with open(md) as f:
+            table = f.read().splitlines()
+    for index, q_idx, q_w, depth, (s_scores, s_ids) in recorded:
+        ref_s, ref_i = index.search_encoded(q_idx, q_w, depth,
+                                            backend="matmul")
+        for q, (s_row, i_row, rs, ri) in enumerate(zip(s_scores, s_ids,
+                                                       ref_s, ref_i)):
+            if set(zip(i_row, s_row)) != set(zip(ri, rs)):
+                raise AssertionError(f"reproduce_recall query {q}: taat "
+                                     f"{list(zip(i_row, s_row))} != matmul "
+                                     f"{list(zip(ri, rs))}")
+    progress("runbooks", f"(a) reproduce_recall main(model=the "
+             f"checkpoint's LLaVA-NeXT-Llama3-8B) on the files corpus "
+             f"({len(names)} image files, {2 * len(names)} captions), depth "
+             f"{RB_DEPTH}, alpha {RB_ALPHA}: {secs:.2f} s; legs: "
+             f"{'; '.join(legs)}; flash launches {flash_a} (predicted "
+             f"{want_flash}), TAAT launches {taat_a} (predicted 2); "
+             f"{len(recorded)} sparse searches equal the matmul backend's "
+             f"as sets of (id, score); card {card}")
+    for line in table:
+        progress("runbooks", line)
+    if flash_a != want_flash or taat_a != 2 or len(recorded) != 2 or \
+            len(table) != 2 + 6 or set(results) != {"t2i", "i2t"}:
+        raise AssertionError(f"reproduce_recall: {flash_a} flash and "
+                             f"{taat_a} TAAT launches, {len(recorded)} "
+                             f"sparse searches, {len(table)} table lines")
+    return taat_a, flash_a
+
+
+def runbook_train(lexicon, card):
+    """(b) ``train_retrieve_e2e`` at its full recipe on the tiny family, on
+    a few-shot CSV that the port's ``data/prep.py`` makes from a seeded
+    Karpathy JSON: the recall@1 lift gate must hold. Returns ``(TAAT,
+    flash)`` launches."""
+    import tempfile
+
+    import numpy as np
+
+    from mllm_sparse_retrieval_tpu_torch.data.prep import (
+        karpathy_json_to_csvs, sample_few_shot_csv)
+    from mllm_sparse_retrieval_tpu_torch.tools import train_retrieve_e2e
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(SEED + 21)
+        kjson = os.path.join(tmp, "dataset.json")
+        write_karpathy_json(kjson, rng, lexicon, RB_TRAIN_IMAGES, ("train",))
+        csvs = karpathy_json_to_csvs(kjson, os.path.join(tmp, "flickr"),
+                                     "flickr")
+        sample_few_shot_csv(csvs["train"], os.path.join(
+            tmp, "flickr", f"flickr_train_{RB_FEW_SHOT}.csv"),
+            num_images=RB_FEW_SHOT, seed=SEED)
+        rc, lines, secs, taat_b, flash_b = runbook_main(
+            train_retrieve_e2e.main,
+            ["--data-root", tmp, "--few-shot", str(RB_FEW_SHOT), "--epochs",
+             str(RB_EPOCHS), "--batch-size", str(RB_TRAIN_B), "--lr",
+             str(RB_LR), "--min-lift", str(RB_MIN_LIFT), "--device",
+             DEVICE])
+    lift = next((ln for ln in lines if ln.startswith("seen-caption")), "")
+    trained = next((ln for ln in lines if ln.startswith("trained")), "")
+    progress("runbooks", f"(b) train_retrieve_e2e main() on the tiny "
+             f"family, {RB_FEW_SHOT} seeded few-shot pairs, {RB_EPOCHS} "
+             f"epochs at batch {RB_TRAIN_B}, lr {RB_LR}: exit {rc} in "
+             f"{secs:.2f} s; {trained}; {lift}; TAAT launches {taat_b} "
+             f"(predicted 3), flash launches {flash_b} (predicted 0); card "
+             f"{card}")
+    if rc != 0 or taat_b < 1:
+        raise AssertionError(f"train_retrieve_e2e exited {rc} ({lift}), "
+                             f"{taat_b} TAAT launches")
+    return taat_b, flash_b
+
+
+def runbook_corpus(lexicon, card):
+    """(c) ``corpus_e2e`` on RB_TEST_IMAGES images of OFF_CAPS captions
+    from a seeded test CSV, with its gates. Returns ``(TAAT, flash)``
+    launches."""
+    import tempfile
+
+    import numpy as np
+
+    from mllm_sparse_retrieval_tpu_torch.data.prep import (
+        karpathy_json_to_csvs)
+    from mllm_sparse_retrieval_tpu_torch.tools import corpus_e2e
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(SEED + 22)
+        kjson = os.path.join(tmp, "dataset.json")
+        write_karpathy_json(kjson, rng, lexicon, RB_TEST_IMAGES, ("test",))
+        karpathy_json_to_csvs(kjson, os.path.join(tmp, "flickr"), "flickr")
+        rc, lines, secs, taat_c, flash_c = runbook_main(
+            corpus_e2e.main, ["--data-root", tmp, "--device", DEVICE])
+    progress("runbooks", f"(c) corpus_e2e main() on the tiny family, "
+             f"{RB_TEST_IMAGES * OFF_CAPS} captions and {RB_TEST_IMAGES} "
+             f"images: exit {rc} in {secs:.2f} s; TAAT launches {taat_c} "
+             f"(predicted 3), flash launches {flash_c} (predicted 0); card "
+             f"{card}")
+    if rc != 0 or taat_c < 1 or not any(ln.startswith("CORPUS E2E OK")
+                                        for ln in lines):
+        raise AssertionError(f"corpus_e2e exited {rc}, {taat_c} TAAT "
+                             f"launches")
+    return taat_c, flash_c
+
+
 def same_up_to_ties(got, want, depth=DEPTH):
     """Equal (doc, score) sets, except for docs tied at the depth cut."""
     g, w = set(got), set(want)
@@ -6507,8 +6830,8 @@ def main() -> int:
                                     seq)}
         phase_flash(train_lengths, seq)
         # LLaVA-1.6-Vicuna's image shape: its 32 KV heads give G = 1
-        phase_flash(image_prompt_len[:FLASH_B - 1] + [0], seq, VICUNA_HEADS,
-                    VICUNA_HEADS)
+        out["flash_g1"] = phase_flash(image_prompt_len[:FLASH_B - 1] + [0],
+                                      seq, VICUNA_HEADS, VICUNA_HEADS)
         out["dq"], out["dkv"] = phase_flash_bwd(
             image_prompt_len[:TRAIN_B - 1] + [0], seq)
         phase_flash_bwd(train_lengths, seq)
@@ -6533,8 +6856,10 @@ def main() -> int:
     # card while it converts) --------------------------------------------
     multi_train = MultiprocessTrain(
         spec.arch, arch_img, multiprocess_batch(tok, tmpl, arch_img), card)
-    params, arch, (files_taat, files_flash), multi, side = phase_checkpoint(
-        spec, card, multi_train, beside_convert)
+    runbooks = RunbookChild()
+    ckpt_model, (files_taat, files_flash), multi, side = phase_checkpoint(
+        spec, card, multi_train, beside_convert, runbooks)
+    params, arch = ckpt_model[:2]
     flash, dq_kernel, dkv_kernel, moe = (side["flash"], side["dq"],
                                          side["dkv"], side["moe"])
     flash_g7, dq_g7, dkv_g7 = side["flash_g7"], side["dq_g7"], side["dkv_g7"]
@@ -6551,6 +6876,11 @@ def main() -> int:
              f"projector and image_newline, loaded from the converted "
              f"checkpoint; {torch.cuda.memory_allocated() / 1e9:.2f} GB "
              f"allocated")
+
+    # ---- 4a. the runbooks: recall on this model here; the training and
+    # Flickr30k-test-scale runbooks ran beside the files phase ------------
+    rb_taat, rb_flash = phase_runbooks(ckpt_model, runbooks, card)
+    del ckpt_model
 
     # ---- 5. text queries through the service ----------------------------------
     hostops.reset_call_counts()
@@ -6749,7 +7079,7 @@ def main() -> int:
              replaces="mllm_sparse_retrieval_tpu/ops/impact_kernel.py:115",
              launches=files_taat + text_taat + img_taat + hyb_taat
              + tier_taat + mesh_taat + live_taat + off_taat + fam_taat
-             + chat_taat + dry_taat,
+             + chat_taat + dry_taat + rb_taat,
              max_abs_err=max_err,
              ms=served["ms"], plain_ms=served["plain_ms"],
              bound_ms=served["bound_ms"], bound_by=served["bound_by"],
@@ -6762,8 +7092,11 @@ def main() -> int:
              + mesh_flash + live_flash + off_flash + train_launches["fwd"]
              + fam_flash
              + chat_flash + chat_train["fwd"] + stats_flash + qlora["fwd"]
-             + moe["fwd"] + mesh_train["fwd"] + multi["fwd"],
+             + moe["fwd"] + mesh_train["fwd"] + multi["fwd"] + rb_flash,
              **flash,
+             at_g1=dict(shape=f"B={FLASH_B} T={seq} Hq/Hkv={VICUNA_HEADS}/"
+                        f"{VICUNA_HEADS}", launches=fam_flash,
+                        **side["flash_g1"]),
              at_g7=dict(shape=f"B={FLASH_B} T={internvl_seq} Hq/Hkv="
                         f"{INTERNVL_HEADS[0]}/{INTERNVL_HEADS[1]}",
                         launches=chat_flash, **flash_g7)),
@@ -6798,4 +7131,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--train-child"]:      # MultiprocessTrain's
         sys.exit(train_child(int(sys.argv[2]), int(sys.argv[3]),
                              sys.argv[4]))
+    if sys.argv[1:2] == ["--runbook-child"]:    # RunbookChild's
+        sys.exit(runbook_child(sys.argv[2]))
     sys.exit(main())

@@ -198,3 +198,13 @@ def mrope_ids_for_batch(arch, input_ids: np.ndarray,
         np.asarray(input_ids), np.asarray(attention_mask),
         arch.image_token_id, (1, arch.grid_h, arch.grid_w),
         arch.vision.spatial_merge_size)
+
+
+def text_hidden_size(arch) -> int:
+    """The text tower's width: the dense embedding's size."""
+    return arch.text.hidden_size
+
+
+def vocab_size(arch) -> int:
+    """The text tower's vocabulary: the sparse embedding's size."""
+    return arch.text.vocab_size

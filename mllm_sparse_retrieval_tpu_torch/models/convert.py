@@ -648,6 +648,22 @@ def convert_hf_dir(hf_dir: str, out_dir: str) -> None:
             json.dump(data, f, ensure_ascii=False, indent=2)
 
 
+def convert_hf_llava_dir(hf_dir: str, out_path: str, num_vision_layers: int,
+                         num_text_layers: int, patch_size: int) -> None:
+    """Convert a local HF LLaVA checkpoint to one pickled param tree at
+    ``out_path`` (the legacy single-file form; ``convert_hf_dir`` writes a
+    directory). The shards are read as ``SafetensorsStateDict`` reads
+    them, a tied LM head from the embedding."""
+    sd = SafetensorsStateDict(hf_dir)
+    if not any(h in sd for h in ("lm_head.weight",
+                                 "language_model.lm_head.weight")):
+        sd.alias("lm_head.weight", next(e for e in _EMBED_KEYS if e in sd))
+    params = convert_llava_state_dict(sd, num_vision_layers,
+                                      num_text_layers, patch_size)
+    with open(out_path, "wb") as f:
+        _TreePickler(f, protocol=4).dump(params)
+
+
 def _to_device(tree, device: torch.device, dtype: torch.dtype):
     """Replace each numpy leaf of ``tree`` (dicts and lists, in place) by a
     contiguous tensor on ``device``, floating leaves in ``dtype``. A leaf's

@@ -468,9 +468,8 @@ def tokenizer_json_of_dir(path: str, config: dict,
                           special_tokens_map: dict) -> dict:
     """A directory's ``tokenizer.json`` dict: the file, else its
     ``tokenizer.model`` converted with the directory's
-    ``tokenizer_config.json`` (``config``) and ``special_tokens_map.json``
-    (a legacy ``added_tokens.json`` beside it raises: the conversion does
-    not read one)."""
+    ``tokenizer_config.json`` (``config``), ``special_tokens_map.json``
+    and a legacy ``added_tokens.json``."""
     tj = os.path.join(path, "tokenizer.json")
     if os.path.exists(tj):
         with open(tj, encoding="utf-8") as f:
@@ -479,14 +478,11 @@ def tokenizer_json_of_dir(path: str, config: dict,
     if not os.path.exists(spm):
         raise FileNotFoundError(f"{path}: no tokenizer.json or "
                                 f"tokenizer.model")
-    if os.path.exists(os.path.join(path, "added_tokens.json")):
-        raise NotImplementedError(
-            f"{path}: added_tokens.json beside a tokenizer.model (a legacy "
-            f"slow-tokenizer file the conversion does not read)")
     from mllm_sparse_retrieval_tpu_torch.models import sentencepiece
 
     return sentencepiece.llama_tokenizer_json(
-        sentencepiece.read_model_file(spm), config, special_tokens_map)
+        sentencepiece.read_model_file(spm), config, special_tokens_map,
+        _read_json(os.path.join(path, "added_tokens.json")))
 
 
 class HFJsonTokenizer:
@@ -524,12 +520,17 @@ class HFJsonTokenizer:
             self._norm_forms.setdefault(form, t)
         self._norm_rx = self._added_regex(list(self._norm_forms))
 
-        # special tokens as transformers resolves them: the config first,
-        # then special_tokens_map.json, then the class's defaults
+        # special tokens as transformers resolves them: the config first
+        # (special_tokens_map.json first where the config has no
+        # added_tokens_decoder: the legacy route), then the class's
+        # defaults
         llama = config.get("tokenizer_class") in _LLAMA_CLASSES
+        first, then = (config, special_tokens_map) \
+            if "added_tokens_decoder" in config \
+            else (special_tokens_map, config)
         tokens = {}
         for name in _SPECIAL_ATTRS + ("additional_special_tokens",):
-            value = config.get(name, special_tokens_map.get(
+            value = first.get(name, then.get(
                 name, _LLAMA_DEFAULTS.get(name) if llama else None))
             if name == "additional_special_tokens":
                 if value:

@@ -66,3 +66,10 @@ def normalize(embs: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     e = embs.float()
     norm = torch.linalg.vector_norm(e, dim=-1, keepdim=True)
     return (e / torch.clamp(norm, min=eps)).to(embs.dtype)
+
+
+def cosine_similarity_matrix(a: torch.Tensor, b: torch.Tensor
+                             ) -> torch.Tensor:
+    """``[Na, Nb]`` cosine similarities of two embedding batches (the rows
+    normalized as ``normalize`` does)."""
+    return normalize(a) @ normalize(b).T

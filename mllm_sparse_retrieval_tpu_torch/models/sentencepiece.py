@@ -29,7 +29,9 @@ with the BPE, Metaspace, Prepend and Replace code it has:
   the BOS / EOS post-processor of ``add_bos_token`` / ``add_eos_token``;
   and the added tokens in the order ``transformers`` adds them (control
   and user-defined pieces, then ``added_tokens_decoder``, then the special
-  tokens), ids and flags as ``tokenizers`` assigns them.
+  tokens), ids and flags as ``tokenizers`` assigns them. A legacy
+  ``added_tokens.json`` (content to id) stands for ``added_tokens_decoder``
+  where the config has none, as ``from_pretrained`` reads it.
 
 The Unigram model type (and word or char models) raises
 ``NotImplementedError`` naming it: no family the repo supports ships one.
@@ -186,11 +188,22 @@ def _token(value) -> Optional[dict]:
     return dict(content=value["content"], **flags)
 
 
-def _init_kwargs(config: dict, special_tokens_map: dict) -> dict:
+def _special_contents(config: dict, defaults: dict) -> set:
+    """The contents of a config's special tokens (``defaults`` for those it
+    leaves out) and of its additional special tokens."""
+    toks = [_token(config.get(n, defaults.get(n))) for n in _SPECIAL_ATTRS]
+    toks += [_token(t) for t in config.get("additional_special_tokens") or []]
+    return {t["content"] for t in toks if t is not None}
+
+
+def _init_kwargs(config: dict, special_tokens_map: dict,
+                 added_tokens: dict) -> dict:
     """The config as ``from_pretrained`` hands it to the tokenizer class:
     without ``added_tokens_decoder``, ``special_tokens_map.json``'s values
-    replace the config's (the legacy route); with it, a special token
-    whose content it lists takes that entry's flags."""
+    replace the config's and ``added_tokens.json``'s tokens (``content ->
+    id``) make the decoder, special where a special token of the result
+    has their content, else normalized (the legacy route); with it, a
+    special token whose content it lists takes that entry's flags."""
     init = dict(config)
     if "added_tokens_decoder" not in init:
         for key, value in special_tokens_map.items():
@@ -203,6 +216,14 @@ def _init_kwargs(config: dict, special_tokens_map: dict) -> dict:
                           for t in value if t not in extra]
                 value = extra
             init[key] = value
+        if added_tokens:
+            special = _special_contents(init, {})
+            init["added_tokens_decoder"] = {
+                str(i): dict(content=c, single_word=False, lstrip=False,
+                             rstrip=False, normalized=c not in special,
+                             special=c in special)
+                for c, i in added_tokens.items()}
+            return init
     listed = {t["content"]: t for t in
               (init.get("added_tokens_decoder") or {}).values()}
     for key in _SPECIAL_ATTRS:
@@ -259,12 +280,14 @@ def _template(bos: Optional[dict], eos: Optional[dict], ids: Dict[str, int]
 
 def llama_tokenizer_json(model: SentencePieceModel,
                          config: Optional[dict] = None,
-                         special_tokens_map: Optional[dict] = None) -> dict:
+                         special_tokens_map: Optional[dict] = None,
+                         added_tokens: Optional[dict] = None) -> dict:
     """The ``tokenizer.json`` dict that ``AutoTokenizer.from_pretrained``
     builds from a BPE ``tokenizer.model``, its ``tokenizer_config.json``
-    (``config``) and ``special_tokens_map.json`` for the Llama tokenizer
-    classes."""
-    config = _init_kwargs(config or {}, special_tokens_map or {})
+    (``config``), ``special_tokens_map.json`` and ``added_tokens.json``
+    (``added_tokens``) for the Llama tokenizer classes."""
+    config = _init_kwargs(config or {}, special_tokens_map or {},
+                          added_tokens or {})
     kind = MODEL_TYPES.get(model.model_type, str(model.model_type))
     if kind != "BPE":
         raise NotImplementedError(
@@ -289,13 +312,16 @@ def llama_tokenizer_json(model: SentencePieceModel,
                            rstrip=False, normalized=False,
                            special=kind == CONTROL))
     # LlamaTokenizerFast's own: added_tokens_decoder entries not already
-    # there with the same flags, then the special tokens
+    # there with the same flags (special too where a special token has
+    # their content), then the special tokens
     have = {tuple(t[k] for k in ("content",) + _FLAGS)
             for t in added.tokens.values()}
+    special = _special_contents(config, _LLAMA_DEFAULTS)
     decoder = config.get("added_tokens_decoder") or {}
     for index in sorted(decoder, key=int):
         tok = _token(decoder[index])
         if tuple(tok[k] for k in ("content",) + _FLAGS) not in have:
+            tok["special"] = tok["special"] or tok["content"] in special
             added.add(tok)
     specials, seen = {}, set()
     for name in _SPECIAL_ATTRS:

@@ -163,6 +163,21 @@ def test_convert_hf_dir_is_byte_equal_to_the_jax_converter(converted, name,
         assert (pdir / "tokenizer.json").exists()
 
 
+@pytest.mark.parametrize("name", ["fixed", "fixed_tied"])
+def test_convert_hf_llava_dir_is_byte_equal_to_the_jax_converter(
+        hf, name, tmp_path):
+    """The legacy single-file form: the JAX converter loads the model with
+    ``transformers``, the port reads its shards (the card machine has no
+    ``transformers``)."""
+    path, _ = hf[name]
+    jconvert.convert_hf_llava_dir(str(path), str(tmp_path / "jax.pkl"), 2,
+                                  2, 14)
+    convert.convert_hf_llava_dir(str(path), str(tmp_path / "port.pkl"), 2,
+                                 2, 14)
+    assert filecmp.cmp(tmp_path / "jax.pkl", tmp_path / "port.pkl",
+                       shallow=False)
+
+
 def _write(path, tensors, shards=1):
     """An HF checkpoint dir of ``tensors`` in ``shards`` safetensors files
     (with ``model.safetensors.index.json`` when more than one)."""

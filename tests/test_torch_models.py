@@ -133,6 +133,31 @@ def test_reps_helpers_match_jax(tower):
                                **TOL)
 
 
+def test_cosine_similarity_matrix_matches_jax():
+    rng = np.random.default_rng(4)
+    a = rng.normal(size=(5, 32)).astype(np.float32)
+    b = rng.normal(size=(7, 32)).astype(np.float32)
+    a[2] = 0.0                   # the clamped norm: a row of zeros
+    got = reps.cosine_similarity_matrix(_t(a), _t(b))
+    want = jreps.cosine_similarity_matrix(jnp.asarray(a), jnp.asarray(b))
+    assert got.shape == (5, 7)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("family", [f.value for f in ModelFamily])
+def test_text_hidden_size_and_vocab_size_match_jax(family):
+    from mllm_sparse_retrieval_tpu.configs import ModelFamily as JFamily
+    from mllm_sparse_retrieval_tpu.models import api as japi
+    from mllm_sparse_retrieval_tpu.models.registry import (
+        get_family_spec as j_spec)
+    from mllm_sparse_retrieval_tpu_torch.models import api
+
+    arch = get_family_spec(ModelFamily(family), ModelConfig(**TINY)).arch
+    jarch = j_spec(JFamily(family), JModelConfig(**TINY)).arch
+    assert api.text_hidden_size(arch) == japi.text_hidden_size(jarch)
+    assert api.vocab_size(arch) == japi.vocab_size(jarch)
+
+
 def test_bf16_head_logits_accumulate_in_f32():
     rng = np.random.default_rng(3)
     h = torch.from_numpy(rng.normal(size=(2, 32)).astype(np.float32))

@@ -234,6 +234,24 @@ def test_two_process_steps_with_dropout_equal_the_one_process_mesh(tiny,
         np.testing.assert_allclose(a, b.numpy(), **STEP_TOL)
 
 
+def test_fsdp_over_processes_refuses_several_devices_a_process(tiny):
+    """A departure the port keeps: FSDP over processes gathers each piece
+    in autograd's order, one order in every process only with one device
+    a process. The check runs in ``__init__`` before any device work, so a
+    two-process mesh of two distinct devices here reaches it; the JAX
+    trainer shards FSDP over whatever mesh it gets."""
+    from mllm_sparse_retrieval_tpu_torch.parallel import Mesh
+
+    (jparams, _, _, _), (arch, _, _) = tiny
+    mesh = Mesh(np.array([[torch.device("cpu")], [torch.device("meta")]],
+                         dtype=object), processes=2)
+    with pytest.raises(ValueError, match="one device per process; this "
+                                         "process has 2"):
+        ContrastiveTrainer(from_jax_params(_np_tree(jparams), "cpu"), arch,
+                           None, TrainConfig(**(BASE | CASES["fsdp_full"])),
+                           mesh=mesh, device="cpu")
+
+
 def test_two_process_checkpoint_restores_bit_equal_in_one_process(tiny,
                                                                   launch):
     """The primary process wrote whole tensors (ZeRO-1 moments gathered

@@ -10,8 +10,8 @@ chat-template families' Qwen2.5-VL, InternVL2.5, tiling and template
 modules, and the training and analysis CLIs with ``data.prep``,
 ``eval.statistics`` and ``hostops`` included, and the mesh-training
 modules ``parallel.{fsdp,tp,sp,pp,multihost,dryrun}``, and the
-sentencepiece conversion ``models.sentencepiece``) imports with JAX
-blocked (and, Qwen's native
+sentencepiece conversion ``models.sentencepiece``, and the runbooks of
+``tools``) imports with JAX blocked (and, Qwen's native
 resolution and InternVL's tiling among them, with Pillow blocked),
 checkpoints convert and load with ``transformers`` and ``safetensors``
 blocked too, and the smoke check refuses to report a result without a
@@ -78,6 +78,9 @@ MESH_TRAIN = ("parallel.fsdp", "parallel.tp", "parallel.sp", "parallel.pp",
 # a tokenizer.model-only checkpoint: the sentencepiece conversion and the
 # reader it feeds
 SPM = ("models.sentencepiece", "models.hf_tokenizer")
+# the end-to-end runbooks and the helpers they share
+TOOLS = ("tools", "tools.common", "tools.reproduce_recall",
+         "tools.train_retrieve_e2e", "tools.corpus_e2e")
 
 
 def _env():
@@ -94,7 +97,7 @@ def test_port_and_chip_smoke_import_without_jax():
     assert int(proc.stdout.split()[-1]) >= 20
     imported = set(proc.stdout.splitlines()[-2].split())
     missing = {m for m in OFFLINE + HYBRID + TIERS + LIVE + CHAT + TRAIN
-               + QLORA + MESH_TRAIN + SPM
+               + QLORA + MESH_TRAIN + SPM + TOOLS
                if f"mllm_sparse_retrieval_tpu_torch.{m}" not in imported}
     assert missing == set()
 
@@ -110,9 +113,10 @@ def test_no_import_statement_names_jax_or_the_jax_package():
                if f.is_relative_to(PORT)}
     assert {m.replace(".", "/") + ".py"
             for m in OFFLINE + HYBRID + TIERS + LIVE + CHAT + QLORA
-            + MESH_TRAIN + SPM if m not in ("index.native", "index", "parallel")} | {
+            + MESH_TRAIN + SPM + TOOLS
+            if m not in ("index.native", "index", "parallel", "tools")} | {
                 "index/native/__init__.py", "index/__init__.py",
-                "parallel/__init__.py"} <= scanned
+                "parallel/__init__.py", "tools/__init__.py"} <= scanned
     hits = [f"{f}: {m.group(0).strip()}" for f in files
             for m in pattern.finditer(f.read_text())]
     assert hits == []

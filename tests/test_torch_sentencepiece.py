@@ -224,6 +224,63 @@ def test_convert_hf_dir_writes_the_tokenizer_json_jax_writes(tmp_path,
     assert jconvert.load_converted(str(bare), None)[1] is None
 
 
+# added_tokens.json beside the committed llama2_spm/ (3,330 pieces): new
+# tokens after the vocab, given out of id order, one already a piece; a
+# special_tokens_map.json that names two of them special (pad and an
+# additional special token); and a config whose added_tokens_decoder makes
+# from_pretrained skip the file
+ADDED = {
+    "plain": ({"<image>": 3331, "<x>": 3330, "▁the": 301}, None, None),
+    "in_special_map": ({"<pad>": 3330, "<image>": 3331, "<x>": 3332},
+                       {"pad_token": "<pad>",
+                        "additional_special_tokens": ["<image>"]}, None),
+    "config_decoder": ({"<image>": 3330}, None, {
+        "3330": dict(_added("<y>", False), special=True)}),
+}
+
+
+@pytest.mark.parametrize("name", list(ADDED))
+def test_added_tokens_json_beside_a_tokenizer_model(tmp_path, oracle,
+                                                    name):
+    added, smap, decoder = ADDED[name]
+    d = tmp_path / "spm"
+    shutil.copytree(os.path.join(FIX, "llama2_spm"), d)
+    with open(d / "added_tokens.json", "w") as f:
+        json.dump(added, f)
+    if smap is not None:
+        with open(d / "special_tokens_map.json", "w") as f:
+            json.dump(smap, f)
+    if decoder is not None:
+        with open(d / "tokenizer_config.json", "w") as f:
+            json.dump(dict(fixtures.VICUNA_CONFIG,
+                           added_tokens_decoder=decoder), f)
+    hf = oracle.from_pretrained(str(d))
+    mine = HFJsonTokenizer.from_dir(str(d))
+    assert json.loads(hf.backend_tokenizer.to_str())["added_tokens"] == \
+        _added_tokens_of(str(d))
+    assert mine.get_vocab() == hf.get_vocab()
+    assert mine.pad_id == (hf.pad_token_id or 0)
+    rng = np.random.default_rng(7)
+    contents = list(added) + ["<y>"]
+    texts = _captions(2, 100)
+    texts += [f"{a} {c}{b}" for a, b, c in zip(
+        texts, texts[1:], rng.choice(contents, len(texts) - 1))]
+    for text in texts:
+        for add in (True, False):
+            assert mine.encode(text, add) == hf.encode(
+                text, add_special_tokens=add), text
+
+
+def _added_tokens_of(d):
+    from mllm_sparse_retrieval_tpu_torch.models.hf_tokenizer import (
+        _read_json, tokenizer_json_of_dir)
+
+    return tokenizer_json_of_dir(
+        d, _read_json(os.path.join(d, "tokenizer_config.json")),
+        _read_json(os.path.join(d, "special_tokens_map.json")))[
+            "added_tokens"]
+
+
 def test_unigram_model_raises(tmp_path):
     path = str(tmp_path / "tokenizer.model")
     fixtures.write_spm_model(path, n_merges=50, model_type=1)
