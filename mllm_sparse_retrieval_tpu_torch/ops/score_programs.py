@@ -72,9 +72,21 @@ def full_f32_matmul():
 def _scatter_block(mat: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
                    vals: torch.Tensor) -> torch.Tensor:
     """Write (row, col, value) triples into ``mat`` in place and return it.
-    Padding triples target (row 0, col 0) with value 0, which row 0's zero
-    invariant absorbs."""
-    mat.index_put_((rows.long(), cols.long()), vals.to(mat.dtype))
+    Where several triples name one cell, the last one's value is written:
+    the card's scatter keeps an arbitrary one of them, so two matrices
+    placed from the same triples could differ, and the repeats are dropped
+    first (a stable sort of the cell ids). Padding triples target (row 0,
+    col 0) with value 0, which row 0's zero invariant absorbs."""
+    rows, cols = rows.long(), cols.long()
+    if rows.numel() > 1:
+        cell = rows * mat.shape[1] + cols
+        order = torch.sort(cell, stable=True).indices
+        ranked = cell[order]
+        last = torch.ones_like(ranked, dtype=torch.bool)
+        last[:-1] = ranked[1:] != ranked[:-1]
+        keep = order[last]
+        rows, cols, vals = rows[keep], cols[keep], vals[keep]
+    mat.index_put_((rows, cols), vals.to(mat.dtype))
     return mat
 
 

@@ -107,6 +107,13 @@ def _first_leaf(tree):
     return tree
 
 
+def _stage_copy(x: torch.Tensor, device) -> torch.Tensor:
+    """A microbatch's activations handed to the next stage's device: the
+    schedule's one transfer between stages (the JAX package's
+    collective-permute)."""
+    return x.to(device)
+
+
 def _gpipe(x_mb: torch.Tensor, consts: Any, batched: Any, n_stages: int,
            n_data: int, stage_device: Callable[[int, int], torch.device],
            stage_layers: Callable[[int, int], List[Any]],
@@ -140,7 +147,8 @@ def _gpipe(x_mb: torch.Tensor, consts: Any, batched: Any, n_stages: int,
                 if not 0 <= m < n_micro:
                     continue            # a bubble lane
                 dev = stage_device(i, s)
-                x = (x_mb[m, rows] if s == 0 else held[m]).to(dev)
+                x = x_mb[m, rows].to(dev) if s == 0 \
+                    else _stage_copy(held[m], dev)
                 held[m] = checkpoint(stage, x, s, m, use_reentrant=False) \
                     if remat else stage(x, s, m)
         for m in range(n_micro):

@@ -1028,6 +1028,23 @@ def test_taat_on_a_scatter_mutated_capacity_matrix_equals_plain():
                                rtol=0, atol=0)
 
 
+def test_matrix_of_repeated_doc_terms_is_the_same_on_every_placement():
+    """Zipf-drawn packed docs repeat (doc, term) pairs with other weights;
+    the device matrix keeps the last write of each cell (CSR order), so
+    two placements of the same arrays, and the CPU's, are equal."""
+    device = _card()
+    from mllm_sparse_retrieval_tpu_torch.index import ImpactIndex
+    from mllm_sparse_retrieval_tpu_torch.tools.common import (
+        zipf_docs, zipf_p)
+
+    doc_t, doc_w = zipf_docs(np.random.default_rng(0), 25_010, 20_000, 128,
+                             zipf_p(20_000))
+    mats = [ImpactIndex.from_packed_arrays(
+        doc_t, doc_w, term_keys=range(20_000), device=d)._materialize(
+        "i16").cpu() for d in (device, device, "cpu")]
+    assert torch.equal(mats[0], mats[1]) and torch.equal(mats[0], mats[2])
+
+
 def test_scatter_from_another_thread_never_returns_a_deleted_id():
     """A writer thread adds and deletes while a search stream is in flight
     on the main thread: no search that started after a delete returned

@@ -10,8 +10,8 @@ chat-template families' Qwen2.5-VL, InternVL2.5, tiling and template
 modules, and the training and analysis CLIs with ``data.prep``,
 ``eval.statistics`` and ``hostops`` included, and the mesh-training
 modules ``parallel.{fsdp,tp,sp,pp,multihost,dryrun}``, and the
-sentencepiece conversion ``models.sentencepiece``, and the runbooks of
-``tools``) imports with JAX blocked (and, Qwen's native
+sentencepiece conversion ``models.sentencepiece``, and the runbooks and
+measuring tools of ``tools`` and the demo of ``examples``) imports with JAX blocked (and, Qwen's native
 resolution and InternVL's tiling among them, with Pillow blocked),
 checkpoints convert and load with ``transformers`` and ``safetensors``
 blocked too, and the smoke check refuses to report a result without a
@@ -81,6 +81,12 @@ SPM = ("models.sentencepiece", "models.hf_tokenizer")
 # the end-to-end runbooks and the helpers they share
 TOOLS = ("tools", "tools.common", "tools.reproduce_recall",
          "tools.train_retrieve_e2e", "tools.corpus_e2e")
+# the measuring tools and the smoke demo
+MEASURE = ("tools.serve_loadtest", "tools.latency_profile", "tools.engine_ab",
+           "tools.hybrid_ab", "tools.eval_ab", "tools.live_ab",
+           "tools.dense_ab", "tools.ann_ab", "tools.mxu_probe",
+           "tools.scaling_report", "tools.cache_probe", "examples",
+           "examples.smoke")
 
 
 def _env():
@@ -97,7 +103,7 @@ def test_port_and_chip_smoke_import_without_jax():
     assert int(proc.stdout.split()[-1]) >= 20
     imported = set(proc.stdout.splitlines()[-2].split())
     missing = {m for m in OFFLINE + HYBRID + TIERS + LIVE + CHAT + TRAIN
-               + QLORA + MESH_TRAIN + SPM + TOOLS
+               + QLORA + MESH_TRAIN + SPM + TOOLS + MEASURE
                if f"mllm_sparse_retrieval_tpu_torch.{m}" not in imported}
     assert missing == set()
 
@@ -113,10 +119,12 @@ def test_no_import_statement_names_jax_or_the_jax_package():
                if f.is_relative_to(PORT)}
     assert {m.replace(".", "/") + ".py"
             for m in OFFLINE + HYBRID + TIERS + LIVE + CHAT + QLORA
-            + MESH_TRAIN + SPM + TOOLS
-            if m not in ("index.native", "index", "parallel", "tools")} | {
+            + MESH_TRAIN + SPM + TOOLS + MEASURE
+            if m not in ("index.native", "index", "parallel", "tools",
+                         "examples")} | {
                 "index/native/__init__.py", "index/__init__.py",
-                "parallel/__init__.py", "tools/__init__.py"} <= scanned
+                "parallel/__init__.py", "tools/__init__.py",
+                "examples/__init__.py"} <= scanned
     hits = [f"{f}: {m.group(0).strip()}" for f in files
             for m in pattern.finditer(f.read_text())]
     assert hits == []
