@@ -236,6 +236,10 @@ BWD_RTOL = 2.0 ** -6
 # (TRAIN_STEPS was 4 until the mesh phase came: one step less, in the LoRA
 # and the QLoRA phases, pays for that phase within the 600 s target)
 TRAIN_B, TRAIN_STEPS, TRAIN_LR = 4, 3, 1e-4
+# the training step run with blocking=False under
+# torch.cuda.set_sync_debug_mode("error"): not step 0 (the mesh phase
+# repeats it), not the last (profiled)
+ASYNC_STEP = 1
 LORA_RANK, LORA_ALPHA, LORA_DROPOUT, TAU = 8, 16, 0.1, 0.05
 # training over a mesh, after the training phase on the same model (the
 # main path of slice 16): (a) one ContrastiveTrainer step on a MESH_TRAIN
@@ -1377,7 +1381,11 @@ def phase_train(params, arch, tok, tmpl, lexicon, rng, seq):
     """Contrastive LoRA training on the full-width model: ``TRAIN_STEPS``
     steps of ``ContrastiveTrainer.train_on_batch`` on ``TRAIN_B`` seeded
     image-caption pairs each (image prompts of ``seq`` tokens on the flash
-    route), the last one profiled. Returns the trainer, the collated
+    route), the last one profiled. Step ``ASYNC_STEP`` runs with
+    ``blocking=False`` under ``torch.cuda.set_sync_debug_mode("error")``
+    (any host sync inside it raises), and its host ms are printed twice:
+    until the call returns (the step enqueued) and until
+    ``torch.cuda.synchronize()``. Returns the trainer, the collated
     batches, the launch counts of the run, ``(mean host ms of the steps
     after the first, peak GB above what was allocated before a step)`` and
     step 0's record for the mesh-training phase: ``(starting adapter tree,
@@ -1439,10 +1447,24 @@ def phase_train(params, arch, tok, tmpl, lexicon, rng, seq):
                 by_name=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
                 stages=())
             loss = box["loss"]
+        elif i == ASYNC_STEP:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                loss = trainer.train_on_batch(batch, blocking=False)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            enqueue_ms = (time.monotonic() - t_step) * 1e3
+            if not (isinstance(loss, torch.Tensor) and loss.dim() == 0
+                    and loss.device.type == torch.device(DEVICE).type
+                    and trainer.loss_history[-1] is loss):
+                raise AssertionError(f"train_on_batch(blocking=False) gave "
+                                     f"{loss!r}")
         else:
             loss = trainer.train_on_batch(batch)
         torch.cuda.synchronize()
         ms = (time.monotonic() - t_step) * 1e3
+        if i == ASYNC_STEP:
+            loss = float(loss)
         if i == 0:      # the mesh-training phase repeats this step
             after0 = [x.detach().clone() for x in lora.tree_leaves(adapters)]
             mu0 = [m.detach().clone() for m in trainer.opt_state["mu"]]
@@ -1457,8 +1479,11 @@ def phase_train(params, arch, tok, tmpl, lexicon, rng, seq):
         tokens = batch.text_ids.size + batch.image_ids.size
         real = int(batch.text_mask.sum() + batch.image_mask.sum())
         steps.append((loss, ms, tokens, real))
+        mode = (" (profiled)" if i == len(batches) - 1 else
+                f" (blocking=False: {enqueue_ms:.1f} ms to enqueue, no host "
+                f"sync)" if i == ASYNC_STEP else "")
         progress("train", f"step {i}: loss {loss:.5f}, {ms:.1f} ms host "
-                 f"clock{' (profiled)' if i == len(batches) - 1 else ''}, "
+                 f"clock{mode}, "
                  f"{tokens / ms * 1e3:.0f} tokens/s ({real / ms * 1e3:.0f} "
                  f"real tokens/s); flash launches {launched}")
     launches = {k: FA.launch_count(k) for k in FA.KERNELS}
@@ -1472,13 +1497,18 @@ def phase_train(params, arch, tok, tmpl, lexicon, rng, seq):
     if taat:
         raise AssertionError(f"training launched the TAAT kernel {taat}x")
     plain = [x[1] for x in steps[1:-1]]
+    blocking_ms = ", ".join(f"{x[1]:.1f}" for j, x in enumerate(steps)
+                            if j != ASYNC_STEP)
     bwd_ms = names["flash_bwd_dq"] + names["flash_bwd_dkv"]
     progress("train", f"{TRAIN_STEPS} steps of {TRAIN_B} pairs (image prompts"
              f" {seq} tokens, captions {batches[0].text_ids.shape[1]}), LoRA "
              f"r={LORA_RANK} on {len(lora.tree_leaves(adapters)) // 3} "
              f"projections, dropout {LORA_DROPOUT}, remat: host collate "
              f"{collate_s * 1e3:.1f} ms per batch; steps after the first "
-             f"{np.mean(plain):.1f} ms mean; peak {peak:.2f} GB ({above:.2f} "
+             f"{np.mean(plain):.1f} ms mean; asynchronous step "
+             f"{ASYNC_STEP}: {enqueue_ms:.1f} ms to enqueue, "
+             f"{steps[ASYNC_STEP][1]:.1f} ms to synchronize (blocking steps "
+             f"{blocking_ms} ms); peak {peak:.2f} GB ({above:.2f} "
              f"above the resident tree); adapters "
              f"moved by up to {moved:.3g}; launches {launches}; profiled "
              f"step: " + (f"device {busy:.1f} ms in {n_kernels} kernels and "
@@ -6086,13 +6116,13 @@ def phase_qlora(params, arch, tok, tmpl, lexicon, batches, lora_step, card):
     steps = []
     real_step = ContrastiveTrainer.train_on_batch
 
-    def timed_step(self, batch):
+    def timed_step(self, batch, blocking=True):
         torch.cuda.synchronize()
         resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         before = {k: FA.launch_count(k) for k in FA.KERNELS}
         t_step = time.monotonic()
-        loss = real_step(self, batch)
+        loss = real_step(self, batch, blocking)
         torch.cuda.synchronize()
         steps.append(((time.monotonic() - t_step) * 1e3,
                       (torch.cuda.max_memory_allocated() - resident) / 1e9,

@@ -274,6 +274,13 @@ def causal_padding_mask(attention_mask: torch.Tensor) -> torch.Tensor:
     return causal[None, None] & pad
 
 
+def full_padding_mask(attention_mask: torch.Tensor) -> torch.Tensor:
+    """``[B, T]`` padding mask -> ``[B, 1, T, T]`` bidirectional attend
+    mask (query and key both real)."""
+    pad = attention_mask.bool()
+    return pad[:, None, :, None] & pad[:, None, None, :]
+
+
 FLASH_MIN_SEQ = 1024  # below this the [T, T] logits tensor is cheap anyway
 
 

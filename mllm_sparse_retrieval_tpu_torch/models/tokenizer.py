@@ -12,9 +12,25 @@ checkpoint may ship, that interface; it imports nothing itself.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Protocol, Sequence
 
 import numpy as np
+
+
+class Tokenizer(Protocol):
+    """What the pipelines read of a tokenizer (the JAX package's
+    ``Tokenizer``); ``WordPieceLiteTokenizer`` and ``HFTokenizerAdapter``
+    give it."""
+
+    pad_id: int
+
+    def get_vocab(self) -> Dict[str, int]: ...
+
+    def encode(self, text: str, add_special_tokens: bool = True
+               ) -> List[int]: ...
+
+    @property
+    def vocab_size(self) -> int: ...
 
 
 def pad_id_batch(batch: Sequence[Sequence[int]], pad_id: int,

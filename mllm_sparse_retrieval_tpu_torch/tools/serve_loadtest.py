@@ -109,8 +109,9 @@ def build_indexes(args, device):
     return impact, dense, p, rng
 
 
-def make_queries(args, p, rng):
-    q_terms, q_w = zipf_queries(rng, args.n_queries, args.terms, args.q_k, p)
+def make_queries(args, zipf_p, rng):
+    q_terms, q_w = zipf_queries(rng, args.n_queries, args.terms, args.q_k,
+                                zipf_p)
     terms = [dict(zip(row.tolist(), w.tolist()))
              for row, w in zip(q_terms, q_w)]
     denses = normal_rows(rng, args.n_queries, args.dim)

@@ -27,6 +27,21 @@ package's ``train/trainer.py``).
   ``cfg.remat`` every decoder block is recomputed in the backward pass.
 - Checkpoints keep the JAX layout, ``<dir>/step_<n>/`` and a ``latest``
   file, written with ``torch.save`` (the JAX trainer uses Orbax).
+- Asynchronous steps, as the JAX trainer runs them:
+  ``train_on_batch(batch, blocking=False)`` returns the loss as a detached
+  0-d tensor on the trainer's device and leaves the step queued on the
+  card. On CUDA the batch goes up from pinned host memory with
+  ``non_blocking=True``, and nothing else in a step on one process waits
+  for the card either. ``train()`` blocks only on the steps that log or
+  checkpoint, and on every ``sync_stride``-th step otherwise
+  (``SYNC_BUDGET_BYTES`` over the bytes of the trainable leaves and their
+  Adam moments, clamped to 1..32), which bounds the pinned batches held
+  by steps in flight. Its ``loss_history`` is floats on return, also when
+  a step raises (an element that cannot be read becomes NaN, and the
+  step's own exception propagates). The host syncs are ``_retire`` (a
+  blocking step's loss) and ``_drain`` (the stride); steps over processes
+  (gloo collectives) and the MoE FFN's dispatch (a boolean-mask index)
+  sync besides.
 
 - QLoRA: ``params`` may hold ``QuantizedWeight``s (``models/quantization.
   quantize_params``, ``cfg.load_kbit``); they are dequantized per use and
@@ -105,6 +120,9 @@ from mllm_sparse_retrieval_tpu_torch.train.contrastive import (
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8     # optax.adam defaults
 CHECKPOINT_FILE = "checkpoint.pt"
+# bytes of (trainable leaves, Adam moments) that train()'s steps in flight
+# may stand for before it blocks (the JAX trainer's constant)
+SYNC_BUDGET_BYTES = 2e9
 
 
 @dataclass
@@ -242,6 +260,21 @@ def _assign(dst, src: torch.Tensor) -> None:
                                   step))
 
 
+def _nbytes(x) -> int:
+    """The bytes of a whole leaf (a tensor or a ``Sharded``)."""
+    return math.prod(x.shape) * x.dtype.itemsize
+
+
+def _as_float(x) -> float:
+    """``float(x)``; NaN where reading ``x`` raises (a step that failed on
+    the card), so that ``train()``'s ``finally`` lets the step's own
+    exception propagate."""
+    try:
+        return float(x)
+    except Exception:           # whatever a poisoned device value raises
+        return float("nan")
+
+
 def _linear(init: float, end: float, steps: int, count: int) -> float:
     """``optax.linear_schedule(init, end, steps)`` at ``count``."""
     if steps <= 0:
@@ -376,24 +409,33 @@ class ContrastiveTrainer:
     # ---- one step ------------------------------------------------------------
 
     def _to_device(self, batch: TrainBatch, lo: int, hi: int, device=None):
-        device = self.device if device is None else device
+        """Rows ``lo:hi`` of the batch on ``device``. On CUDA each array is
+        copied into pinned host memory and uploaded with ``non_blocking``:
+        the copy queues behind the card's work instead of waiting for it
+        (PyTorch's caching host allocator keeps each pinned buffer until
+        its copy has run)."""
+        device = torch.device(self.device if device is None else device)
 
         def put(a, dtype=None):
-            t = torch.from_numpy(np.ascontiguousarray(a[lo:hi]))
-            return t.to(device, dtype)
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            if device.type != "cuda":
+                return t.to(device, dtype)
+            host = torch.empty(t.shape, dtype=dtype or t.dtype,
+                               pin_memory=True)
+            return host.copy_(t).to(device, non_blocking=True)
 
         pixels = batch.pixels
         if isinstance(pixels, dict):
-            pixels = {k: put(v) for k, v in pixels.items()}
+            pixels = {k: put(v[lo:hi]) for k, v in pixels.items()}
         else:
-            pixels = put(pixels)
+            pixels = put(pixels[lo:hi])
         pos = batch.image_pos_ids
         if pos is not None:          # [3, B, T]: the batch axis is the 2nd
-            pos = torch.from_numpy(np.ascontiguousarray(
-                pos[:, lo:hi])).to(device, torch.long)
-        return (put(batch.text_ids, torch.long), put(batch.text_mask),
-                put(batch.image_ids, torch.long), put(batch.image_mask),
-                pixels, pos)
+            pos = put(pos[:, lo:hi], torch.long)
+        return (put(batch.text_ids[lo:hi], torch.long),
+                put(batch.text_mask[lo:hi]),
+                put(batch.image_ids[lo:hi], torch.long),
+                put(batch.image_mask[lo:hi]), pixels, pos)
 
     def _encode(self, params, adapters, t_ids, t_mask, i_ids, i_mask,
                 pixels, pos, seed: int, allow_flash=True, lora_rows=None):
@@ -448,8 +490,11 @@ class ContrastiveTrainer:
                              torch.cat([x.to(mesh.lead) for x in i_embs]),
                              self.cfg.tau)
 
-    def train_on_batch(self, batch: TrainBatch) -> float:
-        """One optimizer step on a collated batch; returns the loss."""
+    def train_on_batch(self, batch: TrainBatch, blocking: bool = True):
+        """One optimizer step on a collated batch; returns the loss, a float.
+        ``blocking=False`` returns it as a detached 0-d tensor on the
+        trainer's device without waiting for the card (``loss_history``
+        holds the tensor until ``train()`` turns it into a float)."""
         accum = max(int(self.cfg.grad_accum_steps), 1)
         b = batch.text_ids.shape[0]
         if b % accum != 0:
@@ -499,9 +544,33 @@ class ContrastiveTrainer:
                                    if not _spans_processes(x)])
         self._update(leaves, grads)
         self.step += 1
-        loss = float(loss_sum)
+        loss = self._retire(loss_sum) if blocking else loss_sum
         self.loss_history.append(loss)
         return loss
+
+    def _retire(self, loss: torch.Tensor) -> float:
+        """The host sync of a blocking step: its loss as a float."""
+        return float(loss)
+
+    def _drain(self) -> None:
+        """The host sync of ``train()``'s stride: wait until every step
+        queued on the trainer's cards has run."""
+        devices = {self.device}
+        if self.mesh is not None:
+            devices.update(self.mesh.devices.flat)
+        for d in devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    def _sync_stride(self) -> int:
+        """``train()`` blocks every this many steps that do not sync
+        anyway: ``SYNC_BUDGET_BYTES`` over the bytes of the trainable leaves
+        and their Adam moments, clamped to 1..32 (the JAX trainer's
+        ``sync_stride``)."""
+        st = self.opt_state
+        step_bytes = sum(_nbytes(x) for x in
+                         self._leaves() + st["mu"] + st["nu"])
+        return max(1, min(32, int(SYNC_BUDGET_BYTES // max(step_bytes, 1))))
 
     @torch.no_grad()
     def _update(self, leaves, grads) -> None:
@@ -572,22 +641,38 @@ class ContrastiveTrainer:
               text_max_len: Optional[int] = None, seed: int = 0
               ) -> List[float]:
         """Epoch loop with per-epoch shuffling (``np.random.default_rng
-        (seed)``) and drop-last batching, as the JAX trainer runs it."""
+        (seed)``) and drop-last batching, as the JAX trainer runs it: only
+        the steps that log or checkpoint block, and every
+        ``_sync_stride()``-th step besides (see the module docstring)."""
         num_epochs = num_epochs or self.cfg.num_epochs
         rng = np.random.default_rng(seed)
         order = np.arange(len(examples))
         every = self.cfg.checkpoint_every_steps
-        for epoch in range(num_epochs):
-            rng.shuffle(order)
-            for start in range(0, len(examples) - batch_size + 1,
-                               batch_size):
-                batch_ex = [examples[i]
-                            for i in order[start:start + batch_size]]
-                loss = self.train_on_batch(collate(batch_ex, text_max_len))
-                if logger and log_every and self.step % log_every == 0:
-                    logger(f"epoch {epoch} step {self.step} loss {loss:.4f}")
-                if checkpoint_dir and every and self.step % every == 0:
-                    self.save_checkpoint(checkpoint_dir)
+        stride = self._sync_stride()
+        try:
+            for epoch in range(num_epochs):
+                rng.shuffle(order)
+                for start in range(0, len(examples) - batch_size + 1,
+                                   batch_size):
+                    batch_ex = [examples[i]
+                                for i in order[start:start + batch_size]]
+                    # log_every=0 logs nothing
+                    want_sync = bool(
+                        (logger and log_every and
+                         (self.step + 1) % log_every == 0) or
+                        (checkpoint_dir and every and
+                         (self.step + 1) % every == 0))
+                    loss = self.train_on_batch(
+                        collate(batch_ex, text_max_len), blocking=want_sync)
+                    if not want_sync and self.step % stride == 0:
+                        self._drain()
+                    if logger and log_every and self.step % log_every == 0:
+                        logger(f"epoch {epoch} step {self.step} "
+                               f"loss {loss:.4f}")
+                    if checkpoint_dir and every and self.step % every == 0:
+                        self.save_checkpoint(checkpoint_dir)
+        finally:
+            self.loss_history = [_as_float(x) for x in self.loss_history]
         if checkpoint_dir:
             self.save_checkpoint(checkpoint_dir)
         return self.loss_history

@@ -8,9 +8,10 @@ wire through the TAAT kernel and the ANN tier, a converted checkpoint
 loaded onto the card, the arena live index's in-place writes into the
 TAAT kernel's matrix, tiny InternVL2.5 and Qwen2.5-VL encodes on the
 card against the CPU, the ``hostops`` extension built on the card's
-machine against the Python bodies, and a training step over a mesh of the
+machine against the Python bodies, a training step over a mesh of the
 one card and across two ``gloo`` processes on it against the unsharded
-step (the tolerances of all but the kernels are in their docstrings). Marked ``cuda``; each test skips
+step, and asynchronous training steps (``blocking=False``) that make no
+host sync and equal the blocking step exactly (the tolerances of all but the kernels are in their docstrings). Marked ``cuda``; each test skips
 where no card is present (decided inside the test, so every pytest worker
 collects the same tests). This file
 imports nothing of JAX, so it also runs where JAX is absent:
@@ -1313,6 +1314,73 @@ def test_two_process_training_step_on_one_card_equals_the_unsharded_step(
         got = torch.load(tmp_path / f"rank{rank}.pt", weights_only=False)
         _assert_step_close(got, one, {"fwd": 2 * layers, "dq": layers,
                                       "dkv": layers})
+
+
+def _second_step(dev, blocking, mesh_shape=None, full=False):
+    """Step 2 of a fresh ``_mesh_step_case`` trainer (LoRA, or with ``full``
+    an FSDP full finetune), over a ``mesh_shape`` mesh of the one card when
+    one is given: blocking, or with ``blocking=False`` under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync raises) and one
+    ``torch.cuda.synchronize()`` after it. Step 1 builds the kernels and
+    warms cuBLAS. Returns ``(loss, the trainable tensors)``."""
+    import dataclasses
+
+    from mllm_sparse_retrieval_tpu_torch.parallel import make_mesh
+    from mllm_sparse_retrieval_tpu_torch.train.trainer import (
+        ContrastiveTrainer)
+
+    arch, params, batch, cfg, start = _mesh_step_case(dev)
+    if full:
+        cfg = dataclasses.replace(cfg, train_full=True,
+                                  shard_params_data_axis=True,
+                                  learning_rate=1e-4)
+    mesh = None if mesh_shape is None else make_mesh(
+        *mesh_shape, devices=[dev] * (mesh_shape[0] * mesh_shape[1]))
+    trainer = ContrastiveTrainer(params, arch, None if full else start, cfg,
+                                 mesh=mesh, device=dev)
+    trainer.train_on_batch(batch)
+    torch.cuda.synchronize()
+    if blocking:
+        loss = trainer.train_on_batch(batch)
+    else:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss = trainer.train_on_batch(batch, blocking=False)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert isinstance(loss, torch.Tensor) and loss.dim() == 0
+        assert loss.is_cuda and trainer.loss_history[-1] is loss
+        torch.cuda.synchronize()
+        loss = float(loss)
+    return loss, [x.detach().clone() for x in trainer._trainable_leaves()]
+
+
+def _assert_same_step(got, want):
+    assert got[0] == want[0]
+    assert len(got[1]) == len(want[1])
+    for a, b in zip(got[1], want[1]):
+        assert torch.equal(a, b)
+
+
+def test_async_step_has_no_host_sync():
+    """``train_on_batch(batch, blocking=False)`` on the tiny LLaVA of
+    ``_mesh_step_case`` (1,024-token image prompts through the flash
+    kernels, remat, LoRA dropout 0.1): a step that does not log makes no
+    host sync (``set_sync_debug_mode("error")`` raises on any), and after
+    one ``torch.cuda.synchronize()`` its loss and adapters equal a blocking
+    step's on the same batch exactly."""
+    dev = _card()
+    _assert_same_step(_second_step(dev, False), _second_step(dev, True))
+
+
+@pytest.mark.parametrize("full", [False, True], ids=["zero1", "fsdp"])
+def test_async_mesh_step_has_no_host_sync(full):
+    """The same over a 2 x 1 mesh of the one card: ZeRO-1 moments (LoRA),
+    and an FSDP full finetune (its parameters split and gathered per
+    use)."""
+    dev = _card()
+    _assert_same_step(_second_step(dev, False, (2, 1), full),
+                      _second_step(dev, True, (2, 1), full))
 
 
 def _clone_tree(tree):

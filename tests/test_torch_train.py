@@ -5,7 +5,9 @@ with ``from_jax_params`` / ``from_jax_lora``), at ``lora_dropout=0`` (JAX
 draws dropout masks from its own PRNG). Then what only the port can check
 against itself, with dropout on: checkpoint resume and remat replay a run
 exactly. Then the overfit check the JAX package's own training test makes,
-and the served encoder with unmerged adapters against the JAX encoder.
+the served encoder with unmerged adapters against the JAX encoder, and the
+asynchronous steps: ``train()``'s histories and sync schedule against the
+JAX trainer's (last section).
 
 Tolerances (f32 on the CPU): ``atol=rtol=1e-5`` on the loss and its
 gradients, and on every loss of a multi-step run; ``atol=rtol=1e-4`` on the
@@ -15,6 +17,7 @@ into larger relative ones). Collated batches, loaders, step counts: exact.
 Resume and remat against a straight run: exact.
 """
 
+import builtins
 import dataclasses
 
 import jax
@@ -53,9 +56,11 @@ from mllm_sparse_retrieval_tpu_torch.models.registry import get_family_spec
 from mllm_sparse_retrieval_tpu_torch.models.tokenizer import (
     WordPieceLiteTokenizer)
 from mllm_sparse_retrieval_tpu_torch.models.vit import ViTConfig
+from mllm_sparse_retrieval_tpu_torch.parallel import Sharded, make_mesh
 from mllm_sparse_retrieval_tpu_torch.pipelines import encode as pencode
 from mllm_sparse_retrieval_tpu_torch.serving import OnlineQueryEncoder
 from mllm_sparse_retrieval_tpu_torch.train import contrastive
+from mllm_sparse_retrieval_tpu_torch.train import trainer as trainer_mod
 from mllm_sparse_retrieval_tpu_torch.train.trainer import (
     ContrastiveTrainer, TrainBatch, make_collator)
 from tests.torch_threads import one_torch_thread  # noqa: F401
@@ -418,3 +423,231 @@ def test_online_encoder_with_unmerged_adapters_matches_jax(tiny):
     np.testing.assert_allclose(di, jdi, **TOL)
     np.testing.assert_array_equal(ti[0].token_ids, jti[0].token_ids)
     assert RepsLoc.BEFORE_PAD == enc.reps_loc
+
+
+# ---- asynchronous steps against the JAX trainer's ------------------------------
+#
+# ``train_on_batch(batch, blocking=False)`` returns the loss as a device
+# scalar and appends it; ``train()`` blocks only on the steps that log or
+# checkpoint and on every ``sync_stride``-th step besides, and turns the
+# history into floats in a ``finally``. The JAX side of the histories is
+# ``test_training.py::test_async_stepping_matches_blocking``'s run. The
+# schedule is compared step by step: the steps on which the port calls its
+# sync methods (``_retire``, ``_drain``) against the steps on which the JAX
+# trainer's ``train()`` passes ``blocking=True`` and calls
+# ``jax.block_until_ready`` for the same arguments (its ``train_on_batch``
+# stubbed to record them: the schedule is the epoch loop's). A stride below
+# the step count comes from a smaller byte budget, patched in the test only:
+# the port's ``SYNC_BUDGET_BYTES``, and the JAX trainer's clamp
+# (``min(32, ...)``, read from its module's globals) at the same stride.
+# Losses against the JAX trainer's at ``TOL``; the port's histories at
+# different schedules exactly equal (the same operations run whether a step
+# blocks or not).
+
+ASYNC_KW = dict(learning_rate=3e-3, tau=0.1, lora_rank=4, lora_alpha=8,
+                lora_dropout=0.0, shard_optimizer_state=False)
+BATCH, EPOCHS = 4, 3                 # 8 examples: 2 steps an epoch, 6 steps
+
+
+def _port(tiny, mesh=None, **cfg):
+    (jparams, jarch, _, _), (params, arch, tok, tmpl) = tiny
+    _, ad = _adapters(jparams, jarch)
+    trainer = ContrastiveTrainer(params, arch, from_jax_lora(ad, "cpu"),
+                                 TrainConfig(**(ASYNC_KW | cfg)), mesh=mesh,
+                                 device="cpu")
+    return trainer, make_collator(tok, tmpl, arch)
+
+
+@pytest.fixture(scope="module")
+def jax_history(tiny):
+    """The JAX trainer's ``train()`` history (``logger=None``: every step
+    asynchronous)."""
+    (jparams, jarch, jtok, jtmpl), _ = tiny
+    jad, _ = _adapters(jparams, jarch)
+    jt = jtrainer.ContrastiveTrainer(jparams, jarch, jad,
+                                     JTrainConfig(**ASYNC_KW))
+    return jt.train(_examples(True), jtrainer.make_collator(jtok, jtmpl,
+                                                            jarch),
+                    batch_size=BATCH, num_epochs=EPOCHS, logger=None)
+
+
+def _histories(tiny, mesh=None, **cfg):
+    """The port's ``train()`` histories with ``log_every`` 1 and 5 and with
+    ``logger=None``, and the last trainer."""
+    out = []
+    for log_every, logger in ((1, lambda m: None), (5, lambda m: None),
+                              (1, None)):
+        trainer, collate = _port(tiny, mesh, **cfg)
+        hist = trainer.train(_examples(False), collate, batch_size=BATCH,
+                             num_epochs=EPOCHS, log_every=log_every,
+                             logger=logger)
+        assert all(type(x) is float for x in hist)
+        assert hist is trainer.loss_history
+        out.append(hist)
+    return out, trainer
+
+
+def test_async_stepping_matches_blocking_and_jax(tiny, jax_history):
+    (every, fifth, silent), _ = _histories(tiny)
+    assert every == fifth == silent
+    assert len(every) == EPOCHS * 8 // BATCH
+    np.testing.assert_allclose(every, jax_history, **TOL)
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 1)])
+def test_async_stepping_over_a_zero1_mesh(tiny, jax_history, shape):
+    """A mesh of repeated CPU devices, ZeRO-1 on: the same histories at
+    every schedule, and the unsharded JAX trainer's at ``TOL``."""
+    mesh = make_mesh(*shape, devices=["cpu"] * 2)
+    (every, fifth, silent), trainer = _histories(
+        tiny, mesh, shard_optimizer_state=True)
+    assert every == fifth == silent
+    np.testing.assert_allclose(every, jax_history, **TOL)
+    assert any(isinstance(m, Sharded) for m in trainer.opt_state["mu"])
+
+
+def test_train_on_batch_without_blocking_returns_a_device_scalar(tiny):
+    blocking, collate = _port(tiny)
+    queued, _ = _port(tiny)
+    batch = collate(_examples(False)[:BATCH])
+    want = blocking.train_on_batch(batch)
+    got = queued.train_on_batch(batch, blocking=False)
+    assert type(want) is float
+    assert isinstance(got, torch.Tensor) and got.shape == ()
+    assert got.device == queued.device and not got.requires_grad
+    assert queued.loss_history == [got] and queued.loss_history[0] is got
+    assert queued.step == 1 and float(got) == want
+    for a, b in zip(lora.tree_leaves(queued.adapters),
+                    lora.tree_leaves(blocking.adapters)):
+        assert torch.equal(a, b)
+
+
+# ---- the sync schedule ---------------------------------------------------------
+
+SCHEDULES = {
+    "log_every_1": dict(log_every=1),
+    "log_every_4_checkpoint_3": dict(log_every=4, checkpoint_every_steps=3),
+    "silent": dict(logger=False),
+    "silent_stride_2": dict(logger=False, stride=2),
+    "log_every_5_stride_4": dict(log_every=5, stride=4),
+    "log_every_0_checkpoint_2_stride_3": dict(
+        log_every=0, checkpoint_every_steps=2, stride=3),
+}
+SCHEDULE_EPOCHS = 3                  # 6 steps
+
+
+def _jax_schedule(tiny, monkeypatch, case, ckpt_dir):
+    """The steps on which the JAX trainer's ``train()`` blocks a step, calls
+    ``jax.block_until_ready`` and checkpoints, its steps stubbed."""
+    (jparams, jarch, jtok, jtmpl), _ = tiny
+    jad, _ = _adapters(jparams, jarch)
+    every = case.get("checkpoint_every_steps", 0)
+    jt = jtrainer.ContrastiveTrainer(jparams, jarch, jad, JTrainConfig(
+        **ASYNC_KW, checkpoint_every_steps=every))
+    blocked, drained, saved = [], [], []
+
+    def step(batch, blocking=True):
+        jt.step += 1
+        if blocking:
+            blocked.append(jt.step)
+        loss = jnp.float32(1.0)
+        return float(loss) if blocking else loss
+
+    monkeypatch.setattr(jt, "train_on_batch", step)
+    monkeypatch.setattr(jt, "save_checkpoint",
+                        lambda d: saved.append(jt.step))
+    monkeypatch.setattr(jtrainer.jax, "block_until_ready",
+                        lambda x: drained.append(jt.step) or x)
+    if "stride" in case:
+        monkeypatch.setattr(jtrainer, "min", lambda a, b: builtins.min(
+            case["stride"], b), raising=False)
+    jt.train(_examples(True), lambda b, t=None: b, batch_size=BATCH,
+             num_epochs=SCHEDULE_EPOCHS, log_every=case.get("log_every", 1),
+             logger=None if case.get("logger") is False else lambda m: None,
+             checkpoint_dir=ckpt_dir if every else None)
+    monkeypatch.undo()
+    return blocked, drained, saved
+
+
+def _port_schedule(tiny, monkeypatch, case, ckpt_dir):
+    every = case.get("checkpoint_every_steps", 0)
+    trainer, collate = _port(tiny, checkpoint_every_steps=every)
+    if "stride" in case:
+        st = trainer.opt_state
+        nbytes = sum(x.numel() * x.element_size() for x in
+                     trainer._leaves() + st["mu"] + st["nu"])
+        monkeypatch.setattr(trainer_mod, "SYNC_BUDGET_BYTES",
+                            case["stride"] * nbytes + 1)
+        assert trainer._sync_stride() == case["stride"]
+    else:
+        assert trainer._sync_stride() == 32
+    blocked, drained, saved = [], [], []
+    retire, drain, save = (trainer._retire, trainer._drain,
+                           trainer.save_checkpoint)
+    monkeypatch.setattr(trainer, "_retire", lambda loss: (
+        blocked.append(trainer.step), retire(loss))[1])
+    monkeypatch.setattr(trainer, "_drain", lambda: (
+        drained.append(trainer.step), drain())[1])
+    monkeypatch.setattr(trainer, "save_checkpoint", lambda d: (
+        saved.append(trainer.step), save(d))[1])
+    lines = []
+    hist = trainer.train(
+        _examples(False), collate, batch_size=BATCH,
+        num_epochs=SCHEDULE_EPOCHS, log_every=case.get("log_every", 1),
+        logger=None if case.get("logger") is False else lines.append,
+        checkpoint_dir=ckpt_dir if every else None)
+    monkeypatch.undo()
+    assert all(type(x) is float for x in hist)
+    return (blocked, drained, saved), lines, hist
+
+
+@pytest.mark.parametrize("name", list(SCHEDULES))
+def test_sync_schedule_matches_jax(tiny, monkeypatch, tmp_path, name):
+    case = SCHEDULES[name]
+    want = _jax_schedule(tiny, monkeypatch, case, str(tmp_path / "jax"))
+    got, lines, hist = _port_schedule(tiny, monkeypatch, case,
+                                      str(tmp_path / "port"))
+    assert got == want
+    n = SCHEDULE_EPOCHS * 8 // BATCH
+    log_every = case.get("log_every", 1)
+    logged = [] if case.get("logger") is False or not log_every else [
+        s for s in range(1, n + 1) if s % log_every == 0]
+    assert lines == [f"epoch {(s - 1) // 2} step {s} loss {hist[s - 1]:.4f}"
+                     for s in logged]
+    if "stride" in case:           # the stride blocks a step of its own
+        assert got[1]
+
+
+class _Poisoned:
+    """A queued loss whose step failed on the card: reading it raises."""
+
+    def __float__(self):
+        raise RuntimeError("the card lost this step")
+
+
+def test_a_failing_collate_leaves_a_history_of_floats(tiny):
+    trainer, collate = _port(tiny)
+    calls = []
+
+    def failing(batch, text_max_len=None):
+        calls.append(1)
+        if len(calls) == 4:
+            raise ValueError("collate failed at step 3")
+        return collate(batch, text_max_len)
+
+    with pytest.raises(ValueError, match="collate failed at step 3"):
+        trainer.train(_examples(False), failing, batch_size=BATCH,
+                      num_epochs=EPOCHS, logger=None)
+    assert trainer.step == 3 and len(trainer.loss_history) == 3
+    assert all(type(x) is float and np.isfinite(x)
+               for x in trainer.loss_history)
+    # an element that cannot be read becomes NaN; the step's own exception
+    # is the one that propagates
+    trainer.loss_history.append(_Poisoned())
+    with pytest.raises(ValueError, match="collate failed at step 3"):
+        calls.clear()
+        trainer.train(_examples(False), failing, batch_size=BATCH,
+                      num_epochs=EPOCHS, logger=None)
+    assert len(trainer.loss_history) == 7
+    assert np.isnan(trainer.loss_history[3])
+    assert all(type(x) is float for x in trainer.loss_history)
