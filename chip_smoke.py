@@ -192,7 +192,7 @@ VOCAB_WORDS = 20_000            # tokenizer vocabulary size
 N_QUERIES, N_THREADS, MAX_BATCH, DEPTH = 32, 8, 8, 10
 # a served batch takes tens of ms: these limits only make a hang fail fast
 WARMUP_TIMEOUT_S, REQUEST_TIMEOUT_S, SERVE_DEADLINE_S = 60, 30, 60
-STAGES = ("vision", "tower", "attention", "lm_head",
+STAGES = ("vision", "tower", "lm_head",
           "term_select")        # profiler ranges of encode
 # flash kernel at the served image shape: 8 prompts of 3,072 tokens, 32 q-
 # and 8 kv-heads of 128, compared at every query that has a real key at or
@@ -1159,9 +1159,9 @@ def profiled(fn, by_name=(), stages=STAGES):
     kernel and copy it ran, their count, device ms under each of
     ``stages``, device ms of the kernels whose name contains each string of
     ``by_name``). A stage's time is that of the kernels that start inside
-    the device-side spans of its ``record_function`` ranges: the flash
-    kernels, launched through ctypes outside any aten op, are linked to no
-    CPU-side range but run inside the ``attention`` spans. Without
+    the device-side spans of its ``tracing.span`` ranges (the kernels
+    launched through ctypes outside any aten op are linked to no CPU-side
+    range but run inside the spans around them). Without
     ``stages`` the profiler records the card alone (no CPU-side ops: a
     training step's ~200,000 of them made its profiled step 8x slower)."""
     import torch
@@ -1195,16 +1195,16 @@ def profiled(fn, by_name=(), stages=STAGES):
     return sum(ms for _, ms in kernels), len(kernels), stage, names
 
 
-def profiled_again(fn, stages=STAGES):
+def profiled_again(fn, stages=STAGES, by_name=()):
     """``profiled`` of a call without side effects, run once more if the
     profiler returned no device time: one run of this script on an H100
     (PR 8's tree) saw none in the text breakdown, and 180 profiles of a
     small workload in six processes right after all saw theirs."""
-    out = profiled(fn, stages=stages)
+    out = profiled(fn, by_name, stages)
     if out[0] <= 0.0:
         progress("breakdown", "the profiler returned no device time; "
                  "profiling the call again")
-        out = profiled(fn, stages=stages)
+        out = profiled(fn, by_name, stages)
     return out
 
 
@@ -1251,9 +1251,9 @@ def breakdown(encoder, index, q_idx, q_w, batch):
 def image_breakdown(encoder, images, flash=True, label="", iters=2):
     """Where one served image micro-batch's time goes: the host clock of a
     real ``encode_images`` call (mean of ``iters``) and, from one profiled
-    call, the device time of its ``vision``, ``tower`` (``attention``
-    inside it, the flash calls: required when ``flash``), ``lm_head`` and
-    ``term_select`` ranges and the device's busy share."""
+    call, the device time of its ``vision``, ``tower`` (the flash forward
+    kernels inside it, found by name: required when ``flash``),
+    ``lm_head`` and ``term_select`` ranges and the device's busy share."""
     import torch
 
     enc = encoder._enc
@@ -1267,13 +1267,13 @@ def image_breakdown(encoder, images, flash=True, label="", iters=2):
         torch.cuda.synchronize()
 
     encode_ms, inputs_ms = host_ms(encode, iters), host_ms(inputs, iters)
-    busy, n, stage, _ = profiled_again(encode)
+    busy, n, stage, names = profiled_again(encode, by_name=("flash_fwd",))
     stages = ", ".join(f"{k} {v:.3f} ms" for k, v in stage.items())
-    if flash and stage["attention"] > 0.0 and stage["tower"] > 0.0:
-        stages += (f"; attention share of tower "
-                   f"{stage['attention'] / stage['tower']:.3f}")
+    if flash and names["flash_fwd"] > 0.0 and stage["tower"] > 0.0:
+        stages += (f"; flash forward share of tower "
+                   f"{names['flash_fwd'] / stage['tower']:.3f}")
     elif flash and busy > 0.0:
-        stages += "; the profiler saw no kernel in the attention ranges"
+        stages += "; the profiler saw no flash forward kernel"
     progress("breakdown", f"{label}one {b}-image batch: encode_images "
              f"{encode_ms:.2f} ms host clock, of which host preprocessing "
              f"and upload {inputs_ms:.2f} ms; "

@@ -24,7 +24,6 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from mllm_sparse_retrieval_tpu_torch.configs import RepsLoc
 from mllm_sparse_retrieval_tpu_torch.models import layers as L
@@ -34,6 +33,7 @@ from mllm_sparse_retrieval_tpu_torch.models.llama import LlamaConfig
 from mllm_sparse_retrieval_tpu_torch.models.mllm import (
     splice_image_embeddings)
 from mllm_sparse_retrieval_tpu_torch.models.vit import patchify
+from mllm_sparse_retrieval_tpu_torch.tracing import span
 
 
 @dataclass(frozen=True)
@@ -215,7 +215,7 @@ def encode(params: Dict, cfg: InternVLConfig, input_ids: torch.Tensor,
     lget = (lambda name: lora.get(name) if lora else None)
     embeds = llama.embed_tokens(params["text"], input_ids)
     if pixel_values is not None:
-        with record_function("vision"):
+        with span("vision"):
             if pixel_values.dim() == 5:
                 b, mt = pixel_values.shape[:2]
                 feats = image_features(
@@ -229,11 +229,11 @@ def encode(params: Dict, cfg: InternVLConfig, input_ids: torch.Tensor,
             embeds = splice_image_embeddings(
                 embeds, feats.to(embeds.dtype),
                 input_ids == cfg.image_token_id)
-    with record_function("tower"):
+    with span("tower"):
         hidden = llama.apply(params["text"], embeds, attention_mask,
                              cfg.text, lget("text"), remat=remat,
                              allow_flash=allow_flash, lora_seed=lora_seed,
                              lora_dropout=lora_dropout, lora_rows=lora_rows)
-    with record_function("lm_head"):
+    with span("lm_head"):
         head = llama.lm_head_weight(params["text"], cfg.text)
         return R.extract_reps(hidden, attention_mask, head, reps_loc)

@@ -22,6 +22,7 @@ from mllm_sparse_retrieval_tpu_torch.models.quantization import (
 from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
 from mllm_sparse_retrieval_tpu_torch.parallel.mesh import (
     MODEL_AXIS, Sharded, as_tensor)
+from mllm_sparse_retrieval_tpu_torch.tracing import span
 
 
 def dense(x: torch.Tensor, p: Dict[str, torch.Tensor],
@@ -252,17 +253,20 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     a vision tower's many tiles or long full-attention blocks never hold
     the whole batch's logits at once. ``mask`` has a batch dimension of 1
     (shared) or the batch's. The same numbers as ``attention`` on the whole
-    batch: each item's attention is independent."""
+    batch: each item's attention is independent. The vision towers are its
+    only callers, so its ``vit_attention`` span is their attention."""
     b, t, hq, _ = q.shape
     per_item = hq * t * k.shape[1] * 4
     step = max(1, chunk_bytes // per_item)
-    if step >= b:
-        return attention(q, k, v, mask)
-    out = []
-    for i in range(0, b, step):
-        m = mask if mask.shape[0] == 1 else mask[i:i + step]
-        out.append(attention(q[i:i + step], k[i:i + step], v[i:i + step], m))
-    return torch.cat(out)
+    with span("vit_attention"):
+        if step >= b:
+            return attention(q, k, v, mask)
+        out = []
+        for i in range(0, b, step):
+            m = mask if mask.shape[0] == 1 else mask[i:i + step]
+            out.append(attention(q[i:i + step], k[i:i + step],
+                                 v[i:i + step], m))
+        return torch.cat(out)
 
 
 def causal_padding_mask(attention_mask: torch.Tensor) -> torch.Tensor:

@@ -17,7 +17,6 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from mllm_sparse_retrieval_tpu_torch.models import layers as L
@@ -144,10 +143,9 @@ def _block(x, p, cfg: LlamaConfig, mask, cos, sin, lora=None,
     if attn_impl is not None:
         attn = attn_impl(q, k, v)
     elif flash_mask is not None:
-        with record_function("attention"):
-            attn = L.flash_causal_attention(q, k, v, flash_mask) \
-                if flash_mesh is None else L.flash_causal_attention(
-                    q, k, v, flash_mask, mesh=flash_mesh)
+        attn = L.flash_causal_attention(q, k, v, flash_mask) \
+            if flash_mesh is None else L.flash_causal_attention(
+                q, k, v, flash_mask, mesh=flash_mesh)
     else:
         attn = L.attention(q, k, v, mask)
     attn = attn.reshape(b, t, cfg.num_heads * dh)

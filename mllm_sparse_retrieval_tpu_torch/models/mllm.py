@@ -20,7 +20,6 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from mllm_sparse_retrieval_tpu_torch.configs import RepsLoc
 from mllm_sparse_retrieval_tpu_torch.models import anyres as A
@@ -29,6 +28,7 @@ from mllm_sparse_retrieval_tpu_torch.models import llama, vit
 from mllm_sparse_retrieval_tpu_torch.models import reps as R
 from mllm_sparse_retrieval_tpu_torch.models.llama import LlamaConfig
 from mllm_sparse_retrieval_tpu_torch.models.vit import ViTConfig
+from mllm_sparse_retrieval_tpu_torch.tracing import span
 
 
 @dataclass(frozen=True)
@@ -167,7 +167,7 @@ def forward_hidden(params: Dict, cfg: MLLMConfig, input_ids: torch.Tensor,
     lget = (lambda name: lora.get(name) if lora else None)
     embeds = llama.embed_tokens(params["text"], input_ids)
     if pixel_values is not None:
-        with record_function("vision"):
+        with span("vision"):
             if isinstance(pixel_values, dict):
                 img = anyres_image_features(params, cfg,
                                             pixel_values["pixels"],
@@ -180,7 +180,7 @@ def forward_hidden(params: Dict, cfg: MLLMConfig, input_ids: torch.Tensor,
                                              lget("projector"))
             embeds = splice_image_embeddings(
                 embeds, img.to(embeds.dtype), input_ids == cfg.image_token_id)
-    with record_function("tower"):
+    with span("tower"):
         return llama.apply(params["text"], embeds, attention_mask, cfg.text,
                            lget("text"), remat=remat, allow_flash=allow_flash,
                            lora_seed=lora_seed, lora_dropout=lora_dropout,
@@ -204,6 +204,6 @@ def encode(params: Dict, cfg: MLLMConfig, input_ids: torch.Tensor,
                             pixel_values, lora, remat=remat,
                             allow_flash=allow_flash, lora_seed=lora_seed,
                             lora_dropout=lora_dropout, lora_rows=lora_rows)
-    with record_function("lm_head"):
+    with span("lm_head"):
         head = llama.lm_head_weight(params["text"], cfg.text)
         return R.extract_reps(hidden, attention_mask, head, reps_loc)

@@ -17,6 +17,8 @@ import queue
 import threading
 from typing import Callable, Iterable, Iterator, Optional, TypeVar
 
+from mllm_sparse_retrieval_tpu_torch.tracing import span
+
 T = TypeVar("T")
 D = TypeVar("D")
 R = TypeVar("R")
@@ -56,7 +58,8 @@ def prefetch_thread(items: Iterable[T], depth: int = 2) -> Iterator[T]:
 
     Order is kept; an exception of the producer re-raises at the point of
     consumption; abandoning the iterator (break, garbage collection) stops
-    the worker at its next bounded wait.
+    the worker at its next bounded wait. The consumer's wait for an item
+    is a ``prefetch_wait`` span: the host work the pipeline failed to hide.
     """
     q: "queue.Queue" = queue.Queue(maxsize=max(depth, 1))
     stop = threading.Event()
@@ -84,7 +87,8 @@ def prefetch_thread(items: Iterable[T], depth: int = 2) -> Iterator[T]:
     threading.Thread(target=worker, daemon=True).start()
     try:
         while True:
-            item = q.get()
+            with span("prefetch_wait"):
+                item = q.get()
             if item is end:
                 return
             if isinstance(item, BaseException):

@@ -41,7 +41,6 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from mllm_sparse_retrieval_tpu_torch.configs import RepsLoc
 from mllm_sparse_retrieval_tpu_torch.data.imageio import load_rgb
@@ -64,6 +63,7 @@ from mllm_sparse_retrieval_tpu_torch.sparse.term_selection import (
     SelectedTerms, doc_string_vector, get_filtered_ids, quantize_weights,
     query_string_weights, select_image_terms, select_text_terms,
     text_candidate_ids)
+from mllm_sparse_retrieval_tpu_torch.tracing import span
 
 
 @dataclass
@@ -129,7 +129,7 @@ def make_text_ds_encode(arch, reps_loc, k_text_full: int, exp_k: int):
             allow_flash=True):
         sparse, dense = encode_any(p, arch, ids, mask, None, reps_loc, lora,
                                    allow_flash=allow_flash)
-        with record_function("term_select"):
+        with span("term_select"):
             fv, fi = vocab_topk(sparse, k_text_full)
             cv, ci, cnt = candidate_topk(sparse, cand_ids, cand_mask, 128)
             blocks = [(fv, True), (fi, False), (cv, True), (ci, False),
@@ -170,7 +170,7 @@ def make_image_ds_encode(arch, reps_loc, k_image: int, exp_k: int):
         sparse, dense = encode_any(p, arch, ids, mask, pixels, reps_loc,
                                    lora, position_ids=pos,
                                    allow_flash=allow_flash)
-        with record_function("term_select"):
+        with span("term_select"):
             fv, fi = vocab_topk(sparse, k_image)
             blocks = [(fv, True), (fi, False)]
             if fmask is not None:
@@ -487,11 +487,18 @@ def encode_examples(
         pixels = np.stack([pixel_loader(ex) for ex in batch])
         return fixed_ids, fixed_mask, pixels, fixed_pos
 
+    unit = "texts" if encode_type == "text" else "images"
+
     def produce():
+        """Each padded batch with its real count and host inputs, each
+        batch's ``host_prep`` a ``preprocess`` span with the count of its
+        real texts or images."""
         for start in range(0, len(examples), batch_size):
             raw = examples[start:start + batch_size]
             batch = _pad_batch_examples(raw, batch_size)
-            yield batch, len(raw), host_prep(batch)
+            with span("preprocess", **{unit: len(raw)}):
+                host = host_prep(batch)
+            yield batch, len(raw), host
 
     def dispatch(item):
         """Enqueue one batch's program (per shard under a mesh, gathered
@@ -513,27 +520,29 @@ def encode_examples(
 
     def resolve(handle):
         (batch, valid, host), packed, pk_spec = handle
-        parts = unpack_blocks(packed.cpu().numpy(), pk_spec)
-        if not device_select:
-            logits = parts[0]
-            if encode_type == "text":
-                terms = [select_text_terms(ex.text, encode_word, logits[b],
-                                           sparse_cfg, filtered_ids)
-                         for b, ex in enumerate(batch[:valid])]
+        with span("resolve"):
+            parts = unpack_blocks(packed.cpu().numpy(), pk_spec)
+            if not device_select:
+                logits = parts[0]
+                if encode_type == "text":
+                    terms = [select_text_terms(ex.text, encode_word,
+                                               logits[b], sparse_cfg,
+                                               filtered_ids)
+                             for b, ex in enumerate(batch[:valid])]
+                else:
+                    terms = [select_image_terms(logits[b], sparse_cfg,
+                                                filtered_ids)
+                             for b in range(valid)]
+            elif encode_type == "text":
+                terms = resolve_text_ds_rows(parts, valid, host[2], host[3],
+                                             sparse_cfg)
             else:
-                terms = [select_image_terms(logits[b], sparse_cfg,
-                                            filtered_ids)
-                         for b in range(valid)]
-        elif encode_type == "text":
-            terms = resolve_text_ds_rows(parts, valid, host[2], host[3],
-                                         sparse_cfg)
-        else:
-            terms = resolve_image_ds_rows(parts, valid, sparse_cfg)
-        all_dense.append(np.asarray(parts[-1], np.float32)[:valid])
-        for t, ex in zip(terms, batch[:valid]):
-            result.ids.append(ex.text_id if encode_type == "text"
-                              else ex.img_id)
-            result.selected_terms.append(t)
+                terms = resolve_image_ds_rows(parts, valid, sparse_cfg)
+            all_dense.append(np.asarray(parts[-1], np.float32)[:valid])
+            for t, ex in zip(terms, batch[:valid]):
+                result.ids.append(ex.text_id if encode_type == "text"
+                                  else ex.img_id)
+                result.selected_terms.append(t)
 
     collections.deque(pipeline_dispatch(
         prefetch_thread(produce(), depth=2), dispatch, resolve,

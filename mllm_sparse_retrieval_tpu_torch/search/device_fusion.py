@@ -20,7 +20,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from mllm_sparse_retrieval_tpu_torch.index.dense import DenseFlatIndex
 from mllm_sparse_retrieval_tpu_torch.index.impact import ImpactIndex
@@ -30,6 +29,7 @@ from mllm_sparse_retrieval_tpu_torch.ops.packing import unpack_topk
 from mllm_sparse_retrieval_tpu_torch.ops.stream import pipeline_dispatch
 from mllm_sparse_retrieval_tpu_torch.parallel.mesh import canonical_device
 from mllm_sparse_retrieval_tpu_torch.search.runs import Run
+from mllm_sparse_retrieval_tpu_torch.tracing import span
 
 
 class FusedHybridSearcher:
@@ -105,12 +105,12 @@ class FusedHybridSearcher:
         one chunk; returns the fused packed device tensor, no host sync.
         Each stage is a profiler range (``impact_search``, ``dense_search``,
         ``fusion``)."""
-        with record_function("impact_search"):
+        with span("impact_search"):
             sparse_packed = self.impact._dispatch_encoded(plan, chunk_i,
                                                           chunk_w)
-        with record_function("dense_search"):
+        with span("dense_search"):
             dense_out = self.dense._dispatch_chunk(dense_chunk, plan["k"])
-        with record_function("fusion"):
+        with span("fusion"):
             if self._perm_dev is None:
                 self._perm_dev = torch.from_numpy(self._perm_host).to(
                     self.device)

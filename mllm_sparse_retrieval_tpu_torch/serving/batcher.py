@@ -8,15 +8,54 @@ a queue: the first item opens a batch, then up to ``max_batch - 1`` more
 items are collected until ``max_wait_ms`` elapses, and the whole batch runs
 through ``run_batch`` — so a lone request pays at most ``max_wait_ms``
 extra latency while a burst rides one program call.
+
+Each request gets an id at ``submit``. At dispatch the batcher records
+each request's ``queue_wait`` span, from its submit to the dispatch, with
+attributes ``request`` and ``batch`` (``tracing.record``, while tracing is
+on), and runs ``run_batch`` inside a ``run_batch`` span with attributes
+``batch`` and ``rows``. Whether tracing is on or not it keeps cumulative
+counters: a histogram of the queue waits (on the monotonic clock) beside
+the one of each batch's ``run_batch`` time, and the counts that
+``run_batch`` makes through ``tracing.count`` on its thread (the query
+encoder's ``rows_real``, ``rows_launched``, ``tokens_real`` and
+``tokens_launched``); and it keeps each served batch's waits and counts as
+a ``micro_batch`` tally (``tracing.tally``).
 """
 
 from __future__ import annotations
 
+import bisect
+import itertools
 import queue
 import threading
 import time
 from concurrent.futures import Future
-from typing import Any, Callable, Dict, List, Sequence
+from typing import Any, Callable, Dict, List, Sequence, Tuple
+
+from mllm_sparse_retrieval_tpu_torch import tracing
+
+# Prometheus-style bucket upper bounds (seconds) of the batcher's histograms
+LATENCY_BOUNDS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+                  1.0, 2.5, 5.0, 10.0)
+
+
+class Histogram:
+    """Cumulative-bucket histogram of seconds, the /metrics shape (one
+    writer thread)."""
+
+    def __init__(self, bounds: Sequence[float] = LATENCY_BOUNDS):
+        self.bounds = tuple(bounds)
+        self._counts = [0] * (len(self.bounds) + 1)     # + the +inf bucket
+        self._sum = 0.0
+
+    def observe(self, seconds: float) -> None:
+        self._counts[bisect.bisect_left(self.bounds, seconds)] += 1
+        self._sum += seconds
+
+    def snapshot(self) -> Tuple[tuple, List[int], float, int]:
+        """(bucket upper bounds, cumulative counts incl. +inf, sum, count)."""
+        cum = list(itertools.accumulate(self._counts))
+        return self.bounds, cum, self._sum, cum[-1]
 
 
 class MicroBatcher:
@@ -48,12 +87,12 @@ class MicroBatcher:
         self.n_batches = 0
         self.n_items = 0
         self.n_errors = 0
-        # per-batch run_batch latency histogram (Prometheus-style
-        # cumulative buckets; only the dispatcher thread writes)
-        self.latency_bounds = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
-                               0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
-        self._lat_counts = [0] * (len(self.latency_bounds) + 1)  # +inf
-        self._lat_sum = 0.0
+        self._ids = itertools.count()
+        self._dispatched = 0
+        # only the dispatcher thread writes these
+        self._latency = Histogram()
+        self._queue_wait = Histogram()
+        self._counts: Dict[str, int] = {}
         self._thread = threading.Thread(target=self._loop, name=name,
                                         daemon=True)
         self._thread.start()
@@ -62,7 +101,7 @@ class MicroBatcher:
         if self._closed:
             raise RuntimeError("MicroBatcher is closed")
         fut: Future = Future()
-        self._q.put((item, fut))
+        self._q.put((item, fut, next(self._ids), time.monotonic_ns()))
         return fut
 
     def close(self, timeout: float = 10.0) -> None:
@@ -82,12 +121,16 @@ class MicroBatcher:
     def latency_histogram(self):
         """(bucket upper bounds, cumulative counts incl. +inf, sum_seconds,
         count) of per-batch ``run_batch`` wall time — the /metrics shape."""
-        cum = []
-        total = 0
-        for c in self._lat_counts:
-            total += c
-            cum.append(total)
-        return self.latency_bounds, cum, self._lat_sum, total
+        return self._latency.snapshot()
+
+    def queue_wait_histogram(self):
+        """The same of each dispatched request's wait from ``submit`` to
+        its batch's dispatch."""
+        return self._queue_wait.snapshot()
+
+    def counts(self) -> Dict[str, int]:
+        """Totals of the counts ``run_batch`` made (``tracing.count``)."""
+        return dict(self._counts)
 
     # ---- dispatcher thread --------------------------------------------------
 
@@ -121,32 +164,43 @@ class MicroBatcher:
         # search timeout) is dropped here, and cancel() can no longer win a
         # race against set_result below — set_result on a cancelled future
         # raises InvalidStateError, which would kill this dispatcher thread
-        batch = [(item, fut) for item, fut in batch
-                 if fut.set_running_or_notify_cancel()]
+        batch = [entry for entry in batch
+                 if entry[1].set_running_or_notify_cancel()]
         if not batch:
             return
-        items = [item for item, _ in batch]
+        items = [item for item, *_ in batch]
+        bid = self._dispatched
+        self._dispatched += 1
+        t_dispatch = time.monotonic_ns()
+        waits = [(t_dispatch - t_submit) / 1e9 for *_, t_submit in batch]
+        for w in waits:
+            self._queue_wait.observe(w)
+        if tracing.on():            # the log's clock is the wall clock
+            wall = time.time_ns() - time.monotonic_ns()
+            for _, _, rid, t_submit in batch:
+                tracing.record("queue_wait", t_submit + wall,
+                               t_dispatch + wall, request=rid, batch=bid)
+        counts: Dict[str, int] = {}
         t0 = time.monotonic()
         try:
-            results = self._run_batch(items)
+            with tracing.span("run_batch", batch=bid, rows=len(items)), \
+                    tracing.collect(counts):
+                results = self._run_batch(items)
             if len(results) != len(items):
                 raise RuntimeError(
                     f"run_batch returned {len(results)} results for "
                     f"{len(items)} items")
         except BaseException as e:  # noqa: BLE001 — fail the futures, keep serving
             self.n_errors += 1
-            for _, fut in batch:
+            for _, fut, *_ in batch:
                 fut.set_exception(e)
             return
-        dt = time.monotonic() - t0
-        slot = 0
-        for bound in self.latency_bounds:
-            if dt <= bound:
-                break
-            slot += 1
-        self._lat_counts[slot] += 1
-        self._lat_sum += dt
+        finally:
+            for name, n in counts.items():
+                self._counts[name] = self._counts.get(name, 0) + n
+        self._latency.observe(time.monotonic() - t0)
         self.n_batches += 1
         self.n_items += len(items)
-        for (_, fut), res in zip(batch, results):
+        tracing.tally("micro_batch", waits_s=waits, **counts)
+        for (_, fut, *_), res in zip(batch, results):
             fut.set_result(res)

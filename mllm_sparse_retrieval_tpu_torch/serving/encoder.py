@@ -19,6 +19,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from mllm_sparse_retrieval_tpu_torch import tracing
 from mllm_sparse_retrieval_tpu_torch.configs import RepsLoc
 from mllm_sparse_retrieval_tpu_torch.models.anyres import resize_bicubic
 from mllm_sparse_retrieval_tpu_torch.models.api import (
@@ -84,12 +85,40 @@ class OnlineQueryEncoder:
 
         Returns ``(dense [len(texts), d] float32 L2-normalized,
         selected_terms)``; pad rows never resolve.
+
+        The call counts ``rows_real``, ``rows_launched``, ``tokens_real``
+        and ``tokens_launched`` (the launched rows times the padded length)
+        with ``tracing.count``. It is an ``encode_texts`` span; its host
+        preparation is a ``tokenize`` span, the copy back and the rows'
+        resolution a ``copy_back`` span.
         """
         n = len(texts)
         b = int(pad_to or n)
         if n == 0 or n > b:
             raise ValueError(f"got {n} texts for a batch of {b}")
-        padded = list(texts) + [""] * (b - n)
+        with tracing.span("encode_texts"):
+            with tracing.span("tokenize"):
+                ids, mask, cand_ids, cand_mask = self._text_inputs(texts, b)
+            tracing.count("rows_real", n)
+            tracing.count("rows_launched", b)
+            tracing.count("tokens_real", int(mask[:n].sum()))
+            tracing.count("tokens_launched", b * ids.shape[1])
+            d_ids, d_mask, d_ci, d_cm = (torch.from_numpy(x).to(self.device)
+                                         for x in (ids, mask, cand_ids,
+                                                   cand_mask))
+            packed = self._fn(self.params, self.lora, d_ids.long(), d_mask,
+                              d_ci, d_cm, self._fmask)
+            with tracing.span("copy_back"):
+                parts = unpack_blocks(packed.cpu().numpy(), self._spec)
+                terms = resolve_text_ds_rows(parts, n, cand_ids, cand_mask,
+                                             self.sparse_cfg)
+                dense = np.asarray(parts[-1], np.float32)[:n]
+        return dense, terms
+
+    def _text_inputs(self, texts: Sequence[str], b: int):
+        """Host inputs ``(ids, mask, cand_ids, cand_mask)`` of ``texts``
+        padded with empty texts to ``b`` rows."""
+        padded = list(texts) + [""] * (b - len(texts))
         prompt = self.template.text_prompt()
         rows = [self.tokenizer.encode(self.template.fill_text(prompt, t))
                 for t in padded]
@@ -106,16 +135,7 @@ class OnlineQueryEncoder:
                     f"takes <= {c} (max_candidates)")
             cand_ids[i, : len(r)] = r
             cand_mask[i, : len(r)] = True
-        d_ids, d_mask, d_ci, d_cm = (torch.from_numpy(x).to(self.device)
-                                     for x in (ids, mask, cand_ids,
-                                               cand_mask))
-        packed = self._fn(self.params, self.lora, d_ids.long(), d_mask, d_ci,
-                          d_cm, self._fmask)
-        parts = unpack_blocks(packed.cpu().numpy(), self._spec)
-        terms = resolve_text_ds_rows(parts, n, cand_ids, cand_mask,
-                                     self.sparse_cfg)
-        dense = np.asarray(parts[-1], np.float32)[:n]
-        return dense, terms
+        return ids, mask, cand_ids, cand_mask
 
     # ---- image queries -----------------------------------------------------
 

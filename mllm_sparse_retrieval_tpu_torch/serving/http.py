@@ -19,7 +19,15 @@ server is the zero-magic debugging fallback). Endpoints:
 - ``GET /stats``    -> micro-batcher counters (batches, items, mean size;
   plus live doc/segment counts when serving live indexes).
 - ``GET /metrics``  -> the same counters plus a per-batch latency
-  histogram in Prometheus text exposition format (scrape-ready).
+  histogram in Prometheus text exposition format (scrape-ready), and,
+  beyond the JAX package's: ``retrieval_queue_wait_seconds``, a histogram
+  of each request's wait from its submit to its micro-batch's dispatch,
+  and the text encoder's counters ``retrieval_encoded_rows_real_total``,
+  ``retrieval_encoded_rows_launched_total``,
+  ``retrieval_encoded_tokens_real_total`` and
+  ``retrieval_encoded_tokens_launched_total`` (rows and tokens of the
+  queries against those the device ran, padding included: 1 - real /
+  launched tokens is the padded share).
 
 When the service wraps live indexes (``index/arena.py``,
 ``index/live.py``) the corpus is mutable while serving:

@@ -17,6 +17,15 @@ decoder (``data/imageio.py``, JPEG and PNG bit-equal to Pillow), not by
 Pillow: a payload that is not valid base64, not a JPEG or PNG, or
 truncated is a 400, as an undecodable payload is in the JAX package; a
 GIF, WebP or BMP payload, which Pillow decodes, is a 400 here too.
+
+``GET /metrics`` (``prometheus_metrics``) carries the JAX package's series
+and, from the micro-batcher's counters, the port's own: the
+``retrieval_queue_wait_seconds`` histogram (submit to dispatch, one
+observation a dispatched request, built with the latency histogram's
+helper) and ``retrieval_encoded_{rows,tokens}_{real,launched}_total``, the
+query rows and prompt tokens that text encodes carried against those they
+launched (every micro-batch pads to the service's ``device_batch`` rows
+and to the encoder's padded length).
 """
 
 from __future__ import annotations
@@ -97,10 +106,27 @@ def normalize_terms(raw, int_keyed: bool):
     return {str(k): float(w) for k, w in pairs}
 
 
+PADDING_COUNTS = ("rows_real", "rows_launched", "tokens_real",
+                  "tokens_launched")
+
+
+def _histogram_lines(name: str, snapshot) -> List[str]:
+    bounds, cum, total, count = snapshot
+    lines = [f"# TYPE {name} histogram"]
+    for bound, c in zip(bounds, cum[:-1]):
+        lines.append(f'{name}_bucket{{le="{bound:g}"}} {c}')
+    lines.append(f'{name}_bucket{{le="+Inf"}} {cum[-1]}')
+    lines.append(f"{name}_sum {total:.6f}")
+    lines.append(f"{name}_count {count}")
+    return lines
+
+
 def prometheus_metrics(svc) -> str:
     """Prometheus text exposition (0.0.4) of the service counters: request
     / batch / error totals, coalescing ratio, per-batch latency histogram,
-    and (live services) per-engine doc/segment gauges."""
+    per-request queue-wait histogram, the encoded rows and tokens real and
+    launched (padding included), and (live services) per-engine
+    doc/segment gauges."""
     s = svc.stats()
     lines = [
         "# TYPE retrieval_requests_total counter",
@@ -121,15 +147,14 @@ def prometheus_metrics(svc) -> str:
                 f'retrieval_live_segments{{engine="{engine}"}} '
                 f'{int(s[engine + "_segments"])}',
             ]
-    bounds, cum, lat_sum, count = svc._batcher.latency_histogram()
-    lines.append("# TYPE retrieval_batch_latency_seconds histogram")
-    for bound, c in zip(bounds, cum[:-1]):
-        lines.append(
-            f'retrieval_batch_latency_seconds_bucket{{le="{bound:g}"}} {c}')
-    lines.append(
-        f'retrieval_batch_latency_seconds_bucket{{le="+Inf"}} {cum[-1]}')
-    lines.append(f"retrieval_batch_latency_seconds_sum {lat_sum:.6f}")
-    lines.append(f"retrieval_batch_latency_seconds_count {count}")
+    lines += _histogram_lines("retrieval_batch_latency_seconds",
+                              svc._batcher.latency_histogram())
+    lines += _histogram_lines("retrieval_queue_wait_seconds",
+                              svc._batcher.queue_wait_histogram())
+    counts = svc._batcher.counts()
+    for name in PADDING_COUNTS:
+        lines += [f"# TYPE retrieval_encoded_{name}_total counter",
+                  f"retrieval_encoded_{name}_total {counts.get(name, 0)}"]
     return "\n".join(lines) + "\n"
 
 

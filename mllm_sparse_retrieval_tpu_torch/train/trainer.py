@@ -115,6 +115,7 @@ from mllm_sparse_retrieval_tpu_torch.parallel.mesh import (
     DATA_AXIS, Mesh, Sharded, split, tree_map)
 from mllm_sparse_retrieval_tpu_torch.pipelines.encode import (
     default_pixel_loader, default_raw_image_loader)
+from mllm_sparse_retrieval_tpu_torch.tracing import span
 from mllm_sparse_retrieval_tpu_torch.train.contrastive import (
     info_nce_loss, sharded_info_nce_loss)
 
@@ -171,6 +172,10 @@ def make_collator(tokenizer, template, arch,
 
     def collate(batch: Sequence[Example], text_max_len: Optional[int] = None
                 ) -> TrainBatch:
+        with span("collate", images=len(batch)):
+            return _collate(batch, text_max_len)
+
+    def _collate(batch, text_max_len) -> TrainBatch:
         text_rows = [
             tokenizer.encode(template.fill_text(template.text_prompt(), e.text))
             for e in batch]
@@ -476,10 +481,12 @@ class ContrastiveTrainer:
                 params = self._base[i]
                 adapters = tree_to(self.adapters, dev)
             row = (mesh.data_offset + i) * per
+            with span("to_device"):
+                inputs = self._to_device(batch, lo + row, lo + row + per,
+                                         dev)
             t_emb, i_emb = self._encode(
-                params, adapters,
-                *self._to_device(batch, lo + row, lo + row + per, dev),
-                seed, allow_flash=mesh.row(i), lora_rows=(row, hi - lo))
+                params, adapters, *inputs, seed, allow_flash=mesh.row(i),
+                lora_rows=(row, hi - lo))
             t_embs.append(t_emb)
             i_embs.append(i_emb)
         if self.processes > 1 or not self.cfg.gather_save_gradient:
@@ -494,7 +501,13 @@ class ContrastiveTrainer:
         """One optimizer step on a collated batch; returns the loss, a float.
         ``blocking=False`` returns it as a detached 0-d tensor on the
         trainer's device without waiting for the card (``loss_history``
-        holds the tensor until ``train()`` turns it into a float)."""
+        holds the tensor until ``train()`` turns it into a float). The step
+        is a ``train_step`` span around ``to_device``, ``forward``,
+        ``backward`` (``autograd.grad``) and ``optimizer`` spans."""
+        with span("train_step"):
+            return self._step(batch, blocking)
+
+    def _step(self, batch: TrainBatch, blocking: bool):
         accum = max(int(self.cfg.grad_accum_steps), 1)
         b = batch.text_ids.shape[0]
         if b % accum != 0:
@@ -518,11 +531,15 @@ class ContrastiveTrainer:
         for i in range(accum):
             seed = step_seed if accum == 1 else L.fold_seed(step_seed, i)
             if self.mesh is None:
-                loss = self._loss(*self._to_device(batch, i * m,
-                                                   (i + 1) * m), seed)
+                with span("to_device"):
+                    inputs = self._to_device(batch, i * m, (i + 1) * m)
+                with span("forward"):
+                    loss = self._loss(*inputs, seed)
             else:
-                loss = self._mesh_loss(batch, i * m, (i + 1) * m, seed)
-            g = torch.autograd.grad(loss, leaves, allow_unused=True)
+                with span("forward"):
+                    loss = self._mesh_loss(batch, i * m, (i + 1) * m, seed)
+            with span("backward"):
+                g = torch.autograd.grad(loss, leaves, allow_unused=True)
             g = [torch.zeros_like(x) if gi is None else gi
                  for x, gi in zip(leaves, g)]
             if accum == 1:
@@ -542,7 +559,8 @@ class ContrastiveTrainer:
             owners = [x for x in self._leaves() for _ in _tensors(x)]
             multihost.all_reduce_([g for x, g in zip(owners, grads)
                                    if not _spans_processes(x)])
-        self._update(leaves, grads)
+        with span("optimizer"):
+            self._update(leaves, grads)
         self.step += 1
         loss = self._retire(loss_sum) if blocking else loss_sum
         self.loss_history.append(loss)
