@@ -661,7 +661,9 @@ def build_kernels():
 
     from mllm_sparse_retrieval_tpu_torch.index import native
 
-    sources = (K.SOURCE, FA.SOURCE, FA.BWD_SOURCE)
+    from mllm_sparse_retrieval_tpu_torch.ops import tile_kernel as TK
+
+    sources = (K.SOURCE, FA.SOURCE, FA.BWD_SOURCE, TK.SOURCE)
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(sources) + 3) as pool:
         # the g++ calls run beside the nvcc calls
@@ -698,13 +700,64 @@ def build_kernels():
         progress("build", f"{src}: nvcc {build_s:.2f}s -> {so.name}; "
                  + ("; ".join(regs) if regs else "already built")
                  + f"; SASS {hgmma} HGMMA, {hmma} HMMA")
-        if src != K.SOURCE and (hmma or not hgmma):
+        if src not in (K.SOURCE, TK.SOURCE) and (hmma or not hgmma):
             raise AssertionError(f"{src}: {hgmma} wgmma and {hmma} mma.sync "
                                  f"instructions; the flash kernels run on "
                                  f"wgmma only")
     progress("build", f"all {len(sources)} CUDA sources, the index "
              f"builder, hostops and the image codec in "
              f"{time.monotonic() - t0:.2f}s")
+
+
+TILE_MIX = ((480, 640), (640, 480), (375, 500), (500, 375), (333, 500),
+            (500, 333), (427, 640), (612, 612))   # the index mix's sizes
+
+
+def phase_tile(card):
+    """InternVL's tile kernel at the index batch's shape (the 8 sizes of
+    the mix, 448 px tiles, 13 slots an image): its tiles equal the numpy
+    tiling's; its time in a CUDA-graph replay against its bytes bound (the
+    staged buffer read once, the f32 tiles written once); the plain
+    version's time on the card; the host's time for the numpy tiling it
+    replaces and for the card path's staging, upload and launches."""
+    import numpy as np
+    import torch
+
+    from mllm_sparse_retrieval_tpu_torch.data.tiling import (
+        dynamic_tile, pad_tiles)
+    from mllm_sparse_retrieval_tpu_torch.ops import tile_kernel as TK
+
+    rng = np.random.default_rng(SEED + 27)
+    ims = [rng.integers(0, 256, hw + (3,), dtype=np.uint8).astype(
+        np.float32) / 255.0 for hw in TILE_MIX]
+    t0 = time.monotonic()
+    want = np.stack([pad_tiles(dynamic_tile(im), 13)[0] for im in ims])
+    numpy_ms = (time.monotonic() - t0) * 1e3
+    t0 = time.monotonic()
+    staged = TK.stage(ims, 448, 12)
+    stage_ms = (time.monotonic() - t0) * 1e3
+    got = staged.to(DEVICE)
+    torch.cuda.synchronize()
+    if not torch.equal(got.cpu(), torch.from_numpy(want)):
+        raise AssertionError("tile kernel: tiles differ from the numpy "
+                             "tiling's")
+    data, launch = staged.packed(DEVICE)
+    kernel = device_ms(lambda: TK.tile_images(data, launch), 50)
+    plain = event_ms(lambda: TK.tile_images_plain(data, launch), 3)
+    to_ms = host_ms(lambda: staged.to(DEVICE), 10)
+    layout = TK.plan([a.shape[:2] for a in staged.images], staged.grids,
+                     448, 13)
+    nbytes = layout.upload_bytes + got.numel() * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    progress("tile", f"{card}: 8 images, {sum(staged.n_tiles)} tiles of "
+             f"{launch.batch * launch.slots} slots, {launch.n_h} horizontal "
+             f"jobs: kernel {kernel:.4f} ms (two launches, graph replay), "
+             f"bound {bound_ms:.4f} ms (bytes: {nbytes / 1e6:.1f} MB), "
+             f"plain on the card {plain:.2f} ms; host: numpy tiling "
+             f"{numpy_ms:.1f} ms, staging {stage_ms:.1f} ms, staging and "
+             f"the card path's enqueue (pack, pinned upload, launches) "
+             f"{to_ms:.2f} ms a batch (no sync)")
+    return kernel, bound_ms
 
 
 def admissible_pairs(mask) -> int:
@@ -1542,12 +1595,15 @@ def grad_check(trainer, batch):
     from mllm_sparse_retrieval_tpu_torch.models import lora
     from mllm_sparse_retrieval_tpu_torch.models.api import encode_any
     from mllm_sparse_retrieval_tpu_torch.ops import flash_attention as FA
+    from mllm_sparse_retrieval_tpu_torch.ops.tile_kernel import StagedTiles
     from mllm_sparse_retrieval_tpu_torch.train.contrastive import (
         info_nce_loss)
 
     b = GRAD_CHECK_B
 
     def put(a, dtype=None):
+        if isinstance(a, StagedTiles):          # InternVL's staged tiles
+            return a[:b].to(DEVICE)
         return torch.from_numpy(a[:b]).to(DEVICE, dtype)
 
     t_ids, i_ids = put(batch.text_ids, torch.long), put(batch.image_ids,
@@ -7091,9 +7147,10 @@ def main() -> int:
     # ---- 1. build --------------------------------------------------------
     build_kernels()
 
-    # ---- 2. TAAT kernel at the benchmark shape ------------------------------
+    # ---- 2. TAAT kernel at the benchmark shape, the tile kernel -------------
     rng = np.random.default_rng(SEED)
     bench = phase_kernel_bench(rng)
+    phase_tile(card)
 
     # ---- 3. tokenizer, and the flash kernel at the served image shape -------
     lexicon = synthetic_lexicon(rng, VOCAB_WORDS)

@@ -8,7 +8,10 @@ static shape by padding to ``max_num + 1`` tiles (``pad_tiles``).
 
 Resizing is Pillow's BICUBIC through ``models.anyres.resize_bicubic``, equal
 to Pillow bit for bit on uint8, so the port needs no Pillow and gives the
-JAX package's tiles byte for byte.
+JAX package's tiles byte for byte. For a batch headed for a CUDA device the
+pipelines make the same tiles on the card (``ops/tile_kernel.py``) from the
+uint8 images and grids of ``to_uint8`` and ``tile_grid``; this numpy tiling
+is the CPU path and the kernel's reference.
 """
 
 from __future__ import annotations
@@ -54,21 +57,25 @@ def closest_aspect_ratio(
     return best
 
 
-def dynamic_tile(
-    image: np.ndarray,           # [H, W, 3] float array in [0, 1]
-    tile_size: int = 448,
-    min_num: int = 1,
-    max_num: int = 12,
-    use_thumbnail: bool = True,
-) -> np.ndarray:
-    """Split into aspect-ratio-matched tiles. Returns ``[n_tiles, S, S, 3]``
-    ImageNet-normalized float32 (``n_tiles <= max_num + 1``). The image is
-    made uint8 as the JAX package makes it (``clip * 255``, truncated)."""
-    arr = (np.clip(np.asarray(image), 0, 1) * 255).astype(np.uint8)
-    h, w = arr.shape[:2]
-    grids = candidate_grids(min_num, max_num)
-    cols, rows = closest_aspect_ratio(w / h, grids, w, h, tile_size)
+def to_uint8(image: np.ndarray) -> np.ndarray:
+    """A ``[H, W, 3]`` image in [0, 1] as uint8, as the JAX package makes
+    it: ``clip * 255``, truncated."""
+    return (np.clip(np.asarray(image), 0, 1) * 255).astype(np.uint8)
 
+
+def tile_grid(height: int, width: int, tile_size: int = 448,
+              min_num: int = 1, max_num: int = 12) -> Tuple[int, int]:
+    """The (cols, rows) grid ``dynamic_tile`` cuts an image of this size
+    into."""
+    return closest_aspect_ratio(width / height,
+                                candidate_grids(min_num, max_num),
+                                width, height, tile_size)
+
+
+def tile_uint8(arr: np.ndarray, grid: Tuple[int, int], tile_size: int = 448,
+               use_thumbnail: bool = True) -> np.ndarray:
+    """``dynamic_tile`` of a uint8 image on a given (cols, rows) grid."""
+    cols, rows = grid
     resized = resize_bicubic(arr, (tile_size * rows, tile_size * cols))
     tiles = [resized[r * tile_size:(r + 1) * tile_size,
                      c * tile_size:(c + 1) * tile_size]
@@ -79,6 +86,22 @@ def dynamic_tile(
     return np.stack([
         (t.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
         for t in tiles])
+
+
+def dynamic_tile(
+    image: np.ndarray,           # [H, W, 3] float array in [0, 1]
+    tile_size: int = 448,
+    min_num: int = 1,
+    max_num: int = 12,
+    use_thumbnail: bool = True,
+) -> np.ndarray:
+    """Split into aspect-ratio-matched tiles. Returns ``[n_tiles, S, S, 3]``
+    ImageNet-normalized float32 (``n_tiles <= max_num + 1``). The image is
+    made uint8 as the JAX package makes it (``to_uint8``)."""
+    arr = to_uint8(image)
+    h, w = arr.shape[:2]
+    return tile_uint8(arr, tile_grid(h, w, tile_size, min_num, max_num),
+                      tile_size, use_thumbnail)
 
 
 def pad_tiles(

@@ -37,6 +37,7 @@ import torch
 from mllm_sparse_retrieval_tpu_torch.configs import RepsLoc
 from mllm_sparse_retrieval_tpu_torch.data.karpathy import (
     CrossModalCorpus, Example)
+from mllm_sparse_retrieval_tpu_torch.ops.tile_kernel import StagedTiles
 from mllm_sparse_retrieval_tpu_torch.search.fusion import fuse_statistic
 from mllm_sparse_retrieval_tpu_torch.search.runs import Run
 from mllm_sparse_retrieval_tpu_torch.sparse.term_selection import (
@@ -197,6 +198,8 @@ def _raw_sparse(examples, params, arch, tokenizer, template, encode_type,
 
                 def put(a, dtype=None, axis=0):
                     a = a[lo:hi] if axis == 0 else a[:, lo:hi]
+                    if isinstance(a, StagedTiles):
+                        return a.to(dev)
                     return torch.from_numpy(np.ascontiguousarray(a)).to(
                         dev, dtype)
 

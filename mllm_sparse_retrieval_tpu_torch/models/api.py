@@ -13,7 +13,7 @@ plus M-RoPE position ids. This module gives the pipelines one surface:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -74,7 +74,11 @@ class ImageInputSpec:
     ``max_image_tokens`` bounds n_tokens so callers can pad prompts to one
     fixed length. ``needs_mrope``: the family takes M-RoPE position ids
     (fixed: ``mrope_ids_for_batch``; variable: ``mrope_from_batch(ids,
-    mask, vision_batch)``, from each example's own grid).
+    mask, vision_batch)``, from each example's own grid). ``stage``
+    (InternVL) maps a batch of raw images to ``(StagedTiles, n_tokens
+    per image)``: the tiles planned on the host and made on the device
+    they go to (``ops/tile_kernel.py``); ``batch_images`` takes it where
+    the family has it.
     """
 
     num_image_tokens: int
@@ -86,6 +90,19 @@ class ImageInputSpec:
     batch_vision: Optional[Callable] = None
     max_image_tokens: int = 0
     mrope_from_batch: Optional[Callable] = None
+    stage: Optional[Callable] = None
+
+
+def batch_images(spec: ImageInputSpec, images: Sequence[np.ndarray]
+                 ) -> Tuple[Any, List[int]]:
+    """``(vision input, image tokens of each image)`` of a variable
+    family's batch of raw images: InternVL's ``StagedTiles`` (``spec.stage``),
+    the other families' ``preprocess_example`` items stacked by
+    ``batch_vision``."""
+    if spec.stage is not None:
+        return spec.stage(images)
+    items = [spec.preprocess_example(im) for im in images]
+    return spec.batch_vision([i for i, _ in items]), [n for _, n in items]
 
 
 def image_input_spec(arch) -> ImageInputSpec:
@@ -135,6 +152,7 @@ def image_input_spec(arch) -> ImageInputSpec:
         # n_tiles context tokens
         from mllm_sparse_retrieval_tpu_torch.data.tiling import (
             dynamic_tile, pad_tiles)
+        from mllm_sparse_retrieval_tpu_torch.ops import tile_kernel
 
         size = arch.vision.image_size
         tiles_max = arch.max_dynamic_tiles + 1  # + thumbnail
@@ -145,6 +163,11 @@ def image_input_spec(arch) -> ImageInputSpec:
             padded, _ = pad_tiles(tiles, tiles_max)
             return padded, arch.num_image_tokens * tiles.shape[0]
 
+        def stage(images):
+            staged = tile_kernel.stage(images, size, arch.max_dynamic_tiles)
+            return staged, [arch.num_image_tokens * n
+                            for n in staged.n_tiles]
+
         return ImageInputSpec(
             num_image_tokens=0,
             image_size=size,
@@ -152,6 +175,7 @@ def image_input_spec(arch) -> ImageInputSpec:
             preprocess_example=prep_ex,
             batch_vision=lambda items: np.stack(items),
             max_image_tokens=arch.num_image_tokens * tiles_max,
+            stage=stage,
         )
 
     if arch.anyres:

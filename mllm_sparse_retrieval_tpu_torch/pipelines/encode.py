@@ -14,10 +14,12 @@ collator use these pieces directly.
 ``encode_examples`` drives them over a list of examples: fixed device
 batches (the last one padded by repeating its last example), host
 preparation on a prefetch thread, two batches in flight
-(``ops/stream.py``). Under a ``mesh`` every batch splits over its data
-axis: shard ``i`` runs the same function on ``mesh.shard_devices[i]``
-with its own copy of the parameters (one per distinct device) and the
-flash kernel once per model-axis device of its row (``allow_flash=
+(``ops/stream.py``). InternVL's tiles are made on the prefetch thread
+too, on the device: by the tile kernel on CUDA (``ops/tile_kernel.py``),
+by the numpy tiling elsewhere. Under a ``mesh`` every batch splits over
+its data axis: shard ``i`` runs the same function on
+``mesh.shard_devices[i]`` with its own copy of the parameters (one per
+distinct device) and the flash kernel once per model-axis device of its row (``allow_flash=
 mesh.row(i)``), and the shards' packed results are gathered on the mesh's
 lead device for one copy to the host. ``write_artifacts`` writes the
 reference's artifact formats, which either package reads:
@@ -48,7 +50,7 @@ from mllm_sparse_retrieval_tpu_torch.data.karpathy import Example
 from mllm_sparse_retrieval_tpu_torch.models.anyres import (
     CLIP_MEAN, CLIP_STD, resize_bicubic)
 from mllm_sparse_retrieval_tpu_torch.models.api import (
-    encode_any, image_input_spec, mrope_ids_for_batch)
+    batch_images, encode_any, image_input_spec, mrope_ids_for_batch)
 from mllm_sparse_retrieval_tpu_torch.models.layers import FLASH_MIN_SEQ
 from mllm_sparse_retrieval_tpu_torch.models.reps import normalize
 from mllm_sparse_retrieval_tpu_torch.ops.packing import (
@@ -57,6 +59,7 @@ from mllm_sparse_retrieval_tpu_torch.ops.select import (
     candidate_topk, filtered_topk, pad_candidates, vocab_topk)
 from mllm_sparse_retrieval_tpu_torch.ops.stream import (
     pipeline_dispatch, prefetch_thread)
+from mllm_sparse_retrieval_tpu_torch.ops.tile_kernel import StagedTiles
 from mllm_sparse_retrieval_tpu_torch.parallel.mesh import (
     DATA_AXIS, replicated)
 from mllm_sparse_retrieval_tpu_torch.sparse.term_selection import (
@@ -386,6 +389,10 @@ def encode_examples(
     filtered_ids = get_filtered_ids(vocab)
     encode_word = lambda w: tokenizer.encode(w, add_special_tokens=False)
     spec = image_input_spec(arch)
+    # InternVL's staged tiles are made on the prefetch thread, on this
+    # thread's stream
+    stream = torch.cuda.current_stream(device) \
+        if device.type == "cuda" else None
 
     img_fixed_len = base_img_prompt = fixed_ids = fixed_mask = None
     fixed_pos = None                   # M-RoPE ids of fixed-grid Qwen
@@ -443,6 +450,8 @@ def encode_examples(
 
         def put(a, axis=0):
             a = a[lo:hi] if axis == 0 else a[:, lo:hi]
+            if isinstance(a, torch.Tensor):
+                return a.to(dev)
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
         if encode_type == "text":
@@ -473,14 +482,17 @@ def encode_examples(
                 [text_candidate_ids(ex.text, encode_word) for ex in batch])
             return ids, mask, cand_ids, cand_mask
         if spec.variable:
-            vitems = [spec.preprocess_example(pixel_loader(ex))
-                      for ex in batch]
+            pixels, counts = batch_images(
+                spec, [pixel_loader(ex) for ex in batch])
             rows = [tokenizer.encode(template.expand_image(
-                base_img_prompt, n)) for _, n in vitems]
+                base_img_prompt, n)) for n in counts]
             ids, mask = tokenizer.pad_batch(
                 rows, max_len=img_fixed_len,
                 pad_to_multiple=seq_pad_multiple)
-            pixels = spec.batch_vision([i for i, _ in vitems])
+            if isinstance(pixels, StagedTiles):
+                # made here, a batch ahead, on the consumer's stream
+                with torch.cuda.stream(stream):
+                    pixels = pixels.to(device)
             pos = (spec.mrope_from_batch(ids, mask, pixels)
                    if spec.mrope_from_batch else None)
             return ids, mask, pixels, pos

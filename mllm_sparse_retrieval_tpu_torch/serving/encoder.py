@@ -26,6 +26,7 @@ from mllm_sparse_retrieval_tpu_torch.models.api import (
     image_input_spec, mrope_ids_for_batch)
 from mllm_sparse_retrieval_tpu_torch.models.layers import FLASH_MIN_SEQ
 from mllm_sparse_retrieval_tpu_torch.ops.packing import unpack_blocks
+from mllm_sparse_retrieval_tpu_torch.ops.tile_kernel import StagedTiles
 from mllm_sparse_retrieval_tpu_torch.pipelines.encode import (
     CLIP_MEAN, CLIP_STD, make_image_ds_encode, make_text_ds_encode,
     resolve_image_ds_rows, resolve_text_ds_rows)
@@ -193,14 +194,18 @@ class OnlineQueryEncoder:
         st = self._image_state()
         spec = st["spec"]
         if spec.variable:
-            vitems = [spec.preprocess_example(np.asarray(im, np.float32))
-                      for im in images]
-            vitems += [vitems[-1]] * (b - n)
+            ims = [np.asarray(im, np.float32) for im in images]
+            if spec.stage is not None:
+                pixels, counts = spec.stage(ims + ims[-1:] * (b - n))
+            else:
+                vitems = [spec.preprocess_example(im) for im in ims]
+                vitems += [vitems[-1]] * (b - n)
+                pixels = spec.batch_vision([item for item, _ in vitems])
+                counts = [nt for _, nt in vitems]
             rows = [self.tokenizer.encode(self.template.expand_image(
-                st["base_prompt"], nt)) for _, nt in vitems]
+                st["base_prompt"], nt)) for nt in counts]
             ids, mask = self.tokenizer.pad_batch(
                 rows, max_len=st["fixed_len"], pad_to_multiple=16)
-            pixels = spec.batch_vision([item for item, _ in vitems])
             pos = (spec.mrope_from_batch(ids, mask, pixels)
                    if spec.mrope_from_batch else None)
         else:
@@ -213,6 +218,8 @@ class OnlineQueryEncoder:
                    if spec.needs_mrope else None)
 
         def put(a):
+            if isinstance(a, StagedTiles):
+                return a.to(self.device)
             return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
         d_px = ({k: put(v) for k, v in pixels.items()}

@@ -106,10 +106,11 @@ from mllm_sparse_retrieval_tpu_torch.data.karpathy import Example
 from mllm_sparse_retrieval_tpu_torch.models import layers as L
 from mllm_sparse_retrieval_tpu_torch.models import lora as lora_lib
 from mllm_sparse_retrieval_tpu_torch.models.api import (
-    encode_any, image_input_spec, mrope_ids_for_batch)
+    batch_images, encode_any, image_input_spec, mrope_ids_for_batch)
 from mllm_sparse_retrieval_tpu_torch.models.layers import FLASH_MIN_SEQ
 from mllm_sparse_retrieval_tpu_torch.models.quantization import (
     QuantizedWeight, quantized_leaves, tree_to)
+from mllm_sparse_retrieval_tpu_torch.ops.tile_kernel import StagedTiles
 from mllm_sparse_retrieval_tpu_torch.parallel import fsdp, multihost
 from mllm_sparse_retrieval_tpu_torch.parallel.mesh import (
     DATA_AXIS, Mesh, Sharded, split, tree_map)
@@ -132,8 +133,10 @@ class TrainBatch:
     text_mask: np.ndarray     # [B, Tt]
     image_ids: np.ndarray     # [B, Ti]
     image_mask: np.ndarray    # [B, Ti]
-    # [B, H, W, 3] (LLaVA), [B, tiles, S, S, 3] (InternVL), [B, S, pd]
-    # (Qwen, fixed grid), or a dict of arrays (anyres, Qwen native)
+    # [B, H, W, 3] (LLaVA), [B, S, pd] (Qwen, fixed grid), a dict of
+    # arrays (anyres, Qwen native), or InternVL's [B, tiles, S, S, 3] tiles
+    # as a StagedTiles (made where _to_device puts them; np.asarray makes
+    # them on the host)
     pixels: Any
     image_pos_ids: Optional[np.ndarray] = None  # [3, B, Ti] M-RoPE (Qwen)
 
@@ -182,13 +185,13 @@ def make_collator(tokenizer, template, arch,
         t_ids, t_mask = tokenizer.pad_batch(
             text_rows, max_len=text_max_len, pad_to_multiple=seq_pad_multiple)
         if spec.variable:
-            vitems = [spec.preprocess_example(pixel_loader(e)) for e in batch]
+            pixels, counts = batch_images(
+                spec, [pixel_loader(e) for e in batch])
             img_rows = [tokenizer.encode(template.expand_image(base_prompt, n))
-                        for _, n in vitems]
+                        for n in counts]
             i_ids, i_mask = tokenizer.pad_batch(
                 img_rows, max_len=img_fixed_len,
                 pad_to_multiple=seq_pad_multiple)
-            pixels = spec.batch_vision([item for item, _ in vitems])
             pos = spec.mrope_from_batch(i_ids, i_mask, pixels) \
                 if spec.mrope_from_batch else None
         else:
@@ -418,7 +421,8 @@ class ContrastiveTrainer:
         copied into pinned host memory and uploaded with ``non_blocking``:
         the copy queues behind the card's work instead of waiting for it
         (PyTorch's caching host allocator keeps each pinned buffer until
-        its copy has run)."""
+        its copy has run). InternVL's staged tiles are made there
+        (``StagedTiles.to``: the tile kernel on CUDA)."""
         device = torch.device(self.device if device is None else device)
 
         def put(a, dtype=None):
@@ -432,6 +436,8 @@ class ContrastiveTrainer:
         pixels = batch.pixels
         if isinstance(pixels, dict):
             pixels = {k: put(v[lo:hi]) for k, v in pixels.items()}
+        elif isinstance(pixels, StagedTiles):
+            pixels = pixels[lo:hi].to(device)
         else:
             pixels = put(pixels[lo:hi])
         pos = batch.image_pos_ids

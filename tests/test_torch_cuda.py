@@ -1389,3 +1389,215 @@ def _clone_tree(tree):
     if isinstance(tree, list):
         return [_clone_tree(v) for v in tree]
     return tree.detach().clone()
+
+
+# ---- InternVL's tile kernel (ops/tile_kernel.py, csrc/tile.cu) -------------
+
+TILE_SIZES = [(480, 640), (640, 480), (375, 500), (500, 375), (333, 500),
+              (500, 333), (427, 640), (612, 612), (20, 30), (3000, 4000),
+              (40, 1000), (1000, 40), (448, 896)]
+
+
+def _tile_case(sizes, seed, tile=448, max_num=12):
+    """The staged images of ``sizes`` (uint8 values over 255, as decoded)
+    and their tiles as ``data/tiling.py``'s numpy tiling makes them."""
+    from mllm_sparse_retrieval_tpu_torch.data.tiling import (
+        dynamic_tile, pad_tiles)
+    from mllm_sparse_retrieval_tpu_torch.ops import tile_kernel as T
+
+    rng = np.random.default_rng(seed)
+    ims = [rng.integers(0, 256, hw + (3,), dtype=np.uint8).astype(
+        np.float32) / 255.0 for hw in sizes]
+    want = np.stack([pad_tiles(dynamic_tile(im, tile, max_num=max_num),
+                               max_num + 1)[0] for im in ims])
+    return T.stage(ims, tile, max_num), torch.from_numpy(want)
+
+
+@pytest.mark.parametrize("hw", TILE_SIZES, ids=lambda hw: f"{hw[0]}x{hw[1]}")
+def test_tile_kernel_equals_the_numpy_tiling(hw):
+    """The kernel's padded, normalised tiles of one image equal the numpy
+    tiling's bit for bit: the index mix's sizes, an upscale, a large
+    downscale, extreme aspect ratios, a skipped horizontal pass."""
+    dev = _card()
+    staged, want = _tile_case([hw], seed=hw[0] + hw[1])
+    got = staged.to(dev)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.is_cuda
+    assert torch.equal(got.cpu(), want)
+
+
+def test_tile_kernel_on_a_batch_of_1_7_and_13_tiles():
+    """One staged batch of 1, 7, 13, 3 and 13 tiles, whole and in row
+    slices: the numpy tiles' rows exactly, one launch and one ``tile`` span
+    (its images and tiles) a call; the plain version on the same staged
+    buffer, copied back, agrees."""
+    dev = _card()
+    from mllm_sparse_retrieval_tpu_torch import tracing
+    from mllm_sparse_retrieval_tpu_torch.ops import tile_kernel as T
+
+    staged, want = _tile_case([(612, 612), (333, 500), (480, 640),
+                               (448, 896), (640, 480)], seed=11)
+    assert staged.n_tiles == [1, 7, 13, 3, 13]
+    T.reset_launch_count()
+    tracing.clear()
+    tracing.enable()
+    try:
+        for lo, hi in ((0, 5), (1, 3), (4, 5)):
+            assert torch.equal(staged[lo:hi].to(dev).cpu(), want[lo:hi])
+    finally:
+        tracing.disable()
+    assert T.launch_count() == 3
+    assert [(s.attrs["images"], s.attrs["tiles"]) for s in tracing.spans()
+            if s.name == "tile"] == [(5, 37), (2, 20), (1, 13)]
+    data, launch = staged.packed(dev)
+    assert torch.equal(T.tile_images_plain(data.cpu(), launch), want)
+
+
+def test_tile_kernel_makes_no_host_sync():
+    """Staging, the upload from pinned memory and both launches of a batch
+    of the index mix under ``set_sync_debug_mode("error")`` (a host sync
+    raises); the tiles are exact after one ``synchronize``."""
+    dev = _card()
+    staged, want = _tile_case(TILE_SIZES[:8], seed=12)
+    staged.to(dev)                            # builds and loads the kernel
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = staged.to(dev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+def _tiny_internvl(dev):
+    """A 2-layer InternVL2.5 (56 px tiles, up to 4 and a thumbnail) in f32
+    on ``dev``, a chat tokenizer and the template."""
+    from chip_smoke import ChatTokenizer
+    from mllm_sparse_retrieval_tpu_torch.models import registry, templates
+    from mllm_sparse_retrieval_tpu_torch.models.internvl import (
+        InternViTConfig, InternVLConfig)
+    from mllm_sparse_retrieval_tpu_torch.models.llama import LlamaConfig
+    from mllm_sparse_retrieval_tpu_torch.models.tokenizer import (
+        WordPieceLiteTokenizer)
+
+    tok = ChatTokenizer(WordPieceLiteTokenizer(
+        ["dog", "cat", "red", "bus", "kite", "lake"]))
+    arch = InternVLConfig(
+        vision=InternViTConfig(hidden_size=32, num_layers=2, num_heads=4,
+                               intermediate_size=64, image_size=56),
+        text=LlamaConfig(vocab_size=tok.vocab_size, hidden_size=64,
+                         num_layers=2, num_heads=4, num_kv_heads=2,
+                         intermediate_size=128, rope_theta=1e6,
+                         qkv_bias=True),
+        image_token_id=tok.special_ids["<IMG_CONTEXT>"], max_dynamic_tiles=4)
+    params = registry.init_params(
+        arch, torch.Generator().manual_seed(0), "cpu", torch.float32)
+    rng = np.random.default_rng(4)
+    pool = [rng.uniform(size=hw + (3,)).astype(np.float32)
+            for hw in ((90, 140), (160, 50), (56, 56), (70, 200), (120, 90))]
+    return (arch, _tree_map(lambda x: x.to(dev), params), tok,
+            templates.INTERNVL2_5, lambda ex: pool[int(ex.img_id) % 5])
+
+
+def _numpy_tiles_to(monkeypatch):
+    """Make every ``StagedTiles`` with the numpy tiling, uploaded as before
+    the kernel."""
+    from mllm_sparse_retrieval_tpu_torch.ops import tile_kernel as T
+
+    monkeypatch.setattr(T.StagedTiles, "to", lambda self, device: (
+        torch.from_numpy(self.numpy()).to(device)))
+
+
+def test_internvl_encode_examples_on_the_tile_kernel_equals_numpy_tiles(
+        monkeypatch):
+    """``encode_examples`` of 7 images in batches of 4 on a tiny InternVL2.5
+    on the card: the tiles are made by the kernel on the prefetch thread
+    (one launch and one ``tile`` span inside each batch's ``preprocess``),
+    and the dense vectors and terms equal a run on the numpy tiles exactly
+    (the same card, the same inputs to the model)."""
+    dev = _card()
+    from mllm_sparse_retrieval_tpu_torch import tracing
+    from mllm_sparse_retrieval_tpu_torch.configs import SparseConfig
+    from mllm_sparse_retrieval_tpu_torch.data.karpathy import Example
+    from mllm_sparse_retrieval_tpu_torch.ops import tile_kernel as T
+    from mllm_sparse_retrieval_tpu_torch.pipelines.encode import (
+        encode_examples)
+
+    arch, params, tok, tmpl, loader = _tiny_internvl(dev)
+    exs = [Example(text="", image_path="", text_id="", img_id=str(i))
+           for i in range(7)]
+
+    def run():
+        return encode_examples(exs, params, arch, tok, tmpl,
+                               encode_type="image", sparse_cfg=SparseConfig(),
+                               batch_size=4, pixel_loader=loader, device=dev)
+
+    T.reset_launch_count()
+    tracing.clear()
+    tracing.enable()
+    try:
+        got = run()
+    finally:
+        tracing.disable()
+    assert T.launch_count() == 2
+    log = tracing.spans()
+    by_id = {s.id: s for s in log}
+    tiles = [s for s in log if s.name == "tile"]
+    assert [s.attrs["images"] for s in tiles] == [4, 4]
+    assert all(by_id[s.parent].name == "preprocess" for s in tiles)
+    _numpy_tiles_to(monkeypatch)
+    want = run()
+    assert T.launch_count() == 2
+    assert got.ids == want.ids
+    np.testing.assert_array_equal(got.dense, want.dense)
+    assert len(got.selected_terms) == len(want.selected_terms) == 7
+    for a, b in zip(got.selected_terms, want.selected_terms):
+        np.testing.assert_array_equal(a.token_ids, b.token_ids)
+        np.testing.assert_array_equal(a.weights, b.weights)
+
+
+def test_internvl_train_step_tiles_in_to_device(monkeypatch):
+    """A LoRA step of the tiny InternVL2.5 on 4 collated pairs: the
+    collator stages the images (no launch), ``_to_device`` tiles them on
+    the card (one launch, a ``tile`` span inside ``to_device``), and the
+    loss equals a step's on the numpy tiles exactly."""
+    dev = _card()
+    from mllm_sparse_retrieval_tpu_torch import tracing
+    from mllm_sparse_retrieval_tpu_torch.configs import TrainConfig
+    from mllm_sparse_retrieval_tpu_torch.data.karpathy import Example
+    from mllm_sparse_retrieval_tpu_torch.models import lora
+    from mllm_sparse_retrieval_tpu_torch.ops import tile_kernel as T
+    from mllm_sparse_retrieval_tpu_torch.train.trainer import (
+        ContrastiveTrainer, make_collator)
+
+    arch, params, tok, tmpl, loader = _tiny_internvl(dev)
+    exs = [Example(text=t, image_path="", text_id=str(i), img_id=str(i))
+           for i, t in enumerate(("a red dog", "a cat", "bus by the lake",
+                                  "kite"))]
+    T.reset_launch_count()
+    batch = make_collator(tok, tmpl, arch, pixel_loader=loader)(exs)
+    assert isinstance(batch.pixels, T.StagedTiles)
+    assert T.launch_count() == 0
+    cfg = TrainConfig(learning_rate=1e-3, tau=0.05, lora_rank=4,
+                      lora_alpha=8, lora_dropout=0.0, seed=3)
+
+    def step():
+        start = lora.init_lora(torch.Generator(dev).manual_seed(1), params,
+                               arch, rank=4, alpha=8, device=dev)
+        return ContrastiveTrainer(params, arch, start, cfg,
+                                  device=dev).train_on_batch(batch)
+
+    tracing.clear()
+    tracing.enable()
+    try:
+        loss = step()
+    finally:
+        tracing.disable()
+    assert T.launch_count() == 1
+    log = tracing.spans()
+    by_id = {s.id: s for s in log}
+    tiles = [s for s in log if s.name == "tile"]
+    assert len(tiles) == 1 and by_id[tiles[0].parent].name == "to_device"
+    _numpy_tiles_to(monkeypatch)
+    assert step() == loss

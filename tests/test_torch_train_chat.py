@@ -129,7 +129,8 @@ def _assert_batches_equal(b, jb):
                 jb.pixels[k]).tobytes(), k
     else:
         assert b.pixels.shape == np.shape(jb.pixels)
-        assert b.pixels.tobytes() == np.asarray(jb.pixels).tobytes()
+        assert np.asarray(b.pixels).tobytes() == np.asarray(
+            jb.pixels).tobytes()
     if jb.image_pos_ids is None:
         assert b.image_pos_ids is None
     else:
